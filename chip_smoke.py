@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed N] [--mb 64]
 
 Phases, each fatal on failure:
-1. build both kernels from `lz4_tpu_torch/ops/csrc/` and print each
-   one's registers and shared memory (`nvcc -Xptxas -v`);
+1. build every kernel from `lz4_tpu_torch/ops/csrc/` (one nvcc per source,
+   all started together) and print each one's registers and shared memory
+   (`nvcc -Xptxas -v`);
 2. kernel B (FAST encode) against its plain version on sampled 64 KB rows
    of every part of the data mix plus 0-, 1- and 13-byte rows, canonical
    and dense, acceleration 1 and 8: equal bytes, lengths and flags;
@@ -13,14 +14,33 @@ Phases, each fatal on failure:
    sequence-writer streams (overlapping matches, dictionary reach, long
    length extensions) with known output, and rows with flipped bits:
    equal lengths, flags and bytes;
-4. the main path: `frame.compress(data, EncoderSettings(chain_blocks=False))`
+4. kernel D (FAST encode at any size, with dictionaries) against its plain
+   version: dense 64 KB rows with dictionaries of 0, 100, 4,000 and 65,536
+   bytes, canonical rows of 65,546, 65,547, 1 MiB and 4 MiB (the byU16 and
+   byU32 tables), acceleration 1 and 8, and windows of the chained
+   layout: equal bytes, lengths and flags; then kernel A against its plain
+   version at the big-block path's shapes: the 1 MiB and 4 MiB rows and
+   copies with flipped bits, at out_cap 1 MiB and 4 MiB;
+5. the chained decoder against its plain version: a 16 MiB chained frame
+   (256 blocks of 64 KB, stored blocks among them), a frame whose blocks
+   reach into a preset dictionary, a frame of tiny blocks at maximum
+   expansion (each decoded inside its slot of the output), and frames with
+   a flipped byte (the same failing block, length and code);
+6. the main path: `frame.compress(data, EncoderSettings(chain_blocks=False))`
    and `frame.decompress` on --mb MiB (1,024 blocks of 64 KB at the
    default), with every launch count set to 0 just before and read just
    after; the round trip must be exact, and so must a 4 MiB frame with
    block and content checksums;
-5. times: each kernel over the whole batch (CUDA events), its plain
-   version per row, its bound (bytes moved over 3.35 TB/s), and the end to
-   end compress and decompress rates.
+7. the chained path: `frame.compress(data)` with the default
+   `EncoderSettings()` and `frame.decompress` on 16 MiB, counts set to 0
+   just before and read just after (kernel D and the chained decoder must
+   run), exact and deterministic over three runs;
+8. the big-block path: an independent frame of 1 MiB blocks over --mb MiB
+   (kernels D and A), exact, three runs;
+9. times: each kernel at its path's shapes (CUDA events), its plain
+   version, its bound (bytes moved over 3.35 TB/s), kernel D on kernel B's
+   64 KB rows (the same bytes), and the end to end compress and
+   decompress rates of each path.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -33,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -131,7 +152,7 @@ def _max_abs_err(got, want) -> int:
 
 
 def phase_build():
-    from lz4_tpu_torch.ops import build, encode
+    from lz4_tpu_torch.ops import build, encode, encode_stream
 
     t0 = time.perf_counter()
     logs = build.build(*build.KERNEL_SOURCES)
@@ -140,10 +161,13 @@ def phase_build():
         for line in log.splitlines():
             if ("ptxas" in line or "spill" in line) and "Compile" not in line:
                 print(f"[build] {name}.cu: {line.strip()}")
-    print("[build] decode.cu: dynamic shared memory 0 bytes per CTA")
+    print("[build] decode.cu, decode_stream.cu: dynamic shared memory 0 "
+          "bytes per CTA")
     for geometry in ("canonical", "dense"):
         print(f"[build] encode.cu: dynamic shared memory "
               f"{encode.shared_bytes(geometry)} bytes per CTA ({geometry})")
+        print(f"[build] encode_stream.cu: dynamic shared memory "
+              f"{encode_stream.shared_bytes(geometry)} bytes per CTA ({geometry})")
 
 
 def sample_rows(data: bytes, rng):
@@ -246,43 +270,29 @@ def phase_decode(streams, rng, dev):
     return worst
 
 
-def phase_main_path(data: bytes, dev):
+def _round_trips(data: bytes, settings, dev, counts):
+    """Three timed compress + decompress runs of one path, the launch
+    counts set to 0 just before the first and read just after it."""
     from lz4_tpu_torch import frame
-    from lz4_tpu_torch.ops import decode, encode
 
-    settings = frame.EncoderSettings(chain_blocks=False)
     warm = frame.compress(data[:4 * BLOCK], settings, device=dev)
     _require(frame.decompress(warm, device=dev) == data[:4 * BLOCK], "warm-up round trip")
-    encode.encode_blocks.launches = 0
-    decode.decode_blocks.launches = 0
-    t0 = time.perf_counter()
-    blob = frame.compress(data, settings, device=dev)
-    t1 = time.perf_counter()
-    back = frame.decompress(blob, device=dev)
-    t2 = time.perf_counter()
-    launches = {"encode_blocks": encode.encode_blocks.launches,
-                "decode_blocks": decode.decode_blocks.launches}
-    _require(back == data, "main path round trip is not exact")
-    for name, n in launches.items():
-        _require(n > 0, f"main path never launched {name}")
-    times = [(t1 - t0, t2 - t1)]
-    for _ in range(2):
+    for fn in counts:
+        fn.launches = 0
+    times, blob, launches = [], None, None
+    for _ in range(3):
         t0 = time.perf_counter()
-        b2 = frame.compress(data, settings, device=dev)
+        b = frame.compress(data, settings, device=dev)
         t1 = time.perf_counter()
-        frame.decompress(b2, device=dev)
+        back = frame.decompress(b, device=dev)
         times.append((t1 - t0, time.perf_counter() - t1))
-        _require(b2 == blob, "compress is not deterministic")
-    print(f"[main] {len(data)} bytes -> {len(blob)} bytes "
-          f"(ratio {len(data) / len(blob):.4f}), round trip exact, "
-          f"launches {launches}")
-    checked = frame.EncoderSettings(chain_blocks=False, block_checksum=True,
-                                    content_checksum=True)
-    small = data[:4 << 20]
-    _require(frame.decompress(frame.compress(small, checked, device=dev),
-                              device=dev) == small,
-             "4 MiB checksummed round trip is not exact")
-    print("[main] 4 MiB frame with block and content checksums: exact")
+        if launches is None:
+            launches = {fn.__name__: fn.launches for fn in counts}
+        _require(back == data, "round trip is not exact")
+        _require(blob is None or b == blob, "compress is not deterministic")
+        blob = b
+    for name, n in launches.items():
+        _require(n > 0, f"path never launched {name}")
     c_s = sorted(t[0] for t in times)[1]
     d_s = sorted(t[1] for t in times)[1]
     return launches, {
@@ -291,6 +301,318 @@ def phase_main_path(data: bytes, dev):
         "compress_GBps_median": len(data) / c_s / 1e9,
         "decompress_GBps_median": len(data) / d_s / 1e9,
     }
+
+
+def phase_main_path(data: bytes, dev):
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.ops import decode, encode
+
+    launches, e2e = _round_trips(
+        data, frame.EncoderSettings(chain_blocks=False), dev,
+        [encode.encode_blocks, decode.decode_blocks])
+    print(f"[main] {len(data)} bytes -> {e2e['frame_bytes']} bytes "
+          f"(ratio {len(data) / e2e['frame_bytes']:.4f}), round trip exact, "
+          f"launches {launches}")
+    checked = frame.EncoderSettings(chain_blocks=False, block_checksum=True,
+                                    content_checksum=True)
+    small = data[:4 << 20]
+    _require(frame.decompress(frame.compress(small, checked, device=dev),
+                              device=dev) == small,
+             "4 MiB checksummed round trip is not exact")
+    print("[main] 4 MiB frame with block and content checksums: exact")
+    return launches, e2e
+
+
+def chained_windows(nbytes: int, block_size: int, preset_len: int = 0):
+    """The windows of a chained frame's blocks in a payload that holds a
+    preset_len-byte dictionary, then the frame's nbytes of content:
+    (starts, src_offs, lens), each block with the <= 64 KB before it."""
+    import torch
+
+    nb = -(-nbytes // block_size)
+    blk = torch.arange(nb, dtype=torch.int64) * block_size + preset_len
+    dls = blk.clamp(max=65536)
+    ends = (blk + block_size).clamp(max=preset_len + nbytes)
+    return blk - dls, dls, ends - blk + dls
+
+
+def chained_frame(body: bytes, preset: bytes, dev) -> bytes:
+    """A chained frame of 64 KB blocks whose first block may reach into the
+    last 64 KB of `preset` (kernel D over one payload [preset | body])."""
+    import torch
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.frame.api import _assemble_frame
+    from lz4_tpu_torch.ops import encode_stream
+    from lz4_tpu_torch.parallel.blocks import pack_blocks
+
+    pre = preset[-65536:]
+    payload = torch.frombuffer(bytearray(pre + body), dtype=torch.uint8).to(dev)
+    starts, offs, lens = chained_windows(len(body), BLOCK, len(pre))
+    out, clens, errs = encode_stream.encode_windows(
+        payload, starts, offs, lens, BLOCK, fast_schedule="dense")
+    _require(not bool(errs.any()), "chained frame with a dictionary: overflow")
+    return _assemble_frame(frame.EncoderSettings().to_descriptor(), body,
+                           BLOCK, pack_blocks(out, clens))
+
+
+def phase_encode_stream(data: bytes, rng, dev):
+    """Kernel D against its plain version."""
+    import torch
+    from lz4_tpu_torch.ops import encode_stream
+
+    worst = 0
+
+    def hold(what, got, want):
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        _require(err == 0, f"encode_stream {what}: kernel != plain")
+        _require(not bool(want[2].any()), f"encode_stream {what}: overflow flag set")
+        worst = max(worst, err)
+        print(f"[encode_stream] {what}: {want[1].numel()} rows equal, "
+              f"clens={want[1].tolist()}")
+
+    nb = len(data) // BLOCK
+    picks = [int(rng.integers(1, nb)) for _ in range(4)]
+    bufs, lens = _stage([data[k * BLOCK:(k + 1) * BLOCK] for k in picks], BLOCK)
+    dls = torch.tensor([0, 100, 4000, 65536], dtype=torch.int32)
+    dicts = torch.zeros((len(picks), 65536), dtype=torch.uint8)
+    for i, (k, dl) in enumerate(zip(picks, dls.tolist())):
+        if dl:
+            dicts[i, 65536 - dl:] = torch.frombuffer(
+                bytearray(data[k * BLOCK - dl:k * BLOCK]), dtype=torch.uint8)
+    for accel in (1, 8):
+        got = encode_stream.encode_blocks_stream(
+            bufs.to(dev), lens.to(dev), BLOCK, 0, accel, dicts.to(dev), dls.to(dev))
+        hold(f"dense, dictionaries {dls.tolist()}, accel={accel}", got,
+             encode_stream.encode_blocks_stream_plain(
+                 bufs, lens, BLOCK, 0, accel, dicts, dls))
+    sizes = [65546, 65547, 1 << 20, 4 << 20]
+    starts = [int(rng.integers(0, len(data) - n)) for n in sizes]
+    sources = [data[a:a + n] for a, n in zip(starts, sizes)]
+    bcap = max(sizes)
+    bufs, lens = _stage(sources, bcap)
+    for accel in (1, 8):
+        got = encode_stream.encode_blocks_stream(
+            bufs.to(dev), lens.to(dev), bcap, 0, accel)
+        want = encode_stream.encode_blocks_stream_plain(bufs, lens, bcap, 0, accel)
+        hold(f"canonical rows of {sizes} bytes, accel={accel}", got, want)
+        if accel == 1:
+            big = [(want[0][i, :int(want[1][i])].numpy().tobytes(), sources[i])
+                   for i in (2, 3)]
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    st, offs, wl = chained_windows(len(data), BLOCK)
+    rows = sorted({0, 1, nb - 1} | {int(x) for x in rng.integers(2, nb, 5)})
+    got = encode_stream.encode_windows(
+        payload.to(dev), st[rows], offs[rows], wl[rows], BLOCK,
+        fast_schedule="dense")
+    hold(f"chained windows of blocks {rows}", got,
+         encode_stream.encode_windows_plain(
+             payload, st[rows], offs[rows], wl[rows], BLOCK,
+             fast_schedule="dense"))
+    return worst, big
+
+
+def phase_decode_big(big, rng, dev):
+    """Kernel A against its plain version at the big-block path's shapes:
+    phase 4's 1 MiB and 4 MiB canonical rows and copies with flipped bits,
+    at out_cap 1 MiB and 4 MiB, rows of comp_capacity(out_cap) bytes (a
+    stream longer than a row is cut short: one more corrupt row)."""
+    import torch
+    from lz4_tpu_torch.ops import decode
+    from lz4_tpu_torch.parallel.blocks import comp_capacity
+
+    worst = 0
+    for k, out_cap in enumerate((1 << 20, 4 << 20)):
+        width = comp_capacity(out_cap)
+        rows = [c[:width - 20] for c, _ in big]
+        for _ in range(4):
+            c = bytearray(rows[k])
+            for _ in range(int(rng.integers(1, 4))):
+                c[int(rng.integers(0, len(c)))] ^= 1 << int(rng.integers(0, 8))
+            rows.append(bytes(c))
+        comps, clens = _stage(rows, width)
+        got = decode.decode_blocks(comps.to(dev), clens.to(dev), out_cap)
+        torch.cuda.synchronize()
+        want = decode.decode_blocks_plain(comps, clens, out_cap)
+        err = _max_abs_err(got, want)
+        _require(err == 0, f"decode out_cap={out_cap}: kernel != plain")
+        worst = max(worst, err)
+        out, lens, errs = want
+        for i, (c, src) in enumerate(big):
+            if len(c) <= width - 20 and len(src) <= out_cap:
+                _require(int(errs[i]) == 0 and out[
+                    i, :int(lens[i])].numpy().tobytes() == src,
+                    f"decode out_cap={out_cap}: row {i} is not its source")
+        print(f"[decode] out_cap={out_cap}: {len(rows)} rows equal, "
+              f"errs={errs.tolist()}, lens={lens.tolist()}")
+    return worst
+
+
+def expansion_frame(ks=(0, 1, 2, 7, 50, 200, 255, 256)) -> bytes:
+    """A chained frame of tiny blocks that each decode to close to 255
+    times their length: one offset-1 match into the byte before it, its
+    length extended by k bytes of 255 and one of 254, then an empty last
+    sequence, 19 + 255 k + 254 bytes in all (past 64 KB at k = 256, where
+    the block fails).  Its first block reaches into a preset dictionary."""
+    from lz4_tpu_torch import frame
+
+    parts = [frame.build_header(frame.EncoderSettings().to_descriptor())]
+    for k in ks:
+        blk = bytes([0x0F, 1, 0]) + b"\xff" * k + bytes([254, 0])
+        parts += [struct.pack("<I", len(blk)), blk]
+    return b"".join(parts) + bytes(4)
+
+
+def with_stored_blocks(data: bytes, rng) -> bytes:
+    """`data` with eight 64 KB blocks of its noise quarter replaced by
+    uniform random bytes, which LZ4 cannot shrink: the frame stores them."""
+    buf = bytearray(data)
+    nb = len(data) // BLOCK
+    for k in rng.choice(np.arange(3 * nb // 4, nb), 8, replace=False):
+        buf[k * BLOCK:(k + 1) * BLOCK] = rng.integers(
+            0, 256, BLOCK, dtype=np.uint8).tobytes()
+    return bytes(buf)
+
+
+def phase_decode_chain(data: bytes, rng, dev):
+    """The chained decoder against its plain version.  Returns the worst
+    difference, the plain version's time on the 16 MiB frame, and that
+    frame."""
+    import torch
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.frame.api import _scan_single_frame
+    from lz4_tpu_torch.ops import decode_stream
+
+    worst = 0
+
+    def hold(what, blob, preset=None, expect=None):
+        nonlocal worst
+        d, blocks, _ = _scan_single_frame(blob)
+        table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
+        fr = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+        pre = None if preset is None else torch.frombuffer(
+            bytearray(preset), dtype=torch.uint8)
+        got = decode_stream.decode_chain(
+            fr.to(dev), table, d.block_size, None if pre is None else pre.to(dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = decode_stream.decode_chain_plain(fr, table, d.block_size, pre)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _max_abs_err(got, want)
+        _require(err == 0, f"decode_chain {what}: kernel != plain")
+        worst = max(worst, err)
+        status = tuple(want[1].tolist())
+        if expect is not None:
+            _require(status[1] == -1 and
+                     want[0][:status[0]].numpy().tobytes() == expect,
+                     f"decode_chain {what}: not the payload")
+        print(f"[decode_chain] {what}: {len(blocks)} blocks "
+              f"({int(table[:, 2].sum())} stored), status (written, bad, err) "
+              f"{status} equal")
+        return status, plain_ms
+
+    body = with_stored_blocks(data, rng)
+    big = frame.compress(body, frame.EncoderSettings(), device=dev)
+    _, plain_ms = hold("16 MiB chained frame", big, expect=body)
+    preset = data[:100000]
+    part = data[len(data) // 2:len(data) // 2 + (2 << 20)]
+    hold("2 MiB chained frame with a preset dictionary",
+         chained_frame(part, preset, dev), preset, expect=part)
+    status, _ = hold("tiny blocks at maximum expansion", expansion_frame(), preset)
+    _require(status[1:] == (7, 1), "the block past 64 KB did not fail")
+    small = frame.compress(part[:4 * BLOCK], frame.EncoderSettings(), device=dev)
+    _, blocks, _ = _scan_single_frame(small)
+    failed = tries = 0
+    while failed < 3 and tries < 200:  # most flips hit a literal: no error
+        off, length, _ = blocks[int(rng.integers(0, len(blocks)))]
+        flipped = bytearray(small)
+        flipped[off + int(rng.integers(0, length))] ^= 1 << int(rng.integers(0, 8))
+        status, _ = hold(f"flipped byte {tries}", bytes(flipped))
+        failed += status[1] >= 0
+        tries += 1
+    _require(failed > 0, "no flipped byte made a block fail")
+    return worst, plain_ms, big
+
+
+def phase_chained_path(data: bytes, dev):
+    """The default settings: a chained frame of 64 KB blocks."""
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.ops import decode_stream, encode_stream
+
+    launches, e2e = _round_trips(
+        data, frame.EncoderSettings(), dev,
+        [encode_stream.encode_blocks_stream, decode_stream.decode_chain])
+    print(f"[chained] {len(data)} bytes -> {e2e['frame_bytes']} bytes, round "
+          f"trip exact, deterministic, launches {launches}; median "
+          f"{e2e['compress_GBps_median']:.4f} GB/s compress, "
+          f"{e2e['decompress_GBps_median']:.4f} GB/s decompress")
+    return launches, e2e
+
+
+def phase_big_blocks(data: bytes, dev):
+    """An independent frame of 1 MiB blocks: kernel D encodes, A decodes."""
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.ops import decode, encode_stream
+
+    launches, e2e = _round_trips(
+        data, frame.EncoderSettings(chain_blocks=False, block_size=1 << 20), dev,
+        [encode_stream.encode_blocks_stream, decode.decode_blocks])
+    print(f"[big blocks] {len(data)} bytes in 1 MiB blocks -> "
+          f"{e2e['frame_bytes']} bytes, round trip exact, deterministic, "
+          f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
+          f"compress, {e2e['decompress_GBps_median']:.4f} GB/s decompress")
+    return launches, e2e
+
+
+def phase_times_stream(data: bytes, blob: bytes, chain_plain_ms: float, dev):
+    """Kernel D on the chained path's rows and the chained decoder on the
+    16 MiB frame: CUDA-event times, plain times, bounds."""
+    import torch
+    from lz4_tpu_torch.frame.api import _scan_single_frame
+    from lz4_tpu_torch.ops import decode_stream, encode_stream
+
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    st, offs, wl = chained_windows(len(data), BLOCK)
+    nb = st.numel()
+    payload_d = payload.to(dev)
+    _, clens, _ = encode_stream.encode_windows(
+        payload_d, st, offs, wl, BLOCK, fast_schedule="dense")
+    enc_ms = _cuda_ms(lambda: encode_stream.encode_windows(
+        payload_d, st, offs, wl, BLOCK, fast_schedule="dense"), 3)
+    picks = [q * nb // 4 for q in range(4)]
+    t0 = time.perf_counter()
+    encode_stream.encode_windows_plain(
+        payload, st[picks], offs[picks], wl[picks], BLOCK, fast_schedule="dense")
+    enc_plain_ms = (time.perf_counter() - t0) * 1e3 / len(picks) * nb
+    packed = int(clens.sum())
+    # the payload read once, compressed bytes written once, and per row
+    # the int64 start and the int32 prefix, length, clen and flag
+    enc_bytes = len(data) + packed + 24 * nb
+
+    d, blocks, _ = _scan_single_frame(blob)
+    table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
+    frame_d = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev)
+    dec_ms = _cuda_ms(lambda: decode_stream.decode_chain(frame_d, table, d.block_size), 2)
+    # the frame read once, the content written once, the block table and
+    # the status
+    dec_bytes = len(blob) + len(data) + 24 * len(blocks) + 24
+    print(f"[times] encode_stream {enc_ms:.3f} ms over {nb} chained rows, "
+          f"decode_chain {dec_ms:.3f} ms over a {len(blob)}-byte frame")
+    return [
+        {"name": "encode_blocks_stream", "route": "cuda",
+         "source": "lz4_tpu_torch/ops/csrc/encode_stream.cu",
+         "replaces": "lz4_tpu/ops/encode_pallas_stream.py:266",
+         "ms": enc_ms, "plain_ms": enc_plain_ms,
+         "bound_ms": enc_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "decode_chain", "route": "cuda",
+         "source": "lz4_tpu_torch/ops/csrc/decode_stream.cu",
+         "replaces": "lz4_tpu/ops/decode_pallas_stream.py:636",
+         "ms": dec_ms, "plain_ms": chain_plain_ms,
+         "bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None},
+    ]
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -311,7 +633,7 @@ def _cuda_ms(fn, iters: int) -> float:
 
 def phase_times(data: bytes, dev):
     import torch
-    from lz4_tpu_torch.ops import decode, encode
+    from lz4_tpu_torch.ops import decode, encode, encode_stream
     from lz4_tpu_torch.parallel.blocks import comp_capacity, split_blocks
 
     bufs, lens = split_blocks(data, BLOCK)
@@ -323,6 +645,13 @@ def phase_times(data: bytes, dev):
     comps[:, :out.shape[1]] = out
     enc_ms = _cuda_ms(lambda: encode.encode_blocks(bufs_d, lens_d, BLOCK), 5)
     dec_ms = _cuda_ms(lambda: decode.decode_blocks(comps, clens, BLOCK), 5)
+    # kernel D on the same canonical 64 KB rows, which B takes on the
+    # frame path: the same bytes; its time says whether B's own launcher
+    # buys anything there
+    d_out, d_clens, _ = encode_stream.encode_blocks_stream(bufs_d, lens_d, BLOCK)
+    _require(torch.equal(d_out, out) and torch.equal(d_clens, clens),
+             "kernel D's 64 KB canonical rows are not kernel B's")
+    d_ms = _cuda_ms(lambda: encode_stream.encode_blocks_stream(bufs_d, lens_d, BLOCK), 5)
     # plain versions on one row of each quarter, scaled to the batch
     picks = [q * nb // 4 for q in range(4)]
     t0 = time.perf_counter()
@@ -338,7 +667,8 @@ def phase_times(data: bytes, dev):
     enc_bytes = raw + packed + 12 * nb
     dec_bytes = packed + raw + 12 * nb
     print(f"[times] encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms over {nb} rows "
-          f"({raw} raw bytes, {packed} compressed)")
+          f"({raw} raw bytes, {packed} compressed); kernel D on the same "
+          f"rows {d_ms:.3f} ms, the same bytes")
     return [
         {"name": "encode_blocks", "route": "cuda",
          "source": "lz4_tpu_torch/ops/csrc/encode.cu",
@@ -355,8 +685,8 @@ def phase_times(data: bytes, dev):
     ]
 
 
-def profile_main_path(data: bytes, dev) -> dict:
-    """Device time by name over one compress + decompress of the main path
+def profile_path(data: bytes, dev, settings) -> dict:
+    """Device time by name over one compress + decompress of a path
     (torch.profiler), and the device's busy share of the host's wall time.
     A report, not a check: a profiler that cannot trace the card yields
     "not measured"."""
@@ -364,7 +694,6 @@ def profile_main_path(data: bytes, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from lz4_tpu_torch import frame
 
-    settings = frame.EncoderSettings(chain_blocks=False)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -406,24 +735,40 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import lz4_tpu_torch  # noqa: F401  (fails outside the repo)
+    from lz4_tpu_torch import frame  # fails outside the repo
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     phase_build()
     t0 = time.perf_counter()
     data = make_corpus(args.mb << 20, args.seed)
-    print(f"[data] {len(data)} bytes in {time.perf_counter() - t0:.1f} s")
+    data16 = make_corpus(16 << 20, args.seed + 1)
+    print(f"[data] {len(data)} + {len(data16)} bytes in "
+          f"{time.perf_counter() - t0:.1f} s")
     enc_err, enc_outs = phase_encode(sample_rows(data, rng), dev)
     streams = enc_outs[("canonical", 1)] + enc_outs[("dense", 8)]
     dec_err = phase_decode(streams, rng, dev)
+    stream_err, big = phase_encode_stream(data16, rng, dev)
+    dec_err = max(dec_err, phase_decode_big(big, rng, dev))
+    chain_err, chain_plain_ms, blob16 = phase_decode_chain(data16, rng, dev)
     launches, e2e = phase_main_path(data, dev)
+    chained_launches, chained_e2e = phase_chained_path(data16, dev)
+    big_launches, big_e2e = phase_big_blocks(data, dev)
     kernels = phase_times(data, dev)
-    print(json.dumps(profile_main_path(data, dev)))
-    for k, err in zip(kernels, (enc_err, dec_err)):
+    kernels += phase_times_stream(data16, blob16, chain_plain_ms, dev)
+    print(json.dumps(profile_path(
+        data, dev, frame.EncoderSettings(chain_blocks=False))))
+    print(json.dumps({"chained": profile_path(
+        data16, dev, frame.EncoderSettings())}))
+    print(json.dumps({"big_blocks": profile_path(
+        data, dev, frame.EncoderSettings(chain_blocks=False, block_size=1 << 20))}))
+    launches.update(chained_launches)
+    for k, err in zip(kernels, (enc_err, dec_err, stream_err, chain_err)):
         k["launches"] = launches[k["name"]]
         k["max_abs_err"] = err
-    print(json.dumps({"e2e": e2e}))
+    print(json.dumps({"e2e": e2e, "e2e_chained": chained_e2e,
+                      "e2e_big_blocks": big_e2e,
+                      "big_blocks_launches": big_launches}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

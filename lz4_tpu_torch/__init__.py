@@ -9,8 +9,10 @@ the card unless the caller passes ``device="cpu"``.
 Layer map (the slice ported so far):
 - `lz4_tpu_torch.constants` — format constants
 - `lz4_tpu_torch.xxh32`     — xxHash32
-- `lz4_tpu_torch.ops`       — kernel A (decode) and kernel B (FAST encode)
-- `lz4_tpu_torch.parallel`  — batched independent-block encode/decode
+- `lz4_tpu_torch.ops`       — kernels A (decode), B (FAST encode <= 64 KB),
+  D (FAST encode at any size, with dictionaries) and the chained decoder
+- `lz4_tpu_torch.parallel`  — batched encode/decode, chained encode
+- `lz4_tpu_torch.block`     — one-block encode/decode with dictionaries
 - `lz4_tpu_torch.frame`     — one-shot frame compress/decompress
 """
 

@@ -1,0 +1,141 @@
+"""One-block encode and decode on a device, with preset dictionaries.
+
+The port of the device routes of `lz4_tpu/block/api.py` (`_tpu_encode`,
+`_tpu_decode`): one block goes through the batch kernels as a batch of
+one, its width rounded up to a power of two.  A block of at most 64 KB
+with no dictionary encodes on kernel B, anything else on kernel D; decode
+takes kernel A, or C's batch form with a dictionary.  The host-only APIs
+(`encode_into`, `partial_decode`, the incremental encoders) are not ported
+yet (ROADMAP.md Queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import LZ4Error
+from ..constants import _as_bytes, compress_bound
+from ..ops import decode as _decode
+from ..ops import decode_stream as _decode_stream
+from ..ops import encode as _encode
+from ..ops import encode_stream as _encode_stream
+from ..ops.common import align1024, bucket, resolve_device
+
+__all__ = ["encode", "decode"]
+
+_GEOMETRIES = ("canonical", "dense")
+
+
+def _stage_dict_window(dictionary, dev):
+    """Right-align the last 64 KB of a preset dictionary into the kernels'
+    uint8 [1, 65536] window layout.  Returns (dicts, dict_lens)."""
+    win = bytes(dictionary)[-65536:]
+    dicts = torch.zeros((1, 65536), dtype=torch.uint8)
+    if win:
+        dicts[0, 65536 - len(win):] = torch.frombuffer(
+            bytearray(win), dtype=torch.uint8
+        )
+    return dicts.to(dev), torch.tensor([len(win)], dtype=torch.int32, device=dev)
+
+
+def _row(data: bytes, width: int, dev) -> torch.Tensor:
+    row = torch.zeros((1, width), dtype=torch.uint8)
+    if data:
+        row[0, : len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    return row.to(dev)
+
+
+def encode(
+    data,
+    level: int = 0,
+    dictionary: bytes = b"",
+    acceleration: int = 1,
+    geometry: str = "canonical",
+    device="cuda",
+) -> bytes:
+    """Compress one block on ``device`` (the plain versions when
+    ``device="cpu"``).
+
+    ``geometry`` (FAST levels, no dictionary): "canonical" reproduces
+    LZ4_compress_default byte for byte; "dense" is the 15-bit finder.  A
+    dictionary always takes the dense schedule, byte-identical to the host
+    engines' ``encode(..., dictionary=...)``."""
+    dev = resolve_device(device)
+    data = _as_bytes(data)
+    if geometry not in _GEOMETRIES:
+        raise ValueError(
+            f"unknown FAST geometry {geometry!r}; expected one of {_GEOMETRIES}"
+        )
+    n = len(data)
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    bcap = bucket(max(n, 16))
+    if not dictionary and bcap <= _encode.MAX_BLOCK:
+        out, clens, errs = _encode.encode_blocks(
+            _row(data, bcap + 1024, dev), lens, bcap, int(level),
+            acceleration, fast_schedule=geometry,
+        )
+    else:
+        dicts = dict_lens = None
+        if dictionary:
+            dicts, dict_lens = _stage_dict_window(dictionary, dev)
+        out, clens, errs = _encode_stream.encode_blocks_stream(
+            _row(data, bcap, dev), lens, bcap, int(level), acceleration,
+            dicts=dicts, dict_lens=dict_lens, fast_schedule=geometry,
+        )
+    if int(errs[0]):
+        raise LZ4Error("device encoder overflow")
+    return out[0, : int(clens[0])].cpu().numpy().tobytes()
+
+
+def decode(
+    data,
+    target_length: int | None = None,
+    dictionary: bytes = b"",
+    capacity: int | None = None,
+    device="cuda",
+) -> bytes:
+    """Decompress one block on ``device`` (the plain versions when
+    ``device="cpu"``) into at most ``target_length`` bytes, which it must
+    fill exactly, or at most ``capacity`` bytes.  Matches may reach the
+    last 64 KB of ``dictionary``."""
+    dev = resolve_device(device)
+    data = _as_bytes(data)
+    bound = target_length if target_length is not None else capacity
+    if bound is None:
+        raise NotImplementedError(
+            "a decode without target_length or capacity sizes its output "
+            "as it goes, through the XLA kernel of the JAX package, which "
+            "is not ported yet (ROADMAP.md Queue 1, item 9)"
+        )
+    out_cap = bucket(max(int(bound), 16))
+    # a valid block for this bound cannot be longer (LZ4's length codings
+    # have no redundant forms)
+    cap = align1024(compress_bound(out_cap))
+    if len(data) > cap:
+        raise LZ4Error(
+            f"compressed block of {len(data)} bytes is longer than any "
+            f"valid block of at most {int(bound)} bytes"
+        )
+    comps = _row(data, cap, dev)
+    clens = torch.tensor([len(data)], dtype=torch.int32, device=dev)
+    if dictionary:
+        dicts, dlens = _stage_dict_window(dictionary, dev)
+        out, olens, errs = _decode_stream.decode_blocks_stream(
+            comps, clens, out_cap, dicts, dlens, mode="full2v"
+        )
+    else:
+        out, olens, errs = _decode.decode_blocks(comps, clens, out_cap)
+    if int(errs[0]):
+        # the error flag also fires for a well-formed block whose decoded
+        # size exceeds the bucketed out_cap
+        raise LZ4Error(
+            f"malformed block, or decoded output exceeds the "
+            f"{int(bound)}-byte bound (device decoder)"
+        )
+    olen = int(olens[0])
+    if target_length is not None and olen != target_length:
+        raise LZ4Error(f"decoded {olen} bytes, expected {target_length}")
+    if target_length is None and olen > capacity:
+        # `capacity` is a hard safety bound, not just an allocation hint
+        raise LZ4Error(f"decoded {olen} bytes exceeds capacity {capacity}")
+    return out[0, :olen].cpu().numpy().tobytes()

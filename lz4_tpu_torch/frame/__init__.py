@@ -1,5 +1,6 @@
-"""LZ4 frame format (`.lz4`): one-shot compress and decompress over
-independent blocks, with the descriptor, settings and header codec."""
+"""LZ4 frame format (`.lz4`): one-shot compress and decompress of
+chained and independent frames, with the descriptor, settings and header
+codec."""
 
 from .api import compress, decompress  # noqa: F401
 from .descriptor import (  # noqa: F401

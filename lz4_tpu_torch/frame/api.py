@@ -1,11 +1,14 @@
-"""One-shot frame compress and decompress over independent blocks.
+"""One-shot frame compress and decompress.
 
-The port of the device path of `lz4_tpu/frame/api.py`: `compress` splits
-the payload into independent blocks and encodes them in one batch with
-kernel B; `decompress` scans the frame's block table on the host, copies
-the stored blocks and decodes the compressed ones in one batch with
-kernel A.  Chained frames, preset dictionaries and multi-frame streams
-need the streaming kernels C and D, which are not ported yet.
+The port of the device path of `lz4_tpu/frame/api.py`.  `compress` encodes
+every block of the frame in one launch: independent blocks on kernel B
+(at most 64 KB) or D (larger), chained blocks on D, each with the 64 KB of
+plaintext before it as its dictionary.  `decompress` scans the frame's
+block table on the host; an independent frame copies its stored blocks
+and decodes the compressed ones in one batch on kernel A, a chained frame
+decodes in one launch of the chained decoder.  Frames with a dictionary
+ID, independent frames with a preset dictionary and multi-frame streams
+take the JAX package's FrameReader, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,9 +17,14 @@ import dataclasses
 import io
 import struct
 
+import torch
+
 from ..constants import _as_bytes, compress_bound
 from ..ops.common import resolve_device
-from ..parallel.blocks import decode_block_parts, encode_blocks
+from ..ops.decode_stream import decode_chain
+from ..parallel.blocks import (
+    decode_block_parts, encode_blocks, encode_blocks_chained_device,
+)
 from ..xxh32 import xxh32
 from .descriptor import DecoderSettings, EncoderSettings
 from .header import LZ4FormatError, build_header, parse_header, parse_magic
@@ -60,8 +68,8 @@ def _independent_geometry(settings) -> str:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} need the streaming kernels C and D, which are not ported "
-        "yet (ROADMAP.md Queue 2, C and D)"
+        f"{what} decode through FrameReader, which is not ported yet "
+        "(ROADMAP.md Queue 1, item 8)"
     )
 
 
@@ -71,12 +79,16 @@ def compress(
     store_size: bool = False,
     device="cuda",
 ) -> bytes:
-    """Compress ``data`` into one LZ4 frame of independent blocks, encoded
-    in one batch on ``device`` (the plain versions when ``device="cpu"``).
+    """Compress ``data`` into one LZ4 frame, every block encoded in one
+    launch on ``device`` (the plain versions when ``device="cpu"``).
 
-    Chained frames raise NotImplementedError, except a payload that fits
-    one block at the canonical geometry, which upstream's single-block
-    rule emits as an independent frame."""
+    The default settings make a chained frame with the sequential chain
+    encoder's bytes (the dense schedule, each block with the 64 KB of
+    plaintext before it as its dictionary).  Independent blocks take the
+    canonical schedule unless ``geometry="dense"``.  A canonical chained
+    frame of more than one block needs upstream's sequential continue
+    schedule, a host path: it raises ValueError, as a device request does
+    in the JAX package."""
     dev = resolve_device(device)
     data = _as_bytes(data)
     settings = settings or EncoderSettings()
@@ -90,9 +102,7 @@ def compress(
         # LZ4F_compressFrame's single-block rule: linkage is meaningless
         # for one block and the payload is identical
         settings = dataclasses.replace(settings, chain_blocks=False)
-    if settings.chain_blocks:
-        raise _not_ported("chained frames")
-    if len(data) <= settings.block_size:
+    if not settings.chain_blocks and len(data) <= settings.block_size:
         # upstream LZ4F_optimalBSID: the smallest standard block size that
         # holds the whole payload
         bs_opt = 65536
@@ -100,33 +110,48 @@ def compress(
             bs_opt <<= 2
         if bs_opt < settings.block_size:
             settings = dataclasses.replace(settings, block_size=bs_opt)
+    if (
+        settings.chain_blocks
+        and settings.geometry == "canonical"
+        and settings.compression_level < 3
+    ):
+        # (HC/OPT chains meet the canonical request with their per-block
+        # window engines, as every chained frame here does)
+        raise ValueError(
+            "canonical chained (continue-schedule) frames are a "
+            "sequential host path (ROADMAP.md Queue 1, item 8); use "
+            "geometry='auto' or 'dense' on a device"
+        )
     d = settings.to_descriptor()
-    blocks = encode_blocks(
-        data,
-        block_size=settings.block_size,
-        level=settings.compression_level,
-        geometry=_independent_geometry(settings),
-        device=dev,
-    )
+    if settings.chain_blocks:
+        blocks = encode_blocks_chained_device(
+            data, settings.block_size, settings.compression_level, device=dev
+        )
+    else:
+        blocks = encode_blocks(
+            data,
+            block_size=settings.block_size,
+            level=settings.compression_level,
+            geometry=_independent_geometry(settings),
+            device=dev,
+        )
     csum = xxh32(data) if d.content_checksum else None
     return _assemble_frame(d, data, settings.block_size, blocks, csum)
 
 
 def _scan_single_frame(data: bytes):
-    """Parse one independent-block frame's block table on the host.
+    """Parse one frame's block table on the host.
 
     Returns (descriptor, [(offset, length, stored)], tail_pos).  Raises
     LZ4FormatError on a malformed or truncated frame and
-    NotImplementedError on what this slice does not decode."""
+    NotImplementedError on what FrameReader alone decodes."""
     src = io.BytesIO(data)
     info = parse_header(src.read)
     if info.kind != "frame":
         raise _not_ported(f"{info.kind} frames")
     d = info.descriptor
-    if d.block_chaining:
-        raise _not_ported("chained frames")
     if d.dictionary_id is not None:
-        raise _not_ported("frames with a preset dictionary")
+        raise _not_ported("frames with a dictionary ID")
     blocks = []
     pos = info.header_length
     n = len(data)
@@ -170,33 +195,56 @@ def _scan_single_frame(data: bytes):
     return d, blocks, pos
 
 
+def _decode_chained(data: bytes, d, blocks, dictionary, dev) -> bytes:
+    """A chained frame's blocks, decoded in one launch of the chained
+    decoder; the first block's window is the last 64 KB of
+    ``dictionary``."""
+    frame = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    preset = None
+    if dictionary:
+        preset = torch.frombuffer(
+            bytearray(bytes(dictionary)[-65536:]), dtype=torch.uint8
+        )
+    table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
+    stream, status = decode_chain(frame, table, d.block_size, preset)
+    written, bad, err = status.tolist()
+    if bad >= 0:
+        raise LZ4FormatError(f"malformed chained block {bad} (err={err})")
+    return stream[:written].cpu().numpy().tobytes()
+
+
 def decompress(
     data,
     settings: DecoderSettings | None = None,
     device="cuda",
 ) -> bytes:
-    """Decompress one LZ4 frame of independent blocks: the compressed
-    blocks decode in one batch on ``device`` (the plain version when
-    ``device="cpu"``), the stored ones are copied, in frame order."""
+    """Decompress one LZ4 frame on ``device`` (the plain versions when
+    ``device="cpu"``).  An independent frame's compressed blocks decode in
+    one batch and its stored ones are copied, in frame order; a chained
+    frame decodes in one launch, with ``settings.dictionary`` as the
+    preset dictionary."""
     dev = resolve_device(device)
     data = _as_bytes(data)
     settings = settings or DecoderSettings()
     if not data:
         return b""
-    if settings.dictionary:
-        raise _not_ported("preset dictionaries")
     d, blocks, pos = _scan_single_frame(data)
-    decoded = iter(
-        decode_block_parts(
-            [data[off : off + length] for off, length, st in blocks if not st],
-            d.block_size,
-            dev,
+    if d.block_chaining:
+        result = _decode_chained(data, d, blocks, settings.dictionary, dev)
+    elif settings.dictionary:
+        raise _not_ported("independent frames with a preset dictionary")
+    else:
+        decoded = iter(
+            decode_block_parts(
+                [data[off : off + length] for off, length, st in blocks if not st],
+                d.block_size,
+                dev,
+            )
         )
-    )
-    result = b"".join(
-        data[off : off + length] if st else next(decoded).tobytes()
-        for off, length, st in blocks
-    )
+        result = b"".join(
+            data[off : off + length] if st else next(decoded).tobytes()
+            for off, length, st in blocks
+        )
     if d.content_checksum:
         (expected,) = struct.unpack_from("<I", data, pos)
         if xxh32(result) != expected:

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds).  The
 build runs at first use, into `build/lz4_tpu_torch/` at the root of the
-checkout, keyed by a hash of the source and the flags: a changed source
-builds anew, an unchanged one is loaded as it is.  The compiler's
+checkout, keyed by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags: a changed source or header builds anew, an
+unchanged one is loaded as it is.  The compiler's
 `-Xptxas -v` report (registers, shared memory, spills per kernel) is kept
 beside each library.
 """
@@ -25,7 +26,7 @@ _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("decode", "encode")
+KERNEL_SOURCES = ("decode", "encode", "encode_stream", "decode_stream")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -40,8 +41,11 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(_FLAGS).encode())
+    key = digest.hexdigest()[:16]
     return _BUILD_DIR / f"{name}-{key}.so"
 
 

@@ -1,0 +1,99 @@
+// Kernel D: LZ4 block encode, FAST levels, at any block size and with a
+// window of dictionary bytes before each row.
+//
+// Replaces the FAST arms of the TPU kernel `pallas_encode_stream`
+// (lz4_tpu/ops/encode_pallas_stream.py, `_encode_stream_one` over
+// `_encode_body`).  Row r is the window base[starts[r], starts[r] + lens[r]):
+// its first src_offs[r] bytes are a prefix that matches may reach (a preset
+// dictionary, or the 64 KB of a chained frame before the block), the rest is
+// the block to encode.  Rows may overlap: the chained path reads every
+// block and its window straight out of one copy of the payload.  The
+// compressed bytes go to out[r, 0:out_stride], clens[r] is their count and
+// errs[r] is 1 when that count exceeds `ocap`.
+//
+// Two scans (lz4_encode_body.cuh, shared with kernel B):
+// - dense (every row with a prefix, or on request): the 15-bit finder with
+//   the prefix seeded at stride 2, byte-identical to the native engine's
+//   `lz4tpu_encode_fast` with a dictionary;
+// - canonical (rows without a prefix): LZ4_compress_default's schedule,
+//   byU16 below 65,547 bytes and byU32 at and above, chosen per row.
+// The TPU kernel's rings, DMA and per-byte words existed to stream blocks
+// through its 1 MB of scalar memory; on the card the row is read in place.
+//
+// What bounds it on the card: as for kernel B, the parse is serial per row
+// (each probe's lookup decides the next probe), not the bytes it moves.
+//
+// What this design does about that: nothing yet.  One CTA of 32 threads per
+// row; they zero the table, then one thread parses.  The dense table holds
+// 2^15 positions + 1 as 32-bit words (128 KB of dynamic shared memory: a
+// window passes 65,535 bytes as soon as a 64 KB block has a prefix), so one
+// CTA fits on an SM (227 KB) and 132 rows run at once.  The canonical
+// tables are 16 KB (2^13 u16 or 2^12 u32 entries): 14 CTAs per SM.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "lz4_encode_body.cuh"
+
+using namespace lz4t;
+
+namespace {
+
+__global__ void __launch_bounds__(32) encode_windows(
+    const uint8_t* __restrict__ base, const long long* __restrict__ starts,
+    const int* __restrict__ src_offs, const int* __restrict__ lens,
+    uint8_t* __restrict__ out, long long out_stride, int ocap, int accel,
+    int dense, int* __restrict__ clens, int* __restrict__ errs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row = blockIdx.x;
+  const int n = lens[row];
+  const bool u16 = n < kCanon64K;
+  // 32-bit words of the table this row uses
+  const int nwords = dense ? (1 << kDenseHashLog)
+                           : (u16 ? (1 << kCanonHashLog16) / 2 : (1 << kCanonHashLog32));
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem);
+  for (int i = threadIdx.x; i < nwords; i += blockDim.x) words[i] = 0;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+
+  const uint8_t* s = base + starts[row];
+  Sink o{out + row * out_stride, 0, static_cast<int>(out_stride)};
+  if (dense)
+    dense_scan(s, src_offs[row], n, accel, o, words);
+  else if (u16)
+    canon_scan(s, n, accel, o, reinterpret_cast<uint16_t*>(smem));
+  else
+    canon_scan(s, n, accel, o, words);
+  clens[row] = o.op;
+  errs[row] = o.op > ocap ? 1 : 0;
+}
+
+}  // namespace
+
+// ---- C interface (ctypes) ------------------------------------------------
+
+// Dynamic shared memory of one CTA: the largest table of the geometry.
+extern "C" int lz4t_encode_stream_shared_bytes(int dense) {
+  return dense ? (1 << kDenseHashLog) * static_cast<int>(sizeof(uint32_t))
+               : (1 << kCanonHashLog16) * static_cast<int>(sizeof(uint16_t));
+}
+
+// Launches on `stream`, does not synchronise, returns the first CUDA error
+// (0 on success).  The caller has checked every window against `base` and
+// clipped `accel`; canonical rows have src_offs == 0.
+extern "C" int lz4t_encode_stream(const void* base, const void* starts,
+                                  const void* src_offs, const void* lens,
+                                  void* out, long long out_stride, int ocap,
+                                  int accel, int dense, void* clens,
+                                  void* errs, int nrows, void* stream) {
+  const int smem = lz4t_encode_stream_shared_bytes(dense);
+  cudaError_t e = cudaFuncSetAttribute(
+      encode_windows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  encode_windows<<<nrows, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(base), static_cast<const long long*>(starts),
+      static_cast<const int*>(src_offs), static_cast<const int*>(lens),
+      static_cast<uint8_t*>(out), out_stride, ocap, accel, dense,
+      static_cast<int*>(clens), static_cast<int*>(errs));
+  return static_cast<int>(cudaGetLastError());
+}

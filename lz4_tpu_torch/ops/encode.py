@@ -24,7 +24,8 @@ MF_LIMIT = 12
 LAST_LITERALS = 5
 SKIP_TRIGGER = 6
 MAX_DISTANCE = 65535
-MAX_BLOCK = 65536  # kernel B's rows; larger blocks belong to kernel D
+MAX_BLOCK = 65536  # kernel B's rows (16-bit tables); larger ones go to D
+CANON_64K = 65536 + MF_LIMIT - 1  # upstream LZ4_64Klimit: byU32 at/above
 GEOMETRIES = ("canonical", "dense")
 
 _lib = None
@@ -82,15 +83,25 @@ def _emit(out: bytearray, s, anchor: int, ll: int, off: int, ml: int):
 
 
 def _encode_canonical(s: bytes, accel: int) -> bytearray:
-    """Upstream one-shot schedule, byU16 (rows below 65,547 bytes)."""
+    """Upstream one-shot schedule: byU16 (13-bit table, 4-byte hash) below
+    65,547 bytes, byU32 (12-bit table, 5-byte hash, candidates farther than
+    65,535 bytes skipped) at and above."""
     n = len(s)
     out = bytearray()
     anchor = 0
     if n >= MF_LIMIT + 1:
-        tab = [0] * (1 << 13)
+        u16 = n < CANON_64K
+        if u16:
+            tab = [0] * (1 << 13)
 
-        def h(p):
-            return ((_read32(s, p) * 2654435761) & 0xFFFFFFFF) >> 19
+            def h(p):
+                return ((_read32(s, p) * 2654435761) & 0xFFFFFFFF) >> 19
+        else:
+            tab = [0] * (1 << 12)
+
+            def h(p):
+                v = int.from_bytes(s[p:p + 8], "little") << 24
+                return ((v * 889523592379) & 0xFFFFFFFFFFFFFFFF) >> 52
 
         mf1 = n - MF_LIMIT + 1
         match_limit = n - LAST_LITERALS
@@ -110,6 +121,8 @@ def _encode_canonical(s: bytes, accel: int) -> bytearray:
                 match = tab[hh]
                 fh = h(fwd)
                 tab[hh] = ip
+                if not u16 and match + MAX_DISTANCE < ip:
+                    continue
                 if _read32(s, match) == _read32(s, ip):
                     break
             while ip > anchor and match > 0 and s[ip - 1] == s[match - 1]:
@@ -129,6 +142,8 @@ def _encode_canonical(s: bytes, accel: int) -> bytearray:
                 h2 = h(ip)
                 m2 = tab[h2]
                 tab[h2] = ip
+                if not u16 and m2 + MAX_DISTANCE < ip:
+                    break
                 if _read32(s, m2) != _read32(s, ip):
                     break
                 match = m2
@@ -138,20 +153,27 @@ def _encode_canonical(s: bytes, accel: int) -> bytearray:
     return out
 
 
-def _encode_dense(s: bytes, accel: int) -> bytearray:
-    """This library's 15-bit greedy finder (no dictionary)."""
+def _encode_dense(s: bytes, accel: int, src_off: int = 0) -> bytearray:
+    """This library's 15-bit greedy finder over s[src_off:], with matches
+    reaching into the prefix s[:src_off] (seeded at stride 2)."""
     n = len(s)
     out = bytearray()
-    anchor = 0
-    if n > MF_LIMIT:
-        tab = [-1] * (1 << 15)
+    tab = [-1] * (1 << 15)
+
+    def h(w):
+        return ((w * 2654435761) & 0xFFFFFFFF) >> 17
+
+    for i in range(0, src_off - MIN_MATCH + 1, 2):
+        tab[h(_read32(s, i))] = i
+    anchor = src_off
+    if n - src_off > MF_LIMIT:
         mf_limit = n - MF_LIMIT
         match_limit = n - LAST_LITERALS
-        p = 0
+        p = src_off
         search = accel << SKIP_TRIGGER
         while p < mf_limit:
             w = _read32(s, p)
-            hh = ((w * 2654435761) & 0xFFFFFFFF) >> 17
+            hh = h(w)
             cand = tab[hh]
             tab[hh] = p
             if cand >= 0 and p - cand <= MAX_DISTANCE and _read32(s, cand) == w:
@@ -166,8 +188,7 @@ def _encode_dense(s: bytes, accel: int) -> bytearray:
                 anchor = p
                 if p >= mf_limit:
                     break
-                hh = ((_read32(s, p - 2) * 2654435761) & 0xFFFFFFFF) >> 17
-                tab[hh] = p - 2
+                tab[h(_read32(s, p - 2))] = p - 2
                 search = accel << SKIP_TRIGGER
                 continue
             p += search >> SKIP_TRIGGER
@@ -176,22 +197,58 @@ def _encode_dense(s: bytes, accel: int) -> bytearray:
     return out
 
 
-def _validate(bufs_u8, lens, bcap, level, acceleration, fast_schedule):
+def check_level(level: int) -> None:
+    """Raise for the levels whose kernel arms are not ported (HC, OPT)."""
     level = int(level)
     if level >= 10 or LEVEL_ATTEMPTS.get(level, 0):
         raise NotImplementedError(
             f"level {level}: the HC (L3-L9) and OPT (L10-L12) arms of "
-            "kernel B are not ported yet (ROADMAP.md Queue 2, B2/B3)"
+            "kernels B and D are not ported yet (ROADMAP.md Queue 2, B2/B3)"
         )
-    if bcap > MAX_BLOCK:
-        raise NotImplementedError(
-            f"bcap {bcap} > 65536: blocks above 64 KB belong to kernel D, "
-            "not ported yet (ROADMAP.md Queue 2, D)"
-        )
+
+
+def clip_acceleration(acceleration: int, fast_schedule: str) -> int:
+    """Check the FAST geometry and clip ``acceleration`` as the kernels
+    take it."""
     if fast_schedule not in GEOMETRIES:
         raise ValueError(
             f"unknown FAST geometry {fast_schedule!r}; expected {GEOMETRIES}"
         )
+    accel = max(int(acceleration), 1)
+    if fast_schedule == "canonical":
+        return min(accel, 65537)  # upstream's LZ4_ACCELERATION_MAX
+    if accel >= 1 << 24:
+        raise ValueError("acceleration must be < 2**24")
+    return accel
+
+
+def pack_rows(comps, ocap: int, device):
+    """Per-row compressed bytes -> (out uint8 [B, ocap], clens int32 [B],
+    errs int32 [B]) on ``device``, as the kernels return them: a row longer
+    than ``ocap`` is cut, counted in full and flagged."""
+    out = np.zeros((len(comps), ocap), np.uint8)
+    clens = np.zeros((len(comps),), np.int32)
+    errs = np.zeros((len(comps),), np.int32)
+    for b, comp in enumerate(comps):
+        kept = min(len(comp), ocap)
+        out[b, :kept] = np.frombuffer(bytes(comp[:kept]), np.uint8)
+        clens[b] = len(comp)
+        errs[b] = len(comp) > ocap
+    return (
+        torch.from_numpy(out).to(device),
+        torch.from_numpy(clens).to(device),
+        torch.from_numpy(errs).to(device),
+    )
+
+
+def _validate(bufs_u8, lens, bcap, level, acceleration, fast_schedule):
+    check_level(level)
+    if bcap > MAX_BLOCK:
+        raise ValueError(
+            f"bcap {bcap} > 65536: kernel B takes blocks of at most 64 KB; "
+            "larger blocks encode on kernel D (ops.encode_stream)"
+        )
+    accel = clip_acceleration(acceleration, fast_schedule)
     bufs = torch.as_tensor(bufs_u8)
     if bufs.dtype != torch.uint8 or bufs.dim() != 2:
         raise ValueError("bufs_u8 must be a 2-D uint8 tensor")
@@ -203,11 +260,6 @@ def _validate(bufs_u8, lens, bcap, level, acceleration, fast_schedule):
         raise ValueError("lens must hold one length per row")
     if lens_t.numel() and (int(lens_t.min()) < 0 or int(lens_t.max()) > bcap):
         raise ValueError(f"row lengths must lie in [0, bcap={bcap}]")
-    accel = max(int(acceleration), 1)
-    if fast_schedule == "canonical":
-        accel = min(accel, 65537)  # upstream's LZ4_ACCELERATION_MAX
-    elif accel >= 1 << 24:
-        raise ValueError("acceleration must be < 2**24")
     return bufs, lens_t, accel
 
 
@@ -219,25 +271,11 @@ def encode_blocks_plain(bufs_u8, lens, bcap: int, level: int = 0,
     bufs, lens_t, accel = _validate(
         bufs_u8, lens, bcap, level, acceleration, fast_schedule
     )
-    ocap = align1024(compress_bound(bcap))
-    nb = bufs.shape[0]
-    out = np.zeros((nb, ocap), np.uint8)
-    clens = np.zeros((nb,), np.int32)
-    errs = np.zeros((nb,), np.int32)
-    rows = bufs.cpu()
+    rows = bufs.cpu().numpy()
     run = _encode_canonical if fast_schedule == "canonical" else _encode_dense
-    for b, n in enumerate(lens_t.tolist()):
-        comp = run(bytes(rows[b, :n].tolist()), accel)
-        kept = min(len(comp), ocap)
-        out[b, :kept] = np.frombuffer(bytes(comp[:kept]), np.uint8)
-        clens[b] = len(comp)
-        errs[b] = len(comp) > ocap
-    dev = bufs.device
-    return (
-        torch.from_numpy(out).to(dev),
-        torch.from_numpy(clens).to(dev),
-        torch.from_numpy(errs).to(dev),
-    )
+    comps = [run(rows[b, :n].tobytes(), accel)
+             for b, n in enumerate(lens_t.tolist())]
+    return pack_rows(comps, align1024(compress_bound(bcap)), bufs.device)
 
 
 def encode_blocks(bufs_u8, lens, bcap: int, level: int = 0,
@@ -246,8 +284,9 @@ def encode_blocks(bufs_u8, lens, bcap: int, level: int = 0,
 
     bufs_u8: uint8 [B, CAP >= bcap], row b's bytes at [0, lens[b]).  Levels
     0-2 run the FAST arm ("canonical": byte-identical to
-    LZ4_compress_default; "dense": the 15-bit finder); levels >= 3 and
-    ``bcap`` > 65536 raise NotImplementedError.
+    LZ4_compress_default; "dense": the 15-bit finder); levels >= 3 raise
+    NotImplementedError, ``bcap`` > 65536 ValueError (kernel D,
+    `ops.encode_stream`, takes those).
 
     Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) on the
     input's device, OCAP = align1024(compress_bound(bcap)); errs is 1 where a

@@ -1,0 +1,226 @@
+"""Batched LZ4 block encode at the FAST levels, at any block size and with
+dictionaries: kernel D (`csrc/encode_stream.cu`) and its plain version.
+
+The port of the FAST arms of `lz4_tpu/ops/encode_pallas_stream.py`
+(`pallas_encode_stream`, wrapper `encode_blocks_pallas_stream`), with the
+same bytes: rows without a dictionary take the canonical schedule
+(LZ4_compress_default: byU16 below 65,547 bytes, byU32 at and above) or
+the dense one; rows of a batch with dictionaries all take the dense one.
+The kernel reads each row as a window of one flat byte tensor, so the
+chained-frame path (`parallel.blocks.encode_blocks_chained_device`) hands
+it the payload itself, each block's 64 KB window in place before it.  The
+kernel's source says what bounds it on the card and what its design does
+about that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..constants import compress_bound
+from .build import check, load
+from .common import align1024
+from .encode import (
+    _encode_canonical, _encode_dense, check_level, clip_acceleration,
+    pack_rows,
+)
+
+WINDOW = 65536  # the most a prefix can hold: LZ4's farthest match offset + 1
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = load("encode_stream")
+        lib.lz4t_encode_stream.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.lz4t_encode_stream.restype = ctypes.c_int
+        lib.lz4t_encode_stream_shared_bytes.argtypes = [ctypes.c_int]
+        lib.lz4t_encode_stream_shared_bytes.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def shared_bytes(fast_schedule: str) -> int:
+    """Dynamic shared memory of one CTA of kernel D for a geometry."""
+    return _kernel().lz4t_encode_stream_shared_bytes(
+        int(fast_schedule == "dense")
+    )
+
+
+def _validate_windows(base_u8, starts, src_offs, lens, bcap, level,
+                      acceleration, fast_schedule):
+    check_level(level)
+    accel = clip_acceleration(acceleration, fast_schedule)
+    base = torch.as_tensor(base_u8)
+    if base.dtype != torch.uint8 or base.dim() != 1:
+        raise ValueError("base_u8 must be a 1-D uint8 tensor")
+    st = torch.as_tensor(starts, dtype=torch.int64).cpu()
+    so = torch.as_tensor(src_offs, dtype=torch.int32).cpu()
+    ln = torch.as_tensor(lens, dtype=torch.int32).cpu()
+    if st.dim() != 1 or so.shape != st.shape or ln.shape != st.shape:
+        raise ValueError("starts, src_offs and lens must hold one value per row")
+    if st.numel():
+        blk = ln - so
+        if int(so.min()) < 0 or int(so.max()) > WINDOW:
+            raise ValueError(f"src_offs must lie in [0, {WINDOW}]")
+        if int(blk.min()) < 0 or int(blk.max()) > bcap:
+            raise ValueError(f"block lengths must lie in [0, bcap={bcap}]")
+        if int(st.min()) < 0 or int((st + ln).max()) > base.numel():
+            raise ValueError("a window reaches outside base_u8")
+        if fast_schedule == "canonical" and bool(so.any()):
+            raise ValueError(
+                "the canonical schedule takes no prefix: rows with a "
+                "dictionary need fast_schedule='dense'"
+            )
+    dev = base.device
+    return base, st.to(dev), so.to(dev), ln.to(dev), accel
+
+
+def encode_windows_plain(base_u8, starts, src_offs, lens, bcap: int,
+                         level: int = 0, acceleration: int = 1,
+                         fast_schedule: str = "canonical"):
+    """The plain PyTorch version of `encode_windows`: the same checks, the
+    same outputs, one scalar parse per row on the host."""
+    base, st, so, ln, accel = _validate_windows(
+        base_u8, starts, src_offs, lens, bcap, level, acceleration,
+        fast_schedule,
+    )
+    raw = base.cpu().numpy()
+    comps = []
+    for a, off, n in zip(st.tolist(), so.tolist(), ln.tolist()):
+        s = raw[a:a + n].tobytes()
+        if fast_schedule == "dense":
+            comps.append(_encode_dense(s, accel, off))
+        else:
+            comps.append(_encode_canonical(s, accel))
+    return pack_rows(comps, align1024(compress_bound(bcap)), base.device)
+
+
+def encode_windows(base_u8, starts, src_offs, lens, bcap: int,
+                   level: int = 0, acceleration: int = 1,
+                   fast_schedule: str = "canonical"):
+    """Encode B windows of one flat byte tensor with kernel D.
+
+    Row r is base_u8[starts[r] : starts[r] + lens[r]]: its first
+    src_offs[r] <= 65536 bytes are a prefix that matches may reach, the
+    rest, at most ``bcap`` bytes, is the block.  Rows may overlap.  Rows
+    with a prefix need ``fast_schedule="dense"``.  Levels >= 3 raise
+    NotImplementedError.
+
+    Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) on the
+    input's device, OCAP = align1024(compress_bound(bcap)); errs is 1 where a
+    row's output exceeds OCAP.  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel (counted in `encode_blocks_stream.launches`).
+    """
+    base, st, so, ln, accel = _validate_windows(
+        base_u8, starts, src_offs, lens, bcap, level, acceleration,
+        fast_schedule,
+    )
+    if base.device.type != "cuda":
+        return encode_windows_plain(
+            base, st, so, ln, bcap, level, acceleration, fast_schedule
+        )
+    base = base.contiguous()
+    ocap = align1024(compress_bound(bcap))
+    nb = st.shape[0]
+    dev = base.device
+    out = torch.zeros((nb, ocap), dtype=torch.uint8, device=dev)
+    clens = torch.empty((nb,), dtype=torch.int32, device=dev)
+    errs = torch.empty((nb,), dtype=torch.int32, device=dev)
+    if nb == 0:
+        return out, clens, errs
+    lib = _kernel()
+    with torch.cuda.device(dev):
+        rc = lib.lz4t_encode_stream(
+            base.data_ptr(), st.data_ptr(), so.data_ptr(), ln.data_ptr(),
+            out.data_ptr(), ocap, ocap, accel,
+            int(fast_schedule == "dense"), clens.data_ptr(), errs.data_ptr(),
+            nb, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(rc, "encode_stream")
+    encode_blocks_stream.launches += 1
+    return out, clens, errs
+
+
+def _stage(bufs_u8, lens, bcap, dicts, dict_lens, fast_schedule):
+    """A batch of rows, with optional right-aligned dictionaries, as the
+    windows of one flat tensor: (base, starts, src_offs, lens, schedule)."""
+    bufs = torch.as_tensor(bufs_u8)
+    if bufs.dtype != torch.uint8 or bufs.dim() != 2:
+        raise ValueError("bufs_u8 must be a 2-D uint8 tensor")
+    if bufs.shape[1] < bcap:
+        raise ValueError(f"rows of {bufs.shape[1]} bytes < bcap {bcap}")
+    nb, width = bufs.shape
+    lens_t = torch.as_tensor(lens, dtype=torch.int32).cpu()
+    if lens_t.shape != (nb,):
+        raise ValueError("lens must hold one length per row")
+    rows = torch.arange(nb, dtype=torch.int64)
+    if dicts is None:
+        return (bufs.contiguous().reshape(-1), rows * width,
+                torch.zeros((nb,), dtype=torch.int32), lens_t, fast_schedule)
+    dicts_t = torch.as_tensor(dicts).to(bufs.device)
+    if dicts_t.dtype != torch.uint8 or dicts_t.dim() != 2 or dicts_t.shape[0] != nb:
+        raise ValueError("dicts must be uint8 [B, DW], right-aligned")
+    dw = dicts_t.shape[1]
+    dl = torch.as_tensor(dict_lens, dtype=torch.int32).cpu()
+    if dl.shape != (nb,):
+        raise ValueError("dict_lens must hold one length per row")
+    if nb and (int(dl.min()) < 0 or int(dl.max()) > dw):
+        raise ValueError(f"dict_lens must lie in [0, {dw}]")
+    dl = dl.clamp(max=WINDOW)  # only the last 64 KB is reachable
+    # row k of [dicts | bufs]: its dictionary ends where its block starts
+    flat = torch.cat([dicts_t, bufs], dim=1).reshape(-1)
+    starts = rows * (dw + width) + dw - dl.to(torch.int64)
+    return flat, starts, dl, dl + lens_t, "dense"
+
+
+def encode_blocks_stream_plain(bufs_u8, lens, bcap: int, level: int = 0,
+                               acceleration: int = 1, dicts=None,
+                               dict_lens=None,
+                               fast_schedule: str = "canonical"):
+    """The plain PyTorch version of `encode_blocks_stream`."""
+    clip_acceleration(acceleration, fast_schedule)
+    base, st, so, ln, schedule = _stage(
+        bufs_u8, lens, bcap, dicts, dict_lens, fast_schedule
+    )
+    return encode_windows_plain(
+        base.cpu(), st, so, ln, bcap, level, acceleration, schedule
+    )
+
+
+def encode_blocks_stream(bufs_u8, lens, bcap: int, level: int = 0,
+                         acceleration: int = 1, dicts=None, dict_lens=None,
+                         fast_schedule: str = "canonical"):
+    """Encode B independent blocks of at most ``bcap`` bytes, any size.
+
+    bufs_u8: uint8 [B, CAP >= bcap], row b's bytes at [0, lens[b]).
+    dicts: optional uint8 [B, DW], each row's preset dictionary
+    right-aligned (its last dict_lens[b] bytes; only the last 64 KB is
+    reachable).  Levels 0-2 run the FAST arm: "canonical" (byte-identical
+    to LZ4_compress_default) or "dense" (the 15-bit finder); a batch with
+    dictionaries runs the dense one, byte-identical to the host engines'
+    ``encode(..., dictionary=...)``.  Levels >= 3 raise NotImplementedError.
+
+    Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) on the
+    input's device, OCAP = align1024(compress_bound(bcap)).  A CPU tensor
+    runs the plain version; a CUDA tensor launches kernel D once.
+    """
+    clip_acceleration(acceleration, fast_schedule)
+    base, st, so, ln, schedule = _stage(
+        bufs_u8, lens, bcap, dicts, dict_lens, fast_schedule
+    )
+    return encode_windows(
+        base, st, so, ln, bcap, level, acceleration, schedule
+    )
+
+
+encode_blocks_stream.launches = 0

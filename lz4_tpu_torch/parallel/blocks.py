@@ -1,15 +1,15 @@
-"""Block-parallel LZ4 over independent blocks, on one CUDA device.
+"""Block-parallel LZ4 on one CUDA device.
 
 The port of `lz4_tpu/parallel/blocks.py`'s batched path: a payload splits
 into fixed-size independent blocks (frame descriptor
 ``block_independence=True``), one kernel launch encodes or decodes the
 whole batch, and only the compressed lengths decide the frame layout on
-the host.
+the host.  Blocks of at most 64 KB encode on kernel B, larger ones on
+kernel D.  Chained blocks encode in one launch of kernel D too: block k's
+dictionary is the 64 KB of plaintext before it, known up front.
 
 The JAX package pads each batch to a power-of-two bucket to bound its
-compiles, and routes dictionary batches to a streaming decoder to fit the
-TPU's scalar memory; neither applies here: every call launches exactly B
-rows, and dictionary rows run the same decode kernel.
+compiles; that does not apply here: every call launches exactly B rows.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ import torch
 from ..block import LZ4Error
 from ..constants import compress_bound
 from ..ops import decode as _decode
+from ..ops import decode_stream as _decode_stream
 from ..ops import encode as _encode
+from ..ops import encode_stream as _encode_stream
 from ..ops.common import align1024, resolve_device
 
 __all__ = [
@@ -28,6 +30,7 @@ __all__ = [
     "split_blocks",
     "pack_blocks",
     "encode_blocks_device",
+    "encode_blocks_chained_device",
     "decode_blocks_device",
     "encode_blocks",
     "decode_blocks",
@@ -77,12 +80,14 @@ def pack_blocks(outs, out_lens) -> list[bytes]:
 def encode_blocks_device(bufs, lens, bcap: int, level: int = 0,
                          acceleration: int = 1, geometry: str = "canonical",
                          device="cuda"):
-    """Encode a batch with kernel B on ``device`` (the plain version when
-    ``device="cpu"``).
+    """Encode a batch on ``device`` (the plain versions when
+    ``device="cpu"``): kernel B for blocks of at most 64 KB, kernel D above.
 
     Returns (out uint8 [B, OCAP], out_lens int32 [B]) on ``device``."""
     dev = resolve_device(device)
-    out, out_lens, errs = _encode.encode_blocks(
+    kernel = (_encode.encode_blocks if bcap <= _encode.MAX_BLOCK
+              else _encode_stream.encode_blocks_stream)
+    out, out_lens, errs = kernel(
         torch.as_tensor(bufs).to(dev), torch.as_tensor(lens).to(dev), bcap,
         int(level), acceleration, fast_schedule=geometry,
     )
@@ -91,12 +96,43 @@ def encode_blocks_device(bufs, lens, bcap: int, level: int = 0,
     return out, out_lens
 
 
+def encode_blocks_chained_device(data: bytes, block_size: int,
+                                 level: int = 0, acceleration: int = 1,
+                                 device="cuda") -> list[bytes]:
+    """Encode the blocks of a chained frame in one launch of kernel D on
+    ``device`` (the plain version when ``device="cpu"``).
+
+    Block k's dictionary is the 64 KB of plaintext before it, so the
+    payload goes to the device once and row k is the window
+    [k * block_size - dl, (k + 1) * block_size) of it, dl = min(k *
+    block_size, 65536), with the dense schedule: the bytes of the
+    sequential chain encoder.  Returns each block's compressed payload, in
+    frame order (the caller stores a block whose payload is not smaller)."""
+    dev = resolve_device(device)
+    n = len(data)
+    nb = -(-n // block_size)
+    if nb == 0:
+        return []
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    block_starts = torch.arange(nb, dtype=torch.int64) * block_size
+    dls = block_starts.clamp(max=_encode_stream.WINDOW)
+    ends = (block_starts + block_size).clamp(max=n)
+    out, out_lens, errs = _encode_stream.encode_windows(
+        payload, block_starts - dls, dls, ends - block_starts + dls,
+        block_size, int(level), acceleration, fast_schedule="dense",
+    )
+    if bool(errs.any()):
+        raise RuntimeError("chained encoder overflow")
+    return pack_blocks(out, out_lens)
+
+
 def decode_blocks_device(comps, clens, out_cap: int, dicts=None,
                          dict_lens=None, mode: str | None = None,
                          device="cuda"):
     """Decode a batch with kernel A on ``device`` (the plain version when
     ``device="cpu"``), optionally with per-row right-aligned 64 KB
-    dictionaries (uint8 [B, 65536]) and their lengths.
+    dictionaries (uint8 [B, 65536]) and their lengths, which take kernel
+    C's batch form as in the JAX package (it launches kernel A too).
 
     ``mode`` ("full", "full2", "full2v") is validated and otherwise
     changes nothing: kernel A has one fast path.  Returns
@@ -104,11 +140,15 @@ def decode_blocks_device(comps, clens, out_cap: int, dicts=None,
     """
     dev = resolve_device(device)
     if dicts is not None:
-        dicts = torch.as_tensor(dicts).to(dev)
-        dict_lens = torch.as_tensor(dict_lens).to(dev)
+        return _decode_stream.decode_blocks_stream(
+            torch.as_tensor(comps).to(dev), torch.as_tensor(clens).to(dev),
+            out_cap, torch.as_tensor(dicts).to(dev),
+            torch.as_tensor(dict_lens).to(dev),
+            mode="full" if mode == "full2" else "full2v",
+        )
     return _decode.decode_blocks(
         torch.as_tensor(comps).to(dev), torch.as_tensor(clens).to(dev),
-        out_cap, dicts, dict_lens, mode=mode or "full2",
+        out_cap, mode=mode or "full2",
     )
 
 

@@ -15,6 +15,7 @@ import liblz4
 from lz4_tpu.ops import encode_pallas5 as E5
 from lz4_tpu.ops.common import LEVEL_ATTEMPTS
 from lz4_tpu_torch.ops import encode as E
+from lz4_tpu_torch.ops import encode_stream as ES
 from test_cross_backend_fuzz import _random_structured
 
 import bench
@@ -119,9 +120,16 @@ def test_hc_and_opt_levels_are_not_ported(level):
 
 @pytest.mark.parametrize("bcap", [65537, 1 << 18])
 def test_blocks_above_64k_are_not_ported(bcap):
-    bufs = torch.zeros((1, 8), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="kernel D"):
-        E.encode_blocks(bufs, torch.zeros((1,), dtype=torch.int32), bcap)
+    """Kernel B (16-bit tables) refuses blocks above 64 KB; kernel D takes
+    them, with LZ4_compress_default's bytes."""
+    data = bench.make_corpus(bcap, seed=2)
+    bufs, lens = _stage([data], bcap)
+    b, n = torch.from_numpy(bufs), torch.from_numpy(lens)
+    with pytest.raises(ValueError, match="kernel D"):
+        E.encode_blocks(b, n, bcap)
+    out, clens, errs = ES.encode_blocks_stream(b, n, bcap)
+    assert int(errs[0]) == 0
+    assert out[0, : int(clens[0])].numpy().tobytes() == liblz4.compress_block(data)
 
 
 def test_bad_arguments_raise():

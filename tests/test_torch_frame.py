@@ -3,12 +3,14 @@ byte-identical to the JAX package's canonical frames, JAX-made frames
 decoded, and corrupt frames refused with the JAX package's exception
 types."""
 
+import io
 import random
 import struct
 
 import pytest
 
 from lz4_tpu import frame as jframe
+from lz4_tpu.frame.writer import FrameWriter
 from lz4_tpu.xxh32 import xxh32 as jxxh32
 from lz4_tpu_torch import frame as tframe
 from lz4_tpu_torch.xxh32 import XXH32 as TXXH32, xxh32 as txxh32
@@ -52,9 +54,15 @@ def test_geometries_and_content_size_match(geometry):
 
 
 def test_blocks_above_64k_are_not_ported():
-    settings = tframe.EncoderSettings(chain_blocks=False, block_size=1 << 18)
-    with pytest.raises(NotImplementedError, match="kernel D"):
-        tframe.compress(CORPUS[:300000], settings, device="cpu")
+    """Independent 256 KB blocks (kernel D's plain version) give the JAX
+    package's canonical frames."""
+    data = CORPUS[:700000]
+    ours = tframe.compress(
+        data, tframe.EncoderSettings(chain_blocks=False, block_size=1 << 18),
+        device="cpu",
+    )
+    assert ours == _jax_frame(data, block_size=1 << 18)
+    assert tframe.decompress(ours, device="cpu") == data
 
 
 def test_single_block_canonical_chain_is_independent():
@@ -137,25 +145,38 @@ def test_corrupt_frames_raise_the_jax_exception_types(case):
     assert type(our_err.value).__module__.startswith("lz4_tpu_torch.")
 
 
-@pytest.mark.parametrize(
-    "what", ["chained", "dictionary_id", "two_frames", "preset_dictionary"]
-)
+@pytest.mark.parametrize("what", [
+    "chained", "dictionary_id", "two_frames", "preset_dictionary",
+    "independent_with_dictionary",
+])
 def test_streaming_cases_are_not_ported(what):
+    """Chained frames, with or without a preset dictionary, compress and
+    decode as the JAX package's; what only FrameReader decodes raises."""
     data = CORPUS[:150000]
     if what == "chained":
-        with pytest.raises(NotImplementedError, match="kernels C and D"):
-            tframe.compress(data, tframe.EncoderSettings(), device="cpu")
         blob = jframe.compress(data, jframe.EncoderSettings(), backend="host")
-    elif what == "dictionary_id":
+        assert tframe.compress(data, tframe.EncoderSettings(), device="cpu") == blob
+        assert tframe.decompress(blob, device="cpu") == data
+        return
+    if what == "preset_dictionary":
+        preset = CORPUS[500000:600000]
+        sink = io.BytesIO()
+        with FrameWriter(sink, jframe.EncoderSettings(), backend="host",
+                         dictionary=preset) as w:
+            w.write(data)
+        settings = tframe.DecoderSettings(dictionary=preset)
+        assert tframe.decompress(sink.getvalue(), settings, device="cpu") == data
+        return
+    if what == "dictionary_id":
         blob = _jax_frame(data, dictionary_id=7)
     elif what == "two_frames":
         blob = _jax_frame(data) * 2
     else:
         blob = _jax_frame(data)
     settings = tframe.DecoderSettings(
-        dictionary=b"abc" if what == "preset_dictionary" else b""
+        dictionary=b"abc" if what == "independent_with_dictionary" else b""
     )
-    with pytest.raises(NotImplementedError, match="kernels C and D"):
+    with pytest.raises(NotImplementedError, match="FrameReader"):
         tframe.decompress(blob, settings, device="cpu")
 
 

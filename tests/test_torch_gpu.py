@@ -11,7 +11,8 @@ import torch
 
 import chip_smoke
 from lz4_tpu_torch import frame
-from lz4_tpu_torch.ops import decode, encode
+from lz4_tpu_torch.frame.api import _scan_single_frame
+from lz4_tpu_torch.ops import decode, decode_stream, encode, encode_stream
 from lz4_tpu_torch.parallel.blocks import comp_capacity
 
 pytestmark = pytest.mark.gpu
@@ -96,4 +97,79 @@ def test_frame_round_trip_on_the_card(cuda):
     assert frame.decompress(blob) == data
     assert encode.encode_blocks.launches == e0 + 1
     assert decode.decode_blocks.launches == d0 + 1
+    assert blob == frame.compress(data, settings, device="cpu")
+
+
+@pytest.mark.parametrize("accel", [1, 8])
+def test_stream_encode_kernel_matches_plain(accel, cuda):
+    rng = np.random.default_rng(5)
+    data = chip_smoke.make_corpus(8 << 20, 5)
+    sizes = [0, 13, 65546, 65547, 300000, 1 << 20]
+    starts = [int(rng.integers(0, len(data) - n)) for n in sizes]
+    bufs, lens = chip_smoke._stage([data[a:a + n] for a, n in zip(starts, sizes)], 1 << 20)
+    before = encode_stream.encode_blocks_stream.launches
+    got = encode_stream.encode_blocks_stream(bufs.to(cuda), lens.to(cuda), 1 << 20, 0, accel)
+    torch.cuda.synchronize()
+    assert encode_stream.encode_blocks_stream.launches == before + 1
+    _equal(got, encode_stream.encode_blocks_stream_plain(bufs, lens, 1 << 20, 0, accel))
+    rows = [data[a:a + BLOCK] for a in starts[2:]]
+    bufs, lens = chip_smoke._stage(rows, BLOCK)
+    dicts = torch.zeros((len(rows), 65536), dtype=torch.uint8)
+    dls = torch.tensor([0, 100, 5000, 65536], dtype=torch.int32)
+    for i, (a, dl) in enumerate(zip(starts[2:], dls.tolist())):
+        if dl:
+            dicts[i, 65536 - dl:] = torch.frombuffer(bytearray(data[a - dl:a]), dtype=torch.uint8)
+    got = encode_stream.encode_blocks_stream(
+        bufs.to(cuda), lens.to(cuda), BLOCK, 0, accel, dicts.to(cuda), dls.to(cuda))
+    torch.cuda.synchronize()
+    _equal(got, encode_stream.encode_blocks_stream_plain(bufs, lens, BLOCK, 0, accel, dicts, dls))
+
+
+def test_chain_decode_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(6)
+    data = chip_smoke.with_stored_blocks(chip_smoke.make_corpus(4 << 20, 6), rng)
+    blob = frame.compress(data, device="cpu")
+    frames = [blob]
+    for _ in range(8):
+        b = bytearray(blob)
+        b[int(rng.integers(20, len(b) - 10))] ^= 1 << int(rng.integers(0, 8))
+        frames.append(bytes(b))
+    for f in frames:
+        try:
+            d, blocks, _ = _scan_single_frame(f)
+        except ValueError:
+            continue  # a flip in the block table: the host scan refuses it
+        table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
+        fr = torch.frombuffer(bytearray(f), dtype=torch.uint8)
+        before = decode_stream.decode_chain.launches
+        got = decode_stream.decode_chain(fr.to(cuda), table, d.block_size)
+        torch.cuda.synchronize()
+        assert decode_stream.decode_chain.launches == before + 1
+        _equal(got, decode_stream.decode_chain_plain(fr, table, d.block_size))
+
+
+def test_chain_decode_at_maximum_expansion_matches_plain(cuda):
+    """Tiny blocks that each decode to close to 255 times their length:
+    the kernel writes each inside its slot of the output, and the block
+    past 64 KB fails as in the plain version."""
+    blob = chip_smoke.expansion_frame()
+    d, blocks, _ = _scan_single_frame(blob)
+    table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
+    fr = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+    preset = torch.full((1000,), 7, dtype=torch.uint8)
+    got = decode_stream.decode_chain(fr.to(cuda), table, d.block_size, preset.to(cuda))
+    torch.cuda.synchronize()
+    want = decode_stream.decode_chain_plain(fr, table, d.block_size, preset)
+    _equal(got, want)
+    assert want[1].tolist()[1:] == [len(blocks) - 1, 1]
+
+
+def test_chained_frame_round_trip_on_the_card(cuda):
+    data = chip_smoke.make_corpus(4 << 20, 7)
+    settings = frame.EncoderSettings(block_checksum=True, content_checksum=True)
+    e0, c0 = encode_stream.encode_blocks_stream.launches, decode_stream.decode_chain.launches
+    blob = frame.compress(data, settings)
+    assert frame.decompress(blob) == data
+    assert encode_stream.encode_blocks_stream.launches == e0 + 1
+    assert decode_stream.decode_chain.launches == c0 + 1
     assert blob == frame.compress(data, settings, device="cpu")

@@ -14,8 +14,8 @@ import pytest
 import torch
 
 import lz4_tpu_torch
-from lz4_tpu_torch import frame, parallel
-from lz4_tpu_torch.ops import build, decode, encode
+from lz4_tpu_torch import block, frame, parallel
+from lz4_tpu_torch.ops import build, decode, decode_stream, encode, encode_stream
 from lz4_tpu_torch.parallel import blocks
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -27,6 +27,8 @@ def test_import_without_jax_or_the_jax_package():
         "sys.modules['jax'] = None\n"
         "import lz4_tpu_torch, lz4_tpu_torch.frame, lz4_tpu_torch.parallel\n"
         "import lz4_tpu_torch.ops.encode, lz4_tpu_torch.ops.decode\n"
+        "import lz4_tpu_torch.ops.encode_stream, lz4_tpu_torch.ops.decode_stream\n"
+        "import lz4_tpu_torch.block\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'lz4_tpu' or m.startswith('lz4_tpu.')]\n"
         "assert not bad, bad\n"
@@ -65,6 +67,8 @@ def test_no_import_of_jax_or_the_jax_package(path):
 ENTRY_POINTS = (
     "frame.compress", "frame.decompress", "parallel.encode_blocks",
     "parallel.decode_blocks", "encode_blocks_device", "decode_blocks_device",
+    "frame.compress.chained", "frame.decompress.chained",
+    "encode_blocks_chained_device", "block.encode", "block.decode",
 )
 
 
@@ -73,6 +77,7 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name, monkeypatch):
     data = b"abc" * 1000
     settings = frame.EncoderSettings(chain_blocks=False)
     blob = frame.compress(data, settings, device="cpu")
+    chained = frame.compress(data * 30, device="cpu")
     comps = torch.zeros((1, 1024), dtype=torch.uint8)
     lens = torch.ones((1,), dtype=torch.int32)
     calls = {
@@ -88,6 +93,13 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name, monkeypatch):
         "decode_blocks_device": lambda: blocks.decode_blocks_device(
             comps, lens, 1024
         ),
+        "frame.compress.chained": lambda: frame.compress(data * 30),
+        "frame.decompress.chained": lambda: frame.decompress(chained),
+        "encode_blocks_chained_device": lambda: (
+            blocks.encode_blocks_chained_device(data, 65536)
+        ),
+        "block.encode": lambda: block.encode(data, dictionary=b"xyz"),
+        "block.decode": lambda: block.decode(b"\x00", 0),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -109,6 +121,20 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     assert dec[0, : int(dlens[0])].numpy().tobytes() == data.tobytes()
     assert encode.encode_blocks.launches == e0
     assert decode.decode_blocks.launches == d0
+
+
+def test_cpu_tensors_run_the_plain_streaming_versions_and_count_no_launch():
+    data = b"hello hello hello hello hello!!" * 5000
+    e0, c0 = encode_stream.encode_blocks_stream.launches, decode_stream.decode_chain.launches
+    blob = frame.compress(data, device="cpu")
+    assert frame.decompress(blob, device="cpu") == data
+    bufs = torch.zeros((1, 64), dtype=torch.uint8)
+    out, clens, errs = encode_stream.encode_blocks_stream(
+        bufs, torch.tensor([64], dtype=torch.int32), 64
+    )
+    assert out.device.type == "cpu" and int(errs[0]) == 0
+    assert encode_stream.encode_blocks_stream.launches == e0
+    assert decode_stream.decode_chain.launches == c0
 
 
 def test_mesh_is_not_ported():
@@ -136,6 +162,20 @@ def test_build_is_keyed_by_the_source(monkeypatch, tmp_path):
         f.write("// edited\n")
     assert build._library("decode") != before["decode"]
     assert build._library("encode") == before["encode"]
+
+
+def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
+    for f in build._CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "_CSRC", tmp_path)
+    assert sorted(p.name for p in tmp_path.glob("*.cuh")) == [
+        "lz4_decode_body.cuh", "lz4_encode_body.cuh",
+    ]
+    before = {n: build._library(n) for n in build.KERNEL_SOURCES}
+    with open(tmp_path / "lz4_encode_body.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: build._library(n) for n in build.KERNEL_SOURCES}
+    assert all(after[n] != before[n] for n in build.KERNEL_SOURCES)
 
 
 def test_launch_check_raises_on_a_cuda_error():
