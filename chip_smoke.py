@@ -40,7 +40,26 @@ Phases, each fatal on failure:
 9. times: each kernel at its path's shapes (CUDA events), its plain
    version, its bound (bytes moved over 3.35 TB/s), kernel D on kernel B's
    64 KB rows (the same bytes), and the end to end compress and
-   decompress rates of each path.
+   decompress rates of each path;
+10. kernel B's HC and OPT arms (kernel D's HC/OPT kernel over B's rows)
+   against their plain version at levels 3, 6, 9, 10, 11 and 12: four sampled 64 KB rows, the 26,200-byte wordy
+   regression row, rows of 0, 12, 13 and 4,096 bytes and a 64 KB row of
+   random bytes: equal bytes, lengths and flags;
+11. kernel D's HC and OPT arms against their plain version at levels 3, 9,
+   10 and 12: four chained windows (64 KB blocks with their 64 KB
+   prefixes), 64 KB blocks with dictionaries of 3,000, 65,536 and 0 bytes,
+   and one 1 MiB row;
+12. the HC/OPT paths: 16 MiB round trips at level 9 and level 12, each
+   independent (64 KB blocks: the HC or OPT arm of kernel B, then kernel A)
+   and with the default chained settings (kernel D's arm, then the chained
+   decoder), counts set to 0 just before and read just after each path,
+   exact and deterministic over three runs after a warm-up; the level 9
+   independent frame of the first 1 MiB equal byte for byte to the plain
+   route's (the plain parse of all 16 MiB would take minutes); then each
+   new kernel timed at its path's shapes and held byte for byte to the
+   plain version on four rows of the timed launch, two of them taken by
+   CTAs that had already encoded a row; and one profiled level 9 chained
+   and level 12 independent compress and decompress.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -53,6 +72,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import random
 import struct
 import subprocess
 import sys
@@ -89,6 +110,17 @@ def make_corpus(total_bytes: int, seed: int) -> bytes:
     noise = (rng.integers(0, 16, total_bytes - 3 * quarter) * 13).astype(np.uint8)
     parts.append(noise.tobytes())
     return b"".join(parts)[:total_bytes]
+
+
+def wordy_row() -> bytes:
+    """The 26,200-byte wordy row (repeated short phrases, noise, zeros) that
+    exposed the chain offset after a chain-swap jump in the TPU kernel: the
+    bytes of tests/test_pallas_encode5.py's regression case."""
+    rng = random.Random(33)
+    words = [rng.randbytes(rng.randint(3, 8)) for _ in range(30)]
+    big = 131072
+    return (b" ".join(rng.choice(words) for _ in range(big))[: big // 2]
+            + rng.randbytes(big // 4) + bytes(big // 4))[:26200]
 
 
 def _vle(out: bytearray, v: int) -> None:
@@ -168,6 +200,11 @@ def phase_build():
               f"{encode.shared_bytes(geometry)} bytes per CTA ({geometry})")
         print(f"[build] encode_stream.cu: dynamic shared memory "
               f"{encode_stream.shared_bytes(geometry)} bytes per CTA ({geometry})")
+    for arm, level in (("HC", 9), ("OPT", 12)):
+        print(f"[build] encode_stream.cu: dynamic shared memory "
+              f"{encode_stream.shared_bytes('canonical', level)} bytes per CTA "
+              f"({arm} arm), plus a 131,072-byte head table per resident CTA "
+              f"in device memory")
 
 
 def sample_rows(data: bytes, rng):
@@ -715,6 +752,250 @@ def profile_path(data: bytes, dev, settings) -> dict:
                         "device_ms_by_name": {k[:60]: v / 1e3 for k, v in top}}}
 
 
+def _hc_rows(data: bytes, rng):
+    """Four 64 KB rows of the mix, the wordy regression row, rows of 0, 12,
+    13 and 4,096 bytes, and a 64 KB row of random bytes."""
+    nb = len(data) // BLOCK
+    picks = [int(q * nb // 4 + rng.integers(0, nb // 4)) for q in range(4)]
+    rows = [data[k * BLOCK:(k + 1) * BLOCK] for k in picks]
+    rows += [wordy_row(), b"", data[:12], data[BLOCK:BLOCK + 13],
+             data[3 * BLOCK:3 * BLOCK + 4096],
+             rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes()]
+    return rows
+
+
+def plain_pool():
+    """Worker processes, one per core up to 8, for the plain versions'
+    scalar parses, which take most of a run's time at the HC and OPT
+    levels.  Spawned, not forked, so that no CUDA state reaches them; the
+    caller's `with` block joins them."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(8, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+
+
+def _plain_call(qualname: str, args, kwargs):
+    """Run a plain version in a worker: numpy arrays in and out, tensors in
+    between."""
+    import importlib
+
+    import torch
+
+    module, name = qualname.rsplit(".", 1)
+    fn = getattr(importlib.import_module(module), name)
+
+    def tensor(a):
+        return torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+
+    out = fn(*map(tensor, args), **{k: tensor(v) for k, v in kwargs.items()})
+    return tuple(t.numpy() for t in out) if isinstance(out, tuple) else out
+
+
+def submit_plain(pool, fn, *args, **kwargs):
+    """A plain version's call on `pool`; `.result()` of the returned future
+    gives numpy arrays (see `plain_result`)."""
+    def array(a):
+        return a.cpu().numpy() if hasattr(a, "numpy") else a
+
+    return pool.submit(_plain_call, f"{fn.__module__}.{fn.__name__}",
+                       tuple(map(array, args)),
+                       {k: array(v) for k, v in kwargs.items()})
+
+
+def plain_result(future):
+    import torch
+
+    return tuple(torch.from_numpy(a) for a in future.result())
+
+
+def phase_hc_encode(data: bytes, rng, dev, pool):
+    """Kernel B's HC and OPT arms against their plain version (computed on
+    `pool`).  Returns the worst difference of each arm."""
+    import torch
+    from lz4_tpu_torch.ops import encode
+
+    rows = _hc_rows(data, rng)
+    bufs, lens = _stage(rows, BLOCK + 1024)
+    levels = (3, 6, 9, 10, 11, 12)
+    wants = {level: submit_plain(pool, encode.encode_blocks_plain, bufs, lens, BLOCK, level)
+             for level in levels}
+    worst = {"hc": 0, "opt": 0}
+    for level in levels:
+        got = encode.encode_blocks(bufs.to(dev), lens.to(dev), BLOCK, level)
+        torch.cuda.synchronize()
+        want = plain_result(wants[level])
+        err = _max_abs_err(got, want)
+        _require(err == 0, f"encode level {level}: kernel != plain")
+        _require(not bool(want[2].any()), f"encode level {level}: overflow flag set")
+        arm = "opt" if level >= 10 else "hc"
+        worst[arm] = max(worst[arm], err)
+        print(f"[hc encode] level {level}: {len(rows)} rows equal, "
+              f"clens={want[1].tolist()}")
+    return worst
+
+
+def phase_hc_stream(data: bytes, rng, dev, pool):
+    """Kernel D's HC and OPT arms against their plain version (computed on
+    `pool`).  Returns the worst difference of each arm."""
+    import torch
+    from lz4_tpu_torch.ops import encode_stream
+
+    worst = {"hc": 0, "opt": 0}
+
+    def hold(what, got, want):
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        _require(err == 0, f"encode_stream {what}: kernel != plain")
+        _require(not bool(want[2].any()), f"encode_stream {what}: overflow flag set")
+        worst[arm] = max(worst[arm], err)
+        print(f"[hc encode_stream] {what}: {want[1].numel()} rows equal, "
+              f"clens={want[1].tolist()}")
+
+    nb = len(data) // BLOCK
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    payload_d = payload.to(dev)
+    st, offs, wl = chained_windows(len(data), BLOCK)
+    chained = sorted(int(x) for x in rng.choice(np.arange(1, nb), 4, replace=False))
+    picks = [int(rng.integers(1, nb)) for _ in range(3)]
+    bufs, lens = _stage([data[k * BLOCK:(k + 1) * BLOCK] for k in picks], BLOCK)
+    dls = torch.tensor([3000, 65536, 0], dtype=torch.int32)
+    dicts = torch.zeros((len(picks), 65536), dtype=torch.uint8)
+    for i, (k, dl) in enumerate(zip(picks, dls.tolist())):
+        if dl:
+            dicts[i, 65536 - dl:] = torch.frombuffer(
+                bytearray(data[k * BLOCK - dl:k * BLOCK]), dtype=torch.uint8)
+    at = int(rng.integers(0, len(data) - (1 << 20)))
+    big, big_lens = _stage([data[at:at + (1 << 20)]], 1 << 20)
+    levels = (3, 9, 10, 12)
+    # the window tensors hold only the chained rows' bytes, rebased
+    lo = int(st[chained].min())
+    hi = int((st[chained] + wl[chained]).max())
+    window = payload[lo:hi]
+    wants = {level: (
+        submit_plain(pool, encode_stream.encode_windows_plain, window,
+                     st[chained] - lo, offs[chained], wl[chained], BLOCK, level),
+        submit_plain(pool, encode_stream.encode_blocks_stream_plain, bufs, lens,
+                     BLOCK, level, dicts=dicts, dict_lens=dls),
+        submit_plain(pool, encode_stream.encode_blocks_stream_plain, big,
+                     big_lens, 1 << 20, level),
+    ) for level in levels}
+    for level in levels:
+        arm = "opt" if level >= 10 else "hc"
+        w_chain, w_dict, w_big = wants[level]
+        got = encode_stream.encode_windows(
+            payload_d, st[chained], offs[chained], wl[chained], BLOCK, level)
+        hold(f"level {level}, chained windows of blocks {chained}", got,
+             plain_result(w_chain))
+        got = encode_stream.encode_blocks_stream(
+            bufs.to(dev), lens.to(dev), BLOCK, level, dicts=dicts.to(dev),
+            dict_lens=dls.to(dev))
+        hold(f"level {level}, dictionaries {dls.tolist()}", got, plain_result(w_dict))
+        got = encode_stream.encode_blocks_stream(
+            big.to(dev), big_lens.to(dev), 1 << 20, level)
+        hold(f"level {level}, one 1 MiB row", got, plain_result(w_big))
+    return worst
+
+
+def check_hc_frame(data: bytes, dev, pool):
+    """The level 9 independent frame of the first 1 MiB, byte for byte
+    against the plain route's (the plain parse of all 16 MiB would take
+    minutes)."""
+    from lz4_tpu_torch import frame
+
+    head = data[:1 << 20]
+    settings = frame.EncoderSettings(compression_level=9, chain_blocks=False)
+    want = pool.submit(_plain_call, "lz4_tpu_torch.frame.compress",
+                       (head, settings), {"device": "cpu"})
+    _require(frame.compress(head, settings, device=dev) == want.result(),
+             "level 9 frame != the plain route's frame")
+    print("[hc paths] level 9 independent frame of 1 MiB: equal to the plain "
+          "route's, byte for byte")
+
+
+def phase_hc_paths(data: bytes, dev):
+    """The four HC/OPT round trips of 16 MiB."""
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.ops import decode, decode_stream, encode_stream
+
+    launches, e2e = {}, {}
+    for name, level, chained in (
+        ("L9_independent", 9, False), ("L9_chained", 9, True),
+        ("L12_independent", 12, False), ("L12_chained", 12, True),
+    ):
+        enc = encode_stream.encode_windows_opt if level >= 10 else encode_stream.encode_windows_hc
+        dec = decode_stream.decode_chain if chained else decode.decode_blocks
+        settings = frame.EncoderSettings(compression_level=level, chain_blocks=chained)
+        counts, rates = _round_trips(data, settings, dev, [enc, dec])
+        launches[name] = counts
+        e2e[name] = rates
+        print(f"[hc paths] {name}: {len(data)} bytes -> {rates['frame_bytes']} "
+              f"bytes (ratio {len(data) / rates['frame_bytes']:.4f}), round trip "
+              f"exact, deterministic, launches {counts}; median "
+              f"{rates['compress_GBps_median']:.4f} GB/s compress, "
+              f"{rates['decompress_GBps_median']:.4f} GB/s decompress")
+    return launches, e2e
+
+
+def phase_hc_times(data: bytes, dev):
+    """Kernel D's HC and OPT arms at their paths' shapes: 256 rows of 64 KB
+    (kernel B's rows, the independent path) and 256 chained windows.  CUDA-
+    event times; the plain version on four rows of the timed launch spread
+    over the batch, two of them past the 132 resident CTAs (taken by a CTA
+    that had already encoded a row), held byte for byte to the launch's
+    output and timed, scaled to the batch; bounds."""
+    import torch
+    from lz4_tpu_torch.ops import encode, encode_stream
+    from lz4_tpu_torch.parallel.blocks import split_blocks
+
+    bufs, lens = split_blocks(data, BLOCK)
+    nb = bufs.shape[0]
+    bufs_d, lens_d = bufs.to(dev), lens.to(dev)
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    payload_h = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    st, offs, wl = chained_windows(len(data), BLOCK)
+    picks = [q * nb // 4 + nb // 4 - 1 for q in range(4)]
+    entries = []
+    for level, arm in ((9, "hc"), (12, "opt")):
+        for path, run, plain, replaces, row_bytes in (
+            ("independent",
+             lambda: encode.encode_blocks(bufs_d, lens_d, BLOCK, level),
+             lambda: encode.encode_blocks_plain(bufs[picks], lens[picks], BLOCK, level),
+             "lz4_tpu/ops/encode_pallas5.py:1922", 12),
+            ("chained",
+             lambda: encode_stream.encode_windows(payload, st, offs, wl, BLOCK, level),
+             lambda: encode_stream.encode_windows_plain(
+                 payload_h, st[picks], offs[picks], wl[picks], BLOCK, level),
+             "lz4_tpu/ops/encode_pallas_stream.py:266", 24),
+        ):
+            got = run()
+            ms = _cuda_ms(run, 2)
+            t0 = time.perf_counter()
+            want = plain()
+            plain_ms = (time.perf_counter() - t0) * 1e3 / len(picks) * nb
+            err = _max_abs_err([t[picks] for t in got], want)
+            _require(err == 0, f"encode_windows_{arm} on the L{level} {path} "
+                     f"path's rows {picks}: kernel != plain")
+            clen = int(got[1].sum())
+            # the payload read once, the compressed bytes written once, and
+            # the per-row lengths, flags (and for D starts and prefixes)
+            moved = len(data) + clen + row_bytes * nb
+            print(f"[hc times] encode_windows_{arm} level {level}, {path}: "
+                  f"{ms:.3f} ms over {nb} rows, {clen} compressed bytes; rows "
+                  f"{picks} equal to the plain version")
+            entries.append({
+                "name": f"encode_windows_{arm}:{path}", "route": "cuda",
+                "source": "lz4_tpu_torch/ops/csrc/encode_stream.cu",
+                "replaces": f"{replaces} ({arm.upper()} arm, level {level})",
+                "path": f"L{level}_{path}", "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "library_ms": None})
+    return entries
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -766,9 +1047,28 @@ def main(argv=None) -> int:
     for k, err in zip(kernels, (enc_err, dec_err, stream_err, chain_err)):
         k["launches"] = launches[k["name"]]
         k["max_abs_err"] = err
+    t0 = time.perf_counter()
+    with plain_pool() as pool:
+        hc_err = {"independent": phase_hc_encode(data, rng, dev, pool),
+                  "chained": phase_hc_stream(data16, rng, dev, pool)}
+        check_hc_frame(data16, dev, pool)
+    print(f"[hc] kernels B and D held to their plain versions in "
+          f"{time.perf_counter() - t0:.1f} s")
+    hc_launches, hc_e2e = phase_hc_paths(data16, dev)
+    hc_kernels = phase_hc_times(data16, dev)
+    for k in hc_kernels:
+        fn, path = k["name"].split(":")
+        k["launches"] = hc_launches[k.pop("path")][fn]
+        k["max_abs_err"] = max(k["max_abs_err"], hc_err[path][fn.rsplit("_", 1)[1]])
+    kernels += hc_kernels
+    print(json.dumps({"hc_L9_chained": profile_path(
+        data16, dev, frame.EncoderSettings(compression_level=9))}))
+    print(json.dumps({"hc_L12_independent": profile_path(
+        data16, dev, frame.EncoderSettings(compression_level=12, chain_blocks=False))}))
     print(json.dumps({"e2e": e2e, "e2e_chained": chained_e2e,
                       "e2e_big_blocks": big_e2e,
                       "big_blocks_launches": big_launches}))
+    print(json.dumps({"e2e_hc": hc_e2e, "hc_launches": hc_launches}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ the card unless the caller passes ``device="cpu"``.
 Layer map (the slice ported so far):
 - `lz4_tpu_torch.constants` — format constants
 - `lz4_tpu_torch.xxh32`     — xxHash32
-- `lz4_tpu_torch.ops`       — kernels A (decode), B (FAST encode <= 64 KB),
-  D (FAST encode at any size, with dictionaries) and the chained decoder
+- `lz4_tpu_torch.ops`       — kernels A (decode), B (encode <= 64 KB) and D
+  (encode at any size, with dictionaries), each with its FAST (levels 0-2),
+  HC (3-9) and OPT (10-12) arms, and the chained decoder
 - `lz4_tpu_torch.parallel`  — batched encode/decode, chained encode
 - `lz4_tpu_torch.block`     — one-block encode/decode with dictionaries
 - `lz4_tpu_torch.frame`     — one-shot frame compress/decompress
@@ -20,7 +21,7 @@ from .block import LZ4Error
 from .constants import LZ4Level, compress_bound
 from .xxh32 import XXH32, xxh32
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "LZ4Level",

@@ -59,7 +59,8 @@ def encode(
     ``geometry`` (FAST levels, no dictionary): "canonical" reproduces
     LZ4_compress_default byte for byte; "dense" is the 15-bit finder.  A
     dictionary always takes the dense schedule, byte-identical to the host
-    engines' ``encode(..., dictionary=...)``."""
+    engines' ``encode(..., dictionary=...)``.  Levels 3-12 run the HC and
+    OPT arms, with or without a dictionary."""
     dev = resolve_device(device)
     data = _as_bytes(data)
     if geometry not in _GEOMETRIES:

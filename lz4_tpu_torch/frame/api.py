@@ -1,9 +1,9 @@
 """One-shot frame compress and decompress.
 
 The port of the device path of `lz4_tpu/frame/api.py`.  `compress` encodes
-every block of the frame in one launch: independent blocks on kernel B
-(at most 64 KB) or D (larger), chained blocks on D, each with the 64 KB of
-plaintext before it as its dictionary.  `decompress` scans the frame's
+every block of the frame in one launch, at any level 0-12: independent
+blocks on kernel B (at most 64 KB) or D (larger), chained blocks on D, each
+with the 64 KB of plaintext before it as its dictionary.  `decompress` scans the frame's
 block table on the host; an independent frame copies its stored blocks
 and decodes the compressed ones in one batch on kernel A, a chained frame
 decodes in one launch of the chained decoder.  Frames with a dictionary
@@ -83,12 +83,12 @@ def compress(
     launch on ``device`` (the plain versions when ``device="cpu"``).
 
     The default settings make a chained frame with the sequential chain
-    encoder's bytes (the dense schedule, each block with the 64 KB of
-    plaintext before it as its dictionary).  Independent blocks take the
-    canonical schedule unless ``geometry="dense"``.  A canonical chained
-    frame of more than one block needs upstream's sequential continue
-    schedule, a host path: it raises ValueError, as a device request does
-    in the JAX package."""
+    encoder's bytes (each block with the 64 KB of plaintext before it as
+    its dictionary).  At levels 0-2 independent blocks take the canonical
+    schedule unless ``geometry="dense"``, and a canonical chained frame of
+    more than one block needs upstream's sequential continue schedule, a
+    host path: it raises ValueError, as a device request does in the JAX
+    package.  Levels 3-12 take the HC and OPT arms whatever the geometry."""
     dev = resolve_device(device)
     data = _as_bytes(data)
     settings = settings or EncoderSettings()

@@ -2,7 +2,8 @@
 
 `round_up`, `align1024`, `bucket` and `LEVEL_ATTEMPTS` are the port's own
 copies of `lz4_tpu/ops/common.py`; `resolve_device` is the port's device
-rule for every public entry point.
+rule for every public entry point; `read32`, `run_length` and `emit` are
+the plain encoders' primitives.
 """
 
 from __future__ import annotations
@@ -29,6 +30,39 @@ LEVEL_ATTEMPTS = {
     0: 0, 1: 0, 2: 0,
     3: 4, 4: 8, 5: 16, 6: 32, 7: 64, 8: 128, 9: 256,
 }
+
+
+def read32(s, p: int) -> int:
+    """Little-endian 32-bit word of s at p."""
+    return s[p] | (s[p + 1] << 8) | (s[p + 2] << 16) | (s[p + 3] << 24)
+
+
+def run_length(s, a: int, b: int, limit: int) -> int:
+    """Common run of s[a..] and s[b..], clipped at limit - b."""
+    k = 0
+    while b + k < limit and s[a + k] == s[b + k]:
+        k += 1
+    return k
+
+
+def emit(out: bytearray, s, anchor: int, ll: int, off: int, ml: int):
+    """The plain encoders' sequence writer: literals s[anchor, anchor + ll),
+    then a match of ``ml`` bytes at offset ``off`` (ml == 0: the final
+    literals, no match)."""
+    mlc = ml - 4 if ml else 0
+    out.append((min(ll, 15) << 4) | min(mlc, 15))
+    if ll >= 15:
+        v = ll - 15
+        out += b"\xff" * (v // 255)
+        out.append(v % 255)
+    out += s[anchor:anchor + ll]
+    if ml:
+        out.append(off & 0xFF)
+        out.append(off >> 8)
+        if mlc >= 15:
+            v = mlc - 15
+            out += b"\xff" * (v // 255)
+            out.append(v % 255)
 
 
 def bucket(n: int, floor: int = 1 << 12) -> int:

@@ -24,6 +24,9 @@
 // the canonical scan and 3 for the dense one (227 KB of shared memory per
 // SM).  The dense table is above the 48 KB default, hence the
 // cudaFuncSetAttribute below.
+//
+// Levels 3-12 (`pallas_encode5`'s HC and OPT arms) run on kernel D's
+// `encode_windows_hc` (encode_stream.cu), each row a window of the batch.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -1,5 +1,5 @@
-// Kernel D: LZ4 block encode, FAST levels, at any block size and with a
-// window of dictionary bytes before each row.
+// Kernel D: LZ4 block encode at any block size and with a window of
+// dictionary bytes before each row, at every level.
 //
 // Replaces the FAST arms of the TPU kernel `pallas_encode_stream`
 // (lz4_tpu/ops/encode_pallas_stream.py, `_encode_stream_one` over
@@ -29,11 +29,32 @@
 // window passes 65,535 bytes as soon as a 64 KB block has a prefix), so one
 // CTA fits on an SM (227 KB) and 132 rows run at once.  The canonical
 // tables are 16 KB (2^13 u16 or 2^12 u32 entries): 14 CTAs per SM.
+//
+// The HC (levels 3-9) and OPT (levels 10-12) arms, `encode_windows_hc`,
+// replace the `hc_body` and `opt_body` arms of both `pallas_encode_stream`
+// and `pallas_encode5`: kernel B's rows at these levels come here as
+// windows without a prefix.  Their bodies live in lz4_hc_body.cuh.  Each
+// prefix is inserted into the chain as the native engine does, the delta
+// ring indexed pos & 0xFFFF at every window size (a 4 MiB row walks the
+// same 128 KB ring).
+//
+// What bounds them: the same serial parse, now with a chain walk of up to
+// `depth` steps per search (256 at level 9, 16,384 at 12), each a
+// dependent read of the delta ring and of the source.  What the design does
+// about that: the ring (128 KB), read at every step, lives in dynamic
+// shared memory with the OPT arm's price table (64 KB); the head table
+// (2^15 ints, 128 KB), touched once per inserted position, lives in a slot
+// of device memory per resident CTA (one CTA per SM at 131,072 or 196,656
+// bytes of shared memory, so 132 slots, 17 MB, which stays in the 50 MB
+// L2).  The grid is persistent: each CTA takes the next row from an atomic
+// counter, so a row with long chains holds up no wave.  Its 256 threads
+// reset the tables between rows; one thread parses.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "lz4_encode_body.cuh"
+#include "lz4_hc_body.cuh"
 
 using namespace lz4t;
 
@@ -68,6 +89,47 @@ __global__ void __launch_bounds__(32) encode_windows(
   errs[row] = o.op > ocap ? 1 : 0;
 }
 
+// The HC (kOpt false, levels 3-9) and OPT (kOpt true, levels 10-12) arms,
+// over the same windows, every prefix inserted into the chain: a persistent
+// grid, one CTA per slot of `heads`, each taking the next row from
+// `next_row` until none is left.  `depth` is the chain steps per search;
+// `sufficient` and `full` are the OPT arm's.
+template <bool kOpt>
+__global__ void __launch_bounds__(kHcThreads) encode_windows_hc(
+    const uint8_t* __restrict__ base, const long long* __restrict__ starts,
+    const int* __restrict__ src_offs, const int* __restrict__ lens,
+    uint8_t* __restrict__ out, long long out_stride, int ocap, int depth,
+    int sufficient, int full, int* __restrict__ heads,
+    int* __restrict__ next_row, int nrows, int* __restrict__ clens,
+    int* __restrict__ errs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int row_s;
+  uint16_t* delta = reinterpret_cast<uint16_t*>(smem);
+  OptCell* cells = reinterpret_cast<OptCell*>(smem + kHcRingBytes);
+  int* head = heads + static_cast<long long>(blockIdx.x) * kHcHeadInts;
+  for (;;) {
+    if (threadIdx.x == 0) row_s = atomicAdd(next_row, 1);
+    __syncthreads();
+    const int row = row_s;
+    if (row >= nrows) return;
+    hc_reset(head, delta);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const uint8_t* s = base + starts[row];
+      Sink o{out + row * out_stride, 0, static_cast<int>(out_stride)};
+      if (kOpt)
+        opt_scan(s, src_offs[row], lens[row], depth, sufficient, full, o, head, delta, cells);
+      else
+        hc_scan(s, src_offs[row], lens[row], depth, o, head, delta);
+      clens[row] = o.op;
+      errs[row] = o.op > ocap ? 1 : 0;
+    }
+    __syncthreads();
+  }
+}
+
+auto hc_kernel(int opt) { return opt ? encode_windows_hc<true> : encode_windows_hc<false>; }
+
 }  // namespace
 
 // ---- C interface (ctypes) ------------------------------------------------
@@ -94,6 +156,57 @@ extern "C" int lz4t_encode_stream(const void* base, const void* starts,
       static_cast<const uint8_t*>(base), static_cast<const long long*>(starts),
       static_cast<const int*>(src_offs), static_cast<const int*>(lens),
       static_cast<uint8_t*>(out), out_stride, ocap, accel, dense,
+      static_cast<int*>(clens), static_cast<int*>(errs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- HC / OPT arms --------------------------------------------------------
+
+// Dynamic shared memory of one CTA of an arm: the delta ring, and the OPT
+// arm's price table.
+extern "C" int lz4t_encode_stream_hc_shared_bytes(int opt) {
+  return kHcRingBytes + (opt ? kOptCellsBytes : 0);
+}
+
+// CTAs of an arm that the current device holds at once: the head-table
+// slots the caller allocates (kHcHeadInts ints each).
+extern "C" int lz4t_encode_stream_hc_slots(int opt, int* slots) {
+  const auto kernel = hc_kernel(opt);
+  const int smem = lz4t_encode_stream_hc_shared_bytes(opt);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kHcThreads, smem);
+  *slots = sms * per_sm;
+  return static_cast<int>(e);
+}
+
+// Launches min(nslots, nrows) CTAs on `stream`, does not synchronise,
+// returns the first CUDA error (0 on success).  `heads` holds nslots head
+// tables; `next_row` is one int, 0 on entry.  The caller has checked every
+// window against `base`.
+extern "C" int lz4t_encode_stream_hc(const void* base, const void* starts,
+                                     const void* src_offs, const void* lens,
+                                     void* out, long long out_stride, int ocap,
+                                     int opt, int depth, int sufficient,
+                                     int full, void* heads, int nslots,
+                                     void* next_row, void* clens, void* errs,
+                                     int nrows, void* stream) {
+  const auto kernel = hc_kernel(opt);
+  const int smem = lz4t_encode_stream_hc_shared_bytes(opt);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<nslots < nrows ? nslots : nrows, kHcThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(base), static_cast<const long long*>(starts),
+      static_cast<const int*>(src_offs), static_cast<const int*>(lens),
+      static_cast<uint8_t*>(out), out_stride, ocap, depth, sufficient, full,
+      static_cast<int*>(heads), static_cast<int*>(next_row), nrows,
       static_cast<int*>(clens), static_cast<int*>(errs));
   return static_cast<int>(cudaGetLastError());
 }

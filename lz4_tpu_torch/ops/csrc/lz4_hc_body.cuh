@@ -1,0 +1,489 @@
+// The LZ4 HC (levels 3-9) and OPT (levels 10-12) encode bodies of kernel
+// D's HC/OPT kernel (encode_stream.cu), which also takes kernel B's rows at
+// these levels: the hash-chain
+// engine of lz4_tpu/native/lz4tpu.c (chain_insert, count_pattern,
+// hc_wider_match, lz4tpu_encode_hc, lz4tpu_encode_opt), whose bytes the TPU
+// kernels' `_encode_body` HC and OPT arms (lz4_tpu/ops/encode_pallas5.py:
+// insert_upto, wider_match, hc_body, opt_body) reproduce, and so liblz4's
+// LZ4_compress_HC at levels 3-12.
+//
+// A row is a flat window s[0, n): a prefix s[0, src_off) that enters the
+// chain through the normal insert and that matches may reach, then the block
+// s[src_off, n) to encode.  One thread runs a scan.  Its tables:
+// - head: 2^15 most recent positions (int, kHcEmpty when empty), written
+//   and read once per inserted position;
+// - delta: the u16 ring of distances to the previous position of the same
+//   hash, indexed pos & 0xFFFF at every window size, read at every chain step;
+// - cells (OPT only): the price table of one 4,096-position window.
+// The caller resets head and delta with hc_reset before each row.  Every
+// read stays inside [0, n).
+
+#pragma once
+
+#include <cstdint>
+
+#include "lz4_encode_body.cuh"
+
+namespace lz4t {
+
+constexpr int kHcHashLog = 15;
+constexpr int kHcEmpty = -65536;  // any i - kHcEmpty exceeds 0xFFFF: chain end
+constexpr int kOptimalMl = 18;    // (ML_MASK - 1) + MIN_MATCH
+constexpr int kOptNum = 4096;     // the optimal parse's window
+constexpr int kOptTrailing = 3;
+
+struct OptCell {
+  int price, off, mlen, litlen;
+};
+
+constexpr int kHcThreads = 256;  // reset the tables together; one of them parses
+constexpr int kHcHeadInts = 1 << kHcHashLog;
+constexpr int kHcRingBytes = 65536 * static_cast<int>(sizeof(uint16_t));
+constexpr int kOptCellsBytes = (kOptNum + kOptTrailing) * static_cast<int>(sizeof(OptCell));
+
+// Reset one row's tables, by every thread of the CTA: head to kHcEmpty,
+// delta to 0xFFFF (lz4tpu.c chain_init).
+__device__ inline void hc_reset(int* head, uint16_t* delta) {
+  int4* h = reinterpret_cast<int4*>(head);
+  uint4* d = reinterpret_cast<uint4*>(delta);
+  const int4 e = make_int4(kHcEmpty, kHcEmpty, kHcEmpty, kHcEmpty);
+  const uint4 f = make_uint4(~0u, ~0u, ~0u, ~0u);
+  for (int i = threadIdx.x; i < kHcHeadInts / 4; i += blockDim.x) h[i] = e;
+  for (int i = threadIdx.x; i < kHcRingBytes / 16; i += blockDim.x) d[i] = f;
+}
+
+__device__ __forceinline__ int read16(const uint8_t* s, int p) {
+  return s[p] | (s[p + 1] << 8);
+}
+
+struct Chain {
+  const uint8_t* s;
+  int* head;
+  uint16_t* delta;
+  int inserted;    // positions [0, inserted) are in the tables
+  int max_insert;  // read32 must stay in bounds
+  int ihigh;       // match limit: n - LAST_LITERALS
+  int attempts;    // chain steps per search
+};
+
+__device__ inline void chain_insert(Chain& c, int upto) {
+  if (upto > c.max_insert) upto = c.max_insert;
+  for (int i = c.inserted; i < upto; ++i) {
+    const int h = hash4<kHcHashLog>(read32(c.s, i));
+    const int d = i - c.head[h];
+    c.delta[i & 0xFFFF] = static_cast<uint16_t>(d > 0xFFFF ? 0xFFFF : d);
+    c.head[h] = i;
+  }
+  if (upto > c.inserted) c.inserted = upto;
+}
+
+// Forward length over which bytes repeat the little-endian 4-byte pattern.
+__device__ inline int count_pattern(const uint8_t* s, int p, int end, uint32_t pattern) {
+  const int start = p;
+  while (p + 4 <= end && read32(s, p) == pattern) p += 4;
+  while (p < end && s[p] == (pattern & 0xFF)) {
+    ++p;
+    pattern = (pattern >> 8) | (pattern << 24);
+  }
+  return p - start;
+}
+
+// Backward pattern run length from p (the pattern scanned from its last
+// byte), down to position 0.
+__device__ inline int count_back_pattern(const uint8_t* s, int p, uint32_t pattern) {
+  const int start = p;
+  while (p > 0 && s[p - 1] == (pattern >> 24)) {
+    --p;
+    pattern = (pattern << 8) | (pattern >> 24);
+  }
+  return start - p;
+}
+
+// Widest match at ip whose start may slide back to ilow (lz4tpu.c
+// hc_wider_match).  When it beats `longest` it sets m_start (>= ilow) and
+// m_pos (the match source for m_start).  `pa`: repeated-pattern
+// acceleration; `swap`: follow the chain entry inside the current best that
+// jumps farthest back (the OPT search, which forces `pa` on).
+__device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start,
+                           int& m_pos, bool pa, bool swap) {
+  const uint8_t* s = c.s;
+  const int pos = ip;
+  const int lowest = pos > kMaxDistance ? pos - kMaxDistance : 0;
+  const int lookback = ip - ilow;
+  const uint32_t pattern = read32(s, ip);
+  int attempts = c.attempts;
+  int chain_off = 0;
+  bool repeat_tested = false, repeat_confirmed = false;
+  int src_pat_len = 0;
+  int best_s = m_start, best_p = m_pos;
+  int want = read16(s, ilow + longest - 1);  // the two bytes a wider match must reproduce
+
+  chain_insert(c, pos);
+  int cand = c.head[hash4<kHcHashLog>(pattern)];
+  while (cand >= pos) {  // self/ahead entries from lookahead probes
+    const int d = c.delta[cand & 0xFFFF];
+    if (d > cand) {
+      cand = -1;
+      break;
+    }
+    cand -= d;
+  }
+
+  while (cand >= lowest && attempts > 0) {
+    int match_len = 0;
+    --attempts;
+    if (want == read16(s, cand - lookback + longest - 1) && read32(s, cand) == pattern) {
+      int back = 0;
+      if (lookback) {
+        const int floor = ilow - ip > -cand ? ilow - ip : -cand;
+        while (back > floor && s[ip + back - 1] == s[cand + back - 1]) --back;
+      }
+      match_len = kMinMatch + run_length(s, cand + kMinMatch, ip + kMinMatch, c.ihigh) - back;
+      if (match_len > longest) {
+        longest = match_len;
+        best_p = cand + back;
+        best_s = ip + back;
+        want = read16(s, ilow + longest - 1);
+      }
+    }
+
+    if (swap && match_len == longest && cand + longest <= pos) {
+      int best_jump = 1;
+      const int end = longest - kMinMatch + 1;
+      int step = 1, accel = 1 << 4;
+      chain_off = 0;
+      for (int q = 0; q < end; q += step) {
+        const int d = c.delta[(cand + q) & 0xFFFF];
+        step = accel++ >> 4;
+        if (d > best_jump) {
+          best_jump = d;
+          chain_off = q;
+          accel = 1 << 4;
+        }
+      }
+      if (best_jump > 1) {
+        if (best_jump > cand) break;
+        cand -= best_jump;
+        continue;
+      }
+    }
+
+    if (pa && c.delta[cand & 0xFFFF] == 1 && chain_off == 0) {
+      // the candidate sits in a run of a repeated pattern: jump straight to
+      // the best-aligned position of the run
+      const int cand2 = cand - 1;
+      if (!repeat_tested) {
+        repeat_tested = true;
+        repeat_confirmed = (pattern & 0xFFFF) == (pattern >> 16) &&
+                           (pattern & 0xFF) == (pattern >> 24);
+        if (repeat_confirmed) src_pat_len = count_pattern(s, ip + 4, c.ihigh, pattern) + 4;
+      }
+      if (repeat_confirmed && cand2 >= lowest && read32(s, cand2) == pattern) {
+        const int fwd = count_pattern(s, cand2 + 4, c.ihigh, pattern) + 4;
+        int backp = count_back_pattern(s, cand2, pattern);
+        if (backp > cand2 - lowest) backp = cand2 - lowest;
+        const int seg = backp + fwd;
+        if (seg >= src_pat_len && fwd <= src_pat_len) {
+          cand = cand2 + fwd - src_pat_len;  // the run holds the source's: align to its end
+        } else {
+          cand = cand2 - backp;  // the run's farthest position
+          if (lookback == 0) {
+            const int max_ml = seg < src_pat_len ? seg : src_pat_len;
+            if (longest < max_ml) {
+              if (pos - cand > kMaxDistance) break;
+              longest = max_ml;
+              best_p = cand;
+              best_s = ip;
+              want = read16(s, ilow + longest - 1);
+            }
+            const int d2 = c.delta[cand & 0xFFFF];
+            if (d2 > cand) break;
+            cand -= d2;
+          }
+        }
+        continue;
+      }
+    }
+
+    const int d = c.delta[(cand + chain_off) & 0xFFFF];
+    if (d > cand) break;
+    cand -= d;
+  }
+  m_start = best_s;
+  m_pos = best_p;
+  return longest;
+}
+
+// The HC arm (lz4tpu.c lz4tpu_encode_hc): the three-candidate lookahead
+// parse.  After finding ML1, probe for a strictly longer ML2 overlapping
+// it, then an ML3 beyond ML2, resolving the overlaps with the OPTIMAL_ML
+// trim rules.  `attempts` chain steps per search; pattern analysis from 256
+// (level 9) up.
+__device__ void hc_scan(const uint8_t* s, int src_off, int n, int attempts, Sink& o,
+                        int* head, uint16_t* delta) {
+  int anchor = src_off;
+  if (n - src_off >= kMfLimit + 1) {
+    const bool pa = attempts > 128;
+    const int mflimit = n - kMfLimit;
+    Chain c{s, head, delta, 0, n - kMinMatch + 1, n - kLastLiterals, attempts};
+    chain_insert(c, src_off);
+    int ip = src_off;
+    int ml, ml0, ml2, ml3, ref, ref0, ref2, ref3, start0, start2, start3;
+    while (ip <= mflimit) {
+      {
+        int ms = ip, mp = -1;
+        ml = wider_match(c, ip, ip, kMinMatch - 1, ms, mp, pa, false);
+        if (ml < kMinMatch) {
+          ++ip;
+          continue;
+        }
+        ref = mp;
+      }
+      start0 = ip;
+      ref0 = ref;
+      ml0 = ml;
+
+    search2:
+      if (ip + ml <= mflimit) {
+        start2 = ip + ml - 2;
+        ref2 = -1;
+        ml2 = wider_match(c, start2, ip, ml, start2, ref2, pa, false);
+      } else {
+        ml2 = ml;
+      }
+      if (ml2 == ml) {  // no better overlap: emit ML1
+        emit(o, s, anchor, ip - anchor, ip - ref, ml);
+        ip += ml;
+        anchor = ip;
+        continue;
+      }
+      if (start0 < ip && start2 < ip + ml0) {  // the skipped ML1 still fits: restore it
+        ip = start0;
+        ref = ref0;
+        ml = ml0;
+      }
+      if (start2 - ip < 3) {  // ML1 too short to keep: ML2 replaces it
+        ml = ml2;
+        ip = start2;
+        ref = ref2;
+        goto search2;
+      }
+
+    search3:
+      if (start2 - ip < kOptimalMl) {  // trim ML1 so the pair packs token-optimally
+        int new_ml = ml > kOptimalMl ? kOptimalMl : ml;
+        if (ip + new_ml > start2 + ml2 - kMinMatch) new_ml = (start2 - ip) + ml2 - kMinMatch;
+        const int corr = new_ml - (start2 - ip);
+        if (corr > 0) {
+          start2 += corr;
+          ref2 += corr;
+          ml2 -= corr;
+        }
+      }
+      if (start2 + ml2 <= mflimit) {
+        start3 = start2 + ml2 - 3;
+        ref3 = -1;
+        ml3 = wider_match(c, start3, start2, ml2, start3, ref3, pa, false);
+      } else {
+        ml3 = ml2;
+      }
+      if (ml3 == ml2) {  // stable pair: emit ML1 then ML2
+        if (start2 < ip + ml) ml = start2 - ip;
+        emit(o, s, anchor, ip - anchor, ip - ref, ml);
+        anchor = ip + ml;
+        emit(o, s, anchor, start2 - anchor, start2 - ref2, ml2);
+        ip = start2 + ml2;
+        anchor = ip;
+        continue;
+      }
+      if (start3 < ip + ml + 3) {  // ML3 kills ML2
+        if (start3 >= ip + ml) {   // ML1 can go now; ML3 becomes the new ML1
+          if (start2 < ip + ml) {
+            const int corr = (ip + ml) - start2;
+            start2 += corr;
+            ref2 += corr;
+            ml2 -= corr;
+            if (ml2 < kMinMatch) {
+              start2 = start3;
+              ref2 = ref3;
+              ml2 = ml3;
+            }
+          }
+          emit(o, s, anchor, ip - anchor, ip - ref, ml);
+          anchor = ip + ml;
+          ip = start3;
+          ref = ref3;
+          ml = ml3;
+          start0 = start2;
+          ref0 = ref2;
+          ml0 = ml2;
+          goto search2;
+        }
+        start2 = start3;
+        ref2 = ref3;
+        ml2 = ml3;
+        goto search3;
+      }
+      // three ascending matches: emit ML1 (trimmed), shift the window
+      if (start2 < ip + ml) {
+        if (start2 - ip < kOptimalMl) {
+          if (ml > kOptimalMl) ml = kOptimalMl;
+          if (ip + ml > start2 + ml2 - kMinMatch) ml = (start2 - ip) + ml2 - kMinMatch;
+          const int corr = ml - (start2 - ip);
+          if (corr > 0) {
+            start2 += corr;
+            ref2 += corr;
+            ml2 -= corr;
+          }
+        } else {
+          ml = start2 - ip;
+        }
+      }
+      emit(o, s, anchor, ip - anchor, ip - ref, ml);
+      anchor = ip + ml;
+      ip = start2;
+      ref = ref2;
+      ml = ml2;
+      start2 = start3;
+      ref2 = ref3;
+      ml2 = ml3;
+      goto search3;
+    }
+  }
+  emit(o, s, anchor, n - anchor, 0, 0);
+}
+
+__device__ __forceinline__ int lit_price(int litlen) {
+  return litlen + (litlen >= 15 ? 1 + (litlen - 15) / 255 : 0);
+}
+
+__device__ __forceinline__ int seq_price(int litlen, int mlen) {
+  return 3 + lit_price(litlen) +
+         (mlen >= 15 + kMinMatch ? 1 + (mlen - 15 - kMinMatch) / 255 : 0);
+}
+
+// Best (length, offset) at ip by the chain-swap search; length 0 when none
+// is longer than min_len.
+__device__ __forceinline__ int opt_find(Chain& c, int ip, int min_len, int& off) {
+  int ms = ip, mp = -1;
+  const int len = wider_match(c, ip, ip, min_len, ms, mp, true, true);
+  if (len <= min_len) return 0;
+  off = ip - mp;
+  return len;
+}
+
+__device__ __forceinline__ void opt_set(OptCell& cell, int price, int off, int mlen, int litlen) {
+  cell.price = price;
+  cell.off = off;
+  cell.mlen = mlen;
+  cell.litlen = litlen;
+}
+
+// The OPT arm (lz4tpu.c lz4tpu_encode_opt): the exact price-model optimal
+// parse over 4,096-position windows, a match longer than `sufficient`
+// (<= 4,095) taken at once, and with `full` (level 12) every position
+// searched anew.
+__device__ void opt_scan(const uint8_t* s, int src_off, int n, int searches, int sufficient,
+                         bool full, Sink& o, int* head, uint16_t* delta, OptCell* cells) {
+  int anchor = src_off;
+  if (n - src_off >= kMfLimit + 1) {
+    const int mflimit = n - kMfLimit;
+    Chain c{s, head, delta, 0, n - kMinMatch + 1, n - kLastLiterals, searches};
+    chain_insert(c, src_off);
+    int ip = src_off;
+    while (ip <= mflimit) {
+      const int llen = ip - anchor;
+      int first_off = 0;
+      const int first_len = opt_find(c, ip, kMinMatch - 1, first_off);
+      if (first_len == 0) {
+        ++ip;
+        continue;
+      }
+      if (first_len > sufficient) {  // long enough: take it outright
+        emit(o, s, anchor, llen, first_off, first_len);
+        ip += first_len;
+        anchor = ip;
+        continue;
+      }
+      // seed the price table: leading literals, then the first match
+      for (int r = 0; r < kMinMatch; ++r) opt_set(cells[r], lit_price(llen + r), 0, 1, llen + r);
+      for (int m = kMinMatch; m <= first_len; ++m)
+        opt_set(cells[m], seq_price(llen, m), first_off, m, llen);
+      int last = first_len;
+      for (int a = 1; a <= kOptTrailing; ++a)
+        opt_set(cells[last + a], cells[last].price + lit_price(a), 0, 1, a);
+
+      int best_mlen, best_off, cur;
+      for (cur = 1; cur < last; ++cur) {
+        if (ip + cur > mflimit) break;
+        if (cells[cur + 1].price <= cells[cur].price &&
+            (!full || cells[cur + kMinMatch].price < cells[cur].price + 3))
+          continue;
+        int new_off = 0;
+        const int new_len = opt_find(c, ip + cur, full ? kMinMatch - 1 : last - cur, new_off);
+        if (new_len == 0) continue;
+        if (new_len > sufficient || new_len + cur >= kOptNum) {
+          best_mlen = new_len;
+          best_off = new_off;
+          last = cur + 1;
+          goto encode;
+        }
+        {  // literal extensions from cur
+          const int base_ll = cells[cur].litlen;
+          const int base_p = cells[cur].price;
+          for (int l = 1; l < kMinMatch; ++l) {
+            const int price = base_p - lit_price(base_ll) + lit_price(base_ll + l);
+            if (price < cells[cur + l].price) opt_set(cells[cur + l], price, 0, 1, base_ll + l);
+          }
+        }
+        {  // match lengths from cur
+          const bool lit = cells[cur].mlen == 1;
+          const int ll = lit ? cells[cur].litlen : 0;
+          const int base = lit ? (cur > ll ? cells[cur - ll].price : 0) : cells[cur].price;
+          for (int m = kMinMatch; m <= new_len; ++m) {
+            const int p = cur + m;
+            const int price = base + seq_price(ll, m);
+            if (p > last + kOptTrailing || price <= cells[p].price) {
+              if (m == new_len && last < p) last = p;
+              opt_set(cells[p], price, new_off, m, ll);
+            }
+          }
+        }
+        for (int a = 1; a <= kOptTrailing; ++a)
+          opt_set(cells[last + a], cells[last].price + lit_price(a), 0, 1, a);
+      }
+      best_mlen = cells[last].mlen;
+      best_off = cells[last].off;
+      cur = last - best_mlen;
+
+    encode:
+      {  // reverse the chosen path in place, then emit it forward
+        int p = cur, sel_len = best_mlen, sel_off = best_off;
+        for (;;) {
+          const int nl = cells[p].mlen, no = cells[p].off;
+          cells[p].mlen = sel_len;
+          cells[p].off = sel_off;
+          sel_len = nl;
+          sel_off = no;
+          if (nl > p) break;  // reached the first step
+          p -= nl;
+        }
+      }
+      for (int r = 0; r < last;) {
+        const int m = cells[r].mlen, off = cells[r].off;
+        if (m == 1) {
+          ++ip;
+          ++r;
+          continue;
+        }
+        r += m;
+        emit(o, s, anchor, ip - anchor, off, m);
+        ip += m;
+        anchor = ip;
+      }
+    }
+  }
+  emit(o, s, anchor, n - anchor, 0, 0);
+}
+
+}  // namespace lz4t

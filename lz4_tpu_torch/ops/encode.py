@@ -1,11 +1,14 @@
-"""Batched LZ4 block encode at the FAST levels: kernel B
-(`csrc/encode.cu`) and its plain version.
+"""Batched LZ4 block encode of blocks up to 64 KB at every level: kernel B
+(`csrc/encode.cu`) and its plain versions.
 
-The port of the FAST arms of `lz4_tpu/ops/encode_pallas5.py`
-(`pallas_encode5`, wrapper `encode_blocks_pallas5`), with the same bytes:
-the canonical byU16 schedule (LZ4_compress_default) and the dense 15-bit
-schedule.  The kernel's source says what bounds it on the card and what
-its design does about that.
+The port of `lz4_tpu/ops/encode_pallas5.py` (`pallas_encode5`, wrapper
+`encode_blocks_pallas5`), with the same bytes: at levels 0-2 the FAST arm,
+the canonical byU16 schedule (LZ4_compress_default) or the dense 15-bit
+schedule (`encode_rows`); at levels 3-9 the HC arm and at 10-12 the OPT
+arm, which run on kernel D's HC/OPT kernel with the rows as its windows
+(`encode_stream.encode_windows_hc`/`_opt`; plain versions in
+`ops/encode_hc.py`).  The kernel's source says what bounds it on the card
+and what its design does about that.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 
 from ..constants import compress_bound
 from .build import check, load
-from .common import LEVEL_ATTEMPTS, align1024
+from .common import align1024, emit, read32, run_length
+from .encode_hc import encode_row, level_arm
 
 MIN_MATCH = 4
 MF_LIMIT = 12
@@ -54,34 +58,6 @@ def shared_bytes(fast_schedule: str) -> int:
     return _kernel().lz4t_encode_shared_bytes(int(fast_schedule == "dense"))
 
 
-def _read32(s, p: int) -> int:
-    return s[p] | (s[p + 1] << 8) | (s[p + 2] << 16) | (s[p + 3] << 24)
-
-
-def _run_length(s, a: int, b: int, limit: int) -> int:
-    k = 0
-    while b + k < limit and s[a + k] == s[b + k]:
-        k += 1
-    return k
-
-
-def _emit(out: bytearray, s, anchor: int, ll: int, off: int, ml: int):
-    mlc = ml - MIN_MATCH if ml else 0
-    out.append((min(ll, 15) << 4) | min(mlc, 15))
-    if ll >= 15:
-        v = ll - 15
-        out += b"\xff" * (v // 255)
-        out.append(v % 255)
-    out += s[anchor:anchor + ll]
-    if ml:
-        out.append(off & 0xFF)
-        out.append(off >> 8)
-        if mlc >= 15:
-            v = mlc - 15
-            out += b"\xff" * (v // 255)
-            out.append(v % 255)
-
-
 def _encode_canonical(s: bytes, accel: int) -> bytearray:
     """Upstream one-shot schedule: byU16 (13-bit table, 4-byte hash) below
     65,547 bytes, byU32 (12-bit table, 5-byte hash, candidates farther than
@@ -95,7 +71,7 @@ def _encode_canonical(s: bytes, accel: int) -> bytearray:
             tab = [0] * (1 << 13)
 
             def h(p):
-                return ((_read32(s, p) * 2654435761) & 0xFFFFFFFF) >> 19
+                return ((read32(s, p) * 2654435761) & 0xFFFFFFFF) >> 19
         else:
             tab = [0] * (1 << 12)
 
@@ -116,27 +92,27 @@ def _encode_canonical(s: bytes, accel: int) -> bytearray:
                 step = ramp >> SKIP_TRIGGER
                 ramp += 1
                 if fwd > mf1:
-                    _emit(out, s, anchor, n - anchor, 0, 0)
+                    emit(out, s, anchor, n - anchor, 0, 0)
                     return out
                 match = tab[hh]
                 fh = h(fwd)
                 tab[hh] = ip
                 if not u16 and match + MAX_DISTANCE < ip:
                     continue
-                if _read32(s, match) == _read32(s, ip):
+                if read32(s, match) == read32(s, ip):
                     break
             while ip > anchor and match > 0 and s[ip - 1] == s[match - 1]:
                 ip -= 1
                 match -= 1
             while True:
-                ml = MIN_MATCH + _run_length(
+                ml = MIN_MATCH + run_length(
                     s, match + MIN_MATCH, ip + MIN_MATCH, match_limit
                 )
-                _emit(out, s, anchor, ip - anchor, ip - match, ml)
+                emit(out, s, anchor, ip - anchor, ip - match, ml)
                 ip += ml
                 anchor = ip
                 if ip >= mf1:
-                    _emit(out, s, anchor, n - anchor, 0, 0)
+                    emit(out, s, anchor, n - anchor, 0, 0)
                     return out
                 tab[h(ip - 2)] = ip - 2
                 h2 = h(ip)
@@ -144,12 +120,12 @@ def _encode_canonical(s: bytes, accel: int) -> bytearray:
                 tab[h2] = ip
                 if not u16 and m2 + MAX_DISTANCE < ip:
                     break
-                if _read32(s, m2) != _read32(s, ip):
+                if read32(s, m2) != read32(s, ip):
                     break
                 match = m2
             ip += 1
             fh = h(ip)
-    _emit(out, s, anchor, n - anchor, 0, 0)
+    emit(out, s, anchor, n - anchor, 0, 0)
     return out
 
 
@@ -164,7 +140,7 @@ def _encode_dense(s: bytes, accel: int, src_off: int = 0) -> bytearray:
         return ((w * 2654435761) & 0xFFFFFFFF) >> 17
 
     for i in range(0, src_off - MIN_MATCH + 1, 2):
-        tab[h(_read32(s, i))] = i
+        tab[h(read32(s, i))] = i
     anchor = src_off
     if n - src_off > MF_LIMIT:
         mf_limit = n - MF_LIMIT
@@ -172,39 +148,29 @@ def _encode_dense(s: bytes, accel: int, src_off: int = 0) -> bytearray:
         p = src_off
         search = accel << SKIP_TRIGGER
         while p < mf_limit:
-            w = _read32(s, p)
+            w = read32(s, p)
             hh = h(w)
             cand = tab[hh]
             tab[hh] = p
-            if cand >= 0 and p - cand <= MAX_DISTANCE and _read32(s, cand) == w:
+            if cand >= 0 and p - cand <= MAX_DISTANCE and read32(s, cand) == w:
                 while p > anchor and cand > 0 and s[p - 1] == s[cand - 1]:
                     p -= 1
                     cand -= 1
-                ml = MIN_MATCH + _run_length(
+                ml = MIN_MATCH + run_length(
                     s, cand + MIN_MATCH, p + MIN_MATCH, match_limit
                 )
-                _emit(out, s, anchor, p - anchor, p - cand, ml)
+                emit(out, s, anchor, p - anchor, p - cand, ml)
                 p += ml
                 anchor = p
                 if p >= mf_limit:
                     break
-                tab[h(_read32(s, p - 2))] = p - 2
+                tab[h(read32(s, p - 2))] = p - 2
                 search = accel << SKIP_TRIGGER
                 continue
             p += search >> SKIP_TRIGGER
             search += 1
-    _emit(out, s, anchor, n - anchor, 0, 0)
+    emit(out, s, anchor, n - anchor, 0, 0)
     return out
-
-
-def check_level(level: int) -> None:
-    """Raise for the levels whose kernel arms are not ported (HC, OPT)."""
-    level = int(level)
-    if level >= 10 or LEVEL_ATTEMPTS.get(level, 0):
-        raise NotImplementedError(
-            f"level {level}: the HC (L3-L9) and OPT (L10-L12) arms of "
-            "kernels B and D are not ported yet (ROADMAP.md Queue 2, B2/B3)"
-        )
 
 
 def clip_acceleration(acceleration: int, fast_schedule: str) -> int:
@@ -241,8 +207,7 @@ def pack_rows(comps, ocap: int, device):
     )
 
 
-def _validate(bufs_u8, lens, bcap, level, acceleration, fast_schedule):
-    check_level(level)
+def _validate(bufs_u8, lens, bcap, acceleration, fast_schedule):
     if bcap > MAX_BLOCK:
         raise ValueError(
             f"bcap {bcap} > 65536: kernel B takes blocks of at most 64 KB; "
@@ -269,13 +234,24 @@ def encode_blocks_plain(bufs_u8, lens, bcap: int, level: int = 0,
     """The plain PyTorch version of `encode_blocks`: the same checks, the
     same outputs, one scalar parse per row on the host."""
     bufs, lens_t, accel = _validate(
-        bufs_u8, lens, bcap, level, acceleration, fast_schedule
+        bufs_u8, lens, bcap, acceleration, fast_schedule
     )
     rows = bufs.cpu().numpy()
-    run = _encode_canonical if fast_schedule == "canonical" else _encode_dense
-    comps = [run(rows[b, :n].tobytes(), accel)
-             for b, n in enumerate(lens_t.tolist())]
+    if level_arm(level)[0] != "fast":
+        comps = [encode_row(rows[b, :n].tobytes(), 0, level)
+                 for b, n in enumerate(lens_t.tolist())]
+    else:
+        run = _encode_canonical if fast_schedule == "canonical" else _encode_dense
+        comps = [run(rows[b, :n].tobytes(), accel)
+                 for b, n in enumerate(lens_t.tolist())]
     return pack_rows(comps, align1024(compress_bound(bcap)), bufs.device)
+
+
+def _outputs(nb: int, bcap: int, dev):
+    ocap = align1024(compress_bound(bcap))
+    return (torch.zeros((nb, ocap), dtype=torch.uint8, device=dev),
+            torch.empty((nb,), dtype=torch.int32, device=dev),
+            torch.empty((nb,), dtype=torch.int32, device=dev))
 
 
 def encode_blocks(bufs_u8, lens, bcap: int, level: int = 0,
@@ -284,9 +260,12 @@ def encode_blocks(bufs_u8, lens, bcap: int, level: int = 0,
 
     bufs_u8: uint8 [B, CAP >= bcap], row b's bytes at [0, lens[b]).  Levels
     0-2 run the FAST arm ("canonical": byte-identical to
-    LZ4_compress_default; "dense": the 15-bit finder); levels >= 3 raise
-    NotImplementedError, ``bcap`` > 65536 ValueError (kernel D,
-    `ops.encode_stream`, takes those).
+    LZ4_compress_default; "dense": the 15-bit finder), levels 3-9 the HC arm
+    and 10 and up the OPT arm (above 12 as 12), both on kernel D's HC/OPT
+    kernel with the rows as its windows (counted in
+    `encode_stream.encode_windows_hc`/`_opt`); ``acceleration`` and
+    ``fast_schedule`` act at the FAST levels only.  ``bcap`` > 65536 raises
+    ValueError (kernel D, `ops.encode_stream`, takes those).
 
     Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) on the
     input's device, OCAP = align1024(compress_bound(bcap)); errs is 1 where a
@@ -294,28 +273,29 @@ def encode_blocks(bufs_u8, lens, bcap: int, level: int = 0,
     tensor launches the kernel.
     """
     bufs, lens_t, accel = _validate(
-        bufs_u8, lens, bcap, level, acceleration, fast_schedule
+        bufs_u8, lens, bcap, acceleration, fast_schedule
     )
+    if level_arm(level)[0] != "fast":
+        # imported here: encode_stream imports this module's plain encoders
+        from .encode_stream import encode_blocks_stream
+
+        return encode_blocks_stream(bufs, lens_t, bcap, level)
     if bufs.device.type != "cuda":
         return encode_blocks_plain(
             bufs, lens_t, bcap, level, acceleration, fast_schedule
         )
     bufs = bufs.contiguous()
-    ocap = align1024(compress_bound(bcap))
     nb = bufs.shape[0]
-    dev = bufs.device
-    out = torch.zeros((nb, ocap), dtype=torch.uint8, device=dev)
-    clens = torch.empty((nb,), dtype=torch.int32, device=dev)
-    errs = torch.empty((nb,), dtype=torch.int32, device=dev)
+    out, clens, errs = _outputs(nb, bcap, bufs.device)
     if nb == 0:
         return out, clens, errs
     lib = _kernel()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(bufs.device):
         rc = lib.lz4t_encode(
             bufs.data_ptr(), bufs.stride(0), lens_t.data_ptr(),
-            out.data_ptr(), ocap, ocap, accel,
+            out.data_ptr(), out.shape[1], out.shape[1], accel,
             int(fast_schedule == "dense"), clens.data_ptr(), errs.data_ptr(),
-            nb, torch.cuda.current_stream(dev).cuda_stream,
+            nb, torch.cuda.current_stream(bufs.device).cuda_stream,
         )
     check(rc, "encode")
     encode_blocks.launches += 1

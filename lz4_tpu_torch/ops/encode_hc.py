@@ -1,0 +1,424 @@
+"""The plain versions of the HC (levels 3-9) and OPT (levels 10-12) arms of
+kernels B and D (`csrc/lz4_hc_body.cuh`).
+
+The port's own copy of the JAX package's host oracle
+(`lz4_tpu/block/hostref.py`: `_ChainFinder`, `encode_hc`, `encode_opt`),
+which the TPU kernel `pallas_encode5` reproduces byte for byte: a hash-chain
+finder over a u16 delta ring (wider match with backward extension,
+repeated-pattern acceleration, chain swap), the ML1/ML2/ML3 lookahead parse
+and the price-model optimal parse over 4,096-position windows.  Every
+function works over a flat window s = [prefix | block]: the prefix
+s[:src_off] (a dictionary, or the 64 KB of a chained frame before the block)
+enters the chain through the normal insert, and matches may reach it.  As in
+the TPU kernel, a block of fewer than 13 bytes is all literals.
+"""
+
+from __future__ import annotations
+
+from ..constants import DISTANCE_MAX, HC_LEVEL_TABLE, LAST_LITERALS, MF_LIMIT, MIN_MATCH
+from .common import LEVEL_ATTEMPTS, emit, read32, run_length
+
+HASH_LOG = 15
+OPTIMAL_ML = 18  # (ML_MASK - 1) + MIN_MATCH
+OPT_NUM = 4096  # the optimal parse's window
+TRAILING = 3
+
+
+def level_arm(level: int):
+    """The arm a level runs and its parameters, as the JAX wrappers map
+    them: ("fast", 0, 0, False) for levels below 3, ("hc", attempts, 0,
+    False) for 3-9, ("opt", searches, sufficient, full) for 10 and up
+    (levels above 12 run 12)."""
+    level = int(level)
+    if level >= 10:
+        searches, sufficient = HC_LEVEL_TABLE[min(level, 12)]
+        return "opt", searches, min(sufficient, OPT_NUM - 1), level >= 12
+    attempts = LEVEL_ATTEMPTS.get(level, 0)
+    return ("hc" if attempts else "fast"), attempts, 0, False
+
+
+def _hash(w: int) -> int:
+    return ((w * 2654435761) & 0xFFFFFFFF) >> (32 - HASH_LOG)
+
+
+def _count_pattern(s, p: int, end: int, pattern: int) -> int:
+    """Forward run length over which bytes repeat the LE 4-byte pattern."""
+    start = p
+    while p < end and s[p] == (pattern & 0xFF):
+        p += 1
+        pattern = (pattern >> 8) | ((pattern & 0xFF) << 24)
+    return p - start
+
+
+def _count_back_pattern(s, p: int, pattern: int) -> int:
+    start = p
+    while p > 0 and s[p - 1] == (pattern >> 24):
+        p -= 1
+        pattern = ((pattern << 8) & 0xFFFFFFFF) | (pattern >> 24)
+    return start - p
+
+
+class ChainFinder:
+    """Hash-chain match finder: the head table (2^15 most recent positions)
+    and the u16 delta ring indexed pos & 0xFFFF at every window size."""
+
+    def __init__(self, s, match_limit: int, max_attempts: int):
+        self.s = s
+        self.match_limit = match_limit
+        self.max_attempts = max_attempts
+        self.head = [-1] * (1 << HASH_LOG)
+        self.delta = [0xFFFF] * 65536
+        self.next_to_insert = 0
+        self.max_insert = max(0, len(s) - MIN_MATCH + 1)
+
+    def insert_upto(self, pos: int):
+        s, head, delta = self.s, self.head, self.delta
+        end = min(pos, self.max_insert)
+        for q in range(self.next_to_insert, end):
+            h = _hash(read32(s, q))
+            old = head[h]
+            delta[q & 0xFFFF] = 0xFFFF if old < 0 else min(q - old, 0xFFFF)
+            head[h] = q
+        self.next_to_insert = max(self.next_to_insert, end)
+
+    def wider_match(self, ip: int, ilow: int, longest: int,
+                    pattern_analysis: bool, chain_swap: bool = False):
+        """Widest match at ip whose start may slide back to ilow.  Returns
+        (longest, m_start, m_pos); m_pos < 0 when nothing beat ``longest``."""
+        s, delta = self.s, self.delta
+        ihigh = self.match_limit
+        pos = ip
+        lowest = max(0, pos - DISTANCE_MAX)
+        lookback = ip - ilow
+        attempts = self.max_attempts
+        pattern = read32(s, ip)
+        chain_off = 0
+        repeat_tested = repeat_confirmed = False
+        src_pat_len = 0
+        m_start, m_pos = ip, -1
+
+        self.insert_upto(pos)
+        cand = self.head[_hash(pattern)]
+        while cand >= pos:  # skip self/ahead entries from lookahead probes
+            d = delta[cand & 0xFFFF]
+            if d > cand:
+                cand = -1
+                break
+            cand -= d
+
+        while cand >= lowest and attempts > 0:
+            match_len = 0
+            attempts -= 1
+            # quick reject: the two bytes that would extend the best must match
+            at = cand - lookback + longest - 1
+            if (s[ilow + longest - 1] == s[at] and s[ilow + longest] == s[at + 1]
+                    and read32(s, cand) == pattern):
+                back = 0
+                if lookback:
+                    floor = max(ilow - ip, -cand)
+                    while back > floor and s[ip + back - 1] == s[cand + back - 1]:
+                        back -= 1
+                match_len = (MIN_MATCH - back + run_length(
+                    s, cand + MIN_MATCH, ip + MIN_MATCH, ihigh))
+                if match_len > longest:
+                    longest = match_len
+                    m_pos = cand + back
+                    m_start = ip + back
+
+            if chain_swap and match_len == longest and cand + longest <= pos:
+                # the candidate is the current best: follow the chain entry
+                # inside it that jumps farthest back
+                best_jump, end = 1, longest - MIN_MATCH + 1
+                step, accel = 1, 1 << 4
+                chain_off = 0
+                q = 0
+                while q < end:
+                    d = delta[(cand + q) & 0xFFFF]
+                    step = accel >> 4
+                    accel += 1
+                    if d > best_jump:
+                        best_jump = d
+                        chain_off = q
+                        accel = 1 << 4
+                    q += step
+                if best_jump > 1:
+                    if best_jump > cand:
+                        break
+                    cand -= best_jump
+                    continue
+
+            if pattern_analysis and delta[cand & 0xFFFF] == 1 and chain_off == 0:
+                # the candidate sits in a run of a repeated pattern: jump
+                # straight to the best-aligned position of the run
+                cand2 = cand - 1
+                if not repeat_tested:
+                    repeat_tested = True
+                    repeat_confirmed = (
+                        (pattern & 0xFFFF) == (pattern >> 16)
+                        and (pattern & 0xFF) == (pattern >> 24)
+                    )
+                    if repeat_confirmed:
+                        src_pat_len = _count_pattern(s, ip + 4, ihigh, pattern) + 4
+                if repeat_confirmed and cand2 >= lowest and read32(s, cand2) == pattern:
+                    fwd = _count_pattern(s, cand2 + 4, ihigh, pattern) + 4
+                    backp = min(_count_back_pattern(s, cand2, pattern), cand2 - lowest)
+                    seg = backp + fwd
+                    if seg >= src_pat_len and fwd <= src_pat_len:
+                        cand = cand2 + fwd - src_pat_len
+                    else:
+                        cand = cand2 - backp
+                        if lookback == 0:
+                            max_ml = min(seg, src_pat_len)
+                            if longest < max_ml:
+                                if pos - cand > DISTANCE_MAX:
+                                    break
+                                longest = max_ml
+                                m_pos = cand
+                                m_start = ip
+                            d2 = delta[cand & 0xFFFF]
+                            if d2 > cand:
+                                break
+                            cand -= d2
+                    continue
+
+            d = delta[(cand + chain_off) & 0xFFFF]
+            if d > cand:
+                break
+            cand -= d
+        return longest, m_start, m_pos
+
+
+def encode_hc(s: bytes, src_off: int, attempts: int) -> bytearray:
+    """The HC arm: the 3-candidate (ML1/ML2/ML3) lookahead parse of
+    s[src_off:] with ``attempts`` chain steps per search; pattern analysis
+    from 256 attempts (level 9) up."""
+    n = len(s)
+    out = bytearray()
+    anchor = ip = src_off
+    if n - src_off >= MF_LIMIT + 1:
+        pa = attempts > 128
+        mf_limit = n - MF_LIMIT
+        finder = ChainFinder(s, n - LAST_LITERALS, attempts)
+        finder.insert_upto(src_off)
+        while ip <= mf_limit:
+            ml, _, ref = finder.wider_match(ip, ip, MIN_MATCH - 1, pa)
+            if ml < MIN_MATCH or ref < 0:
+                ip += 1
+                continue
+            start0, ref0, ml0 = ip, ref, ml
+            state = 2
+            ml2 = ml3 = start2 = ref2 = start3 = ref3 = 0
+            while True:
+                if state == 2:
+                    if ip + ml <= mf_limit:
+                        ml2, start2, p2 = finder.wider_match(ip + ml - 2, ip, ml, pa)
+                        if p2 >= 0:
+                            ref2 = p2
+                    else:
+                        ml2 = ml
+                    if ml2 == ml:  # no better overlap: emit ML1
+                        emit(out, s, anchor, ip - anchor, ip - ref, ml)
+                        ip += ml
+                        anchor = ip
+                        break
+                    if start0 < ip and start2 < ip + ml0:
+                        # the skipped original ML1 still fits before ML2
+                        ip, ref, ml = start0, ref0, ml0
+                    if start2 - ip < 3:  # ML1 too short to keep
+                        ml, ip, ref = ml2, start2, ref2
+                        continue
+                    state = 3
+                    continue
+                # state 3
+                if start2 - ip < OPTIMAL_ML:
+                    new_ml = min(ml, OPTIMAL_ML)
+                    if ip + new_ml > start2 + ml2 - MIN_MATCH:
+                        new_ml = (start2 - ip) + ml2 - MIN_MATCH
+                    corr = new_ml - (start2 - ip)
+                    if corr > 0:
+                        start2 += corr
+                        ref2 += corr
+                        ml2 -= corr
+                if start2 + ml2 <= mf_limit:
+                    ml3, start3, p3 = finder.wider_match(start2 + ml2 - 3, start2, ml2, pa)
+                    if p3 >= 0:
+                        ref3 = p3
+                else:
+                    ml3 = ml2
+                if ml3 == ml2:  # stable pair: emit ML1 then ML2
+                    if start2 < ip + ml:
+                        ml = start2 - ip
+                    emit(out, s, anchor, ip - anchor, ip - ref, ml)
+                    anchor = ip + ml
+                    emit(out, s, anchor, start2 - anchor, start2 - ref2, ml2)
+                    ip = anchor = start2 + ml2
+                    break
+                if start3 < ip + ml + 3:  # ML3 kills ML2
+                    if start3 >= ip + ml:
+                        # ML1 can be emitted now; ML3 becomes the new ML1
+                        if start2 < ip + ml:
+                            corr = (ip + ml) - start2
+                            start2 += corr
+                            ref2 += corr
+                            ml2 -= corr
+                            if ml2 < MIN_MATCH:
+                                start2, ref2, ml2 = start3, ref3, ml3
+                        emit(out, s, anchor, ip - anchor, ip - ref, ml)
+                        anchor = ip + ml
+                        ip, ref, ml = start3, ref3, ml3
+                        start0, ref0, ml0 = start2, ref2, ml2
+                        state = 2
+                        continue
+                    start2, ref2, ml2 = start3, ref3, ml3
+                    continue
+                # three ascending matches: emit ML1 (trimmed), shift the window
+                if start2 < ip + ml:
+                    if start2 - ip < OPTIMAL_ML:
+                        ml = min(ml, OPTIMAL_ML)
+                        if ip + ml > start2 + ml2 - MIN_MATCH:
+                            ml = (start2 - ip) + ml2 - MIN_MATCH
+                        corr = ml - (start2 - ip)
+                        if corr > 0:
+                            start2 += corr
+                            ref2 += corr
+                            ml2 -= corr
+                    else:
+                        ml = start2 - ip
+                emit(out, s, anchor, ip - anchor, ip - ref, ml)
+                anchor = ip + ml
+                ip, ref, ml = start2, ref2, ml2
+                start2, ref2, ml2 = start3, ref3, ml3
+    emit(out, s, anchor, n - anchor, 0, 0)
+    return out
+
+
+def _lit_price(litlen: int) -> int:
+    return litlen + (1 + (litlen - 15) // 255 if litlen >= 15 else 0)
+
+
+def _seq_price(litlen: int, mlen: int) -> int:
+    """Bytes of a sequence: token, literal length and literals, offset,
+    match length."""
+    ml = mlen - MIN_MATCH
+    return 3 + _lit_price(litlen) + (1 + (ml - 15) // 255 if ml >= 15 else 0)
+
+
+def encode_opt(s: bytes, src_off: int, searches: int, sufficient: int,
+               full: bool) -> bytearray:
+    """The OPT arm: the exact price-model optimal parse of s[src_off:] over
+    4,096-position windows, matches found by the chain-swap search
+    (``searches`` steps), a match longer than ``sufficient`` taken at once,
+    and with ``full`` (level 12) every position searched anew."""
+    n = len(s)
+    out = bytearray()
+    anchor = ip = src_off
+    if n - src_off >= MF_LIMIT + 1:
+        mf_limit = n - MF_LIMIT
+        finder = ChainFinder(s, n - LAST_LITERALS, searches)
+        finder.insert_upto(src_off)
+
+        def find(p: int, min_len: int):
+            ln, _, mp = finder.wider_match(p, p, min_len, True, True)
+            if ln <= min_len or mp < 0:
+                return 0, 0
+            return ln, p - mp
+
+        # o[pos] = [price, off, mlen, litlen]: the cheapest way to reach
+        # ip + pos inside the current window
+        o = [[0, 0, 0, 0] for _ in range(OPT_NUM + TRAILING)]
+
+        def trailing(last):
+            for a in range(1, TRAILING + 1):
+                o[last + a] = [o[last][0] + _lit_price(a), 0, 1, a]
+
+        while ip <= mf_limit:
+            llen = ip - anchor
+            first_len, first_off = find(ip, MIN_MATCH - 1)
+            if first_len == 0:
+                ip += 1
+                continue
+            if first_len > sufficient:
+                emit(out, s, anchor, llen, first_off, first_len)
+                ip += first_len
+                anchor = ip
+                continue
+            for r in range(MIN_MATCH):
+                o[r] = [_lit_price(llen + r), 0, 1, llen + r]
+            for m in range(MIN_MATCH, first_len + 1):
+                o[m] = [_seq_price(llen, m), first_off, m, llen]
+            last = first_len
+            trailing(last)
+
+            early = False
+            cur = 1
+            while cur < last:
+                if ip + cur > mf_limit:
+                    break
+                if o[cur + 1][0] <= o[cur][0] and (
+                        not full or o[cur + MIN_MATCH][0] < o[cur][0] + 3):
+                    cur += 1
+                    continue
+                new_len, new_off = find(ip + cur, MIN_MATCH - 1 if full else last - cur)
+                if new_len == 0:
+                    cur += 1
+                    continue
+                if new_len > sufficient or new_len + cur >= OPT_NUM:
+                    best_mlen, best_off = new_len, new_off
+                    last = cur + 1
+                    early = True
+                    break
+                base_p, _, _, base_ll = o[cur]
+                for l in range(1, MIN_MATCH):
+                    price = base_p - _lit_price(base_ll) + _lit_price(base_ll + l)
+                    if price < o[cur + l][0]:
+                        o[cur + l] = [price, 0, 1, base_ll + l]
+                if o[cur][2] == 1:
+                    ll = o[cur][3]
+                    base2 = o[cur - ll][0] if cur > ll else 0
+                else:
+                    ll, base2 = 0, o[cur][0]
+                for m in range(MIN_MATCH, new_len + 1):
+                    pos = cur + m
+                    price = base2 + _seq_price(ll, m)
+                    if pos > last + TRAILING or price <= o[pos][0]:
+                        if m == new_len and last < pos:
+                            last = pos
+                        o[pos] = [price, new_off, m, ll]
+                trailing(last)
+                cur += 1
+
+            if not early:
+                best_mlen, best_off = o[last][2], o[last][1]
+                cur = last - best_mlen
+            # reverse the chosen path in place, then emit it forward
+            pos, sel_len, sel_off = cur, best_mlen, best_off
+            while True:
+                nl, no = o[pos][2], o[pos][1]
+                o[pos][2], o[pos][1] = sel_len, sel_off
+                sel_len, sel_off = nl, no
+                if nl > pos:
+                    break
+                pos -= nl
+            r = 0
+            while r < last:
+                m, off = o[r][2], o[r][1]
+                if m == 1:
+                    ip += 1
+                    r += 1
+                    continue
+                r += m
+                emit(out, s, anchor, ip - anchor, off, m)
+                ip += m
+                anchor = ip
+    emit(out, s, anchor, n - anchor, 0, 0)
+    return out
+
+
+def encode_row(s: bytes, src_off: int, level: int) -> bytearray:
+    """One row [prefix | block] at an HC or OPT level (3 and up)."""
+    arm, depth, sufficient, full = level_arm(level)
+    if arm == "hc":
+        return encode_hc(s, src_off, depth)
+    if arm == "opt":
+        return encode_opt(s, src_off, depth, sufficient, full)
+    raise ValueError(f"level {level} is a FAST level, not HC or OPT")

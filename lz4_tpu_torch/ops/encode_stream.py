@@ -1,11 +1,13 @@
-"""Batched LZ4 block encode at the FAST levels, at any block size and with
-dictionaries: kernel D (`csrc/encode_stream.cu`) and its plain version.
+"""Batched LZ4 block encode at any block size and with dictionaries, at
+every level: kernel D (`csrc/encode_stream.cu`) and its plain versions.
 
-The port of the FAST arms of `lz4_tpu/ops/encode_pallas_stream.py`
-(`pallas_encode_stream`, wrapper `encode_blocks_pallas_stream`), with the
-same bytes: rows without a dictionary take the canonical schedule
+The port of `lz4_tpu/ops/encode_pallas_stream.py` (`pallas_encode_stream`,
+wrapper `encode_blocks_pallas_stream`), with the same bytes.  At levels 0-2
+(`encode_windows`) rows without a dictionary take the canonical schedule
 (LZ4_compress_default: byU16 below 65,547 bytes, byU32 at and above) or
 the dense one; rows of a batch with dictionaries all take the dense one.
+Levels 3-9 run the HC arm and 10-12 the OPT arm (`encode_windows_hc`, plain
+versions in `ops/encode_hc.py`), every prefix inserted into the chain.
 The kernel reads each row as a window of one flat byte tensor, so the
 chained-frame path (`parallel.blocks.encode_blocks_chained_device`) hands
 it the payload itself, each block's 64 KB window in place before it.  The
@@ -23,9 +25,9 @@ from ..constants import compress_bound
 from .build import check, load
 from .common import align1024
 from .encode import (
-    _encode_canonical, _encode_dense, check_level, clip_acceleration,
-    pack_rows,
+    _encode_canonical, _encode_dense, _outputs, clip_acceleration, pack_rows,
 )
+from .encode_hc import encode_row, level_arm
 
 WINDOW = 65536  # the most a prefix can hold: LZ4's farthest match offset + 1
 
@@ -42,15 +44,32 @@ def _kernel():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
-        lib.lz4t_encode_stream.restype = ctypes.c_int
+        lib.lz4t_encode_stream_hc.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.lz4t_encode_stream_hc_slots.argtypes = [ctypes.c_int, ctypes.c_void_p]
         lib.lz4t_encode_stream_shared_bytes.argtypes = [ctypes.c_int]
-        lib.lz4t_encode_stream_shared_bytes.restype = ctypes.c_int
+        lib.lz4t_encode_stream_hc_shared_bytes.argtypes = [ctypes.c_int]
+        for fn in (lib.lz4t_encode_stream, lib.lz4t_encode_stream_hc,
+                   lib.lz4t_encode_stream_hc_slots,
+                   lib.lz4t_encode_stream_shared_bytes,
+                   lib.lz4t_encode_stream_hc_shared_bytes):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def shared_bytes(fast_schedule: str) -> int:
-    """Dynamic shared memory of one CTA of kernel D for a geometry."""
+def shared_bytes(fast_schedule: str, level: int = 0) -> int:
+    """Dynamic shared memory of one CTA of kernel D: a FAST geometry's
+    largest table or, at levels 3 and up, the HC or OPT arm's delta ring and
+    price table."""
+    arm = level_arm(level)[0]
+    if arm != "fast":
+        return _kernel().lz4t_encode_stream_hc_shared_bytes(int(arm == "opt"))
     return _kernel().lz4t_encode_stream_shared_bytes(
         int(fast_schedule == "dense")
     )
@@ -58,7 +77,6 @@ def shared_bytes(fast_schedule: str) -> int:
 
 def _validate_windows(base_u8, starts, src_offs, lens, bcap, level,
                       acceleration, fast_schedule):
-    check_level(level)
     accel = clip_acceleration(acceleration, fast_schedule)
     base = torch.as_tensor(base_u8)
     if base.dtype != torch.uint8 or base.dim() != 1:
@@ -76,9 +94,10 @@ def _validate_windows(base_u8, starts, src_offs, lens, bcap, level,
             raise ValueError(f"block lengths must lie in [0, bcap={bcap}]")
         if int(st.min()) < 0 or int((st + ln).max()) > base.numel():
             raise ValueError("a window reaches outside base_u8")
-        if fast_schedule == "canonical" and bool(so.any()):
+        if (fast_schedule == "canonical" and level_arm(level)[0] == "fast"
+                and bool(so.any())):
             raise ValueError(
-                "the canonical schedule takes no prefix: rows with a "
+                "the canonical schedule takes no prefix: FAST rows with a "
                 "dictionary need fast_schedule='dense'"
             )
     dev = base.device
@@ -95,10 +114,13 @@ def encode_windows_plain(base_u8, starts, src_offs, lens, bcap: int,
         fast_schedule,
     )
     raw = base.cpu().numpy()
+    hc = level_arm(level)[0] != "fast"
     comps = []
     for a, off, n in zip(st.tolist(), so.tolist(), ln.tolist()):
         s = raw[a:a + n].tobytes()
-        if fast_schedule == "dense":
+        if hc:
+            comps.append(encode_row(s, off, level))
+        elif fast_schedule == "dense":
             comps.append(_encode_dense(s, accel, off))
         else:
             comps.append(_encode_canonical(s, accel))
@@ -112,15 +134,20 @@ def encode_windows(base_u8, starts, src_offs, lens, bcap: int,
 
     Row r is base_u8[starts[r] : starts[r] + lens[r]]: its first
     src_offs[r] <= 65536 bytes are a prefix that matches may reach, the
-    rest, at most ``bcap`` bytes, is the block.  Rows may overlap.  Rows
-    with a prefix need ``fast_schedule="dense"``.  Levels >= 3 raise
-    NotImplementedError.
+    rest, at most ``bcap`` bytes, is the block.  Rows may overlap.  Levels
+    0-2 run the FAST arm, where rows with a prefix need
+    ``fast_schedule="dense"``; levels 3-9 the HC arm and 10 and up the OPT
+    arm (`encode_windows_hc`, `encode_windows_opt`), at any geometry.
 
     Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) on the
     input's device, OCAP = align1024(compress_bound(bcap)); errs is 1 where a
     row's output exceeds OCAP.  A CPU tensor runs the plain version; a CUDA
     tensor launches the kernel (counted in `encode_blocks_stream.launches`).
     """
+    arm = level_arm(level)[0]
+    if arm != "fast":
+        launch = encode_windows_opt if arm == "opt" else encode_windows_hc
+        return launch(base_u8, starts, src_offs, lens, bcap, level)
     base, st, so, ln, accel = _validate_windows(
         base_u8, starts, src_offs, lens, bcap, level, acceleration,
         fast_schedule,
@@ -130,25 +157,76 @@ def encode_windows(base_u8, starts, src_offs, lens, bcap: int,
             base, st, so, ln, bcap, level, acceleration, fast_schedule
         )
     base = base.contiguous()
-    ocap = align1024(compress_bound(bcap))
     nb = st.shape[0]
-    dev = base.device
-    out = torch.zeros((nb, ocap), dtype=torch.uint8, device=dev)
-    clens = torch.empty((nb,), dtype=torch.int32, device=dev)
-    errs = torch.empty((nb,), dtype=torch.int32, device=dev)
+    out, clens, errs = _outputs(nb, bcap, base.device)
     if nb == 0:
         return out, clens, errs
     lib = _kernel()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(base.device):
         rc = lib.lz4t_encode_stream(
             base.data_ptr(), st.data_ptr(), so.data_ptr(), ln.data_ptr(),
-            out.data_ptr(), ocap, ocap, accel,
+            out.data_ptr(), out.shape[1], out.shape[1], accel,
             int(fast_schedule == "dense"), clens.data_ptr(), errs.data_ptr(),
-            nb, torch.cuda.current_stream(dev).cuda_stream,
+            nb, torch.cuda.current_stream(base.device).cuda_stream,
         )
     check(rc, "encode_stream")
     encode_blocks_stream.launches += 1
     return out, clens, errs
+
+
+def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm):
+    """Kernel D's HC or OPT arm (``arm``) on a batch of windows; the plain
+    version on the CPU."""
+    if level_arm(level)[0] != arm:
+        raise ValueError(f"level {level} does not run the {arm.upper()} arm")
+    base, st, so, ln, _ = _validate_windows(
+        base_u8, starts, src_offs, lens, bcap, level, 1, "dense"
+    )
+    if base.device.type != "cuda":
+        return encode_windows_plain(base, st, so, ln, bcap, level)
+    _, depth, sufficient, full = level_arm(level)
+    base = base.contiguous()
+    nb, dev = st.shape[0], base.device
+    out, clens, errs = _outputs(nb, bcap, dev)
+    if nb == 0:
+        return out, clens, errs
+    lib = _kernel()
+    opt = arm == "opt"
+    with torch.cuda.device(dev):
+        # the head tables of min(nb, resident CTAs) slots, 2^15 int32 (128
+        # KB) each, and the row counter
+        slots = ctypes.c_int(0)
+        check(lib.lz4t_encode_stream_hc_slots(int(opt), ctypes.byref(slots)),
+              "HC/OPT occupancy query")
+        nslots = min(nb, slots.value)
+        if nslots < 1:
+            raise RuntimeError("the HC/OPT arm does not fit on this device")
+        heads = torch.empty((nslots << 15,), dtype=torch.int32, device=dev)
+        next_row = torch.zeros((1,), dtype=torch.int32, device=dev)
+        rc = lib.lz4t_encode_stream_hc(
+            base.data_ptr(), st.data_ptr(), so.data_ptr(), ln.data_ptr(),
+            out.data_ptr(), out.shape[1], out.shape[1], int(opt), depth,
+            sufficient, int(full), heads.data_ptr(), nslots,
+            next_row.data_ptr(), clens.data_ptr(), errs.data_ptr(), nb,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(rc, f"encode_stream {arm}")
+    (encode_windows_opt if opt else encode_windows_hc).launches += 1
+    return out, clens, errs
+
+
+def encode_windows_hc(base_u8, starts, src_offs, lens, bcap: int,
+                      level: int = 9):
+    """`encode_windows` at levels 3-9: kernel D's HC arm on a CUDA tensor
+    (one launch, counted here), the plain version on a CPU tensor."""
+    return _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, "hc")
+
+
+def encode_windows_opt(base_u8, starts, src_offs, lens, bcap: int,
+                       level: int = 12):
+    """`encode_windows` at levels 10 and up: kernel D's OPT arm on a CUDA
+    tensor (one launch, counted here), the plain version on a CPU tensor."""
+    return _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, "opt")
 
 
 def _stage(bufs_u8, lens, bcap, dicts, dict_lens, fast_schedule):
@@ -208,7 +286,8 @@ def encode_blocks_stream(bufs_u8, lens, bcap: int, level: int = 0,
     reachable).  Levels 0-2 run the FAST arm: "canonical" (byte-identical
     to LZ4_compress_default) or "dense" (the 15-bit finder); a batch with
     dictionaries runs the dense one, byte-identical to the host engines'
-    ``encode(..., dictionary=...)``.  Levels >= 3 raise NotImplementedError.
+    ``encode(..., dictionary=...)``.  Levels 3-9 run the HC arm and 10 and
+    up the OPT arm, with or without dictionaries.
 
     Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) on the
     input's device, OCAP = align1024(compress_bound(bcap)).  A CPU tensor
@@ -224,3 +303,5 @@ def encode_blocks_stream(bufs_u8, lens, bcap: int, level: int = 0,
 
 
 encode_blocks_stream.launches = 0
+encode_windows_hc.launches = 0
+encode_windows_opt.launches = 0

@@ -105,8 +105,9 @@ def encode_blocks_chained_device(data: bytes, block_size: int,
     Block k's dictionary is the 64 KB of plaintext before it, so the
     payload goes to the device once and row k is the window
     [k * block_size - dl, (k + 1) * block_size) of it, dl = min(k *
-    block_size, 65536), with the dense schedule: the bytes of the
-    sequential chain encoder.  Returns each block's compressed payload, in
+    block_size, 65536), with the dense schedule at levels 0-2 and the
+    prefix in the chain at levels 3-12: the bytes of the sequential chain
+    encoder.  Returns each block's compressed payload, in
     frame order (the caller stores a block whose payload is not smaller)."""
     dev = resolve_device(device)
     n = len(data)

@@ -234,9 +234,10 @@ def test_canonical_chained_device_requests_raise_as_in_the_jax_package():
     with pytest.raises(ValueError, match="canonical chained"):
         tframe.compress(data, tframe.EncoderSettings(geometry="canonical"),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # HC chains
-        tframe.compress(data, tframe.EncoderSettings(
-            geometry="canonical", compression_level=9), device="cpu")
+    # HC chains meet the canonical request with their per-block windows
+    hc = dict(geometry="canonical", compression_level=9)
+    assert tframe.compress(data, tframe.EncoderSettings(**hc), device="cpu") == \
+        jframe.compress(data, jframe.EncoderSettings(**hc), backend="host")
     # one block: upstream's single-block rule makes the frame independent
     one = CORPUS[:60000]
     assert tframe.compress(
@@ -271,5 +272,5 @@ def test_block_api_errors_match():
         tblock.encode(b"abc", geometry="auto", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tblock.decode(comp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblock.encode(b"abc", level=9, device="cpu")
+    assert tblock.encode(b"abc", level=9, device="cpu") == \
+        jblock.encode(b"abc", level=9, backend="host")

@@ -111,13 +111,6 @@ def test_canonical_equals_lz4_compress_default():
         assert out[i, : int(clens[i])].numpy().tobytes() == liblz4.compress_block(d), i
 
 
-@pytest.mark.parametrize("level", [3, 9, 10, 12])
-def test_hc_and_opt_levels_are_not_ported(level):
-    bufs, lens = _stage([b"abc"], 4096)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E.encode_blocks(torch.from_numpy(bufs), torch.from_numpy(lens), 4096, level)
-
-
 @pytest.mark.parametrize("bcap", [65537, 1 << 18])
 def test_blocks_above_64k_are_not_ported(bcap):
     """Kernel B (16-bit tables) refuses blocks above 64 KB; kernel D takes

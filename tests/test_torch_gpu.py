@@ -173,3 +173,60 @@ def test_chained_frame_round_trip_on_the_card(cuda):
     assert encode_stream.encode_blocks_stream.launches == e0 + 1
     assert decode_stream.decode_chain.launches == c0 + 1
     assert blob == frame.compress(data, settings, device="cpu")
+
+
+def _hc_counter(level):
+    """Kernel D's HC or OPT arm, which also takes kernel B's rows at
+    levels 3 and up."""
+    return encode_stream.encode_windows_opt if level >= 10 else encode_stream.encode_windows_hc
+
+
+@pytest.mark.parametrize("level", [3, 9, 12])
+def test_hc_encode_kernel_matches_plain(level, cuda):
+    """Kernel B's HC and OPT arms (on kernel D's kernel): corpus rows, the wordy regression row,
+    and rows of 0, 12 and 13 bytes."""
+    rng = np.random.default_rng(8)
+    data = chip_smoke.make_corpus(4 << 20, 8)
+    starts = [int(rng.integers(0, len(data) - BLOCK)) for _ in range(3)]
+    rows = [data[a:a + BLOCK] for a in starts] + [
+        chip_smoke.wordy_row(), b"", data[:12], data[:13]]
+    bufs, lens = chip_smoke._stage(rows, BLOCK + 1024)
+    counter = _hc_counter(level)
+    before = counter.launches
+    got = encode.encode_blocks(bufs.to(cuda), lens.to(cuda), BLOCK, level)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _equal(got, encode.encode_blocks_plain(bufs, lens, BLOCK, level))
+
+
+@pytest.mark.parametrize("level", [3, 9, 12])
+def test_hc_stream_kernel_matches_plain(level, cuda):
+    """Kernel D's HC and OPT arms: chained windows (64 KB blocks with their
+    64 KB prefixes) and a 300 KB row without a prefix."""
+    data = chip_smoke.make_corpus(4 << 20, 9)
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    st, offs, wl = chip_smoke.chained_windows(len(data), BLOCK)
+    rows = [0, 1, 30, 63]
+    counter = _hc_counter(level)
+    before = counter.launches
+    got = encode_stream.encode_windows(
+        payload.to(cuda), st[rows], offs[rows], wl[rows], BLOCK, level)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _equal(got, encode_stream.encode_windows_plain(
+        payload, st[rows], offs[rows], wl[rows], BLOCK, level))
+    bufs, lens = chip_smoke._stage([data[1 << 20:(1 << 20) + 300000]], 300000)
+    got = encode_stream.encode_blocks_stream(bufs.to(cuda), lens.to(cuda), 300000, level)
+    torch.cuda.synchronize()
+    _equal(got, encode_stream.encode_blocks_stream_plain(bufs, lens, 300000, level))
+
+
+@pytest.mark.parametrize("level", [9, 12])
+@pytest.mark.parametrize("chain", [False, True])
+def test_hc_frame_round_trip_on_the_card(level, chain, cuda):
+    data = chip_smoke.make_corpus(1 << 20, 10)
+    settings = frame.EncoderSettings(compression_level=level, chain_blocks=chain,
+                                     content_checksum=True)
+    blob = frame.compress(data, settings)
+    assert frame.decompress(blob) == data
+    assert blob == frame.compress(data, settings, device="cpu")

@@ -28,6 +28,7 @@ def test_import_without_jax_or_the_jax_package():
         "import lz4_tpu_torch, lz4_tpu_torch.frame, lz4_tpu_torch.parallel\n"
         "import lz4_tpu_torch.ops.encode, lz4_tpu_torch.ops.decode\n"
         "import lz4_tpu_torch.ops.encode_stream, lz4_tpu_torch.ops.decode_stream\n"
+        "import lz4_tpu_torch.ops.encode_hc\n"
         "import lz4_tpu_torch.block\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'lz4_tpu' or m.startswith('lz4_tpu.')]\n"
@@ -112,6 +113,12 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     bufs[0, : data.size] = torch.from_numpy(data.copy())
     lens = torch.tensor([data.size], dtype=torch.int32)
     e0, d0 = encode.encode_blocks.launches, decode.decode_blocks.launches
+    h0, o0 = encode_stream.encode_windows_hc.launches, encode_stream.encode_windows_opt.launches
+    for level in (9, 12):
+        hc = encode.encode_blocks(bufs, lens, 64, level)
+        assert hc[0].device.type == "cpu" and int(hc[2][0]) == 0
+    assert encode_stream.encode_windows_hc.launches == h0
+    assert encode_stream.encode_windows_opt.launches == o0
     out, clens, errs = encode.encode_blocks(bufs, lens, 64)
     comps = torch.zeros((1, 128), dtype=torch.uint8)
     comps[0, : int(clens[0])] = out[0, : int(clens[0])]
@@ -126,8 +133,14 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
 def test_cpu_tensors_run_the_plain_streaming_versions_and_count_no_launch():
     data = b"hello hello hello hello hello!!" * 5000
     e0, c0 = encode_stream.encode_blocks_stream.launches, decode_stream.decode_chain.launches
+    h0, o0 = encode_stream.encode_windows_hc.launches, encode_stream.encode_windows_opt.launches
     blob = frame.compress(data, device="cpu")
     assert frame.decompress(blob, device="cpu") == data
+    for level in (9, 12):
+        hc = frame.compress(data, frame.EncoderSettings(compression_level=level), device="cpu")
+        assert frame.decompress(hc, device="cpu") == data
+    assert encode_stream.encode_windows_hc.launches == h0
+    assert encode_stream.encode_windows_opt.launches == o0
     bufs = torch.zeros((1, 64), dtype=torch.uint8)
     out, clens, errs = encode_stream.encode_blocks_stream(
         bufs, torch.tensor([64], dtype=torch.int32), 64
@@ -169,13 +182,15 @@ def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(build, "_CSRC", tmp_path)
     assert sorted(p.name for p in tmp_path.glob("*.cuh")) == [
-        "lz4_decode_body.cuh", "lz4_encode_body.cuh",
+        "lz4_decode_body.cuh", "lz4_encode_body.cuh", "lz4_hc_body.cuh",
     ]
     before = {n: build._library(n) for n in build.KERNEL_SOURCES}
-    with open(tmp_path / "lz4_encode_body.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {n: build._library(n) for n in build.KERNEL_SOURCES}
-    assert all(after[n] != before[n] for n in build.KERNEL_SOURCES)
+    for header in ("lz4_encode_body.cuh", "lz4_hc_body.cuh"):
+        with open(tmp_path / header, "a") as f:
+            f.write("// edited\n")
+        after = {n: build._library(n) for n in build.KERNEL_SOURCES}
+        assert all(after[n] != before[n] for n in build.KERNEL_SOURCES)
+        before = after
 
 
 def test_launch_check_raises_on_a_cuda_error():

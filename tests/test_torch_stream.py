@@ -13,6 +13,7 @@ import torch
 from jax.experimental import pallas as pl
 
 import liblz4
+from lz4_tpu import native
 from lz4_tpu.block import hostref
 from lz4_tpu.ops import decode_pallas_stream as JDS
 from lz4_tpu.ops import encode_pallas_stream as JES
@@ -189,9 +190,13 @@ def test_bad_arguments_raise():
         ES.encode_windows(payload, one, [70000], [70010], 64, fast_schedule="dense")
     with pytest.raises(ValueError, match="geometry"):
         ES.encode_windows(payload, one, [0], [50], 64, fast_schedule="auto")
-    for level in (3, 10):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ES.encode_blocks_stream(torch.zeros((1, 64), dtype=torch.uint8), [5], 64, level)
+    for level in (3, 10):  # the HC and OPT arms take any geometry and prefix
+        out, clens, _ = ES.encode_blocks_stream(
+            torch.zeros((1, 64), dtype=torch.uint8), [5], 64, level)
+        assert out[0, : int(clens[0])].numpy().tobytes() == native.encode(bytes(5), level)
+        out, clens, _ = ES.encode_windows(payload, one, [4], [50], 64, level)
+        assert out[0, : int(clens[0])].numpy().tobytes() == native.encode(
+            bytes(46), level, dictionary=bytes(4))
 
 
 def _flipped(rng, comp):
