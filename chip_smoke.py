@@ -29,8 +29,7 @@ Phases, each fatal on failure:
 6. the main path: `frame.compress(data, EncoderSettings(chain_blocks=False))`
    and `frame.decompress` on --mb MiB (1,024 blocks of 64 KB at the
    default), with every launch count set to 0 just before and read just
-   after; the round trip must be exact, and so must a 4 MiB frame with
-   block and content checksums;
+   after; the round trip must be exact;
 7. the chained path: `frame.compress(data)` with the default
    `EncoderSettings()` and `frame.decompress` on 16 MiB, counts set to 0
    just before and read just after (kernel D and the chained decoder must
@@ -59,7 +58,22 @@ Phases, each fatal on failure:
    new kernel timed at its path's shapes and held byte for byte to the
    plain version on four rows of the timed launch, two of them taken by
    CTAs that had already encoded a row; and one profiled level 9 chained
-   and level 12 independent compress and decompress.
+   and level 12 independent compress and decompress;
+13. kernel E (xxHash32) against its plain version: rows of 0-65,536 bytes
+   with noise past each length, windows at every alignment of one flat
+   tensor, all 1,024 rows of 64 KB of its timed batch and its timed 64 MiB
+   window, and single windows of 1 and 4 MiB (the plain hashes of the long
+   windows in the worker pool); its times at both shapes (the rows' from
+   the profiler's device time, with CUDA events per wrapper call beside
+   it; the window's from CUDA events) beside the byte bound and the chain
+   bound; the host hash's time on 4 MiB
+   (the route it replaces); then the checksummed paths, counts set to 0
+   just before and read just after each, each launching kernel E, exact
+   and deterministic over three runs after a warm-up: the `lz4` command
+   line's default frames (4 MiB independent blocks, content checksum) over
+   --mb MiB, 64 KB independent blocks with block and content checksums over
+   --mb MiB, and chained 64 KB blocks with both checksums over 16 MiB; and
+   one profiled compress and decompress of the first.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -83,6 +97,15 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 BLOCK = 65536
+
+
+def _cli_default():
+    """`lz4`'s command-line defaults: independent 4 MB blocks and a content
+    checksum (lz4io.c's preferences)."""
+    from lz4_tpu_torch import frame
+
+    return frame.EncoderSettings(chain_blocks=False, block_size=4 << 20,
+                                 content_checksum=True)
 
 
 def make_corpus(total_bytes: int, seed: int) -> bytes:
@@ -350,13 +373,6 @@ def phase_main_path(data: bytes, dev):
     print(f"[main] {len(data)} bytes -> {e2e['frame_bytes']} bytes "
           f"(ratio {len(data) / e2e['frame_bytes']:.4f}), round trip exact, "
           f"launches {launches}")
-    checked = frame.EncoderSettings(chain_blocks=False, block_checksum=True,
-                                    content_checksum=True)
-    small = data[:4 << 20]
-    _require(frame.decompress(frame.compress(small, checked, device=dev),
-                              device=dev) == small,
-             "4 MiB checksummed round trip is not exact")
-    print("[main] 4 MiB frame with block and content checksums: exact")
     return launches, e2e
 
 
@@ -791,7 +807,9 @@ def _plain_call(qualname: str, args, kwargs):
         return torch.from_numpy(a) if isinstance(a, np.ndarray) else a
 
     out = fn(*map(tensor, args), **{k: tensor(v) for k, v in kwargs.items()})
-    return tuple(t.numpy() for t in out) if isinstance(out, tuple) else out
+    if isinstance(out, tuple):
+        return tuple(t.numpy() for t in out)
+    return out.numpy() if isinstance(out, torch.Tensor) else out
 
 
 def submit_plain(pool, fn, *args, **kwargs):
@@ -996,13 +1014,184 @@ def phase_hc_times(data: bytes, dev):
     return entries
 
 
-def card_line() -> str:
+XXH_LENGTHS = [0, 1, 3, 4, 15, 16, 17, 31, 32, 100, 1024, 4097, 65536]
+# kernel E's dependent chain: a multiply-add, a rotate and a multiply per
+# 16-byte stripe, each waiting for the one before (an estimate, in cycles)
+CHAIN_CYCLES_PER_STRIPE = 10
+
+
+def _device_ms(fn, kernel: str, iters: int) -> float:
+    """The device time of one launch of `kernel` (torch.profiler), for a
+    kernel shorter than its wrapper's host time: the wrapper's copies of
+    its window table to the card synchronise the stream, so CUDA events
+    around its calls would time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if kernel in e.key)
+    _require(total > 0, f"the profiler saw no {kernel} launch")
+    return total / iters / 1e3
+
+
+def _timed_plain_call(qualname: str, args, kwargs):
+    """`_plain_call` in a worker, with its time on the worker's clock."""
+    t0 = time.perf_counter()
+    out = _plain_call(qualname, args, kwargs)
+    return out, time.perf_counter() - t0
+
+
+def xxh32_windows_in_pool(pool, data: bytes):
+    """The plain hashes of kernel E's long windows, on `pool`: 1 MiB and
+    4 MiB windows at unaligned starts, the whole --mb payload (the timed
+    window), and the host hash (`lz4_tpu_torch.xxh32`, the route kernel E
+    replaces) on 4 MiB.  Returns (windows, futures)."""
+    from lz4_tpu_torch.ops import xxh32
+
+    flat = np.frombuffer(data, np.uint8)
+    windows = [(3, 1 << 20), (1001, 4 << 20), (0, len(data))]
+    qual = f"{xxh32.__name__}.{xxh32.xxh32_windows_plain.__name__}"
+    futures = [pool.submit(_timed_plain_call, qual, (flat[a:a + n], [0], [n]), {})
+               for a, n in windows]
+    futures.append(pool.submit(_timed_plain_call, "lz4_tpu_torch.xxh32.xxh32",
+                               (data[:4 << 20],), {}))
+    return windows, futures
+
+
+def phase_xxh32(data: bytes, rng, dev, windows, futures):
+    """Kernel E against its plain version, and its times at the checksum
+    paths' two shapes: 1,024 rows of 64 KB (block checksums) and the whole
+    payload as one window (a content checksum).  Returns its two `kernels`
+    entries and the host hash's seconds on 4 MiB."""
+    import torch
+    from lz4_tpu_torch.ops import xxh32
+    from lz4_tpu_torch.parallel.blocks import split_blocks
+
+    worst = 0
+
+    def hold(what, got, want):
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = _max_abs_err([got], [want])
+        _require(err == 0, f"xxh32 {what}: kernel != plain")
+        worst = max(worst, err)
+        print(f"[xxh32] {what}: {want.numel()} hashes equal")
+
+    bufs = torch.from_numpy(rng.integers(0, 256, (len(XXH_LENGTHS), 65536), dtype=np.uint8))
+    lens = torch.tensor(XXH_LENGTHS, dtype=torch.int32)
+    hold(f"rows of {XXH_LENGTHS} bytes", xxh32.xxh32_blocks(bufs.to(dev), lens),
+         xxh32.xxh32_blocks_plain(bufs, lens))
+    flat = torch.from_numpy(rng.integers(0, 256, 300000, dtype=np.uint8))
+    starts = [a + k for a in (0, 150001) for k in range(16)]
+    wl = [XXH_LENGTHS[k % len(XXH_LENGTHS)] for k in range(len(starts))]
+    hold("windows at starts 0-15 and 150,001-150,016 mod 16",
+         xxh32.xxh32_windows(flat.to(dev), starts, wl),
+         xxh32.xxh32_windows_plain(flat, starts, wl))
+
+    # the block-checksum shape: every row of the timed launch held
+    rows, row_lens = split_blocks(data, BLOCK)
+    rows_d = rows.to(dev)
+    got = xxh32.xxh32_blocks(rows_d, row_lens)
+    rows_call_ms = _cuda_ms(lambda: xxh32.xxh32_blocks(rows_d, row_lens), 20)
+    rows_ms = _device_ms(lambda: xxh32.xxh32_blocks(rows_d, row_lens),
+                         "xxh32_windows", 20)
+    t0 = time.perf_counter()
+    want = xxh32.xxh32_blocks_plain(rows, row_lens)
+    rows_plain_ms = (time.perf_counter() - t0) * 1e3
+    hold(f"all {rows.shape[0]} rows of the timed 64 KB batch", got, want)
+
+    # the content-checksum shape: the payload as one window
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    gots = [xxh32.xxh32_windows(payload, [a], [n]) for a, n in windows]
+    stream_ms = _cuda_ms(lambda: xxh32.xxh32_windows(payload, [0], [len(data)]), 5)
+    plain_s = []
+    for (a, n), g, fut in zip(windows, gots, futures):
+        out, seconds = fut.result()
+        plain_s.append(seconds)
+        hold(f"one window of {n} bytes at {a}", g, torch.from_numpy(out))
+    _, host_s = futures[len(windows)].result()
+
+    clock = float(_nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    nb = rows.shape[0]
+    entries = []
+    for name, ms, plain_ms, path, moved, stripes in (
+        ("xxh32_windows:rows", rows_ms, rows_plain_ms, "independent_both",
+         int(row_lens.sum()) + 16 * nb, BLOCK // 16),
+        ("xxh32_windows:stream", stream_ms, plain_s[-1] * 1e3, "cli_default",
+         len(data) + 16, len(data) // 16),
+    ):
+        # bytes: each window's bytes read once, its int64 start and int32
+        # length read and its hash written; chain: the longest window's
+        # stripes one after another at the card's top clock
+        byte_ms = moved / HBM_BYTES_PER_S * 1e3
+        chain_ms = stripes * CHAIN_CYCLES_PER_STRIPE / clock * 1e3
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "lz4_tpu_torch/ops/csrc/xxh32.cu",
+            "replaces": "lz4_tpu/ops/xxh32_pallas.py:121", "path": path,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(byte_ms, chain_ms),
+            "bound_by": "bytes" if byte_ms >= chain_ms else "operations",
+            "byte_bound_ms": byte_ms, "chain_bound_ms": chain_ms,
+            "library_ms": None})
+    for e in entries:
+        e["max_abs_err"] = worst
+    entries[0]["call_ms"] = rows_call_ms
+    print(f"[xxh32] {rows_ms:.4f} ms per {nb} rows of 64 KB on the device "
+          f"({rows_call_ms:.4f} ms per wrapper call), {stream_ms:.3f} ms "
+          f"per {len(data)}-byte window (max SM clock {clock / 1e6:.0f} MHz); "
+          f"plain {rows_plain_ms:.1f} ms and {plain_s[-1] * 1e3:.1f} ms; the "
+          f"host hash it replaces: {host_s:.3f} s per 4 MiB")
+    return entries, host_s
+
+
+def phase_checksum_paths(data: bytes, data16: bytes, dev):
+    """The three checksummed round trips; `_round_trips` fails a path that
+    never launches kernel E, as for every kernel it counts."""
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.ops import decode, decode_stream, encode, encode_stream, xxh32
+
+    launches, e2e = {}, {}
+    for name, payload, settings, counts in (
+        ("cli_default", data, _cli_default(),
+         [encode_stream.encode_blocks_stream, decode.decode_blocks]),
+        ("independent_both", data,
+         frame.EncoderSettings(chain_blocks=False, block_checksum=True,
+                               content_checksum=True),
+         [encode.encode_blocks, decode.decode_blocks]),
+        ("chained_both", data16,
+         frame.EncoderSettings(block_checksum=True, content_checksum=True),
+         [encode_stream.encode_blocks_stream, decode_stream.decode_chain]),
+    ):
+        got, rates = _round_trips(payload, settings, dev,
+                                  counts + [xxh32.xxh32_windows])
+        launches[name], e2e[name] = got, rates
+        print(f"[checksums] {name}: {len(payload)} bytes -> "
+              f"{rates['frame_bytes']} bytes, round trip exact, deterministic, "
+              f"launches {got}; median {rates['compress_GBps_median']:.4f} GB/s "
+              f"compress, {rates['decompress_GBps_median']:.4f} GB/s decompress")
+    return launches, e2e
+
+
+def _nvidia_smi(query: str, *fmt: str) -> str:
+    """The first card's `nvidia-smi --query-gpu` fields, as CSV."""
     res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=" + ",".join(("csv", "noheader") + fmt)],
         capture_output=True, text=True, timeout=60,
     )
     _require(res.returncode == 0 and res.stdout.strip(), "nvidia-smi failed")
     return res.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return _nvidia_smi("name,power.limit")
 
 
 def main(argv=None) -> int:
@@ -1049,11 +1238,14 @@ def main(argv=None) -> int:
         k["max_abs_err"] = err
     t0 = time.perf_counter()
     with plain_pool() as pool:
+        xxh_windows, xxh_futures = xxh32_windows_in_pool(pool, data)
         hc_err = {"independent": phase_hc_encode(data, rng, dev, pool),
                   "chained": phase_hc_stream(data16, rng, dev, pool)}
         check_hc_frame(data16, dev, pool)
-    print(f"[hc] kernels B and D held to their plain versions in "
-          f"{time.perf_counter() - t0:.1f} s")
+        print(f"[hc] kernels B and D held to their plain versions in "
+              f"{time.perf_counter() - t0:.1f} s")
+        xxh_kernels, host_xxh32_s = phase_xxh32(
+            data, rng, dev, xxh_windows, xxh_futures)
     hc_launches, hc_e2e = phase_hc_paths(data16, dev)
     hc_kernels = phase_hc_times(data16, dev)
     for k in hc_kernels:
@@ -1068,7 +1260,14 @@ def main(argv=None) -> int:
     print(json.dumps({"e2e": e2e, "e2e_chained": chained_e2e,
                       "e2e_big_blocks": big_e2e,
                       "big_blocks_launches": big_launches}))
+    cs_launches, cs_e2e = phase_checksum_paths(data, data16, dev)
+    for k in xxh_kernels:
+        k["launches"] = cs_launches[k.pop("path")]["xxh32_windows"]
+    kernels += xxh_kernels
+    print(json.dumps({"cli_default": profile_path(data, dev, _cli_default())}))
     print(json.dumps({"e2e_hc": hc_e2e, "hc_launches": hc_launches}))
+    print(json.dumps({"e2e_checksums": cs_e2e, "checksum_launches": cs_launches,
+                      "host_xxh32_4MiB_s": host_xxh32_s}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

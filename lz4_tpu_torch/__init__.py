@@ -8,10 +8,12 @@ the card unless the caller passes ``device="cpu"``.
 
 Layer map (the slice ported so far):
 - `lz4_tpu_torch.constants` — format constants
-- `lz4_tpu_torch.xxh32`     — xxHash32
+- `lz4_tpu_torch.xxh32`     — xxHash32 on the host (the frame descriptor's
+  checksum byte)
 - `lz4_tpu_torch.ops`       — kernels A (decode), B (encode <= 64 KB) and D
   (encode at any size, with dictionaries), each with its FAST (levels 0-2),
-  HC (3-9) and OPT (10-12) arms, and the chained decoder
+  HC (3-9) and OPT (10-12) arms, the chained decoder, and kernel E
+  (xxHash32 of byte windows: every block and content checksum)
 - `lz4_tpu_torch.parallel`  — batched encode/decode, chained encode
 - `lz4_tpu_torch.block`     — one-block encode/decode with dictionaries
 - `lz4_tpu_torch.frame`     — one-shot frame compress/decompress

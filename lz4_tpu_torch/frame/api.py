@@ -4,11 +4,15 @@ The port of the device path of `lz4_tpu/frame/api.py`.  `compress` encodes
 every block of the frame in one launch, at any level 0-12: independent
 blocks on kernel B (at most 64 KB) or D (larger), chained blocks on D, each
 with the 64 KB of plaintext before it as its dictionary.  `decompress` scans the frame's
-block table on the host; an independent frame copies its stored blocks
-and decodes the compressed ones in one batch on kernel A, a chained frame
-decodes in one launch of the chained decoder.  Frames with a dictionary
-ID, independent frames with a preset dictionary and multi-frame streams
-take the JAX package's FrameReader, which is not ported yet.
+block table on the host and uploads the frame once; an independent frame
+copies its stored blocks and decodes the compressed ones in one batch on
+kernel A, a chained frame decodes in one launch of the chained decoder.
+Every block and content checksum is computed on the device by kernel E,
+over bytes that are already there: the payload and the compressed rows on
+compress, the frame and the decoded content on decompress.  Frames with a
+dictionary ID, independent frames with a preset dictionary and
+multi-frame streams take the JAX package's FrameReader, which is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -22,10 +26,10 @@ import torch
 from ..constants import _as_bytes, compress_bound
 from ..ops.common import resolve_device
 from ..ops.decode_stream import decode_chain
+from ..ops.xxh32 import as_uint32, xxh32_windows
 from ..parallel.blocks import (
-    decode_block_parts, encode_blocks, encode_blocks_chained_device,
+    decode_frame_blocks, encode_blocks, encode_blocks_chained_device, upload,
 )
-from ..xxh32 import xxh32
 from .descriptor import DecoderSettings, EncoderSettings
 from .header import LZ4FormatError, build_header, parse_header, parse_magic
 
@@ -34,12 +38,13 @@ __all__ = ["compress", "decompress"]
 _UNCOMPRESSED_FLAG = 0x80000000
 
 
-def _assemble_frame(d, data, bs, payloads, csum=None) -> bytes:
+def _assemble_frame(d, data, bs, payloads, csum=None, block_sums=None) -> bytes:
     """Assemble one frame: header, per-block stored-vs-compressed framing
     (a block is STORED when its compressed payload is not smaller — the
     upstream rule), optional block checksums, EndMark, optional content
     checksum.  `payloads` are per-block compressed candidates, in frame
-    order."""
+    order; `block_sums` their checksums, computed on the device
+    (`parallel.blocks.block_checksums`) when ``d.block_checksum``."""
     parts = [build_header(d)]
     n = len(data)
     for i, comp in enumerate(payloads):
@@ -53,7 +58,7 @@ def _assemble_frame(d, data, bs, payloads, csum=None) -> bytes:
             payload = comp
         parts.append(payload)
         if d.block_checksum:
-            parts.append(struct.pack("<I", xxh32(payload)))
+            parts.append(struct.pack("<I", block_sums[i]))
     parts.append(b"\x00\x00\x00\x00")
     if csum is not None:
         parts.append(struct.pack("<I", csum))
@@ -123,20 +128,28 @@ def compress(
             "geometry='auto' or 'dense' on a device"
         )
     d = settings.to_descriptor()
+    payload = upload(data, dev)
     if settings.chain_blocks:
         blocks = encode_blocks_chained_device(
-            data, settings.block_size, settings.compression_level, device=dev
+            payload, settings.block_size, settings.compression_level,
+            device=dev, checksums=d.block_checksum,
         )
     else:
         blocks = encode_blocks(
-            data,
+            payload,
             block_size=settings.block_size,
             level=settings.compression_level,
             geometry=_independent_geometry(settings),
             device=dev,
+            checksums=d.block_checksum,
         )
-    csum = xxh32(data) if d.content_checksum else None
-    return _assemble_frame(d, data, settings.block_size, blocks, csum)
+    sums = None
+    if d.block_checksum:
+        blocks, sums = blocks
+    csum = None
+    if d.content_checksum:
+        (csum,) = as_uint32(xxh32_windows(payload, [0], [len(data)]))
+    return _assemble_frame(d, data, settings.block_size, blocks, csum, sums)
 
 
 def _scan_single_frame(data: bytes):
@@ -144,7 +157,21 @@ def _scan_single_frame(data: bytes):
 
     Returns (descriptor, [(offset, length, stored)], tail_pos).  Raises
     LZ4FormatError on a malformed or truncated frame and
-    NotImplementedError on what FrameReader alone decodes."""
+    NotImplementedError on what FrameReader alone decodes.  Block
+    checksums are not verified here (`_verify_blocks` does that on the
+    device)."""
+    d, blocks, pos, fault = _scan_frame(data)
+    if fault is not None:
+        raise fault
+    return d, blocks, pos
+
+
+def _scan_frame(data: bytes):
+    """`_scan_single_frame` that returns a fault found after the header
+    instead of raising it: (descriptor, blocks, tail_pos, fault or None).
+    ``blocks`` then holds the blocks scanned before the fault whose
+    checksum field is whole, so that a mismatch among them is reported
+    first, as a sequential reader would."""
     src = io.BytesIO(data)
     info = parse_header(src.read)
     if info.kind != "frame":
@@ -154,6 +181,17 @@ def _scan_single_frame(data: bytes):
         raise _not_ported("frames with a dictionary ID")
     blocks = []
     pos = info.header_length
+    try:
+        pos = _scan_blocks(data, d, pos, blocks)
+    except (LZ4FormatError, NotImplementedError) as fault:
+        return d, blocks, pos, fault
+    return d, blocks, pos, None
+
+
+def _scan_blocks(data: bytes, d, pos: int, blocks: list) -> int:
+    """Walk the block table from ``pos``, appending each whole block's
+    (offset, length, stored) to ``blocks``; returns the position after the
+    EndMark, or raises on a malformed or truncated table or tail."""
     n = len(data)
     limit = d.block_size_limit
     while True:
@@ -172,15 +210,10 @@ def _scan_single_frame(data: bytes):
             )
         if pos + length > n:
             raise LZ4FormatError("truncated block data")
+        if d.block_checksum and pos + length + 4 > n:
+            raise LZ4FormatError("truncated block checksum")
         blocks.append((pos, length, stored))
-        pos += length
-        if d.block_checksum:
-            if pos + 4 > n:
-                raise LZ4FormatError("truncated block checksum")
-            (expected,) = struct.unpack_from("<I", data, pos)
-            if xxh32(data[pos - length : pos]) != expected:
-                raise LZ4FormatError("block checksum mismatch")
-            pos += 4
+        pos += length + (4 if d.block_checksum else 0)
     tail = 4 if d.content_checksum else 0
     if pos + tail > n:
         raise LZ4FormatError("truncated content checksum")
@@ -192,14 +225,25 @@ def _scan_single_frame(data: bytes):
         if parse_magic(magic) is None:
             raise LZ4FormatError(f"invalid magic 0x{magic:08X}")
         raise _not_ported("multi-frame streams")
-    return d, blocks, pos
+    return pos
 
 
-def _decode_chained(data: bytes, d, blocks, dictionary, dev) -> bytes:
+def _verify_blocks(frame, data: bytes, blocks) -> None:
+    """Every block checksum in one launch of kernel E over the blocks'
+    windows of the uploaded frame; raises on the first mismatch."""
+    if not blocks:
+        return
+    got = as_uint32(xxh32_windows(
+        frame, [off for off, _, _ in blocks], [n for _, n, _ in blocks]))
+    for (off, length, _), h in zip(blocks, got):
+        if struct.unpack_from("<I", data, off + length)[0] != h:
+            raise LZ4FormatError("block checksum mismatch")
+
+
+def _decode_chained(frame, d, blocks, dictionary):
     """A chained frame's blocks, decoded in one launch of the chained
     decoder; the first block's window is the last 64 KB of
-    ``dictionary``."""
-    frame = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    ``dictionary``.  Returns the content on the frame's device."""
     preset = None
     if dictionary:
         preset = torch.frombuffer(
@@ -210,7 +254,7 @@ def _decode_chained(data: bytes, d, blocks, dictionary, dev) -> bytes:
     written, bad, err = status.tolist()
     if bad >= 0:
         raise LZ4FormatError(f"malformed chained block {bad} (err={err})")
-    return stream[:written].cpu().numpy().tobytes()
+    return stream[:written]
 
 
 def decompress(
@@ -219,38 +263,36 @@ def decompress(
     device="cuda",
 ) -> bytes:
     """Decompress one LZ4 frame on ``device`` (the plain versions when
-    ``device="cpu"``).  An independent frame's compressed blocks decode in
-    one batch and its stored ones are copied, in frame order; a chained
-    frame decodes in one launch, with ``settings.dictionary`` as the
-    preset dictionary."""
+    ``device="cpu"``).  The frame goes to the device once and its block
+    checksums are verified there before any block decodes.  An independent
+    frame's compressed blocks decode in one batch and its stored ones are
+    copied, in frame order; a chained frame decodes in one launch, with
+    ``settings.dictionary`` as the preset dictionary.  The content checksum
+    is verified on the decoded content on the device, which then comes
+    back in one copy."""
     dev = resolve_device(device)
     data = _as_bytes(data)
     settings = settings or DecoderSettings()
     if not data:
         return b""
-    d, blocks, pos = _scan_single_frame(data)
+    d, blocks, pos, fault = _scan_frame(data)
+    frame = upload(data, dev)
+    if d.block_checksum:
+        _verify_blocks(frame, data, blocks)
+    if fault is not None:
+        raise fault
     if d.block_chaining:
-        result = _decode_chained(data, d, blocks, settings.dictionary, dev)
+        content = _decode_chained(frame, d, blocks, settings.dictionary)
     elif settings.dictionary:
         raise _not_ported("independent frames with a preset dictionary")
     else:
-        decoded = iter(
-            decode_block_parts(
-                [data[off : off + length] for off, length, st in blocks if not st],
-                d.block_size,
-                dev,
-            )
-        )
-        result = b"".join(
-            data[off : off + length] if st else next(decoded).tobytes()
-            for off, length, st in blocks
-        )
+        content = decode_frame_blocks(frame, blocks, d.block_size)
     if d.content_checksum:
         (expected,) = struct.unpack_from("<I", data, pos)
-        if xxh32(result) != expected:
+        if as_uint32(xxh32_windows(content, [0], [content.numel()]))[0] != expected:
             raise LZ4FormatError("content checksum mismatch")
-    if d.content_length is not None and len(result) != d.content_length:
+    if d.content_length is not None and content.numel() != d.content_length:
         raise LZ4FormatError(
-            f"content length mismatch: {len(result)} != {d.content_length}"
+            f"content length mismatch: {content.numel()} != {d.content_length}"
         )
-    return result
+    return content.cpu().numpy().tobytes()

@@ -1,0 +1,205 @@
+"""xxHash32 (seed 0) of byte windows: kernel E (`csrc/xxh32.cu`) and its
+plain versions.
+
+The port of `lz4_tpu/ops/xxh32_pallas.py` (`pallas_xxh32`, wrapper
+`xxh32_blocks`), with the same hashes.  The frame layer takes every block
+and content checksum from here, over bytes that already lie on the device:
+`xxh32_windows` hashes windows of one flat tensor (a batch's rows at
+b * stride, a frame's blocks in place, the content as one window);
+`xxh32_blocks` is the counterpart of the TPU wrapper, its rows as windows.
+Both return the uint32 bits of each hash in an int32 tensor (`as_uint32`
+reads them back as Python ints).  The kernel's source says what bounds it
+on the card and what its design does about that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .build import check, load
+
+PRIME1 = 2654435761
+PRIME2 = 2246822519
+PRIME3 = 3266489917
+PRIME4 = 668265263
+PRIME5 = 374761393
+_M32 = 0xFFFFFFFF
+# stripes per Python-int pass over the last window standing
+_ONE_CHUNK = 1 << 16
+# the accumulators before the first stripe, seed 0
+_SEEDED =((PRIME1 + PRIME2) & _M32, PRIME2, 0, -PRIME1 & _M32)
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = load("xxh32")
+        lib.lz4t_xxh32.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.lz4t_xxh32.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def as_uint32(hashes) -> list[int]:
+    """The hashes of an int32 tensor of uint32 bits, as Python ints."""
+    return [h & _M32 for h in torch.as_tensor(hashes).tolist()]
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def _stripes_one(words: list[int], accs) -> tuple[int, int, int, int]:
+    """One window's stripes (a flat list of LE words, four per stripe) in
+    Python ints: the chain is sequential, and ints beat numpy calls here."""
+    a0, a1, a2, a3 = accs
+    it = iter(words)
+    for w0, w1, w2, w3 in zip(it, it, it, it):
+        a0 = _rotl((a0 + w0 * PRIME2) & _M32, 13) * PRIME1 & _M32
+        a1 = _rotl((a1 + w1 * PRIME2) & _M32, 13) * PRIME1 & _M32
+        a2 = _rotl((a2 + w2 * PRIME2) & _M32, 13) * PRIME1 & _M32
+        a3 = _rotl((a3 + w3 * PRIME2) & _M32, 13) * PRIME1 & _M32
+    return a0, a1, a2, a3
+
+
+def _finish(accs, n: int, tail: bytes) -> int:
+    """The merge, ``+ n``, the 4-byte and 1-byte tails and the avalanche."""
+    if n >= 16:
+        a0, a1, a2, a3 = accs
+        acc = (_rotl(a0, 1) + _rotl(a1, 7) + _rotl(a2, 12) + _rotl(a3, 18)) & _M32
+    else:
+        acc = PRIME5
+    acc = (acc + n) & _M32
+    i = 0
+    while i + 4 <= len(tail):
+        lane = int.from_bytes(tail[i:i + 4], "little")
+        acc = _rotl((acc + lane * PRIME3) & _M32, 17) * PRIME4 & _M32
+        i += 4
+    for b in tail[i:]:
+        acc = _rotl((acc + b * PRIME5) & _M32, 11) * PRIME1 & _M32
+    acc ^= acc >> 15
+    acc = acc * PRIME2 & _M32
+    acc ^= acc >> 13
+    acc = acc * PRIME3 & _M32
+    return acc ^ (acc >> 16)
+
+
+def _validate_windows(flat_u8, starts, lens):
+    flat = torch.as_tensor(flat_u8)
+    if flat.dtype != torch.uint8 or flat.dim() != 1:
+        raise ValueError("flat_u8 must be a 1-D uint8 tensor")
+    st = torch.as_tensor(starts, dtype=torch.int64).cpu()
+    ln = torch.as_tensor(lens, dtype=torch.int32).cpu()
+    if st.dim() != 1 or ln.shape != st.shape:
+        raise ValueError("starts and lens must hold one value per window")
+    if st.numel():
+        if int(ln.min()) < 0:
+            raise ValueError("window lengths must be >= 0")
+        if int(st.min()) < 0 or int((st + ln).max()) > flat.numel():
+            raise ValueError("a window reaches outside flat_u8")
+    return flat, st, ln
+
+
+def xxh32_windows_plain(flat_u8, starts, lens):
+    """The plain PyTorch version of `xxh32_windows`: the same checks and
+    hashes.  The stripes run in numpy over all windows that still have one
+    at once; the last window standing finishes its chain in Python ints."""
+    flat, st, ln = _validate_windows(flat_u8, starts, lens)
+    raw = flat.cpu().numpy()
+    starts_l, lens_l = st.tolist(), ln.tolist()
+    nst = np.asarray([n // 16 for n in lens_l], np.int64)
+    order = np.argsort(-nst, kind="stable")
+    # every window's stripes, longest window first: [sum(nst), 4] LE words
+    offs = np.concatenate([[0], np.cumsum(nst[order])])
+    words = np.concatenate(
+        [raw[starts_l[b]:starts_l[b] + 16 * int(nst[b])] for b in order]
+        + [np.zeros(0, np.uint8)]
+    ).view("<u4").reshape(-1, 4)
+    accs = np.tile(np.asarray(_SEEDED, np.uint32), (len(order), 1))
+    k, active = 0, int((nst > 0).sum())
+    while active > 1:
+        rows = offs[:active] + k
+        a = accs[:active] + words[rows] * np.uint32(PRIME2)
+        a = (a << np.uint32(13)) | (a >> np.uint32(19))
+        accs[:active] = a * np.uint32(PRIME1)
+        k += 1
+        while active and nst[order[active - 1]] <= k:
+            active -= 1
+    if active == 1:
+        a = accs[0].tolist()
+        for c in range(offs[0] + k, offs[1], _ONE_CHUNK):
+            a = _stripes_one(words[c:min(c + _ONE_CHUNK, offs[1])].ravel().tolist(), a)
+        accs[0] = a
+    hashes = np.zeros(len(order), np.uint32)
+    for i, b in enumerate(order.tolist()):
+        a, n = starts_l[b], lens_l[b]
+        tail = raw[a + 16 * (n // 16):a + n].tobytes()
+        hashes[b] = _finish(accs[i].tolist(), n, tail)
+    return torch.from_numpy(hashes.view(np.int32)).to(flat.device)
+
+
+def xxh32_windows(flat_u8, starts, lens):
+    """xxHash32 (seed 0) of B windows of one flat byte tensor.
+
+    Window w is flat_u8[starts[w] : starts[w] + lens[w]] (starts int64,
+    lens int32; windows may overlap and start at any byte).  Returns int32
+    [B] on the input's device: each hash's uint32 bits.  A CPU tensor runs
+    the plain version; a CUDA tensor launches kernel E once (counted in
+    `xxh32_windows.launches`)."""
+    flat, st, ln = _validate_windows(flat_u8, starts, lens)
+    if flat.device.type != "cuda":
+        return xxh32_windows_plain(flat, st, ln)
+    flat = flat.contiguous()
+    dev = flat.device
+    nw = st.numel()
+    out = torch.empty((nw,), dtype=torch.int32, device=dev)
+    if nw == 0:
+        return out
+    st, ln = st.to(dev), ln.to(dev)
+    lib = _kernel()
+    with torch.cuda.device(dev):
+        rc = lib.lz4t_xxh32(
+            flat.data_ptr(), st.data_ptr(), ln.data_ptr(), out.data_ptr(), nw,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(rc, "xxh32")
+    xxh32_windows.launches += 1
+    return out
+
+
+def _rows(bufs_u8, lens):
+    """A batch of rows as windows of one flat tensor: (flat, starts, lens)."""
+    bufs = torch.as_tensor(bufs_u8)
+    if bufs.dtype != torch.uint8 or bufs.dim() != 2:
+        raise ValueError("bufs_u8 must be a 2-D uint8 tensor")
+    nb, cap = bufs.shape
+    ln = torch.as_tensor(lens, dtype=torch.int32).cpu()
+    if ln.shape != (nb,):
+        raise ValueError("lens must hold one length per row")
+    if nb and (int(ln.min()) < 0 or int(ln.max()) > cap):
+        raise ValueError(f"lens must lie in [0, CAP={cap}]")
+    starts = torch.arange(nb, dtype=torch.int64) * cap
+    return bufs.contiguous().reshape(-1), starts, ln
+
+
+def xxh32_blocks_plain(bufs_u8, lens):
+    """The plain PyTorch version of `xxh32_blocks`."""
+    return xxh32_windows_plain(*_rows(bufs_u8, lens))
+
+
+def xxh32_blocks(bufs_u8, lens):
+    """xxHash32 (seed 0) of the first lens[b] bytes of each row of bufs_u8
+    (uint8 [B, CAP]), as `pallas_xxh32`; its rows are windows of kernel E.
+    Returns int32 [B] of uint32 bits on the input's device."""
+    return xxh32_windows(*_rows(bufs_u8, lens))
+
+
+xxh32_windows.launches = 0

@@ -6,7 +6,11 @@ into fixed-size independent blocks (frame descriptor
 whole batch, and only the compressed lengths decide the frame layout on
 the host.  Blocks of at most 64 KB encode on kernel B, larger ones on
 kernel D.  Chained blocks encode in one launch of kernel D too: block k's
-dictionary is the 64 KB of plaintext before it, known up front.
+dictionary is the 64 KB of plaintext before it, known up front.  The
+payload goes to the device once; the block checksums a frame carries are
+hashed there by kernel E (`block_checksums`), over the compressed rows
+before they leave the device and over the payload where a block is
+stored.
 
 The JAX package pads each batch to a power-of-two bucket to bound its
 compiles; that does not apply here: every call launches exactly B rows.
@@ -23,18 +27,21 @@ from ..ops import decode as _decode
 from ..ops import decode_stream as _decode_stream
 from ..ops import encode as _encode
 from ..ops import encode_stream as _encode_stream
+from ..ops import xxh32 as _xxh32
 from ..ops.common import align1024, resolve_device
 
 __all__ = [
     "comp_capacity",
+    "upload",
     "split_blocks",
+    "block_checksums",
     "pack_blocks",
     "encode_blocks_device",
     "encode_blocks_chained_device",
     "decode_blocks_device",
     "encode_blocks",
     "decode_blocks",
-    "decode_block_parts",
+    "decode_frame_blocks",
 ]
 
 # zero tail of every staged source row (the JAX package's `_PAD_TAIL`):
@@ -47,26 +54,61 @@ def comp_capacity(block_size: int) -> int:
     return align1024(compress_bound(block_size) + 8)
 
 
-def split_blocks(data: bytes, block_size: int, pad_to: int | None = None):
+def upload(data, device) -> torch.Tensor:
+    """``data`` (bytes-like, or a 1-D uint8 tensor) as a 1-D uint8 tensor
+    on ``device``: one copy to the device."""
+    if isinstance(data, torch.Tensor):
+        if data.dtype != torch.uint8 or data.dim() != 1:
+            raise ValueError("a payload tensor must be 1-D uint8")
+        return data.to(device)
+    if not len(data):
+        return torch.zeros((0,), dtype=torch.uint8, device=device)
+    return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(device)
+
+
+def split_blocks(data, block_size: int, pad_to: int | None = None):
     """Split ``data`` into fixed-capacity padded blocks.
 
-    Returns (bufs uint8 [B, block_size + 1024], lens int32 [B]) on the CPU.
-    If ``pad_to`` is given, B is rounded up to a multiple of it (extra
-    blocks have length 0)."""
-    n = len(data)
+    Returns (bufs uint8 [B, block_size + 1024], lens int32 [B]): on the CPU
+    for bytes, on the payload's device (lens on the CPU) for a 1-D uint8
+    tensor.  If ``pad_to`` is given, B is rounded up to a multiple of it
+    (extra blocks have length 0)."""
+    payload = upload(data, data.device if isinstance(data, torch.Tensor) else "cpu")
+    n = payload.numel()
     nb = max(1, -(-n // block_size))
     if pad_to:
         nb = -(-nb // pad_to) * pad_to
-    bufs = np.zeros((nb, block_size + _PAD_TAIL), np.uint8)
-    lens = np.zeros((nb,), np.int32)
-    view = np.frombuffer(data, np.uint8)
+    bufs = torch.zeros((nb, block_size + _PAD_TAIL), dtype=torch.uint8,
+                       device=payload.device)
     full = n // block_size
-    bufs[:full, :block_size] = view[: full * block_size].reshape(full, block_size)
-    lens[:full] = block_size
+    bufs[:full, :block_size] = payload[: full * block_size].view(full, block_size)
     if n % block_size:
-        bufs[full, : n - full * block_size] = view[full * block_size :]
-        lens[full] = n - full * block_size
-    return torch.from_numpy(bufs), torch.from_numpy(lens)
+        bufs[full, : n - full * block_size] = payload[full * block_size :]
+    lens = (n - torch.arange(nb) * block_size).clamp(0, block_size)
+    return bufs, lens.to(torch.int32)
+
+
+def block_checksums(out, out_lens, raw, raw_starts, raw_lens) -> list[int]:
+    """Each block's xxHash32 as its frame stores it, with kernel E on the
+    device of ``out`` and ``raw`` (the plain version on the CPU): over the
+    compressed row out[b, :out_lens[b]] where it is shorter than the raw
+    block, else over the raw block raw[raw_starts[b] : + raw_lens[b]],
+    which the frame then stores (the upstream rule, `frame.api.
+    _assemble_frame`).  One launch for the compressed blocks, and one more
+    only if a block is stored."""
+    clens = torch.as_tensor(out_lens).cpu().to(torch.int64)
+    rlens = torch.as_tensor(raw_lens).cpu().to(torch.int64)
+    starts = torch.as_tensor(raw_starts).cpu().to(torch.int64)
+    stored = clens >= rlens
+    sums = torch.zeros(clens.shape, dtype=torch.int32)
+    comp = (~stored).nonzero().flatten()
+    if comp.numel():
+        sums[comp] = _xxh32.xxh32_windows(
+            out.reshape(-1), comp * out.shape[1], clens[comp]).cpu()
+    if bool(stored.any()):
+        sums[stored] = _xxh32.xxh32_windows(
+            raw, starts[stored], rlens[stored]).cpu()
+    return _xxh32.as_uint32(sums)
 
 
 def pack_blocks(outs, out_lens) -> list[bytes]:
@@ -96,25 +138,27 @@ def encode_blocks_device(bufs, lens, bcap: int, level: int = 0,
     return out, out_lens
 
 
-def encode_blocks_chained_device(data: bytes, block_size: int,
-                                 level: int = 0, acceleration: int = 1,
-                                 device="cuda") -> list[bytes]:
+def encode_blocks_chained_device(data, block_size: int, level: int = 0,
+                                 acceleration: int = 1, device="cuda",
+                                 checksums: bool = False):
     """Encode the blocks of a chained frame in one launch of kernel D on
     ``device`` (the plain version when ``device="cpu"``).
 
     Block k's dictionary is the 64 KB of plaintext before it, so the
-    payload goes to the device once and row k is the window
-    [k * block_size - dl, (k + 1) * block_size) of it, dl = min(k *
-    block_size, 65536), with the dense schedule at levels 0-2 and the
-    prefix in the chain at levels 3-12: the bytes of the sequential chain
-    encoder.  Returns each block's compressed payload, in
-    frame order (the caller stores a block whose payload is not smaller)."""
+    payload (bytes, or a 1-D uint8 tensor) goes to the device once and row
+    k is the window [k * block_size - dl, (k + 1) * block_size) of it,
+    dl = min(k * block_size, 65536), with the dense schedule at levels 0-2
+    and the prefix in the chain at levels 3-12: the bytes of the sequential
+    chain encoder.  Returns each block's compressed payload, in frame order
+    (the caller stores a block whose payload is not smaller), and with
+    ``checksums=True`` the list of payloads and each block's checksum
+    (`block_checksums`)."""
     dev = resolve_device(device)
-    n = len(data)
+    payload = upload(data, dev)
+    n = payload.numel()
     nb = -(-n // block_size)
     if nb == 0:
-        return []
-    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+        return ([], []) if checksums else []
     block_starts = torch.arange(nb, dtype=torch.int64) * block_size
     dls = block_starts.clamp(max=_encode_stream.WINDOW)
     ends = (block_starts + block_size).clamp(max=n)
@@ -124,7 +168,11 @@ def encode_blocks_chained_device(data: bytes, block_size: int,
     )
     if bool(errs.any()):
         raise RuntimeError("chained encoder overflow")
-    return pack_blocks(out, out_lens)
+    blocks = pack_blocks(out, out_lens)
+    if not checksums:
+        return blocks
+    return blocks, block_checksums(out, out_lens, payload, block_starts,
+                                   ends - block_starts)
 
 
 def decode_blocks_device(comps, clens, out_cap: int, dicts=None,
@@ -154,59 +202,75 @@ def decode_blocks_device(comps, clens, out_cap: int, dicts=None,
 
 
 def encode_blocks(
-    data: bytes,
+    data,
     block_size: int = 1 << 20,
     level: int = 0,
     mesh=None,
     geometry: str = "canonical",
     device="cuda",
-) -> list[bytes]:
-    """One-shot: split ``data`` into independent blocks, encode them in one
-    batch on ``device``, return the compressed blocks in frame order."""
+    checksums: bool = False,
+):
+    """One-shot: split ``data`` (bytes, or a 1-D uint8 tensor) into
+    independent blocks, encode them in one batch on ``device``, return the
+    compressed blocks in frame order, and with ``checksums=True`` the list
+    of blocks and each block's checksum (`block_checksums`)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: multi-GPU block sharding is not ported yet (ROADMAP.md "
             "Queue 1, multi-GPU mesh)"
         )
     dev = resolve_device(device)
-    if not data:
-        return []
-    bufs, lens = split_blocks(data, block_size)
+    payload = upload(data, dev)
+    if not payload.numel():
+        return ([], []) if checksums else []
+    bufs, lens = split_blocks(payload, block_size)
     outs, out_lens = encode_blocks_device(
         bufs, lens, block_size, level, geometry=geometry, device=dev
     )
-    return pack_blocks(outs, out_lens)
+    blocks = pack_blocks(outs, out_lens)
+    if not checksums:
+        return blocks
+    starts = torch.arange(len(blocks), dtype=torch.int64) * block_size
+    return blocks, block_checksums(outs, out_lens, payload, starts, lens)
 
 
-def decode_block_parts(blocks: list[bytes], block_size: int,
-                       device="cuda") -> list[np.ndarray]:
-    """Decode independent compressed blocks in one batch on ``device``;
-    returns each block's decoded bytes, in order.  Raises LZ4Error on the
-    first malformed block."""
-    dev = resolve_device(device)
-    if not blocks:
-        return []
-    nb = len(blocks)
-    comps = np.zeros((nb, comp_capacity(block_size)), np.uint8)
-    clens = np.zeros((nb,), np.int32)
-    for b, blk in enumerate(blocks):
-        if len(blk) > comps.shape[1] - 20:
+def decode_frame_blocks(frame_u8, table, block_size: int) -> torch.Tensor:
+    """Decode the independent blocks of one frame in one batch on the
+    device of ``frame_u8`` (kernel A; the plain version on the CPU) and put
+    the content together there.
+
+    ``table`` holds each block's (offset in frame_u8, length, stored), in
+    frame order: a stored block is copied as it is.  The compressed blocks
+    become zero-padded rows by one concatenation on the device.  Raises
+    LZ4Error on the first malformed block.  Returns the content, uint8
+    [N], on the device of ``frame_u8``."""
+    cap = comp_capacity(block_size)
+    comp = [(off, length) for off, length, stored in table if not stored]
+    for b, (_, length) in enumerate(comp):
+        if length > cap - 20:
             raise LZ4Error(
-                f"compressed block {b} of {len(blk)} bytes exceeds the "
+                f"compressed block {b} of {length} bytes exceeds the "
                 f"bound for {block_size}-byte blocks"
             )
-        comps[b, : len(blk)] = np.frombuffer(blk, np.uint8)
-        clens[b] = len(blk)
-    outs, out_lens, errs = decode_blocks_device(
-        torch.from_numpy(comps), torch.from_numpy(clens), block_size,
-        device=dev,
-    )
-    errs = errs.cpu().numpy()
-    if errs.any():
-        bad = int(np.nonzero(errs)[0][0])
-        raise LZ4Error(f"malformed LZ4 block {bad} (err={int(errs[bad])})")
-    outs = outs.cpu().numpy()
-    return [outs[b, :n] for b, n in enumerate(out_lens.tolist())]
+    decoded = iter(())
+    if comp:
+        pad = frame_u8.new_zeros((cap,))
+        rows = []
+        for off, length in comp:
+            rows += [frame_u8[off:off + length], pad[:cap - length]]
+        outs, out_lens, errs = decode_blocks_device(
+            torch.cat(rows).view(len(comp), cap),
+            [length for _, length in comp], block_size,
+            device=frame_u8.device,
+        )
+        errs = errs.cpu()
+        if bool(errs.any()):
+            bad = int(errs.nonzero()[0, 0])
+            raise LZ4Error(f"malformed LZ4 block {bad} (err={int(errs[bad])})")
+        decoded = (outs[b, :n] for b, n in enumerate(out_lens.tolist()))
+    parts = [frame_u8[off:off + length] if stored else next(decoded)
+             for off, length, stored in table]
+    return torch.cat(parts) if parts else frame_u8.new_zeros((0,))
 
 
 def decode_blocks(
@@ -216,16 +280,22 @@ def decode_blocks(
     mesh=None,
     device="cuda",
 ) -> bytes:
-    """Decode independent compressed blocks in one batch and concatenate."""
+    """Decode independent compressed blocks in one batch and concatenate
+    (`decode_frame_blocks` over the blocks laid end to end).  Raises
+    LZ4Error on the first malformed block."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: multi-GPU block sharding is not ported yet (ROADMAP.md "
             "Queue 1, multi-GPU mesh)"
         )
-    parts = decode_block_parts(blocks, block_size, device)
-    if not parts:
+    dev = resolve_device(device)
+    if not blocks:
         return b""
-    result = b"".join(p.tobytes() for p in parts)
+    offs = np.cumsum([0] + [len(b) for b in blocks]).tolist()
+    table = [(off, len(b), False) for off, b in zip(offs, blocks)]
+    content = decode_frame_blocks(
+        upload(b"".join(blocks), dev), table, block_size)
+    result = content.cpu().numpy().tobytes()
     if total_length is not None and len(result) != total_length:
         raise LZ4Error(
             f"decoded length {len(result)} != expected {total_length}"

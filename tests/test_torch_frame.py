@@ -13,6 +13,9 @@ from lz4_tpu import frame as jframe
 from lz4_tpu.frame.writer import FrameWriter
 from lz4_tpu.xxh32 import xxh32 as jxxh32
 from lz4_tpu_torch import frame as tframe
+from lz4_tpu_torch import parallel as tparallel
+from lz4_tpu_torch.frame.api import _scan_single_frame
+from lz4_tpu_torch.parallel.blocks import comp_capacity
 from lz4_tpu_torch.xxh32 import XXH32 as TXXH32, xxh32 as txxh32
 
 import bench
@@ -178,6 +181,28 @@ def test_streaming_cases_are_not_ported(what):
     )
     with pytest.raises(NotImplementedError, match="FrameReader"):
         tframe.decompress(blob, settings, device="cpu")
+
+
+def test_parallel_blocks_round_trip_and_refuse_malformed_blocks():
+    """`parallel.encode_blocks` gives the canonical frame's blocks;
+    `parallel.decode_blocks` decodes them in one batch and names the first
+    malformed or oversized block."""
+    data = CORPUS[:300000]
+    blocks = tparallel.encode_blocks(data, 65536, device="cpu")
+    assert len(blocks) == 5
+    blob = _jax_frame(data)
+    _, table, _ = _scan_single_frame(blob)
+    assert blocks == [blob[off:off + n] for off, n, _ in table]
+    assert tparallel.decode_blocks(blocks, 65536, len(data), device="cpu") == data
+    assert tparallel.decode_blocks([], 65536, device="cpu") == b""
+    for bad, match in (
+        (blocks[:1] + [b"\xff" * 10] + blocks[2:], "malformed LZ4 block 1"),
+        (blocks[:2] + [bytes(comp_capacity(65536) - 19)], "block 2 of"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            tparallel.decode_blocks(bad, 65536, device="cpu")
+    with pytest.raises(ValueError, match="decoded length"):
+        tparallel.decode_blocks(blocks, 65536, len(data) + 1, device="cpu")
 
 
 def test_empty_input_and_xxh32():

@@ -12,7 +12,7 @@ import torch
 import chip_smoke
 from lz4_tpu_torch import frame
 from lz4_tpu_torch.frame.api import _scan_single_frame
-from lz4_tpu_torch.ops import decode, decode_stream, encode, encode_stream
+from lz4_tpu_torch.ops import decode, decode_stream, encode, encode_stream, xxh32
 from lz4_tpu_torch.parallel.blocks import comp_capacity
 
 pytestmark = pytest.mark.gpu
@@ -230,3 +230,49 @@ def test_hc_frame_round_trip_on_the_card(level, chain, cuda):
     blob = frame.compress(data, settings)
     assert frame.decompress(blob) == data
     assert blob == frame.compress(data, settings, device="cpu")
+
+
+def test_xxh32_kernel_matches_plain(cuda):
+    """Kernel E on the CPU tests' rows (noise past each length), on windows
+    at every alignment of one flat tensor, and on 1,024 rows of 64 KB of
+    random lengths."""
+    rng = np.random.default_rng(11)
+    lengths = chip_smoke.XXH_LENGTHS
+    bufs = torch.from_numpy(rng.integers(0, 256, (len(lengths), 65536), dtype=np.uint8))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    before = xxh32.xxh32_windows.launches
+    got = xxh32.xxh32_blocks(bufs.to(cuda), lens)
+    torch.cuda.synchronize()
+    assert xxh32.xxh32_windows.launches == before + 1
+    _equal([got], [xxh32.xxh32_blocks_plain(bufs, lens)])
+    flat = torch.from_numpy(rng.integers(0, 256, 300000, dtype=np.uint8))
+    starts = [a + k for a in (0, 100003) for k in range(16)]
+    wl = [lengths[k % len(lengths)] for k in range(len(starts))]
+    got = xxh32.xxh32_windows(flat.to(cuda), starts, wl)
+    _equal([got], [xxh32.xxh32_windows_plain(flat, starts, wl)])
+    bufs = torch.from_numpy(rng.integers(0, 256, (1024, BLOCK + 1024), dtype=np.uint8))
+    lens = torch.from_numpy(rng.integers(0, BLOCK + 1, 1024).astype(np.int32))
+    _equal([xxh32.xxh32_blocks(bufs.to(cuda), lens)], [xxh32.xxh32_blocks_plain(bufs, lens)])
+
+
+def test_xxh32_kernel_on_one_4mib_window(cuda):
+    rng = np.random.default_rng(12)
+    flat = torch.from_numpy(rng.integers(0, 256, (4 << 20) + 16, dtype=np.uint8))
+    for start, n in ((0, 4 << 20), (7, 4 << 20), (13, (4 << 20) - 5)):
+        got = xxh32.xxh32_windows(flat.to(cuda), [start], [n])
+        _equal([got], [xxh32.xxh32_windows_plain(flat, [start], [n])])
+
+
+def test_cli_default_round_trip_on_the_card(cuda):
+    """`lz4`'s command-line defaults (independent 4 MB blocks, a content
+    checksum) over 16 MiB: kernel E once each way; the frame of the first
+    1 MiB equal to the plain route's."""
+    data = chip_smoke.make_corpus(16 << 20, 13)
+    settings = chip_smoke._cli_default()
+    e0 = xxh32.xxh32_windows.launches
+    blob = frame.compress(data, settings)
+    assert xxh32.xxh32_windows.launches == e0 + 1
+    assert frame.decompress(blob) == data
+    assert xxh32.xxh32_windows.launches == e0 + 2
+    head = data[:1 << 20]
+    assert frame.compress(head, settings) == frame.compress(head, settings, device="cpu")

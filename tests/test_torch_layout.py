@@ -28,7 +28,7 @@ def test_import_without_jax_or_the_jax_package():
         "import lz4_tpu_torch, lz4_tpu_torch.frame, lz4_tpu_torch.parallel\n"
         "import lz4_tpu_torch.ops.encode, lz4_tpu_torch.ops.decode\n"
         "import lz4_tpu_torch.ops.encode_stream, lz4_tpu_torch.ops.decode_stream\n"
-        "import lz4_tpu_torch.ops.encode_hc\n"
+        "import lz4_tpu_torch.ops.encode_hc, lz4_tpu_torch.ops.xxh32\n"
         "import lz4_tpu_torch.block\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'lz4_tpu' or m.startswith('lz4_tpu.')]\n"
