@@ -21,24 +21,32 @@ Phases, each fatal on failure:
    layout: equal bytes, lengths and flags; then kernel A against its plain
    version at the big-block path's shapes: the 1 MiB and 4 MiB rows and
    copies with flipped bits, at out_cap 1 MiB and 4 MiB;
-5. the chained decoder against its plain version: a 16 MiB chained frame
-   (256 blocks of 64 KB, stored blocks among them), a frame whose blocks
-   reach into a preset dictionary, a frame of tiny blocks at maximum
-   expansion (each decoded inside its slot of the output), and frames with
-   a flipped byte (the same failing block, length and code);
+5. the chained decoder against its plain versions, the whole kernel
+   against the sequential one (whole buffer and status) and each of its
+   four passes (parse, place, literals, resolve) against its own: a 16 MiB
+   chained frame (256 blocks of 64 KB, stored blocks among them), a frame
+   whose blocks reach into a preset dictionary, a frame of tiny blocks at
+   maximum expansion (each decoded inside its slot of the output), a frame
+   whose one fault is an offset past its second block's window (and the
+   same frame made valid by a 1-byte preset), two blocks of 3-byte
+   sequences that fill their sequence tables, a 1,000-byte block between
+   64 KB blocks, 16 MiB of one byte (match chains through every block) and
+   frames with a flipped byte (the same failing block, length and code);
 6. the main path: `frame.compress(data, EncoderSettings(chain_blocks=False))`
    and `frame.decompress` on --mb MiB (1,024 blocks of 64 KB at the
    default), with every launch count set to 0 just before and read just
    after; the round trip must be exact;
 7. the chained path: `frame.compress(data)` with the default
-   `EncoderSettings()` and `frame.decompress` on 16 MiB, counts set to 0
+   `EncoderSettings()` and `frame.decompress` on --mb MiB, counts set to 0
    just before and read just after (kernel D and the chained decoder must
    run), exact and deterministic over three runs;
 8. the big-block path: an independent frame of 1 MiB blocks over --mb MiB
    (kernels D and A), exact, three runs;
-9. times: each kernel at its path's shapes (CUDA events), its plain
-   version, its bound (bytes moved over 3.35 TB/s), kernel D on kernel B's
-   64 KB rows (the same bytes), and the end to end compress and
+9. times: each kernel at its path's shapes (CUDA events; the chained
+   decoder's passes from the profiler's device time, on the 16 MiB frame
+   of phase 5, the --mb MiB frame of phase 7 and a 16 MiB L9 frame), its
+   plain version, its bound (bytes moved over 3.35 TB/s), kernel D on
+   kernel B's 64 KB rows (the same bytes), and the end to end compress and
    decompress rates of each path;
 10. kernel B's HC and OPT arms (kernel D's HC/OPT kernel over B's rows)
    against their plain version at levels 3, 6, 9, 10, 11 and 12: four sampled 64 KB rows, the 26,200-byte wordy
@@ -72,7 +80,7 @@ Phases, each fatal on failure:
    and deterministic over three runs after a warm-up: the `lz4` command
    line's default frames (4 MiB independent blocks, content checksum) over
    --mb MiB, 64 KB independent blocks with block and content checksums over
-   --mb MiB, and chained 64 KB blocks with both checksums over 16 MiB; and
+   --mb MiB, and chained 64 KB blocks with both checksums over --mb MiB; and
    one profiled compress and decompress of the first.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
@@ -517,6 +525,69 @@ def expansion_frame(ks=(0, 1, 2, 7, 50, 200, 255, 256)) -> bytes:
     return b"".join(parts) + bytes(4)
 
 
+def _chained_frame_of(blocks) -> bytes:
+    """A chained frame of 64 KB blocks around the given compressed blocks."""
+    from lz4_tpu_torch import frame
+
+    parts = [frame.build_header(frame.EncoderSettings().to_descriptor())]
+    for blk in blocks:
+        parts += [struct.pack("<I", len(blk)), blk]
+    return b"".join(parts) + bytes(4)
+
+
+def window_fault_frame() -> bytes:
+    """A chained frame whose one fault is an offset past the window of its
+    second block, min(65536, preset + start) bytes: block 0 is 100 literal
+    bytes; block 1 four literals and an offset-50 match, then a match at
+    offset 109, one byte past op + ll + 100 = 108 without a preset
+    dictionary (block 1 fails with code 1 after 108 bytes) and inside it
+    with a preset of at least one byte; block 2 five literals and an
+    offset-110 match, back into block 0."""
+    lits = bytes(range(1, 101))
+    return _chained_frame_of([
+        bytes([0xF0, 85]) + lits,
+        bytes([0x40]) + lits[:4] + (50).to_bytes(2, "little")
+        + bytes([0x00]) + (109).to_bytes(2, "little") + bytes([0x00]),
+        bytes([0x50]) + lits[10:15] + (110).to_bytes(2, "little") + bytes([0x00]),
+    ])
+
+
+def densest_frame(k: int = 16000) -> bytes:
+    """A chained frame of two blocks of 3-byte sequences (a token and an
+    offset of 1, no literals) after one literal: each fills the len // 3 + 1
+    rows of its sequence table exactly, and each match copies the one
+    before it (a chain as deep as the sequences)."""
+    blk = bytes([0x10, 0x61, 1, 0]) + bytes([0x00, 1, 0]) * k + bytes([0x00])
+    return _chained_frame_of([blk, blk])
+
+
+def short_block_frame(data: bytes, dev, sizes=(65536, 1000, 65536, 30000)):
+    """A chained frame whose second block decodes to 1,000 bytes, fewer
+    than the block size (a writer that flushed early), with the blocks
+    after it reaching back across it: each block encoded by the block API
+    with the 64 KB before it as its dictionary.  Returns (frame, content)."""
+    from lz4_tpu_torch import block
+
+    blocks, at = [], 0
+    for n in sizes:
+        blocks.append(block.encode(data[at:at + n],
+                                   dictionary=data[max(0, at - 65536):at],
+                                   device=dev))
+        at += n
+    return _chained_frame_of(blocks), data[:at]
+
+
+def deep_chain_frame(nbytes: int, dev):
+    """A chained frame (the default settings) of one byte repeated: each
+    block's matches copy the end of the block before, so a byte of the last
+    block reaches its literal through every block before it.  Returns
+    (frame, content)."""
+    from lz4_tpu_torch import frame
+
+    body = b"\x61" * nbytes
+    return frame.compress(body, device=dev), body
+
+
 def with_stored_blocks(data: bytes, rng) -> bytes:
     """`data` with eight 64 KB blocks of its noise quarter replaced by
     uniform random bytes, which LZ4 cannot shrink: the frame stores them."""
@@ -528,41 +599,92 @@ def with_stored_blocks(data: bytes, rng) -> bytes:
     return bytes(buf)
 
 
+def chain_inputs(blob: bytes, preset: bytes | None = None):
+    """A chained frame's decoder inputs on the host: (frame, block table,
+    block size, preset dictionary or None)."""
+    import torch
+    from lz4_tpu_torch.frame.api import _scan_single_frame
+
+    d, blocks, _ = _scan_single_frame(blob)
+    table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
+    fr = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+    pre = None if preset is None else torch.frombuffer(
+        bytearray(preset), dtype=torch.uint8)
+    return fr, table, d.block_size, pre
+
+
+def hold_chain_passes(fr, table, block_size: int, pre, dev) -> dict:
+    """Each pass of the chained decoder on the card against its plain
+    version on the same inputs (the kernel's own output of the pass
+    before): the parse's filled sequence-table rows, counts, sizes and
+    errors; place's starts, applied counts and status; the buffer and the
+    index array (up to the bytes written) after the literals pass; the
+    index array and the stream after resolve.  Returns each pass's
+    max_abs_err."""
+    import torch
+    from lz4_tpu_torch.ops import decode_stream as ds
+
+    got = ds.chain_passes(fr.to(dev), table, block_size,
+                          None if pre is None else pre.to(dev))
+    torch.cuda.synchronize()
+    g = ds.ChainPasses(*(t.cpu() for t in got))
+    preset = b"" if pre is None else pre[-ds.WINDOW:].numpy().tobytes()
+    seqs, nseq, size, err = ds.chain_parse_plain(fr, table, block_size)
+    rows = ds.used_rows(g.sbase, nseq)
+    errs = {"parse": _max_abs_err(
+        [g.nseq, g.size, g.err, g.seqs[rows]], [nseq, size, err, seqs[rows]])}
+    start, use, status = ds.chain_place_plain(
+        table, g.seqs, g.nseq, g.size, g.err, len(preset))
+    errs["place"] = _max_abs_err([g.start, g.use, g.status], [start, use, status])
+    n = int(g.status[0])
+    out, ptr = ds.chain_literals_plain(fr, table, g.seqs, g.start, g.use,
+                                       preset, g.stream.numel())
+    errs["literals"] = _max_abs_err(
+        [g.lit_out, g.lit_ptr[:n].to(torch.int64)], [out, ptr[:n]])
+    out, ptr = ds.chain_resolve_plain(g.lit_out, g.lit_ptr, g.status)
+    errs["resolve"] = _max_abs_err(
+        [g.ptr[:n].to(torch.int64), g.stream], [ptr[:n], out[ds.WINDOW:]])
+    return errs
+
+
 def phase_decode_chain(data: bytes, rng, dev):
-    """The chained decoder against its plain version.  Returns the worst
-    difference, the plain version's time on the 16 MiB frame, and that
-    frame."""
+    """The chained decoder against its plain versions: the whole kernel
+    against the sequential plain version (whole buffer and status), and
+    each pass against its own plain version.  Returns the worst difference
+    (and each pass's), the sequential plain version's time on the 16 MiB
+    frame, and that frame."""
     import torch
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.frame.api import _scan_single_frame
     from lz4_tpu_torch.ops import decode_stream
 
     worst = 0
+    pass_err = dict.fromkeys(("parse", "place", "literals", "resolve"), 0)
 
     def hold(what, blob, preset=None, expect=None):
         nonlocal worst
-        d, blocks, _ = _scan_single_frame(blob)
-        table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
-        fr = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
-        pre = None if preset is None else torch.frombuffer(
-            bytearray(preset), dtype=torch.uint8)
+        fr, table, block_size, pre = chain_inputs(blob, preset)
         got = decode_stream.decode_chain(
-            fr.to(dev), table, d.block_size, None if pre is None else pre.to(dev))
+            fr.to(dev), table, block_size, None if pre is None else pre.to(dev))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = decode_stream.decode_chain_plain(fr, table, d.block_size, pre)
+        want = decode_stream.decode_chain_plain(fr, table, block_size, pre)
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = _max_abs_err(got, want)
         _require(err == 0, f"decode_chain {what}: kernel != plain")
-        worst = max(worst, err)
+        passes = hold_chain_passes(fr, table, block_size, pre, dev)
+        for name, e in passes.items():
+            _require(e == 0, f"decode_chain {what}: the {name} pass != plain")
+            pass_err[name] = max(pass_err[name], e)
+        worst = max(worst, err, *passes.values())
         status = tuple(want[1].tolist())
         if expect is not None:
             _require(status[1] == -1 and
                      want[0][:status[0]].numpy().tobytes() == expect,
                      f"decode_chain {what}: not the payload")
-        print(f"[decode_chain] {what}: {len(blocks)} blocks "
+        print(f"[decode_chain] {what}: {table.shape[0]} blocks "
               f"({int(table[:, 2].sum())} stored), status (written, bad, err) "
-              f"{status} equal")
+              f"{status} equal, each pass equal to its plain version")
         return status, plain_ms
 
     body = with_stored_blocks(data, rng)
@@ -574,6 +696,17 @@ def phase_decode_chain(data: bytes, rng, dev):
          chained_frame(part, preset, dev), preset, expect=part)
     status, _ = hold("tiny blocks at maximum expansion", expansion_frame(), preset)
     _require(status[1:] == (7, 1), "the block past 64 KB did not fail")
+    status, _ = hold("an offset past the window of block 1", window_fault_frame())
+    _require(status == (108, 1, 1), "the window fault was not found")
+    hold("the same frame with a 1-byte preset dictionary",
+         window_fault_frame(), b"x")
+    hold("3-byte sequences filling their tables", densest_frame(),
+         expect=b"a" * 128010)
+    blob, body = short_block_frame(data, dev)
+    hold("a 1,000-byte block between 64 KB blocks", blob, expect=body)
+    blob, body = deep_chain_frame(len(data), dev)
+    hold(f"one byte repeated {len(data)} times (deep match chains)", blob,
+         expect=body)
     small = frame.compress(part[:4 * BLOCK], frame.EncoderSettings(), device=dev)
     _, blocks, _ = _scan_single_frame(small)
     failed = tries = 0
@@ -585,7 +718,7 @@ def phase_decode_chain(data: bytes, rng, dev):
         failed += status[1] >= 0
         tries += 1
     _require(failed > 0, "no flipped byte made a block fail")
-    return worst, plain_ms, big
+    return worst, pass_err, plain_ms, big
 
 
 def phase_chained_path(data: bytes, dev):
@@ -618,11 +751,18 @@ def phase_big_blocks(data: bytes, dev):
     return launches, e2e
 
 
-def phase_times_stream(data: bytes, blob: bytes, chain_plain_ms: float, dev):
-    """Kernel D on the chained path's rows and the chained decoder on the
-    16 MiB frame: CUDA-event times, plain times, bounds."""
+CHAIN_PASSES = ("chain_parse", "chain_place", "chain_literals", "chain_jump",
+                "chain_gather")
+
+
+def phase_times_stream(data: bytes, blob: bytes, chain_plain_ms: float, dev,
+                       data64: bytes):
+    """Kernel D on the chained path's rows, and the chained decoder on the
+    16 MiB FAST frame, the 64 MiB FAST frame of the default chained path
+    and a 16 MiB L9 chained frame: device time of each pass (profiler),
+    CUDA events per wrapper call, plain times, bounds."""
     import torch
-    from lz4_tpu_torch.frame.api import _scan_single_frame
+    from lz4_tpu_torch import frame
     from lz4_tpu_torch.ops import decode_stream, encode_stream
 
     payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
@@ -643,15 +783,34 @@ def phase_times_stream(data: bytes, blob: bytes, chain_plain_ms: float, dev):
     # the int64 start and the int32 prefix, length, clen and flag
     enc_bytes = len(data) + packed + 24 * nb
 
-    d, blocks, _ = _scan_single_frame(blob)
-    table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
-    frame_d = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev)
-    dec_ms = _cuda_ms(lambda: decode_stream.decode_chain(frame_d, table, d.block_size), 2)
-    # the frame read once, the content written once, the block table and
-    # the status
-    dec_bytes = len(blob) + len(data) + 24 * len(blocks) + 24
-    print(f"[times] encode_stream {enc_ms:.3f} ms over {nb} chained rows, "
-          f"decode_chain {dec_ms:.3f} ms over a {len(blob)}-byte frame")
+    chain = {}
+    for name, b in (
+        ("FAST_16MiB", blob),
+        ("FAST_64MiB", frame.compress(data64, device=dev)),
+        ("L9_16MiB", frame.compress(
+            data, frame.EncoderSettings(compression_level=9), device=dev)),
+    ):
+        fr, table, block_size, _ = chain_inputs(b)
+        frame_d = fr.to(dev)
+
+        def run():
+            return decode_stream.decode_chain(frame_d, table, block_size)
+
+        written = int(run()[1][0])
+        passes = _device_ms_by(run, CHAIN_PASSES, 3)
+        # the frame read once, the content written once, the block table
+        # and the status
+        moved = len(b) + written + 24 * table.shape[0] + 24
+        chain[name] = {
+            "ms": sum(passes.values()), "call_ms": _cuda_ms(run, 3),
+            "pass_ms": passes, "frame_bytes": len(b), "bytes": written,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        print(f"[times] decode_chain {name}: {chain[name]['ms']:.3f} ms of "
+              f"device time ({chain[name]['call_ms']:.3f} ms per wrapper "
+              f"call) over a {len(b)}-byte frame; passes "
+              + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    print(f"[times] encode_stream {enc_ms:.3f} ms over {nb} chained rows")
+    fast = chain["FAST_16MiB"]
     return [
         {"name": "encode_blocks_stream", "route": "cuda",
          "source": "lz4_tpu_torch/ops/csrc/encode_stream.cu",
@@ -662,9 +821,10 @@ def phase_times_stream(data: bytes, blob: bytes, chain_plain_ms: float, dev):
         {"name": "decode_chain", "route": "cuda",
          "source": "lz4_tpu_torch/ops/csrc/decode_stream.cu",
          "replaces": "lz4_tpu/ops/decode_pallas_stream.py:636",
-         "ms": dec_ms, "plain_ms": chain_plain_ms,
-         "bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None},
+         "ms": fast["ms"], "call_ms": fast["call_ms"],
+         "pass_ms": fast["pass_ms"], "plain_ms": chain_plain_ms,
+         "bound_ms": fast["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "frames": chain},
     ]
 
 
@@ -762,7 +922,7 @@ def profile_path(data: bytes, dev, settings) -> dict:
     busy = sum(device_us.values())
     if not busy:
         return {"profile": "not measured (no device events)"}
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     return {"profile": {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
                         "device_busy_share": busy / wall_us,
                         "device_ms_by_name": {k[:60]: v / 1e3 for k, v in top}}}
@@ -1025,6 +1185,12 @@ def _device_ms(fn, kernel: str, iters: int) -> float:
     kernel shorter than its wrapper's host time: the wrapper's copies of
     its window table to the card synchronise the stream, so CUDA events
     around its calls would time the host."""
+    return _device_ms_by(fn, (kernel,), iters)[kernel]
+
+
+def _device_ms_by(fn, kernels, iters: int) -> dict:
+    """The device time per call of `fn` of each named kernel
+    (torch.profiler); every kernel must have run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1034,10 +1200,14 @@ def _device_ms(fn, kernel: str, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if kernel in e.key)
-    _require(total > 0, f"the profiler saw no {kernel} launch")
-    return total / iters / 1e3
+    totals = dict.fromkeys(kernels, 0.0)
+    for e in prof.key_averages():
+        for k in kernels:
+            if k in e.key:
+                totals[k] += e.self_device_time_total
+    for k, total in totals.items():
+        _require(total > 0, f"the profiler saw no {k} launch")
+    return {k: total / iters / 1e3 for k, total in totals.items()}
 
 
 def _timed_plain_call(qualname: str, args, kwargs):
@@ -1151,7 +1321,7 @@ def phase_xxh32(data: bytes, rng, dev, windows, futures):
     return entries, host_s
 
 
-def phase_checksum_paths(data: bytes, data16: bytes, dev):
+def phase_checksum_paths(data: bytes, dev):
     """The three checksummed round trips; `_round_trips` fails a path that
     never launches kernel E, as for every kernel it counts."""
     from lz4_tpu_torch import frame
@@ -1165,7 +1335,7 @@ def phase_checksum_paths(data: bytes, data16: bytes, dev):
          frame.EncoderSettings(chain_blocks=False, block_checksum=True,
                                content_checksum=True),
          [encode.encode_blocks, decode.decode_blocks]),
-        ("chained_both", data16,
+        ("chained_both", data,
          frame.EncoderSettings(block_checksum=True, content_checksum=True),
          [encode_stream.encode_blocks_stream, decode_stream.decode_chain]),
     ):
@@ -1220,16 +1390,18 @@ def main(argv=None) -> int:
     dec_err = phase_decode(streams, rng, dev)
     stream_err, big = phase_encode_stream(data16, rng, dev)
     dec_err = max(dec_err, phase_decode_big(big, rng, dev))
-    chain_err, chain_plain_ms, blob16 = phase_decode_chain(data16, rng, dev)
+    chain_err, chain_pass_err, chain_plain_ms, blob16 = phase_decode_chain(
+        data16, rng, dev)
     launches, e2e = phase_main_path(data, dev)
-    chained_launches, chained_e2e = phase_chained_path(data16, dev)
+    chained_launches, chained_e2e = phase_chained_path(data, dev)
     big_launches, big_e2e = phase_big_blocks(data, dev)
     kernels = phase_times(data, dev)
-    kernels += phase_times_stream(data16, blob16, chain_plain_ms, dev)
+    kernels += phase_times_stream(data16, blob16, chain_plain_ms, dev, data)
+    kernels[-1]["pass_max_abs_err"] = chain_pass_err
     print(json.dumps(profile_path(
         data, dev, frame.EncoderSettings(chain_blocks=False))))
     print(json.dumps({"chained": profile_path(
-        data16, dev, frame.EncoderSettings())}))
+        data, dev, frame.EncoderSettings())}))
     print(json.dumps({"big_blocks": profile_path(
         data, dev, frame.EncoderSettings(chain_blocks=False, block_size=1 << 20))}))
     launches.update(chained_launches)
@@ -1260,7 +1432,7 @@ def main(argv=None) -> int:
     print(json.dumps({"e2e": e2e, "e2e_chained": chained_e2e,
                       "e2e_big_blocks": big_e2e,
                       "big_blocks_launches": big_launches}))
-    cs_launches, cs_e2e = phase_checksum_paths(data, data16, dev)
+    cs_launches, cs_e2e = phase_checksum_paths(data, dev)
     for k in xxh_kernels:
         k["launches"] = cs_launches[k.pop("path")]["xxh32_windows"]
     kernels += xxh_kernels

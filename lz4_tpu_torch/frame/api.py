@@ -3,13 +3,14 @@
 The port of the device path of `lz4_tpu/frame/api.py`.  `compress` encodes
 every block of the frame in one launch, at any level 0-12: independent
 blocks on kernel B (at most 64 KB) or D (larger), chained blocks on D, each
-with the 64 KB of plaintext before it as its dictionary.  `decompress` scans the frame's
-block table on the host and uploads the frame once; an independent frame
-copies its stored blocks and decodes the compressed ones in one batch on
-kernel A, a chained frame decodes in one launch of the chained decoder.
-Every block and content checksum is computed on the device by kernel E,
-over bytes that are already there: the payload and the compressed rows on
-compress, the frame and the decoded content on decompress.  Frames with a
+with the 64 KB of plaintext before it as its dictionary.  `decompress`
+scans the frame's block table on the host and uploads the frame once; an
+independent frame copies its stored blocks and decodes the compressed ones
+in one batch on kernel A, a chained frame in one call of the chained
+decoder (every block at once).  Every block and content checksum is
+computed on the device by kernel E, over bytes that are already there: the
+payload and the compressed rows on compress, the frame and the decoded
+content on decompress.  Frames with a
 dictionary ID, independent frames with a preset dictionary and
 multi-frame streams take the JAX package's FrameReader, which is not
 ported yet.
@@ -241,9 +242,9 @@ def _verify_blocks(frame, data: bytes, blocks) -> None:
 
 
 def _decode_chained(frame, d, blocks, dictionary):
-    """A chained frame's blocks, decoded in one launch of the chained
-    decoder; the first block's window is the last 64 KB of
-    ``dictionary``.  Returns the content on the frame's device."""
+    """A chained frame's blocks, decoded in one call of the chained
+    decoder (every block at once); the first block's window is the last
+    64 KB of ``dictionary``.  Returns the content on the frame's device."""
     preset = None
     if dictionary:
         preset = torch.frombuffer(
@@ -266,7 +267,7 @@ def decompress(
     ``device="cpu"``).  The frame goes to the device once and its block
     checksums are verified there before any block decodes.  An independent
     frame's compressed blocks decode in one batch and its stored ones are
-    copied, in frame order; a chained frame decodes in one launch, with
+    copied, in frame order; a chained frame decodes in one call, with
     ``settings.dictionary`` as the preset dictionary.  The content checksum
     is verified on the decoded content on the device, which then comes
     back in one copy."""

@@ -1,5 +1,5 @@
-// The LZ4 block decoder shared by kernel A (decode.cu) and the chained
-// decoder (decode_stream.cu): one warp decodes one block.
+// Kernel A's LZ4 block decoder (decode.cu): one warp decodes one block.
+// The chained decoder's parse (decode_stream.cu) shares its length reader.
 //
 // Every lane runs the same parse (the reads are broadcasts), and the warp
 // copies each literal run and each match together: byte i of a match at

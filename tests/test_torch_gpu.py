@@ -164,6 +164,69 @@ def test_chain_decode_at_maximum_expansion_matches_plain(cuda):
     assert want[1].tolist()[1:] == [len(blocks) - 1, 1]
 
 
+def _chain_case(name, dev):
+    """(frame, preset dictionary or None, expected status or None)."""
+    data = chip_smoke.make_corpus(4 << 20, 14)
+    if name == "stored_blocks":
+        body = chip_smoke.with_stored_blocks(data, np.random.default_rng(14))
+        return frame.compress(body, device=dev), None, (len(body), -1, 0)
+    if name == "preset_dictionary":
+        part = data[1 << 20:3 << 20]
+        return (chip_smoke.chained_frame(part, data[:100000], dev),
+                data[:100000], (len(part), -1, 0))
+    if name == "256k_blocks":
+        return (frame.compress(data, frame.EncoderSettings(block_size=1 << 18),
+                               device=dev), None, (len(data), -1, 0))
+    if name == "expansion":
+        return chip_smoke.expansion_frame(), bytes(1000), (133236, 7, 1)
+    if name == "window_fault":
+        return chip_smoke.window_fault_frame(), None, (108, 1, 1)
+    if name == "window_fault_preset":
+        return chip_smoke.window_fault_frame(), b"x", (121, -1, 0)
+    if name == "short_block":
+        blob, body = chip_smoke.short_block_frame(data, dev)
+        return blob, None, (len(body), -1, 0)
+    if name == "deep_chain":
+        blob, body = chip_smoke.deep_chain_frame(8 << 20, dev)
+        return blob, None, (len(body), -1, 0)
+    blob = frame.compress(data[:6 * BLOCK], device=dev)  # "flipped_<seed>"
+    _, blocks, _ = _scan_single_frame(blob)
+    rng = np.random.default_rng(int(name.split("_")[1]))
+    while True:  # a flip inside a middle block that makes it fail
+        off, length, _ = blocks[int(rng.integers(1, len(blocks) - 1))]
+        b = bytearray(blob)
+        b[off + int(rng.integers(0, length))] ^= 1 << int(rng.integers(0, 8))
+        fr, table, block_size, _ = chip_smoke.chain_inputs(bytes(b))
+        if int(decode_stream.decode_chain_plain(fr, table, block_size)[1][1]) > 0:
+            return bytes(b), None, None
+
+
+CHAIN_CASES = ["stored_blocks", "preset_dictionary", "256k_blocks", "expansion",
+               "window_fault", "window_fault_preset", "short_block",
+               "deep_chain", "flipped_1", "flipped_2", "flipped_3"]
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_chain_decode_passes_match_plain(case, cuda):
+    """The chained decoder on the card: the whole kernel against the
+    sequential plain version (whole buffer and status), one count per call,
+    and each pass (sequence table, sizes and status after place, the index
+    array after literals and after resolve) against its plain version."""
+    blob, preset, status = _chain_case(case, cuda)
+    fr, table, block_size, pre = chip_smoke.chain_inputs(blob, preset)
+    before = decode_stream.decode_chain.launches
+    got = decode_stream.decode_chain(fr.to(cuda), table, block_size,
+                                     None if pre is None else pre.to(cuda))
+    torch.cuda.synchronize()
+    assert decode_stream.decode_chain.launches == before + 1
+    want = decode_stream.decode_chain_plain(fr, table, block_size, pre)
+    _equal(got, want)
+    if status is not None:
+        assert tuple(want[1].tolist()) == status
+    errs = chip_smoke.hold_chain_passes(fr, table, block_size, pre, cuda)
+    assert errs == dict.fromkeys(("parse", "place", "literals", "resolve"), 0)
+
+
 def test_chained_frame_round_trip_on_the_card(cuda):
     data = chip_smoke.make_corpus(4 << 20, 7)
     settings = frame.EncoderSettings(block_checksum=True, content_checksum=True)
