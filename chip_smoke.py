@@ -48,25 +48,33 @@ Phases, each fatal on failure:
    plain version, its bound (bytes moved over 3.35 TB/s), kernel D on
    kernel B's 64 KB rows (the same bytes), and the end to end compress and
    decompress rates of each path;
-10. kernel B's HC and OPT arms (kernel D's HC/OPT kernel over B's rows)
-   against their plain version at levels 3, 6, 9, 10, 11 and 12: four sampled 64 KB rows, the 26,200-byte wordy
-   regression row, rows of 0, 12, 13 and 4,096 bytes and a 64 KB row of
-   random bytes: equal bytes, lengths and flags;
+10. kernel B's HC and OPT arms (kernel D's HC/OPT kernel over B's rows;
+   level 12 the three passes of `csrc/encode_opt.cu`) against their plain
+   version at levels 3, 6, 9, 10, 11 and 12: four sampled 64 KB rows, the
+   26,200-byte wordy regression row, rows of 0, 12, 13 and 4,096 bytes and
+   a 64 KB row of random bytes: equal bytes, lengths and flags; and each
+   level 12 pass (`opt_chain`, `opt_matches`, `opt_parse`) against its own
+   plain version on every row, fed the kernel's output of the pass before;
 11. kernel D's HC and OPT arms against their plain version at levels 3, 9,
    10 and 12: four chained windows (64 KB blocks with their 64 KB
    prefixes), 64 KB blocks with dictionaries of 3,000, 65,536 and 0 bytes,
-   and one 1 MiB row;
-12. the HC/OPT paths: 16 MiB round trips at level 9 and level 12, each
+   and one 1 MiB row; each level 12 pass against its plain version on the
+   chained windows and the dictionary rows;
+12. the HC/OPT paths: 16 MiB round trips at levels 9, 10 and 12, each
    independent (64 KB blocks: the HC or OPT arm of kernel B, then kernel A)
    and with the default chained settings (kernel D's arm, then the chained
-   decoder), counts set to 0 just before and read just after each path,
-   exact and deterministic over three runs after a warm-up; the level 9
-   independent frame of the first 1 MiB equal byte for byte to the plain
-   route's (the plain parse of all 16 MiB would take minutes); then each
-   new kernel timed at its path's shapes and held byte for byte to the
-   plain version on four rows of the timed launch, two of them taken by
-   CTAs that had already encoded a row; and one profiled level 9 chained
-   and level 12 independent compress and decompress;
+   decoder), counts set to 0 just before and read just after each path
+   (level 12 counts the three passes), exact and deterministic over three
+   runs after a warm-up; the level 9 independent frame of the first 1 MiB
+   equal byte for byte to the plain route's (the plain parse of all 16 MiB
+   would take minutes); then the HC arm at level 9 and the serial OPT arm
+   at levels 10 and 12 timed at their paths' shapes and held byte for byte
+   to the plain version on four rows of the timed launch, two of them
+   taken by CTAs that had already encoded a row; at level 12 the passes'
+   whole output held to the serial OPT arm's on all 256 rows of both
+   paths, each pass timed (profiler device time) and held to its plain
+   version on the same four rows; and one profiled level 9 chained and
+   level 12 independent and chained compress and decompress;
 13. kernel E (xxHash32) against its plain version: rows of 0-65,536 bytes
    with noise past each length, windows at every alignment of one flat
    tensor, all 1,024 rows of 64 KB of its timed batch and its timed 64 MiB
@@ -215,7 +223,7 @@ def _max_abs_err(got, want) -> int:
 
 
 def phase_build():
-    from lz4_tpu_torch.ops import build, encode, encode_stream
+    from lz4_tpu_torch.ops import build, encode, encode_opt, encode_stream
 
     t0 = time.perf_counter()
     logs = build.build(*build.KERNEL_SOURCES)
@@ -236,6 +244,9 @@ def phase_build():
               f"{encode_stream.shared_bytes('canonical', level)} bytes per CTA "
               f"({arm} arm), plus a 131,072-byte head table per resident CTA "
               f"in device memory")
+    for name, smem in encode_opt.shared_bytes().items():
+        print(f"[build] encode_opt.cu: dynamic shared memory {smem} bytes per "
+              f"CTA ({name}; opt_matches 0)")
 
 
 def sample_rows(data: bytes, rng):
@@ -989,9 +1000,75 @@ def plain_result(future):
     return tuple(torch.from_numpy(a) for a in future.result())
 
 
+OPT_PASSES = ("opt_chain", "opt_matches", "opt_parse")
+
+
+def _submit_timed(pool, fn, *args, **kwargs):
+    """`submit_plain` with the worker's seconds: `.result()` gives (numpy
+    output, seconds)."""
+    def array(a):
+        return a.cpu().numpy() if hasattr(a, "numpy") else a
+
+    return pool.submit(_timed_plain_call, f"{fn.__module__}.{fn.__name__}",
+                       tuple(map(array, args)),
+                       {k: array(v) for k, v in kwargs.items()})
+
+
+def hold_opt_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool):
+    """The level 12 passes on the card over a batch of windows, each held
+    to its plain version on the batch's rows ``picks`` with the same inputs
+    (the kernel's own output of the pass before), the plain versions on
+    ``pool``.  Returns a function that waits for them and returns each
+    pass's max_abs_err and the plain versions' seconds for the picked rows,
+    and the given-up entries of the match pass."""
+    import torch
+    from lz4_tpu_torch.ops import encode_opt
+
+    st = torch.as_tensor(starts, dtype=torch.int64).cpu()
+    so = torch.as_tensor(src_offs, dtype=torch.int32).cpu()
+    ln = torch.as_tensor(lens, dtype=torch.int32).cpu()
+    base_d = base.to(dev)
+    prev = encode_opt.opt_chain(base_d, st, ln)
+    matches = encode_opt.opt_matches(base_d, st, so, ln, prev)
+    got = encode_opt.opt_parse(base_d, st, so, ln, prev, matches, bcap)
+    torch.cuda.synchronize()
+    given_up = int((matches[:, 0] < 0).sum())
+    toff, _ = encode_opt.table_offsets(ln)
+    base_h = base.cpu()
+    outs = [t.cpu() for t in got]
+    jobs = []  # (pass, kernel's output, future), one row each
+    for r in picks:
+        a, t, n = int(st[r]), int(toff[r]), int(ln[r])
+        row = (base_h[a:a + n], [0], so[r:r + 1], ln[r:r + 1])
+        pv, mt = prev[t:t + n].cpu(), matches[t:t + n].cpu()
+        jobs += [
+            ("opt_chain", [pv], _submit_timed(
+                pool, encode_opt.opt_chain_plain, row[0], [0], ln[r:r + 1])),
+            ("opt_matches", [mt], _submit_timed(
+                pool, encode_opt.opt_matches_plain, *row, pv)),
+            ("opt_parse", [o[r:r + 1] for o in outs], _submit_timed(
+                pool, encode_opt.opt_parse_plain, *row, pv, mt, bcap)),
+        ]
+
+    def finish():
+        errs = dict.fromkeys(OPT_PASSES, 0)
+        seconds = dict.fromkeys(OPT_PASSES, 0.0)
+        for name, mine, fut in jobs:
+            out, sec = fut.result()
+            want = [torch.from_numpy(x) for x in (out if isinstance(out, tuple) else (out,))]
+            err = _max_abs_err(mine, want)
+            _require(err == 0, f"{name} on rows {list(picks)}: kernel != plain")
+            errs[name] = max(errs[name], err)
+            seconds[name] += sec
+        return errs, seconds, given_up
+
+    return finish
+
+
 def phase_hc_encode(data: bytes, rng, dev, pool):
     """Kernel B's HC and OPT arms against their plain version (computed on
-    `pool`).  Returns the worst difference of each arm."""
+    `pool`), and each level 12 pass against its own on every row.  Returns
+    the worst difference of each kernel."""
     import torch
     from lz4_tpu_torch.ops import encode
 
@@ -1000,7 +1077,9 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
     levels = (3, 6, 9, 10, 11, 12)
     wants = {level: submit_plain(pool, encode.encode_blocks_plain, bufs, lens, BLOCK, level)
              for level in levels}
-    worst = {"hc": 0, "opt": 0}
+    passes = hold_opt_passes(bufs.reshape(-1), [i * bufs.shape[1] for i in range(len(rows))],
+                             [0] * len(rows), lens, BLOCK, range(len(rows)), dev, pool)
+    worst = {}
     for level in levels:
         got = encode.encode_blocks(bufs.to(dev), lens.to(dev), BLOCK, level)
         torch.cuda.synchronize()
@@ -1008,27 +1087,43 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
         err = _max_abs_err(got, want)
         _require(err == 0, f"encode level {level}: kernel != plain")
         _require(not bool(want[2].any()), f"encode level {level}: overflow flag set")
-        arm = "opt" if level >= 10 else "hc"
-        worst[arm] = max(worst[arm], err)
+        fn = _hc_kernel(level)
+        worst[fn] = max(worst.get(fn, 0), err)
         print(f"[hc encode] level {level}: {len(rows)} rows equal, "
               f"clens={want[1].tolist()}")
+    errs, _, given_up = passes()
+    worst.update(errs)
+    print(f"[hc encode] level 12 passes {', '.join(OPT_PASSES)}: each equal to "
+          f"its plain version on all {len(rows)} rows ({given_up} searches "
+          f"given up by the match pass)")
     return worst
+
+
+def _hc_kernel(level: int) -> str:
+    """The kernel a level's encode counts its launch on: kernel D's HC arm,
+    its serial OPT arm (levels 10-11), or the level 12 passes (the whole
+    output's difference is kept with the parse, which writes it)."""
+    if level >= 12:
+        return "opt_parse"
+    return "encode_windows_opt" if level >= 10 else "encode_windows_hc"
 
 
 def phase_hc_stream(data: bytes, rng, dev, pool):
     """Kernel D's HC and OPT arms against their plain version (computed on
-    `pool`).  Returns the worst difference of each arm."""
+    `pool`), and each level 12 pass against its own on the chained windows
+    and the dictionary rows.  Returns the worst difference of each
+    kernel."""
     import torch
     from lz4_tpu_torch.ops import encode_stream
 
-    worst = {"hc": 0, "opt": 0}
+    worst = {}
 
     def hold(what, got, want):
         torch.cuda.synchronize()
         err = _max_abs_err(got, want)
         _require(err == 0, f"encode_stream {what}: kernel != plain")
         _require(not bool(want[2].any()), f"encode_stream {what}: overflow flag set")
-        worst[arm] = max(worst[arm], err)
+        worst[fn] = max(worst.get(fn, 0), err)
         print(f"[hc encode_stream] {what}: {want[1].numel()} rows equal, "
               f"clens={want[1].tolist()}")
 
@@ -1060,8 +1155,15 @@ def phase_hc_stream(data: bytes, rng, dev, pool):
         submit_plain(pool, encode_stream.encode_blocks_stream_plain, big,
                      big_lens, 1 << 20, level),
     ) for level in levels}
+    # each level 12 pass on the chained windows and the dictionary rows (the
+    # 1 MiB row's plain match pass would take minutes: its whole output is
+    # held below)
+    flat, d_st, d_so, d_ln, _ = encode_stream._stage(bufs, lens, BLOCK, dicts, dls, "dense")
+    passes = [hold_opt_passes(window, st[chained] - lo, offs[chained], wl[chained], BLOCK,
+                              range(len(chained)), dev, pool),
+              hold_opt_passes(flat, d_st, d_so, d_ln, BLOCK, range(len(picks)), dev, pool)]
     for level in levels:
-        arm = "opt" if level >= 10 else "hc"
+        fn = _hc_kernel(level)
         w_chain, w_dict, w_big = wants[level]
         got = encode_stream.encode_windows(
             payload_d, st[chained], offs[chained], wl[chained], BLOCK, level)
@@ -1074,6 +1176,12 @@ def phase_hc_stream(data: bytes, rng, dev, pool):
         got = encode_stream.encode_blocks_stream(
             big.to(dev), big_lens.to(dev), 1 << 20, level)
         hold(f"level {level}, one 1 MiB row", got, plain_result(w_big))
+    for finish, what in zip(passes, ("chained windows", "dictionary rows")):
+        errs, _, given_up = finish()
+        for name, err in errs.items():
+            worst[name] = max(worst.get(name, 0), err)
+        print(f"[hc encode_stream] level 12 passes on the {what}: each equal to "
+              f"its plain version ({given_up} searches given up)")
     return worst
 
 
@@ -1093,20 +1201,32 @@ def check_hc_frame(data: bytes, dev, pool):
           "route's, byte for byte")
 
 
+def _hc_counts(level: int):
+    """The wrappers that count a level's encode launches: kernel D's HC arm
+    (3-9), its serial OPT arm (10-11) or the three level 12 passes."""
+    from lz4_tpu_torch.ops import encode_opt, encode_stream
+
+    if level >= 12:
+        return [encode_opt.opt_chain, encode_opt.opt_matches, encode_opt.opt_parse]
+    if level >= 10:
+        return [encode_stream.encode_windows_opt]
+    return [encode_stream.encode_windows_hc]
+
+
 def phase_hc_paths(data: bytes, dev):
-    """The four HC/OPT round trips of 16 MiB."""
+    """The HC/OPT round trips of 16 MiB at levels 9, 10 and 12."""
     from lz4_tpu_torch import frame
-    from lz4_tpu_torch.ops import decode, decode_stream, encode_stream
+    from lz4_tpu_torch.ops import decode, decode_stream
 
     launches, e2e = {}, {}
     for name, level, chained in (
         ("L9_independent", 9, False), ("L9_chained", 9, True),
+        ("L10_independent", 10, False), ("L10_chained", 10, True),
         ("L12_independent", 12, False), ("L12_chained", 12, True),
     ):
-        enc = encode_stream.encode_windows_opt if level >= 10 else encode_stream.encode_windows_hc
         dec = decode_stream.decode_chain if chained else decode.decode_blocks
         settings = frame.EncoderSettings(compression_level=level, chain_blocks=chained)
-        counts, rates = _round_trips(data, settings, dev, [enc, dec])
+        counts, rates = _round_trips(data, settings, dev, _hc_counts(level) + [dec])
         launches[name] = counts
         e2e[name] = rates
         print(f"[hc paths] {name}: {len(data)} bytes -> {rates['frame_bytes']} "
@@ -1117,13 +1237,25 @@ def phase_hc_paths(data: bytes, dev):
     return launches, e2e
 
 
+OPT_KERNELS = {"opt_chain": "opt_chain_rows", "opt_matches": "opt_matches_rows",
+               "opt_parse": "opt_parse_rows"}
+
+
 def phase_hc_times(data: bytes, dev):
-    """Kernel D's HC and OPT arms at their paths' shapes: 256 rows of 64 KB
-    (kernel B's rows, the independent path) and 256 chained windows.  CUDA-
-    event times; the plain version on four rows of the timed launch spread
-    over the batch, two of them past the 132 resident CTAs (taken by a CTA
-    that had already encoded a row), held byte for byte to the launch's
-    output and timed, scaled to the batch; bounds."""
+    """Kernel D's HC and OPT arms and the level 12 passes at their paths'
+    shapes: 256 rows of 64 KB (kernel B's rows, the independent path) and
+    256 chained windows.  The HC arm at level 9 and the serial OPT arm at
+    level 10 (its paths) and 12 (the reference of the passes): CUDA-event
+    times, the plain version on four rows of the timed launch spread over
+    the batch, two of them past the 132 resident CTAs (taken by a CTA that
+    had already encoded a row), held byte for byte to the launch's output
+    and timed, scaled to the batch.  Level 12: the whole output of the
+    passes held to the serial OPT arm's on all 256 rows, the passes' call
+    timed with CUDA events and each pass by the profiler's device time,
+    each pass held to its plain version on the same four rows (the plain
+    versions in a pool started after the timings) and its plain time
+    scaled to the batch.  Bounds: the bytes each function must move.
+    Returns the `kernels` entries and the level 12 summary."""
     import torch
     from lz4_tpu_torch.ops import encode, encode_stream
     from lz4_tpu_torch.parallel.blocks import split_blocks
@@ -1135,18 +1267,26 @@ def phase_hc_times(data: bytes, dev):
     payload_h = torch.frombuffer(bytearray(data), dtype=torch.uint8)
     st, offs, wl = chained_windows(len(data), BLOCK)
     picks = [q * nb // 4 + nb // 4 - 1 for q in range(4)]
-    entries = []
-    for level, arm in ((9, "hc"), (12, "opt")):
-        for path, run, plain, replaces, row_bytes in (
+    width = bufs.shape[1]
+    windows = {  # each path's rows as kernel D's windows
+        "independent": (bufs.reshape(-1), torch.arange(nb, dtype=torch.int64) * width,
+                        torch.zeros(nb, dtype=torch.int32), lens),
+        "chained": (payload_h, st, offs, wl),
+    }
+    replaces = {"independent": "lz4_tpu/ops/encode_pallas5.py:1922",
+                "chained": "lz4_tpu/ops/encode_pallas_stream.py:266"}
+    entries, summary, held = [], {}, []
+    for level, arm in ((9, "hc"), (10, "opt")):
+        for path, run, plain, row_bytes in (
             ("independent",
              lambda: encode.encode_blocks(bufs_d, lens_d, BLOCK, level),
              lambda: encode.encode_blocks_plain(bufs[picks], lens[picks], BLOCK, level),
-             "lz4_tpu/ops/encode_pallas5.py:1922", 12),
+             12),
             ("chained",
              lambda: encode_stream.encode_windows(payload, st, offs, wl, BLOCK, level),
              lambda: encode_stream.encode_windows_plain(
                  payload_h, st[picks], offs[picks], wl[picks], BLOCK, level),
-             "lz4_tpu/ops/encode_pallas_stream.py:266", 24),
+             24),
         ):
             got = run()
             ms = _cuda_ms(run, 2)
@@ -1160,18 +1300,74 @@ def phase_hc_times(data: bytes, dev):
             # the payload read once, the compressed bytes written once, and
             # the per-row lengths, flags (and for D starts and prefixes)
             moved = len(data) + clen + row_bytes * nb
-            print(f"[hc times] encode_windows_{arm} level {level}, {path}: "
-                  f"{ms:.3f} ms over {nb} rows, {clen} compressed bytes; rows "
-                  f"{picks} equal to the plain version")
-            entries.append({
+            entry = {
                 "name": f"encode_windows_{arm}:{path}", "route": "cuda",
                 "source": "lz4_tpu_torch/ops/csrc/encode_stream.cu",
-                "replaces": f"{replaces} ({arm.upper()} arm, level {level})",
+                "replaces": f"{replaces[path]} ({arm.upper()} arm, level {level})",
                 "path": f"L{level}_{path}", "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "library_ms": None}
+            if arm == "opt":
+                # the serial arm at level 12, the passes' reference
+                base, wst, wso, wln = windows[path]
+                base_d = base.to(dev)
+                entry["ms_L12"] = _cuda_ms(lambda: encode_stream.encode_windows_opt_serial(
+                    base_d, wst, wso, wln, BLOCK, 12), 2)
+            entries.append(entry)
+            print(f"[hc times] encode_windows_{arm} level {level}, {path}: "
+                  f"{ms:.3f} ms over {nb} rows, {clen} compressed bytes; rows "
+                  f"{picks} equal to the plain version"
+                  + (f"; level 12 {entry['ms_L12']:.3f} ms" if arm == "opt" else ""))
+    for path, (base, wst, wso, wln) in windows.items():
+        base_d = base.to(dev)
+
+        def run():
+            return encode_stream.encode_windows(base_d, wst, wso, wln, BLOCK, 12)
+
+        got = run()
+        serial = encode_stream.encode_windows_opt_serial(base_d, wst, wso, wln, BLOCK, 12)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, serial)
+        _require(err == 0, f"level 12 {path}: the passes' output != the serial arm's")
+        whole_ms = _cuda_ms(run, 2)
+        pass_ms = _device_ms_by(run, tuple(OPT_KERNELS.values()), 2)
+        total = int(wln.sum())
+        block = int((wln - wso).sum())
+        clen = int(got[1].sum())
+        # bytes each pass must move: its windows and tables read once, its
+        # table or the compressed bytes written once, the per-row values
+        moved = {"opt_chain": total + 4 * total + 20 * nb,
+                 "opt_matches": total + 4 * total + 8 * total + 24 * nb,
+                 "opt_parse": block + 8 * block + clen + 32 * nb}
+        for name, kernel in OPT_KERNELS.items():
+            entries.append({
+                "name": f"{name}:{path}", "route": "cuda",
+                "source": "lz4_tpu_torch/ops/csrc/encode_opt.cu",
+                "replaces": (f"{replaces[path]} (OPT arm at level 12; "
+                             "lz4_tpu/ops/encode_pallas5.py:1172 opt_body)"),
+                "path": f"L12_{path}", "max_abs_err": 0,
+                "ms": pass_ms[kernel], "plain_ms": None,
+                "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                 "library_ms": None})
-    return entries
+        summary[path] = {"passes_call_ms": whole_ms, "pass_device_ms": pass_ms,
+                         "rows_equal_to_serial": nb, "max_abs_err": err}
+        held.append((path, windows[path], entries[-3:]))
+        print(f"[hc times] level 12 {path}: passes {whole_ms:.3f} ms per call "
+              f"(device: " + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
+              + f"), all {nb} rows equal to the serial OPT arm's")
+    with plain_pool() as pool:
+        finishes = [(path, ents, hold_opt_passes(*rows, BLOCK, picks, dev, pool))
+                    for path, rows, ents in held]
+        for path, ents, finish in finishes:
+            errs, seconds, given_up = finish()
+            summary[path]["given_up"] = given_up
+            for e, name in zip(ents, OPT_KERNELS):
+                e["max_abs_err"] = errs[name]
+                e["plain_ms"] = seconds[name] * 1e3 / len(picks) * nb
+            print(f"[hc times] level 12 {path}: each pass equal to its plain "
+                  f"version on rows {picks}; {given_up} searches given up")
+    return entries, summary
 
 
 XXH_LENGTHS = [0, 1, 3, 4, 15, 16, 17, 31, 32, 100, 1024, 4097, 65536]
@@ -1211,7 +1407,12 @@ def _device_ms_by(fn, kernels, iters: int) -> dict:
 
 
 def _timed_plain_call(qualname: str, args, kwargs):
-    """`_plain_call` in a worker, with its time on the worker's clock."""
+    """`_plain_call` in a worker, with its time on the worker's clock (the
+    module imported before the clock starts: a fresh worker's first import
+    of torch takes seconds)."""
+    import importlib
+
+    importlib.import_module(qualname.rsplit(".", 1)[0])
     t0 = time.perf_counter()
     out = _plain_call(qualname, args, kwargs)
     return out, time.perf_counter() - t0
@@ -1419,16 +1620,19 @@ def main(argv=None) -> int:
         xxh_kernels, host_xxh32_s = phase_xxh32(
             data, rng, dev, xxh_windows, xxh_futures)
     hc_launches, hc_e2e = phase_hc_paths(data16, dev)
-    hc_kernels = phase_hc_times(data16, dev)
+    hc_kernels, opt12 = phase_hc_times(data16, dev)
     for k in hc_kernels:
         fn, path = k["name"].split(":")
         k["launches"] = hc_launches[k.pop("path")][fn]
-        k["max_abs_err"] = max(k["max_abs_err"], hc_err[path][fn.rsplit("_", 1)[1]])
+        k["max_abs_err"] = max(k["max_abs_err"], hc_err[path].get(fn, 0))
     kernels += hc_kernels
+    print(json.dumps({"opt12": opt12}))
     print(json.dumps({"hc_L9_chained": profile_path(
         data16, dev, frame.EncoderSettings(compression_level=9))}))
     print(json.dumps({"hc_L12_independent": profile_path(
         data16, dev, frame.EncoderSettings(compression_level=12, chain_blocks=False))}))
+    print(json.dumps({"hc_L12_chained": profile_path(
+        data16, dev, frame.EncoderSettings(compression_level=12))}))
     print(json.dumps({"e2e": e2e, "e2e_chained": chained_e2e,
                       "e2e_big_blocks": big_e2e,
                       "big_blocks_launches": big_launches}))

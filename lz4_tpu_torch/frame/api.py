@@ -10,10 +10,10 @@ in one batch on kernel A, a chained frame in one call of the chained
 decoder (every block at once).  Every block and content checksum is
 computed on the device by kernel E, over bytes that are already there: the
 payload and the compressed rows on compress, the frame and the decoded
-content on decompress.  Frames with a
-dictionary ID, independent frames with a preset dictionary and
-multi-frame streams take the JAX package's FrameReader, which is not
-ported yet.
+content on decompress.  An independent frame decodes as if a preset
+dictionary were absent: its blocks reach none.  Frames with a dictionary
+ID and multi-frame streams take the JAX package's FrameReader, which is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -21,9 +21,11 @@ from __future__ import annotations
 import dataclasses
 import io
 import struct
+from typing import NamedTuple
 
 import torch
 
+from ..block import LZ4Error
 from ..constants import _as_bytes, compress_bound
 from ..ops.common import resolve_device
 from ..ops.decode_stream import decode_chain
@@ -94,12 +96,23 @@ def compress(
     schedule unless ``geometry="dense"``, and a canonical chained frame of
     more than one block needs upstream's sequential continue schedule, a
     host path: it raises ValueError, as a device request does in the JAX
-    package.  Levels 3-12 take the HC and OPT arms whatever the geometry."""
+    package.  Levels 3-12 take the HC and OPT arms whatever the geometry.
+
+    A declared ``content_length`` other than ``len(data)`` raises
+    ValueError when the payload fits one block, as the JAX package's
+    FrameWriter does at close; a larger payload is framed as declared, as
+    its threaded and device routes frame it."""
     dev = resolve_device(device)
     data = _as_bytes(data)
     settings = settings or EncoderSettings()
     if store_size and settings.content_length is None:
         settings = dataclasses.replace(settings, content_length=len(data))
+    declared = settings.content_length
+    if (declared is not None and declared != len(data)
+            and len(data) <= settings.block_size):
+        raise ValueError(
+            f"content length mismatch: declared {declared}, wrote {len(data)}"
+        )
     if (
         settings.chain_blocks
         and len(data) <= settings.block_size
@@ -153,6 +166,22 @@ def compress(
     return _assemble_frame(d, data, settings.block_size, blocks, csum, sums)
 
 
+class _Scan(NamedTuple):
+    """A frame's block table, scanned on the host up to its first fault."""
+
+    descriptor: object
+    blocks: list  # (offset, length, stored) of each whole block, in order
+    tail: int  # the position after the EndMark
+    fault: Exception | None = None
+    # False for a block length over the limit, which is raised before any
+    # block decodes, as the JAX package's scan raises it
+    decode_first: bool = True
+
+
+class _LengthOverLimit(Exception):
+    """A block length word over the frame's limit (`_scan_blocks`)."""
+
+
 def _scan_single_frame(data: bytes):
     """Parse one frame's block table on the host.
 
@@ -161,18 +190,18 @@ def _scan_single_frame(data: bytes):
     NotImplementedError on what FrameReader alone decodes.  Block
     checksums are not verified here (`_verify_blocks` does that on the
     device)."""
-    d, blocks, pos, fault = _scan_frame(data)
-    if fault is not None:
-        raise fault
-    return d, blocks, pos
+    scan = _scan_frame(data)
+    if scan.fault is not None:
+        raise scan.fault
+    return scan.descriptor, scan.blocks, scan.tail
 
 
-def _scan_frame(data: bytes):
+def _scan_frame(data: bytes) -> _Scan:
     """`_scan_single_frame` that returns a fault found after the header
-    instead of raising it: (descriptor, blocks, tail_pos, fault or None).
-    ``blocks`` then holds the blocks scanned before the fault whose
-    checksum field is whole, so that a mismatch among them is reported
-    first, as a sequential reader would."""
+    instead of raising it.  ``blocks`` then holds the blocks scanned before
+    the fault whose checksum field is whole, so that a checksum mismatch
+    and then a malformed block among them are reported first, as a
+    sequential reader would."""
     src = io.BytesIO(data)
     info = parse_header(src.read)
     if info.kind != "frame":
@@ -184,9 +213,12 @@ def _scan_frame(data: bytes):
     pos = info.header_length
     try:
         pos = _scan_blocks(data, d, pos, blocks)
+    except _LengthOverLimit as e:
+        fault = LZ4FormatError(f"block length {e.args[0]} exceeds block size limit")
+        return _Scan(d, blocks, pos, fault, decode_first=False)
     except (LZ4FormatError, NotImplementedError) as fault:
-        return d, blocks, pos, fault
-    return d, blocks, pos, None
+        return _Scan(d, blocks, pos, fault)
+    return _Scan(d, blocks, pos)
 
 
 def _scan_blocks(data: bytes, d, pos: int, blocks: list) -> int:
@@ -206,9 +238,7 @@ def _scan_blocks(data: bytes, d, pos: int, blocks: list) -> int:
         length = word & ~_UNCOMPRESSED_FLAG
         if length > (limit if stored else compress_bound(limit)):
             # a crafted length word must not reach the decoder
-            raise LZ4FormatError(
-                f"block length {length} exceeds block size limit"
-            )
+            raise _LengthOverLimit(length)
         if pos + length > n:
             raise LZ4FormatError("truncated block data")
         if d.block_checksum and pos + length + 4 > n:
@@ -241,10 +271,11 @@ def _verify_blocks(frame, data: bytes, blocks) -> None:
             raise LZ4FormatError("block checksum mismatch")
 
 
-def _decode_chained(frame, d, blocks, dictionary):
+def _decode_chained(frame, d, blocks, dictionary, error=LZ4FormatError):
     """A chained frame's blocks, decoded in one call of the chained
     decoder (every block at once); the first block's window is the last
-    64 KB of ``dictionary``.  Returns the content on the frame's device."""
+    64 KB of ``dictionary``.  Raises ``error`` on the first malformed
+    block.  Returns the content on the frame's device."""
     preset = None
     if dictionary:
         preset = torch.frombuffer(
@@ -254,8 +285,19 @@ def _decode_chained(frame, d, blocks, dictionary):
     stream, status = decode_chain(frame, table, d.block_size, preset)
     written, bad, err = status.tolist()
     if bad >= 0:
-        raise LZ4FormatError(f"malformed chained block {bad} (err={err})")
+        raise error(f"malformed chained block {bad} (err={err})")
     return stream[:written]
+
+
+def _decode_blocks(frame, d, blocks, dictionary, error=LZ4FormatError):
+    """The content of ``blocks``: a chained frame in one call of the
+    chained decoder, an independent one in one batch on kernel A (its
+    blocks reach no dictionary, so a preset one is not used).  Raises on
+    the first malformed block: LZ4Error for an independent frame, ``error``
+    for a chained one."""
+    if d.block_chaining:
+        return _decode_chained(frame, d, blocks, dictionary, error)
+    return decode_frame_blocks(frame, blocks, d.block_size)
 
 
 def decompress(
@@ -270,26 +312,28 @@ def decompress(
     copied, in frame order; a chained frame decodes in one call, with
     ``settings.dictionary`` as the preset dictionary.  The content checksum
     is verified on the decoded content on the device, which then comes
-    back in one copy."""
+    back in one copy.
+
+    A frame cut short or followed by other bytes raises in the order a
+    sequential reader gives: a block checksum mismatch, then a malformed
+    block before the fault (LZ4Error), then the fault itself."""
     dev = resolve_device(device)
     data = _as_bytes(data)
     settings = settings or DecoderSettings()
     if not data:
         return b""
-    d, blocks, pos, fault = _scan_frame(data)
+    scan = _scan_frame(data)
+    d, blocks = scan.descriptor, scan.blocks
     frame = upload(data, dev)
     if d.block_checksum:
         _verify_blocks(frame, data, blocks)
-    if fault is not None:
-        raise fault
-    if d.block_chaining:
-        content = _decode_chained(frame, d, blocks, settings.dictionary)
-    elif settings.dictionary:
-        raise _not_ported("independent frames with a preset dictionary")
-    else:
-        content = decode_frame_blocks(frame, blocks, d.block_size)
+    if scan.fault is not None:
+        if scan.decode_first and blocks:
+            _decode_blocks(frame, d, blocks, settings.dictionary, LZ4Error)
+        raise scan.fault
+    content = _decode_blocks(frame, d, blocks, settings.dictionary)
     if d.content_checksum:
-        (expected,) = struct.unpack_from("<I", data, pos)
+        (expected,) = struct.unpack_from("<I", data, scan.tail)
         if as_uint32(xxh32_windows(content, [0], [content.numel()]))[0] != expected:
             raise LZ4FormatError("content checksum mismatch")
     if d.content_length is not None and content.numel() != d.content_length:

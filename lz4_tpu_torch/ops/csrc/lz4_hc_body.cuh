@@ -17,6 +17,13 @@
 // - cells (OPT only): the price table of one 4,096-position window.
 // The caller resets head and delta with hc_reset before each row.  Every
 // read stays inside [0, n).
+//
+// The search (wider_match) reads its chain through a source type: Chain,
+// the ring above, filled as the scan goes, or TableChain, the read-only
+// tables of every position of a row that the level 12 passes build
+// (encode_opt.cu).  The OPT parse (opt_parse) takes its search as a
+// callable: opt_scan hands it the ring's, the level 12 parse pass a read of
+// the table of every position's match.
 
 #pragma once
 
@@ -64,6 +71,13 @@ struct Chain {
   int max_insert;  // read32 must stay in bounds
   int ihigh;       // match limit: n - LAST_LITERALS
   int attempts;    // chain steps per search
+  static constexpr bool kBudgeted = false;
+
+  __device__ inline void insert(int upto);
+  // the most recent inserted position of hash h (the search is at pos)
+  __device__ __forceinline__ int first(int h, int) const { return head[h]; }
+  // the distance from q to the previous position of its hash
+  __device__ __forceinline__ int step(int q) const { return delta[q & 0xFFFF]; }
 };
 
 __device__ inline void chain_insert(Chain& c, int upto) {
@@ -77,6 +91,37 @@ __device__ inline void chain_insert(Chain& c, int upto) {
   if (upto > c.inserted) c.inserted = upto;
 }
 
+__device__ inline void Chain::insert(int upto) { chain_insert(*this, upto); }
+
+// The chain of every position of a row at once, read-only: prev[p] is the
+// previous position of p's hash in the row (kHcEmpty when none), for every
+// p below n - 3.  What Chain holds when the search at pos begins, as long
+// as nothing was inserted past pos (the OPT arm's searches): head[h] is
+// prev[pos], and the ring's delta at q (pos - 65,535 <= q < pos) is
+// min(q - prev[q], 0xFFFF).  With kBudget a search gives up once its
+// work, one per chain step plus the bytes each match length and pattern
+// run measures, would pass `budget`; wider_match then returns -1 - L, L
+// the longest match it had found or, when a measure passed the budget,
+// that measure + 4 if longer (a long repeat).
+template <bool kBudget>
+struct TableChainT {
+  const uint8_t* s;
+  const int* prev;
+  int ihigh;
+  int attempts;
+  int budget;  // read with kBudget only
+  static constexpr bool kBudgeted = kBudget;
+
+  __device__ __forceinline__ void insert(int) {}
+  __device__ __forceinline__ int first(int, int pos) const { return prev[pos]; }
+  __device__ __forceinline__ int step(int q) const {
+    const int d = q - prev[q];
+    return d > 0xFFFF ? 0xFFFF : d;
+  }
+};
+using TableChain = TableChainT<false>;
+using BudgetChain = TableChainT<true>;
+
 // Forward length over which bytes repeat the little-endian 4-byte pattern.
 __device__ inline int count_pattern(const uint8_t* s, int p, int end, uint32_t pattern) {
   const int start = p;
@@ -89,10 +134,11 @@ __device__ inline int count_pattern(const uint8_t* s, int p, int end, uint32_t p
 }
 
 // Backward pattern run length from p (the pattern scanned from its last
-// byte), down to position 0.
-__device__ inline int count_back_pattern(const uint8_t* s, int p, uint32_t pattern) {
+// byte), down to position `floor`.
+__device__ inline int count_back_pattern(const uint8_t* s, int p, uint32_t pattern,
+                                         int floor = 0) {
   const int start = p;
-  while (p > 0 && s[p - 1] == (pattern >> 24)) {
+  while (p > floor && s[p - 1] == (pattern >> 24)) {
     --p;
     pattern = (pattern << 8) | (pattern >> 24);
   }
@@ -103,8 +149,12 @@ __device__ inline int count_back_pattern(const uint8_t* s, int p, uint32_t patte
 // hc_wider_match).  When it beats `longest` it sets m_start (>= ilow) and
 // m_pos (the match source for m_start).  `pa`: repeated-pattern
 // acceleration; `swap`: follow the chain entry inside the current best that
-// jumps farthest back (the OPT search, which forces `pa` on).
-__device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start,
+// jumps farthest back (the OPT search, which forces `pa` on).  C is Chain
+// or TableChainT; a budgeted one returns -1 - L when the search gives up
+// (TableChainT), each measure cut one byte past the budget's room, so that
+// a search that stays inside it measures what an unbounded one does.
+template <class C>
+__device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
                            int& m_pos, bool pa, bool swap) {
   const uint8_t* s = c.s;
   const int pos = ip;
@@ -117,11 +167,12 @@ __device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start
   int src_pat_len = 0;
   int best_s = m_start, best_p = m_pos;
   int want = read16(s, ilow + longest - 1);  // the two bytes a wider match must reproduce
+  int work = 0;                              // budgeted chains only
 
-  chain_insert(c, pos);
-  int cand = c.head[hash4<kHcHashLog>(pattern)];
+  c.insert(pos);
+  int cand = c.first(hash4<kHcHashLog>(pattern), pos);
   while (cand >= pos) {  // self/ahead entries from lookahead probes
-    const int d = c.delta[cand & 0xFFFF];
+    const int d = c.step(cand);
     if (d > cand) {
       cand = -1;
       break;
@@ -130,6 +181,10 @@ __device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start
   }
 
   while (cand >= lowest && attempts > 0) {
+    if constexpr (C::kBudgeted) {
+      if (work > c.budget) return -1 - longest;
+      ++work;
+    }
     int match_len = 0;
     --attempts;
     if (want == read16(s, cand - lookback + longest - 1) && read32(s, cand) == pattern) {
@@ -138,7 +193,14 @@ __device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start
         const int floor = ilow - ip > -cand ? ilow - ip : -cand;
         while (back > floor && s[ip + back - 1] == s[cand + back - 1]) --back;
       }
-      match_len = kMinMatch + run_length(s, cand + kMinMatch, ip + kMinMatch, c.ihigh) - back;
+      int limit = c.ihigh;
+      if constexpr (C::kBudgeted) limit = min(limit, ip + kMinMatch + c.budget - work + 1);
+      const int run = run_length(s, cand + kMinMatch, ip + kMinMatch, limit);
+      if constexpr (C::kBudgeted) {
+        if (run > c.budget - work) return -1 - max(longest, run + 4);
+        work += run;
+      }
+      match_len = kMinMatch + run - back;
       if (match_len > longest) {
         longest = match_len;
         best_p = cand + back;
@@ -153,7 +215,7 @@ __device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start
       int step = 1, accel = 1 << 4;
       chain_off = 0;
       for (int q = 0; q < end; q += step) {
-        const int d = c.delta[(cand + q) & 0xFFFF];
+        const int d = c.step(cand + q);
         step = accel++ >> 4;
         if (d > best_jump) {
           best_jump = d;
@@ -168,7 +230,7 @@ __device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start
       }
     }
 
-    if (pa && c.delta[cand & 0xFFFF] == 1 && chain_off == 0) {
+    if (pa && c.step(cand) == 1 && chain_off == 0) {
       // the candidate sits in a run of a repeated pattern: jump straight to
       // the best-aligned position of the run
       const int cand2 = cand - 1;
@@ -176,11 +238,32 @@ __device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start
         repeat_tested = true;
         repeat_confirmed = (pattern & 0xFFFF) == (pattern >> 16) &&
                            (pattern & 0xFF) == (pattern >> 24);
-        if (repeat_confirmed) src_pat_len = count_pattern(s, ip + 4, c.ihigh, pattern) + 4;
+        if (repeat_confirmed) {
+          int end = c.ihigh;
+          if constexpr (C::kBudgeted) end = min(end, ip + 5 + c.budget - work);
+          const int run = count_pattern(s, ip + 4, end, pattern);
+          if constexpr (C::kBudgeted) {
+            if (run > c.budget - work) return -1 - max(longest, run + 4);
+            work += run;
+          }
+          src_pat_len = run + 4;
+        }
       }
       if (repeat_confirmed && cand2 >= lowest && read32(s, cand2) == pattern) {
-        const int fwd = count_pattern(s, cand2 + 4, c.ihigh, pattern) + 4;
-        int backp = count_back_pattern(s, cand2, pattern);
+        int end = c.ihigh, floor = 0;
+        if constexpr (C::kBudgeted) end = min(end, cand2 + 5 + c.budget - work);
+        const int run = count_pattern(s, cand2 + 4, end, pattern);
+        if constexpr (C::kBudgeted) {
+          if (run > c.budget - work) return -1 - max(longest, run + 4);
+          work += run;
+          floor = max(0, cand2 - (c.budget - work) - 1);
+        }
+        const int fwd = run + 4;
+        int backp = count_back_pattern(s, cand2, pattern, floor);
+        if constexpr (C::kBudgeted) {
+          if (backp > c.budget - work) return -1 - max(longest, backp + 4);
+          work += backp;
+        }
         if (backp > cand2 - lowest) backp = cand2 - lowest;
         const int seg = backp + fwd;
         if (seg >= src_pat_len && fwd <= src_pat_len) {
@@ -196,7 +279,7 @@ __device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start
               best_s = ip;
               want = read16(s, ilow + longest - 1);
             }
-            const int d2 = c.delta[cand & 0xFFFF];
+            const int d2 = c.step(cand);
             if (d2 > cand) break;
             cand -= d2;
           }
@@ -205,7 +288,7 @@ __device__ int wider_match(Chain& c, int ip, int ilow, int longest, int& m_start
       }
     }
 
-    const int d = c.delta[(cand + chain_off) & 0xFFFF];
+    const int d = c.step(cand + chain_off);
     if (d > cand) break;
     cand -= d;
   }
@@ -364,7 +447,8 @@ __device__ __forceinline__ int seq_price(int litlen, int mlen) {
 
 // Best (length, offset) at ip by the chain-swap search; length 0 when none
 // is longer than min_len.
-__device__ __forceinline__ int opt_find(Chain& c, int ip, int min_len, int& off) {
+template <class C>
+__device__ __forceinline__ int opt_find(C& c, int ip, int min_len, int& off) {
   int ms = ip, mp = -1;
   const int len = wider_match(c, ip, ip, min_len, ms, mp, true, true);
   if (len <= min_len) return 0;
@@ -379,22 +463,23 @@ __device__ __forceinline__ void opt_set(OptCell& cell, int price, int off, int m
   cell.litlen = litlen;
 }
 
-// The OPT arm (lz4tpu.c lz4tpu_encode_opt): the exact price-model optimal
-// parse over 4,096-position windows, a match longer than `sufficient`
-// (<= 4,095) taken at once, and with `full` (level 12) every position
-// searched anew.
-__device__ void opt_scan(const uint8_t* s, int src_off, int n, int searches, int sufficient,
-                         bool full, Sink& o, int* head, uint16_t* delta, OptCell* cells) {
+// The OPT arm's parse (lz4tpu.c lz4tpu_encode_opt): the exact price-model
+// optimal parse over 4,096-position windows, a match longer than
+// `sufficient` (<= 4,095) taken at once, and with `full` (level 12) every
+// position searched anew.  find(p, min_len, off) is the chain-swap search
+// at p (opt_find); positions are searched in increasing order, each at most
+// once.
+template <class Find>
+__device__ void opt_parse(const uint8_t* s, int src_off, int n, int sufficient, bool full,
+                          Sink& o, OptCell* cells, Find& find) {
   int anchor = src_off;
   if (n - src_off >= kMfLimit + 1) {
     const int mflimit = n - kMfLimit;
-    Chain c{s, head, delta, 0, n - kMinMatch + 1, n - kLastLiterals, searches};
-    chain_insert(c, src_off);
     int ip = src_off;
     while (ip <= mflimit) {
       const int llen = ip - anchor;
       int first_off = 0;
-      const int first_len = opt_find(c, ip, kMinMatch - 1, first_off);
+      const int first_len = find(ip, kMinMatch - 1, first_off);
       if (first_len == 0) {
         ++ip;
         continue;
@@ -420,7 +505,7 @@ __device__ void opt_scan(const uint8_t* s, int src_off, int n, int searches, int
             (!full || cells[cur + kMinMatch].price < cells[cur].price + 3))
           continue;
         int new_off = 0;
-        const int new_len = opt_find(c, ip + cur, full ? kMinMatch - 1 : last - cur, new_off);
+        const int new_len = find(ip + cur, full ? kMinMatch - 1 : last - cur, new_off);
         if (new_len == 0) continue;
         if (new_len > sufficient || new_len + cur >= kOptNum) {
           best_mlen = new_len;
@@ -484,6 +569,16 @@ __device__ void opt_scan(const uint8_t* s, int src_off, int n, int searches, int
     }
   }
   emit(o, s, anchor, n - anchor, 0, 0);
+}
+
+// The OPT arm over the ring: every prefix position inserted, then the parse
+// with the ring's search (`searches` chain steps).
+__device__ void opt_scan(const uint8_t* s, int src_off, int n, int searches, int sufficient,
+                         bool full, Sink& o, int* head, uint16_t* delta, OptCell* cells) {
+  Chain c{s, head, delta, 0, n - kMinMatch + 1, n - kLastLiterals, searches};
+  if (n - src_off >= kMfLimit + 1) chain_insert(c, src_off);
+  auto find = [&c](int ip, int min_len, int& off) { return opt_find(c, ip, min_len, off); };
+  opt_parse(s, src_off, n, sufficient, full, o, cells, find);
 }
 
 }  // namespace lz4t

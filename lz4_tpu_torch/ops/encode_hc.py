@@ -50,9 +50,11 @@ def _count_pattern(s, p: int, end: int, pattern: int) -> int:
     return p - start
 
 
-def _count_back_pattern(s, p: int, pattern: int) -> int:
+def _count_back_pattern(s, p: int, pattern: int, floor: int = 0) -> int:
+    """Backward run length from p over which bytes repeat the pattern
+    (scanned from its last byte), down to ``floor``."""
     start = p
-    while p > 0 and s[p - 1] == (pattern >> 24):
+    while p > floor and s[p - 1] == (pattern >> 24):
         p -= 1
         pattern = ((pattern << 8) & 0xFFFFFFFF) | (pattern >> 24)
     return start - p
@@ -61,6 +63,9 @@ def _count_back_pattern(s, p: int, pattern: int) -> int:
 class ChainFinder:
     """Hash-chain match finder: the head table (2^15 most recent positions)
     and the u16 delta ring indexed pos & 0xFFFF at every window size."""
+
+    mask = 0xFFFF  # a search reads delta[q & mask]
+    budget = 1 << 62  # the work after which a search gives up (`wider_match`)
 
     def __init__(self, s, match_limit: int, max_attempts: int):
         self.s = s
@@ -84,8 +89,16 @@ class ChainFinder:
     def wider_match(self, ip: int, ilow: int, longest: int,
                     pattern_analysis: bool, chain_swap: bool = False):
         """Widest match at ip whose start may slide back to ilow.  Returns
-        (longest, m_start, m_pos); m_pos < 0 when nothing beat ``longest``."""
-        s, delta = self.s, self.delta
+        (longest, m_start, m_pos); m_pos < 0 when nothing beat ``longest``.
+
+        The search's work counts one per chain step plus the bytes each
+        match length and pattern run measures; a search whose work would
+        pass ``self.budget`` gives up: (-1 - L, ip, -1), L the longest match
+        found or, when a measure passed the budget, that measure + 4 if
+        longer (a long repeat).  Each measure is cut one byte past the
+        budget's room, so a search that stays inside it measures what an
+        unbounded one does."""
+        s, delta, mask, budget = self.s, self.delta, self.mask, self.budget
         ihigh = self.match_limit
         pos = ip
         lowest = max(0, pos - DISTANCE_MAX)
@@ -96,17 +109,21 @@ class ChainFinder:
         repeat_tested = repeat_confirmed = False
         src_pat_len = 0
         m_start, m_pos = ip, -1
+        work = 0
 
         self.insert_upto(pos)
         cand = self.head[_hash(pattern)]
         while cand >= pos:  # skip self/ahead entries from lookahead probes
-            d = delta[cand & 0xFFFF]
+            d = delta[cand & mask]
             if d > cand:
                 cand = -1
                 break
             cand -= d
 
         while cand >= lowest and attempts > 0:
+            if work > budget:
+                return -1 - longest, ip, -1
+            work += 1
             match_len = 0
             attempts -= 1
             # quick reject: the two bytes that would extend the best must match
@@ -118,8 +135,13 @@ class ChainFinder:
                     floor = max(ilow - ip, -cand)
                     while back > floor and s[ip + back - 1] == s[cand + back - 1]:
                         back -= 1
-                match_len = (MIN_MATCH - back + run_length(
-                    s, cand + MIN_MATCH, ip + MIN_MATCH, ihigh))
+                room = budget - work
+                run = run_length(s, cand + MIN_MATCH, ip + MIN_MATCH,
+                                 min(ihigh, ip + MIN_MATCH + room + 1))
+                if run > room:
+                    return -1 - max(longest, run + 4), ip, -1
+                work += run
+                match_len = MIN_MATCH - back + run
                 if match_len > longest:
                     longest = match_len
                     m_pos = cand + back
@@ -133,7 +155,7 @@ class ChainFinder:
                 chain_off = 0
                 q = 0
                 while q < end:
-                    d = delta[(cand + q) & 0xFFFF]
+                    d = delta[(cand + q) & mask]
                     step = accel >> 4
                     accel += 1
                     if d > best_jump:
@@ -147,7 +169,7 @@ class ChainFinder:
                     cand -= best_jump
                     continue
 
-            if pattern_analysis and delta[cand & 0xFFFF] == 1 and chain_off == 0:
+            if pattern_analysis and delta[cand & mask] == 1 and chain_off == 0:
                 # the candidate sits in a run of a repeated pattern: jump
                 # straight to the best-aligned position of the run
                 cand2 = cand - 1
@@ -158,10 +180,25 @@ class ChainFinder:
                         and (pattern & 0xFF) == (pattern >> 24)
                     )
                     if repeat_confirmed:
-                        src_pat_len = _count_pattern(s, ip + 4, ihigh, pattern) + 4
+                        room = budget - work
+                        run = _count_pattern(s, ip + 4, min(ihigh, ip + 5 + room), pattern)
+                        if run > room:
+                            return -1 - max(longest, run + 4), ip, -1
+                        work += run
+                        src_pat_len = run + 4
                 if repeat_confirmed and cand2 >= lowest and read32(s, cand2) == pattern:
-                    fwd = _count_pattern(s, cand2 + 4, ihigh, pattern) + 4
-                    backp = min(_count_back_pattern(s, cand2, pattern), cand2 - lowest)
+                    room = budget - work
+                    run = _count_pattern(s, cand2 + 4, min(ihigh, cand2 + 5 + room), pattern)
+                    if run > room:
+                        return -1 - max(longest, run + 4), ip, -1
+                    work += run
+                    fwd = run + 4
+                    room = budget - work
+                    run = _count_back_pattern(s, cand2, pattern, max(0, cand2 - room - 1))
+                    if run > room:
+                        return -1 - max(longest, run + 4), ip, -1
+                    work += run
+                    backp = min(run, cand2 - lowest)
                     seg = backp + fwd
                     if seg >= src_pat_len and fwd <= src_pat_len:
                         cand = cand2 + fwd - src_pat_len
@@ -175,13 +212,13 @@ class ChainFinder:
                                 longest = max_ml
                                 m_pos = cand
                                 m_start = ip
-                            d2 = delta[cand & 0xFFFF]
+                            d2 = delta[cand & mask]
                             if d2 > cand:
                                 break
                             cand -= d2
                     continue
 
-            d = delta[(cand + chain_off) & 0xFFFF]
+            d = delta[(cand + chain_off) & mask]
             if d > cand:
                 break
             cand -= d
@@ -309,20 +346,29 @@ def encode_opt(s: bytes, src_off: int, searches: int, sufficient: int,
     4,096-position windows, matches found by the chain-swap search
     (``searches`` steps), a match longer than ``sufficient`` taken at once,
     and with ``full`` (level 12) every position searched anew."""
+    finder = ChainFinder(s, len(s) - LAST_LITERALS, searches)
+    finder.insert_upto(src_off)
+
+    def find(p: int, min_len: int):
+        ln, _, mp = finder.wider_match(p, p, min_len, True, True)
+        if ln <= min_len or mp < 0:
+            return 0, 0
+        return ln, p - mp
+
+    return opt_parse_row(s, src_off, find, sufficient, full)
+
+
+def opt_parse_row(s: bytes, src_off: int, find, sufficient: int,
+                  full: bool) -> bytearray:
+    """The OPT arm's parse of s[src_off:] with its searches delegated:
+    ``find(p, min_len)`` is the (length, offset) of the chain-swap search at
+    p, (0, 0) when none is longer than ``min_len``.  Positions are searched
+    in increasing order, each at most once."""
     n = len(s)
     out = bytearray()
     anchor = ip = src_off
     if n - src_off >= MF_LIMIT + 1:
         mf_limit = n - MF_LIMIT
-        finder = ChainFinder(s, n - LAST_LITERALS, searches)
-        finder.insert_upto(src_off)
-
-        def find(p: int, min_len: int):
-            ln, _, mp = finder.wider_match(p, p, min_len, True, True)
-            if ln <= min_len or mp < 0:
-                return 0, 0
-            return ln, p - mp
-
         # o[pos] = [price, off, mlen, litlen]: the cheapest way to reach
         # ip + pos inside the current window
         o = [[0, 0, 0, 0] for _ in range(OPT_NUM + TRAILING)]

@@ -7,7 +7,8 @@ wrapper `encode_blocks_pallas_stream`), with the same bytes.  At levels 0-2
 (LZ4_compress_default: byU16 below 65,547 bytes, byU32 at and above) or
 the dense one; rows of a batch with dictionaries all take the dense one.
 Levels 3-9 run the HC arm and 10-12 the OPT arm (`encode_windows_hc`, plain
-versions in `ops/encode_hc.py`), every prefix inserted into the chain.
+versions in `ops/encode_hc.py`), every prefix inserted into the chain; on
+the card level 12 runs as the three passes of `ops/encode_opt.py`.
 The kernel reads each row as a window of one flat byte tensor, so the
 chained-frame path (`parallel.blocks.encode_blocks_chained_device`) hands
 it the payload itself, each block's 64 KB window in place before it.  The
@@ -28,6 +29,7 @@ from .encode import (
     _encode_canonical, _encode_dense, _outputs, clip_acceleration, pack_rows,
 )
 from .encode_hc import encode_row, level_arm
+from .encode_opt import encode_windows_full
 
 WINDOW = 65536  # the most a prefix can hold: LZ4's farthest match offset + 1
 
@@ -174,9 +176,11 @@ def encode_windows(base_u8, starts, src_offs, lens, bcap: int,
     return out, clens, errs
 
 
-def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm):
-    """Kernel D's HC or OPT arm (``arm``) on a batch of windows; the plain
-    version on the CPU."""
+def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm,
+                        passes=True):
+    """Kernel D's HC or OPT arm (``arm``) on a batch of windows, level 12
+    and up as `encode_windows_full`'s passes unless ``passes`` is False; the
+    plain version on the CPU."""
     if level_arm(level)[0] != arm:
         raise ValueError(f"level {level} does not run the {arm.upper()} arm")
     base, st, so, ln, _ = _validate_windows(
@@ -185,6 +189,8 @@ def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm):
     if base.device.type != "cuda":
         return encode_windows_plain(base, st, so, ln, bcap, level)
     _, depth, sufficient, full = level_arm(level)
+    if full and passes:
+        return encode_windows_full(base, st, so, ln, bcap, level)
     base = base.contiguous()
     nb, dev = st.shape[0], base.device
     out, clens, errs = _outputs(nb, bcap, dev)
@@ -224,9 +230,21 @@ def encode_windows_hc(base_u8, starts, src_offs, lens, bcap: int,
 
 def encode_windows_opt(base_u8, starts, src_offs, lens, bcap: int,
                        level: int = 12):
-    """`encode_windows` at levels 10 and up: kernel D's OPT arm on a CUDA
-    tensor (one launch, counted here), the plain version on a CPU tensor."""
+    """`encode_windows` at levels 10 and up.  On a CUDA tensor levels 10
+    and 11 run kernel D's OPT arm (one launch, counted here) and 12 and up
+    the three passes of `encode_opt.encode_windows_full` (counted there);
+    a CPU tensor runs the plain version, the serial parse of
+    `encode_hc.encode_opt`, which gives the passes' bytes."""
     return _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, "opt")
+
+
+def encode_windows_opt_serial(base_u8, starts, src_offs, lens, bcap: int,
+                              level: int = 12):
+    """Kernel D's serial OPT arm at any level from 10, level 12 included:
+    the card's reference for the level 12 passes (one launch, counted in
+    `encode_windows_opt.launches`); the plain version on a CPU tensor."""
+    return _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level,
+                               "opt", passes=False)
 
 
 def _stage(bufs_u8, lens, bcap, dicts, dict_lens, fast_schedule):

@@ -154,8 +154,16 @@ def test_corrupt_frames_raise_the_jax_exception_types(case):
 ])
 def test_streaming_cases_are_not_ported(what):
     """Chained frames, with or without a preset dictionary, compress and
-    decode as the JAX package's; what only FrameReader decodes raises."""
+    decode as the JAX package's; an independent frame decodes as if a
+    preset dictionary were absent, as the JAX package's does; what only
+    FrameReader decodes raises."""
     data = CORPUS[:150000]
+    if what == "independent_with_dictionary":
+        blob = _jax_frame(data)
+        settings = tframe.DecoderSettings(dictionary=b"abc")
+        want = jframe.decompress(blob, jframe.DecoderSettings(dictionary=b"abc"))
+        assert tframe.decompress(blob, settings, device="cpu") == want == data
+        return
     if what == "chained":
         blob = jframe.compress(data, jframe.EncoderSettings(), backend="host")
         assert tframe.compress(data, tframe.EncoderSettings(), device="cpu") == blob
@@ -176,11 +184,8 @@ def test_streaming_cases_are_not_ported(what):
         blob = _jax_frame(data) * 2
     else:
         blob = _jax_frame(data)
-    settings = tframe.DecoderSettings(
-        dictionary=b"abc" if what == "independent_with_dictionary" else b""
-    )
     with pytest.raises(NotImplementedError, match="FrameReader"):
-        tframe.decompress(blob, settings, device="cpu")
+        tframe.decompress(blob, device="cpu")
 
 
 def test_parallel_blocks_round_trip_and_refuse_malformed_blocks():

@@ -12,7 +12,7 @@ import torch
 import chip_smoke
 from lz4_tpu_torch import frame
 from lz4_tpu_torch.frame.api import _scan_single_frame
-from lz4_tpu_torch.ops import decode, decode_stream, encode, encode_stream, xxh32
+from lz4_tpu_torch.ops import decode, decode_stream, encode, encode_opt, encode_stream, xxh32
 from lz4_tpu_torch.parallel.blocks import comp_capacity
 
 pytestmark = pytest.mark.gpu
@@ -238,10 +238,11 @@ def test_chained_frame_round_trip_on_the_card(cuda):
     assert blob == frame.compress(data, settings, device="cpu")
 
 
-def _hc_counter(level):
-    """Kernel D's HC or OPT arm, which also takes kernel B's rows at
-    levels 3 and up."""
-    return encode_stream.encode_windows_opt if level >= 10 else encode_stream.encode_windows_hc
+def _launches(level):
+    """The launch counts of a level's encode: kernel D's HC or serial OPT
+    arm, which also takes kernel B's rows at levels 3 and up, or at level
+    12 the three passes of `encode_opt`."""
+    return [c.launches for c in chip_smoke._hc_counts(level)]
 
 
 @pytest.mark.parametrize("level", [3, 9, 12])
@@ -254,11 +255,10 @@ def test_hc_encode_kernel_matches_plain(level, cuda):
     rows = [data[a:a + BLOCK] for a in starts] + [
         chip_smoke.wordy_row(), b"", data[:12], data[:13]]
     bufs, lens = chip_smoke._stage(rows, BLOCK + 1024)
-    counter = _hc_counter(level)
-    before = counter.launches
+    before = _launches(level)
     got = encode.encode_blocks(bufs.to(cuda), lens.to(cuda), BLOCK, level)
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert _launches(level) == [n + 1 for n in before]
     _equal(got, encode.encode_blocks_plain(bufs, lens, BLOCK, level))
 
 
@@ -270,18 +270,66 @@ def test_hc_stream_kernel_matches_plain(level, cuda):
     payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
     st, offs, wl = chip_smoke.chained_windows(len(data), BLOCK)
     rows = [0, 1, 30, 63]
-    counter = _hc_counter(level)
-    before = counter.launches
+    before = _launches(level)
     got = encode_stream.encode_windows(
         payload.to(cuda), st[rows], offs[rows], wl[rows], BLOCK, level)
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert _launches(level) == [n + 1 for n in before]
     _equal(got, encode_stream.encode_windows_plain(
         payload, st[rows], offs[rows], wl[rows], BLOCK, level))
     bufs, lens = chip_smoke._stage([data[1 << 20:(1 << 20) + 300000]], 300000)
     got = encode_stream.encode_blocks_stream(bufs.to(cuda), lens.to(cuda), 300000, level)
     torch.cuda.synchronize()
     _equal(got, encode_stream.encode_blocks_stream_plain(bufs, lens, 300000, level))
+
+
+def _opt_rows():
+    """Windows for the level 12 passes: two chained windows (64 KB blocks
+    with their 64 KB prefixes), a 64 KB row of the mix, rows of 0, 12 and
+    13 bytes, a 20,000-byte row of one byte and one of a 3-byte pattern."""
+    data = chip_smoke.make_corpus(1 << 20, 14)
+    rows = [data[700000:765536], b"", data[:12], data[:13], b"\x61" * 20000,
+            (b"abc" * 7000)[:20000]]
+    base = data + b"".join(rows)
+    st, offs, wl = chip_smoke.chained_windows(len(data), BLOCK)
+    starts, src_offs, lens = st[[3, 9]].tolist(), offs[[3, 9]].tolist(), wl[[3, 9]].tolist()
+    at = len(data)
+    for r in rows:
+        starts.append(at)
+        src_offs.append(0)
+        lens.append(len(r))
+        at += len(r)
+    return torch.frombuffer(bytearray(base), dtype=torch.uint8), starts, src_offs, lens
+
+
+def test_opt_passes_match_plain(cuda):
+    """Each level 12 pass against its plain version on the kernel's own
+    output of the pass before, one launch each."""
+    base, st, so, ln = _opt_rows()
+    before = _launches(12)
+    prev = encode_opt.opt_chain(base.to(cuda), st, ln)
+    matches = encode_opt.opt_matches(base.to(cuda), st, so, ln, prev)
+    got = encode_opt.opt_parse(base.to(cuda), st, so, ln, prev, matches, BLOCK)
+    torch.cuda.synchronize()
+    assert _launches(12) == [n + 1 for n in before]
+    _equal([prev], [encode_opt.opt_chain_plain(base, st, ln)])
+    prev_h, matches_h = prev.cpu(), matches.cpu()
+    _equal([matches], [encode_opt.opt_matches_plain(base, st, so, ln, prev_h)])
+    _equal(got, encode_opt.opt_parse_plain(base, st, so, ln, prev_h, matches_h, BLOCK))
+    assert int((matches_h[:, 0] < 0).sum()) > 0  # the repeats gave up
+
+
+@pytest.mark.parametrize("budget", [0, 1 << 30])
+def test_opt_passes_equal_the_serial_arm(budget, cuda):
+    """The passes' output equals kernel D's serial OPT arm at level 12,
+    with every search given up to the parse (budget 0) or none."""
+    base, st, so, ln = _opt_rows()
+    base_d = base.to(cuda)
+    prev = encode_opt.opt_chain(base_d, st, ln)
+    matches = encode_opt.opt_matches(base_d, st, so, ln, prev, budget=budget)
+    got = encode_opt.opt_parse(base_d, st, so, ln, prev, matches, BLOCK)
+    _equal(got, encode_stream.encode_windows_opt_serial(base_d, st, so, ln, BLOCK, 12))
+    _equal(got, encode_stream.encode_windows(base_d, st, so, ln, BLOCK, 12))
 
 
 @pytest.mark.parametrize("level", [9, 12])
