@@ -7,9 +7,10 @@ Phases, each fatal on failure:
 1. build every kernel from `lz4_tpu_torch/ops/csrc/` (one nvcc per source,
    all started together) and print each one's registers and shared memory
    (`nvcc -Xptxas -v`);
-2. kernel B (FAST encode) against its plain version on sampled 64 KB rows
-   of every part of the data mix plus 0-, 1- and 13-byte rows, canonical
-   and dense, acceleration 1 and 8: equal bytes, lengths and flags;
+2. kernel B (FAST encode: kernel D's warp scan over B's rows) against its
+   plain version on sampled 64 KB rows of every part of the data mix plus
+   0-, 1- and 13-byte rows, canonical and dense, acceleration 1 and 8:
+   equal bytes, lengths and flags;
 3. kernel A (decode) against its plain version on phase 2's output,
    sequence-writer streams (overlapping matches, dictionary reach, long
    length extensions) with known output, and rows with flipped bits:
@@ -42,25 +43,42 @@ Phases, each fatal on failure:
    run), exact and deterministic over three runs;
 8. the big-block path: an independent frame of 1 MiB blocks over --mb MiB
    (kernels D and A), exact, three runs;
-9. times: each kernel at its path's shapes (CUDA events; the chained
-   decoder's passes from the profiler's device time, on the 16 MiB frame
-   of phase 5, the --mb MiB frame of phase 7 and a 16 MiB L9 frame), its
-   plain version, its bound (bytes moved over 3.35 TB/s), kernel D on
-   kernel B's 64 KB rows (the same bytes), and the end to end compress and
-   decompress rates of each path;
-10. kernel B's HC and OPT arms (kernel D's HC/OPT kernel over B's rows;
+9. the FAST scan's edges (`phase_fast_edges`): kernel D's warp against
+   the serial and the batched plain scans on rows of 12, 13, 65,546 and
+   65,547 bytes, 4 MiB of zeros and a row whose probes collide in one
+   bucket (canonical and dense, acceleration 1 and 8) and on chained
+   windows with 64 KB prefixes; kernel A on their compressed rows, the
+   corrupt kinds (a flipped token, a cut row, an offset past the output
+   start, trailing bytes, length runs that end at the row's end) and
+   dictionary rows, each of its passes against its plain version and the
+   whole against its one-warp route's lens and errs;
+10. the FAST row sizes (`phase_fast_rows`): kernels D and A over the --mb
+   payload as 64 KB, 1 MiB and 4 MiB rows, timed (CUDA events; A's passes
+   by the profiler's device time; A's one-warp route beside it, its whole
+   output equal), one row per quarter of each timed launch held to the
+   serial and batched plain scans and the serial plain decode (in the
+   worker pool), and A's passes held to their plain versions on those
+   rows; bounds: bytes moved over 3.35 TB/s, and D's dependent steps
+   (probe steps and sequences of the slowest picked row, one L1 round
+   trip each);
+11. times of kernel D on the chained path's rows and of the chained
+   decoder (its passes from the profiler's device time, on the 16 MiB frame
+   of phase 5, the --mb MiB frame of phase 7 and a 16 MiB L9 frame), their
+   plain versions and bounds, and the end to end compress and decompress
+   rates of each path;
+12. kernel B's HC and OPT arms (kernel D's HC/OPT kernel over B's rows;
    level 12 the three passes of `csrc/encode_opt.cu`) against their plain
    version at levels 3, 6, 9, 10, 11 and 12: four sampled 64 KB rows, the
    26,200-byte wordy regression row, rows of 0, 12, 13 and 4,096 bytes and
    a 64 KB row of random bytes: equal bytes, lengths and flags; and each
    level 12 pass (`opt_chain`, `opt_matches`, `opt_parse`) against its own
    plain version on every row, fed the kernel's output of the pass before;
-11. kernel D's HC and OPT arms against their plain version at levels 3, 9,
+13. kernel D's HC and OPT arms against their plain version at levels 3, 9,
    10 and 12: four chained windows (64 KB blocks with their 64 KB
    prefixes), 64 KB blocks with dictionaries of 3,000, 65,536 and 0 bytes,
    and one 1 MiB row; each level 12 pass against its plain version on the
    chained windows and the dictionary rows;
-12. the HC/OPT paths: 16 MiB round trips at levels 9, 10 and 12, each
+14. the HC/OPT paths: 16 MiB round trips at levels 9, 10 and 12, each
    independent (64 KB blocks: the HC or OPT arm of kernel B, then kernel A)
    and with the default chained settings (kernel D's arm, then the chained
    decoder), counts set to 0 just before and read just after each path
@@ -75,7 +93,7 @@ Phases, each fatal on failure:
    paths, each pass timed (profiler device time) and held to its plain
    version on the same four rows; and one profiled level 9 chained and
    level 12 independent and chained compress and decompress;
-13. kernel E (xxHash32) against its plain version: rows of 0-65,536 bytes
+15. kernel E (xxHash32) against its plain version: rows of 0-65,536 bytes
    with noise past each length, windows at every alignment of one flat
    tensor, all 1,024 rows of 64 KB of its timed batch and its timed 64 MiB
    window, and single windows of 1 and 4 MiB (the plain hashes of the long
@@ -101,6 +119,7 @@ library time to compare with (library_ms is null).
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import os
 import random
@@ -223,7 +242,7 @@ def _max_abs_err(got, want) -> int:
 
 
 def phase_build():
-    from lz4_tpu_torch.ops import build, encode, encode_opt, encode_stream
+    from lz4_tpu_torch.ops import build, encode_opt, encode_stream
 
     t0 = time.perf_counter()
     logs = build.build(*build.KERNEL_SOURCES)
@@ -233,12 +252,13 @@ def phase_build():
             if ("ptxas" in line or "spill" in line) and "Compile" not in line:
                 print(f"[build] {name}.cu: {line.strip()}")
     print("[build] decode.cu, decode_stream.cu: dynamic shared memory 0 "
-          "bytes per CTA")
-    for geometry in ("canonical", "dense"):
-        print(f"[build] encode.cu: dynamic shared memory "
-              f"{encode.shared_bytes(geometry)} bytes per CTA ({geometry})")
+          "bytes per CTA (decode.cu's rows_spans: 49,152 bytes static)")
+    for geometry, longest, what in (("canonical", 1 << 22, "canonical"),
+                                    ("dense", 1 << 16, "dense, windows <= 64 KB"),
+                                    ("dense", 1 << 17, "dense, longer windows")):
         print(f"[build] encode_stream.cu: dynamic shared memory "
-              f"{encode_stream.shared_bytes(geometry)} bytes per CTA ({geometry})")
+              f"{encode_stream.shared_bytes(geometry, longest=longest)} bytes per CTA "
+              f"({what})")
     for arm, level in (("HC", 9), ("OPT", 12)):
         print(f"[build] encode_stream.cu: dynamic shared memory "
               f"{encode_stream.shared_bytes('canonical', level)} bytes per CTA "
@@ -349,15 +369,20 @@ def phase_decode(streams, rng, dev):
     return worst
 
 
-def _round_trips(data: bytes, settings, dev, counts):
+def _round_trips(data: bytes, settings, dev, counts, kernels=()):
     """Three timed compress + decompress runs of one path, the launch
-    counts set to 0 just before the first and read just after it."""
+    counts set to 0 just before the first and read just after it: each
+    wrapper's in `counts`, and kernel A's kernels named in ``kernels``
+    (`decode.kernel_launches`)."""
     from lz4_tpu_torch import frame
+    from lz4_tpu_torch.ops import decode
 
     warm = frame.compress(data[:4 * BLOCK], settings, device=dev)
     _require(frame.decompress(warm, device=dev) == data[:4 * BLOCK], "warm-up round trip")
     for fn in counts:
         fn.launches = 0
+    for k in decode.kernel_launches:
+        decode.kernel_launches[k] = 0
     times, blob, launches = [], None, None
     for _ in range(3):
         t0 = time.perf_counter()
@@ -367,6 +392,7 @@ def _round_trips(data: bytes, settings, dev, counts):
         times.append((t1 - t0, time.perf_counter() - t1))
         if launches is None:
             launches = {fn.__name__: fn.launches for fn in counts}
+            launches.update({k: decode.kernel_launches[k] for k in kernels})
         _require(back == data, "round trip is not exact")
         _require(blob is None or b == blob, "compress is not deterministic")
         blob = b
@@ -388,7 +414,7 @@ def phase_main_path(data: bytes, dev):
 
     launches, e2e = _round_trips(
         data, frame.EncoderSettings(chain_blocks=False), dev,
-        [encode.encode_blocks, decode.decode_blocks])
+        [encode.encode_blocks, decode.decode_blocks], ("decode_rows",))
     print(f"[main] {len(data)} bytes -> {e2e['frame_bytes']} bytes "
           f"(ratio {len(data) / e2e['frame_bytes']:.4f}), round trip exact, "
           f"launches {launches}")
@@ -754,7 +780,7 @@ def phase_big_blocks(data: bytes, dev):
 
     launches, e2e = _round_trips(
         data, frame.EncoderSettings(chain_blocks=False, block_size=1 << 20), dev,
-        [encode_stream.encode_blocks_stream, decode.decode_blocks])
+        [encode_stream.encode_blocks_stream, decode.decode_blocks], ROW_PASSES)
     print(f"[big blocks] {len(data)} bytes in 1 MiB blocks -> "
           f"{e2e['frame_bytes']} bytes, round trip exact, deterministic, "
           f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
@@ -855,58 +881,402 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def phase_times(data: bytes, dev):
+FAST_SHAPES = (("64KiB", 1 << 16), ("1MiB", 1 << 20), ("4MiB", 4 << 20))
+ROW_PASSES = ("rows_nn", "rows_spans", "rows_hops", "rows_table", "rows_literals",
+              "rows_jump", "rows_gather")
+# one dependent step of the FAST scan's warp: at least one L1 round trip
+# (an estimate, in cycles)
+L1_CYCLES = 32
+
+
+def collision_row(n: int, seed: int) -> bytes:
+    """n bytes of 4-byte words that share one bucket of the dense 15-bit
+    hash, and so of the canonical 13-bit one (found by search), in random
+    order: the probes of one warp step collide in the table."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, 1 << 16, dtype=np.uint64)
+    buckets = ((words * 2654435761) & 0xFFFFFFFF) >> 17
+    vals, counts = np.unique(buckets, return_counts=True)
+    same = words[buckets == vals[np.argmax(counts)]][:8].astype(np.uint32)
+    pick = rng.integers(0, same.size, -(-n // 4))
+    return same[pick].tobytes()[:n]
+
+
+def _warp_plain(row: bytes, accel: int, schedule: str, src_off: int = 0):
+    """The batched plain scan of one row in a worker: (bytes, step counts,
+    seconds)."""
+    from lz4_tpu_torch.ops import encode
+
+    t0 = time.perf_counter()
+    out, steps = encode.encode_row_warp(row, accel, schedule, src_off)
+    return bytes(out), steps, time.perf_counter() - t0
+
+
+def hold_rows_passes(comps, clens, out_cap: int, dev, dicts=None, dls=None) -> dict:
+    """Each pass of kernel A on the card against its plain version on the
+    same inputs (the kernel's own output of the pass before): nn; the
+    segments' exits, counts and sums; the hops; the filled sequence-table
+    rows and each row's first failing sequence; lens, errs, the output and
+    the written index entries after the literals pass; the output and index
+    after resolve.  Also the whole against the serial plain version.
+    Returns each pass's max_abs_err and its plain version's seconds."""
+    import torch
+    from lz4_tpu_torch.ops import decode
+
+    got = decode.rows_passes(comps.to(dev), clens.to(dev), out_cap,
+                             None if dicts is None else dicts.to(dev),
+                             None if dls is None else dls.to(dev))
+    torch.cuda.synchronize()
+    g = got._replace(**{k: v.cpu() for k, v in got._asdict().items()
+                        if isinstance(v, torch.Tensor)})
+    lay = g.layout
+    seconds = {}
+
+    def plain(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    errs = {"rows_nn": _max_abs_err([g.nn], [plain("rows_nn", decode.rows_nn_plain,
+                                                   comps, clens)])}
+    errs["rows_spans"] = _max_abs_err(
+        [g.exits, g.counts, g.sums],
+        plain("rows_spans", decode.rows_spans_plain, comps, clens, g.nn))
+    errs["rows_hops"] = _max_abs_err(
+        [g.entry, g.seq_at, g.op_at, g.nseq, g.total],
+        plain("rows_hops", decode.rows_hops_plain, clens, g.exits, g.counts, g.sums))
+    seqs, fail = plain("rows_table", decode.rows_table_plain, comps, clens, out_cap,
+                       dls, g.nn)
+    used = decode.used_rows(lay.sbase, g.nseq)
+    errs["rows_table"] = _max_abs_err([g.seqs[used], g.fail], [seqs[used], fail])
+    lo, lp, ln, le = plain("rows_literals", decode.rows_literals_plain, comps, clens,
+                           out_cap, g.seqs, g.nseq, g.total, g.fail)
+    slots = decode.used_slots(lay.pbase, g.lens)
+    errs["rows_literals"] = _max_abs_err(
+        [g.lens, g.errs, g.lit_out, g.lit_ptr[slots]], [ln, le, lo, lp[slots]])
+    ro, rp = plain("rows_resolve", decode.rows_resolve_plain, clens, out_cap,
+                   g.lit_out, g.lit_ptr, g.lens, dicts)
+    errs["rows_resolve"] = _max_abs_err([g.out, g.ptr[slots]], [ro, rp[slots]])
+    errs["serial"] = _max_abs_err(
+        [g.out, g.lens, g.errs],
+        decode.decode_blocks_plain(comps, clens, out_cap, dicts, dls))
+    for name, e in errs.items():
+        _require(e == 0, f"kernel A's {name} pass != plain")
+    return errs, seconds
+
+
+def corrupt_rows(good: bytes):
+    """Kernel A's corrupt kinds, from one valid compressed row `good`: a
+    flipped token, the row cut in half, an offset past the output start, a
+    valid row with trailing bytes, literal- and match-length runs that end
+    at the row's end."""
+    flipped = bytearray(good)
+    flipped[0] ^= 0x80
+    return [
+        bytes(flipped), good[:len(good) // 2],
+        bytes([0x40]) + b"abcd" + (100).to_bytes(2, "little") + bytes([0x00]),
+        good + b"xyz", good + bytes(1),
+        b"\xf0" + b"\xff" * 20,
+        bytes([0x1F, 0x61, 1, 0]) + b"\xff" * 10,
+    ]
+
+
+def phase_fast_edges(data: bytes, rng, dev, pool):
+    """Kernel D's FAST scan on its edge rows against the serial and the
+    batched plain versions: rows of 12, 13, 65,546 and 65,547 bytes (the
+    byU16/byU32 edge), 4 MiB of zeros and a 64 KB row whose probes collide
+    in one bucket, canonical and dense, accel 1 and 8; chained windows with
+    a 64 KB prefix (dense).  Then kernel A on their compressed rows, the
+    corrupt kinds and dictionary rows, each pass against its plain version
+    and the whole against the one-warp route's lens and errs.  Returns the
+    worst difference of D and of A."""
+    import torch
+    from lz4_tpu_torch.ops import decode, encode_stream
+    from lz4_tpu_torch.parallel.blocks import comp_capacity
+
+    nb = len(data) // BLOCK
+    rows = [data[:12], data[BLOCK:BLOCK + 13], data[2 * BLOCK:2 * BLOCK + 65546],
+            data[(nb // 2) * BLOCK:(nb // 2) * BLOCK + 65547], bytes(4 << 20),
+            collision_row(BLOCK, 7)]
+    bcap = 4 << 20
+    bufs, lens = _stage(rows, bcap)
+    base, st = bufs.reshape(-1), torch.arange(len(rows), dtype=torch.int64) * bcap
+    zeros = torch.zeros(len(rows), dtype=torch.int32)
+    warp = {(sched, accel): [pool.submit(_warp_plain, r, accel, sched) for r in rows]
+            for sched in ("canonical", "dense") for accel in (1, 8)}
+    worst_d = 0
+    streams = []
+    for (sched, accel), futs in warp.items():
+        got = encode_stream.encode_windows(base.to(dev), st, zeros, lens, bcap,
+                                           acceleration=accel, fast_schedule=sched)
+        torch.cuda.synchronize()
+        want = encode_stream.encode_windows_plain(base, st, zeros, lens, bcap,
+                                                  acceleration=accel, fast_schedule=sched)
+        err = _max_abs_err(got, want)
+        out, clens = got[0].cpu(), got[1].cpu()
+        for i, f in enumerate(futs):
+            wb, _, _ = f.result()
+            mine = out[i, :int(clens[i])].numpy().tobytes()
+            err = max(err, 0 if mine == wb else 1)
+        _require(err == 0, f"encode_windows {sched} accel={accel} edge rows != plain")
+        worst_d = max(worst_d, err)
+        if accel == 1:
+            streams += [out[i, :int(clens[i])].numpy().tobytes() for i in range(len(rows))]
+        print(f"[fast edges] D {sched} accel={accel}: rows of {[len(r) for r in rows]} "
+              f"bytes equal to the serial and the batched plain scans, clens={clens.tolist()}")
+    payload = torch.frombuffer(bytearray(data[:8 * BLOCK]), dtype=torch.uint8)
+    cst, coffs, cwl = chained_windows(8 * BLOCK, BLOCK)
+    picks = [1, 5]
+    futs = [pool.submit(_warp_plain, data[int(cst[k]):int(cst[k] + cwl[k])], 1, "dense",
+                        int(coffs[k])) for k in picks]
+    got = encode_stream.encode_windows(payload.to(dev), cst[picks], coffs[picks], cwl[picks],
+                                       BLOCK, fast_schedule="dense")
+    out, clens = (t.cpu() for t in got[:2])
+    for i, f in enumerate(futs):
+        ok = out[i, :int(clens[i])].numpy().tobytes() == f.result()[0]
+        _require(ok, "chained window != the batched plain scan")
+    print(f"[fast edges] D dense: chained windows {picks} (64 KB prefixes) equal to the "
+          "batched plain scan")
+
+    # kernel A: the edge rows' streams, the corrupt kinds, dictionary rows
+    worst_a = {}
+    for out_cap, batch in ((bcap, streams + corrupt_rows(streams[3])),
+                           (BLOCK, corrupt_rows(streams[5]))):
+        comps, cl = _stage(batch, comp_capacity(out_cap))
+        errs, _ = hold_rows_passes(comps, cl, out_cap, dev)
+        new, _ = decode._decode("rows", comps.to(dev), cl.to(dev), out_cap)
+        old, _ = decode._decode("warp", comps.to(dev), cl.to(dev), out_cap)
+        errs["one-warp route"] = _max_abs_err(new, old)
+        _require(errs["one-warp route"] == 0, "kernel A != its one-warp route")
+        for k, e in errs.items():
+            worst_a[k] = max(worst_a.get(k, 0), e)
+        print(f"[fast edges] A out_cap={out_cap}: {len(batch)} rows, each pass equal to its "
+              f"plain version, lens/errs equal to the one-warp route's: "
+              f"errs={new[2].tolist()}, lens={new[1].tolist()}")
+    windows, synth = [], []
+    for wlen in (0, 1, 100, 4000, 65536, 65536):
+        window = rng.integers(0, 256, wlen, dtype=np.uint8).tobytes()
+        synth.append(write_stream(rng, window, BLOCK)[0])
+        windows.append(window)
+    synth.append(bytes([0x40]) + b"abcd" + (100).to_bytes(2, "little") + bytes([0x00]))
+    windows.append(b"w" * 50)  # offset 100 past op + ll + 50: fails
+    comps, cl = _stage(synth, comp_capacity(BLOCK))
+    dicts = torch.zeros((len(synth), 65536), dtype=torch.uint8)
+    dls = torch.tensor([len(w) for w in windows], dtype=torch.int32)
+    for i, w in enumerate(windows):
+        if w:
+            dicts[i, 65536 - len(w):] = torch.frombuffer(bytearray(w), dtype=torch.uint8)
+    errs, _ = hold_rows_passes(comps, cl, BLOCK, dev, dicts, dls)
+    args = comps.to(dev), cl.to(dev), BLOCK, dicts.to(dev), dls.to(dev)
+    new, _ = decode._decode("rows", *args)
+    old, _ = decode._decode("warp", *args)
+    errs["one-warp route"] = _max_abs_err(new, old)
+    _require(errs["one-warp route"] == 0, "kernel A with dictionaries != its one-warp route")
+    for k, e in errs.items():
+        worst_a[k] = max(worst_a.get(k, 0), e)
+    print(f"[fast edges] A with dictionaries {dls.tolist()}: each pass equal to its plain "
+          f"version and to the one-warp route, errs={new[2].tolist()}")
+    return worst_d, worst_a
+
+
+def row_pass_bounds(comps, clens, size: int, clock: float) -> dict:
+    """Each of kernel A's passes' bound on a batch on the card: the bytes
+    that pass must move (its inputs read once, its outputs written once,
+    counted from this batch's sequences) over the memory rate; for
+    rows_hops also its dependent hops, the slowest row's, one L1 round trip
+    each.  Returns name -> (bound_ms, bound_by, bytes)."""
+    import torch
+    from lz4_tpu_torch.ops import decode
+
+    p = decode.rows_passes(comps, clens, size)
+    torch.cuda.synchronize()
+    nb = clens.numel()
+    packed = int(clens.clamp(min=0).sum())
+    out = int(p.lens.to(torch.int64).sum())
+    nseq = int(p.nseq.to(torch.int64).sum())
+    used = decode.used_rows(p.layout.sbase, p.nseq).to(comps.device)
+    lit = int(p.seqs[used, 1].to(torch.int64).sum())
+    segs = torch.diff(torch.cat([p.layout.gbase, torch.tensor([p.layout.segments])]))
+    owner = torch.repeat_interleave(torch.arange(nb), segs)
+    hops = torch.bincount(owner[(p.entry >= 0).cpu()], minlength=nb)
+    visited, slowest = int(hops.sum()), int(hops.max())
+    pos = packed + nb
+    moved = {
+        "rows_nn": packed + 4 * pos,
+        "rows_spans": packed + 4 * pos + 12 * pos,
+        "rows_hops": 24 * visited + 8 * nb,
+        "rows_table": packed + 12 * visited + 4 * decode.SEQ_COLUMNS * nseq + 4 * nb,
+        "rows_literals": 4 * decode.SEQ_COLUMNS * nseq + 2 * lit + 4 * out + 8 * nb,
+        "rows_jump": 8 * out,
+        "rows_gather": 4 * out + 2 * (out - lit),
+    }
+    bounds = {}
+    for name, n in moved.items():
+        byte_ms = n / HBM_BYTES_PER_S * 1e3
+        step_ms = slowest * L1_CYCLES / clock * 1e3 if name == "rows_hops" else 0.0
+        bounds[name] = (max(byte_ms, step_ms),
+                        "bytes" if byte_ms >= step_ms else "operations", n)
+    return bounds
+
+
+def phase_fast_rows(data: bytes, dev, pool):
+    """Kernel D's FAST scan and kernel A at the FAST paths' row sizes over
+    the --mb payload: 64 KB (kernel B's rows, the headline path), 1 MiB and
+    4 MiB (the `lz4` CLI default).  Each timed with CUDA events, A's passes
+    by the profiler's device time and A's one-warp route beside it (whole
+    output equal), A's passes above 64 KB also in several groups of rows
+    (equal to one group), kernel B's dense rows at 64 KB (the 16-bit
+    table) with one row per quarter held; one row per quarter of each timed launch held to the
+    serial and the batched plain scans and the serial plain decode (in the
+    pool; their step counts give D's dependent-step bound), and A's passes
+    held to their plain versions on those rows.  Returns `kernels` entries
+    (launches filled in by the caller) and a summary."""
     import torch
     from lz4_tpu_torch.ops import decode, encode, encode_stream
     from lz4_tpu_torch.parallel.blocks import comp_capacity, split_blocks
 
-    bufs, lens = split_blocks(data, BLOCK)
-    nb = bufs.shape[0]
-    bufs_d, lens_d = bufs.to(dev), lens.to(dev)
-    out, clens, _ = encode.encode_blocks(bufs_d, lens_d, BLOCK)
-    cap = comp_capacity(BLOCK)
-    comps = torch.zeros((nb, cap), dtype=torch.uint8, device=dev)
-    comps[:, :out.shape[1]] = out
-    enc_ms = _cuda_ms(lambda: encode.encode_blocks(bufs_d, lens_d, BLOCK), 5)
-    dec_ms = _cuda_ms(lambda: decode.decode_blocks(comps, clens, BLOCK), 5)
-    # kernel D on the same canonical 64 KB rows, which B takes on the
-    # frame path: the same bytes; its time says whether B's own launcher
-    # buys anything there
-    d_out, d_clens, _ = encode_stream.encode_blocks_stream(bufs_d, lens_d, BLOCK)
-    _require(torch.equal(d_out, out) and torch.equal(d_clens, clens),
-             "kernel D's 64 KB canonical rows are not kernel B's")
-    d_ms = _cuda_ms(lambda: encode_stream.encode_blocks_stream(bufs_d, lens_d, BLOCK), 5)
-    # plain versions on one row of each quarter, scaled to the batch
-    picks = [q * nb // 4 for q in range(4)]
-    t0 = time.perf_counter()
-    encode.encode_blocks_plain(bufs[picks], lens[picks], BLOCK)
-    enc_plain_ms = (time.perf_counter() - t0) * 1e3 / len(picks) * nb
-    comps_h, clens_h = comps[picks].cpu(), clens[picks].cpu()
-    t0 = time.perf_counter()
-    decode.decode_blocks_plain(comps_h, clens_h, BLOCK)
-    dec_plain_ms = (time.perf_counter() - t0) * 1e3 / len(picks) * nb
-    # bytes each function must move: the rows' real bytes read once and
-    # written once, plus the int32 length and flag vectors
-    raw, packed = int(lens.sum()), int(clens.sum())
-    enc_bytes = raw + packed + 12 * nb
-    dec_bytes = packed + raw + 12 * nb
-    print(f"[times] encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms over {nb} rows "
-          f"({raw} raw bytes, {packed} compressed); kernel D on the same "
-          f"rows {d_ms:.3f} ms, the same bytes")
-    return [
-        {"name": "encode_blocks", "route": "cuda",
-         "source": "lz4_tpu_torch/ops/csrc/encode.cu",
-         "replaces": "lz4_tpu/ops/encode_pallas5.py:1922",
-         "ms": enc_ms, "plain_ms": enc_plain_ms,
-         "bound_ms": enc_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "decode_blocks", "route": "cuda",
-         "source": "lz4_tpu_torch/ops/csrc/decode.cu",
-         "replaces": "lz4_tpu/ops/decode_pallas6.py:643",
-         "ms": dec_ms, "plain_ms": dec_plain_ms,
-         "bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None},
-    ]
+    clock = float(_nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    entries, summary = [], {}
+    for label, size in FAST_SHAPES:
+        bufs, lens = split_blocks(data, size)
+        nb = bufs.shape[0]
+        picks = [q * nb // 4 + nb // 8 for q in range(4)]
+        rows = [data[k * size:(k + 1) * size] for k in picks]
+        warp_f = [pool.submit(_warp_plain, r, 1, "canonical") for r in rows]
+        serial_f = _submit_timed(pool, encode_stream.encode_blocks_stream_plain,
+                                 bufs[picks], lens[picks], size)
+        bufs_d, lens_d = bufs.to(dev), lens.to(dev)
+        if size <= BLOCK:
+            def enc():
+                return encode.encode_blocks(bufs_d, lens_d, size)
+        else:
+            def enc():
+                return encode_stream.encode_blocks_stream(bufs_d, lens_d, size)
+        out, clens, _ = enc()
+        enc_ms = _cuda_ms(enc, 3)
+        if size <= BLOCK:  # kernel B's dense rows: the 16-bit table
+            dense_f = [pool.submit(_warp_plain, r, 1, "dense") for r in rows]
+
+            def enc_dense():
+                return encode.encode_blocks(bufs_d, lens_d, size, fast_schedule="dense")
+
+            dense = enc_dense()
+            summary["64KiB_dense_D_ms"] = _cuda_ms(enc_dense, 3)
+            dense_out, dense_len = dense[0][picks].cpu(), dense[1][picks].cpu()
+            for i, f in enumerate(dense_f):
+                _require(dense_out[i, :int(dense_len[i])].numpy().tobytes() == f.result()[0],
+                         f"D's dense rows at {label}: row {picks[i]} != the plain scan")
+            print(f"[fast rows] D dense {nb} x {label}: {summary['64KiB_dense_D_ms']:.3f} ms "
+                  f"({encode_stream.shared_bytes('dense', longest=size)} bytes of table per "
+                  f"CTA); rows {picks} equal to the batched plain scan")
+        cap = comp_capacity(size)
+        comps = torch.zeros((nb, cap), dtype=torch.uint8, device=dev)
+        comps[:, :out.shape[1]] = out
+
+        def dec():
+            return decode.decode_blocks(comps, clens, size)
+
+        def rows_route():
+            return decode._decode("rows", comps, clens, size)[0]
+
+        def warp_route():
+            return decode._decode("warp", comps, clens, size)[0]
+
+        back = dec()
+        dec_ms = _cuda_ms(dec, 3)
+        if size > decode.WARP_ROUTE_MAX:  # the passes in groups of rows
+            whole = decode.GROUP_SCRATCH_BYTES
+            decode.GROUP_SCRATCH_BYTES = 1 << 28
+            try:
+                groups = len(decode.row_groups(clens.cpu(), size))
+                err = _max_abs_err(back, dec())
+            finally:
+                decode.GROUP_SCRATCH_BYTES = whole
+            _require(groups > 1 and err == 0,
+                     f"A at {label} in {groups} groups != in one group")
+            print(f"[fast rows] A at {label}: {nb} rows in {groups} groups of at most "
+                  f"256 MiB of scratch equal to one group")
+        routes_ms = {"passes": _cuda_ms(rows_route, 3), "one_warp": _cuda_ms(warp_route, 3)}
+        pass_ms = _device_ms_by(rows_route, ROW_PASSES, 2)
+        torch.cuda.synchronize()
+        err_old = max(_max_abs_err(back, rows_route()), _max_abs_err(back, warp_route()))
+        _require(err_old == 0, f"A at {label}: its two routes differ")
+        _require(torch.equal(back[0].cpu(), bufs[:, :size]) and
+                 torch.equal(back[1].cpu(), lens) and not bool(back[2].any()),
+                 f"A at {label}: the round trip is not exact")
+        comps_h, clens_h = comps[picks].cpu(), clens[picks].cpu()
+        dec_plain_f = _submit_timed(pool, decode.decode_blocks_plain, comps_h, clens_h, size)
+        pass_err, pass_s = hold_rows_passes(comps_h, clens_h, size, dev)
+        out_h = out.cpu()
+        serial, serial_s = serial_f.result()
+        worst_d = 0
+        steps, warp_s = [], 0.0
+        for i, (k, wf) in enumerate(zip(picks, warp_f)):
+            mine = out_h[k, :int(clens[k])].numpy().tobytes()
+            wb, st, ws = wf.result()
+            sb = serial[0][i, :int(serial[1][i])].tobytes()
+            worst_d = max(worst_d, 0 if mine == wb == sb else 1)
+            steps.append(st)
+            warp_s += ws
+        _require(worst_d == 0, f"D at {label}: rows {picks} != the plain scans")
+        want, seconds = dec_plain_f.result()
+        err_a = _max_abs_err([t[picks] for t in back],
+                             [torch.from_numpy(x) for x in want])
+        _require(err_a == 0, f"A at {label}: rows {picks} != the serial plain decode")
+        raw, packed = int(lens.sum()), int(clens.sum())
+        enc_bytes = raw + packed + 24 * nb
+        dec_bytes = packed + raw + 12 * nb
+        slowest = max(st["probe_steps"] + st["sequences"] for st in steps)
+        step_ms = slowest * L1_CYCLES / clock * 1e3
+        byte_ms = enc_bytes / HBM_BYTES_PER_S * 1e3
+        summary[label] = {
+            "rows": nb, "raw_bytes": raw, "compressed_bytes": packed,
+            "D_ms": enc_ms, "A_ms": dec_ms, "A_route_ms": routes_ms,
+            "A_pass_device_ms": pass_ms, "steps_of_picked_rows": steps}
+        is64 = size <= BLOCK
+        entries += [
+            {"name": "encode_blocks" if is64 else f"encode_blocks_stream:{label}",
+             "route": "cuda", "source": "lz4_tpu_torch/ops/csrc/encode_stream.cu",
+             "replaces": ("lz4_tpu/ops/encode_pallas5.py:1922" if is64
+                          else "lz4_tpu/ops/encode_pallas_stream.py:266"),
+             "shape": f"{nb} x {label}", "max_abs_err": worst_d,
+             "ms": enc_ms, "plain_ms": serial_s * 1e3 / len(picks) * nb,
+             "batched_plain_ms": warp_s * 1e3 / len(picks) * nb,
+             "bound_ms": max(byte_ms, step_ms),
+             "bound_by": "bytes" if byte_ms >= step_ms else "operations",
+             "byte_bound_ms": byte_ms, "step_bound_ms": step_ms, "library_ms": None},
+            {"name": "decode_blocks" if is64 else f"decode_blocks:{label}",
+             "route": "cuda", "source": "lz4_tpu_torch/ops/csrc/decode.cu",
+             "replaces": "lz4_tpu/ops/decode_pallas6.py:643",
+             "shape": f"{nb} x {label}", "max_abs_err": max(err_a, *pass_err.values()),
+             "ms": dec_ms, "route_ms": routes_ms, "pass_ms": pass_ms,
+             "plain_ms": seconds * 1e3 / len(picks) * nb,
+             "bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": None},
+        ]
+        if size == 4 << 20:
+            bounds = row_pass_bounds(comps, clens, size, clock)
+            for name in ROW_PASSES:
+                entries.append({
+                    "name": name, "route": "cuda",
+                    "source": "lz4_tpu_torch/ops/csrc/decode.cu",
+                    "replaces": "lz4_tpu/ops/decode_pallas6.py:643 (a pass of kernel A)",
+                    "shape": f"{nb} x {label}",
+                    "max_abs_err": pass_err["rows_resolve" if name in (
+                        "rows_jump", "rows_gather") else name],
+                    "ms": pass_ms[name],
+                    "plain_ms": pass_s["rows_resolve" if name in (
+                        "rows_jump", "rows_gather") else name] * 1e3 / len(picks) * nb,
+                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                    "bytes_moved": bounds[name][2], "library_ms": None})
+        print(f"[fast rows] {nb} x {label}: D {enc_ms:.3f} ms, A {dec_ms:.3f} ms (the "
+              f"passes {routes_ms['passes']:.3f} ms, the one-warp route "
+              f"{routes_ms['one_warp']:.3f} ms; passes' device time " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in pass_ms.items())
+              + f"); rows {picks} equal to the plain versions, each of A's passes "
+              f"equal to its own; slowest picked row {slowest} dependent steps")
+    return entries, summary
 
 
 def profile_path(data: bytes, dev, settings) -> dict:
@@ -1529,19 +1899,19 @@ def phase_checksum_paths(data: bytes, dev):
     from lz4_tpu_torch.ops import decode, decode_stream, encode, encode_stream, xxh32
 
     launches, e2e = {}, {}
-    for name, payload, settings, counts in (
+    for name, payload, settings, counts, kernels in (
         ("cli_default", data, _cli_default(),
-         [encode_stream.encode_blocks_stream, decode.decode_blocks]),
+         [encode_stream.encode_blocks_stream, decode.decode_blocks], ROW_PASSES),
         ("independent_both", data,
          frame.EncoderSettings(chain_blocks=False, block_checksum=True,
                                content_checksum=True),
-         [encode.encode_blocks, decode.decode_blocks]),
+         [encode.encode_blocks, decode.decode_blocks], ("decode_rows",)),
         ("chained_both", data,
          frame.EncoderSettings(block_checksum=True, content_checksum=True),
-         [encode_stream.encode_blocks_stream, decode_stream.decode_chain]),
+         [encode_stream.encode_blocks_stream, decode_stream.decode_chain], ()),
     ):
         got, rates = _round_trips(payload, settings, dev,
-                                  counts + [xxh32.xxh32_windows])
+                                  counts + [xxh32.xxh32_windows], kernels)
         launches[name], e2e[name] = got, rates
         print(f"[checksums] {name}: {len(payload)} bytes -> "
               f"{rates['frame_bytes']} bytes, round trip exact, deterministic, "
@@ -1570,6 +1940,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=64, help="main-path payload, MiB")
     args = ap.parse_args(argv)
+    faulthandler.enable()  # a fatal signal prints the Python stack
+    sys.stdout.reconfigure(line_buffering=True)  # a crash loses no line
 
     import torch
 
@@ -1596,8 +1968,12 @@ def main(argv=None) -> int:
     launches, e2e = phase_main_path(data, dev)
     chained_launches, chained_e2e = phase_chained_path(data, dev)
     big_launches, big_e2e = phase_big_blocks(data, dev)
-    kernels = phase_times(data, dev)
-    kernels += phase_times_stream(data16, blob16, chain_plain_ms, dev, data)
+    with plain_pool() as pool:
+        fast_err_d, fast_err_a = phase_fast_edges(data16, rng, dev, pool)
+        fast_kernels, fast_summary = phase_fast_rows(data, dev, pool)
+    print(json.dumps({"fast_rows": fast_summary,
+                      "fast_edges_max_abs_err": {"D": fast_err_d, "A": fast_err_a}}))
+    kernels = phase_times_stream(data16, blob16, chain_plain_ms, dev, data)
     kernels[-1]["pass_max_abs_err"] = chain_pass_err
     print(json.dumps(profile_path(
         data, dev, frame.EncoderSettings(chain_blocks=False))))
@@ -1606,7 +1982,7 @@ def main(argv=None) -> int:
     print(json.dumps({"big_blocks": profile_path(
         data, dev, frame.EncoderSettings(chain_blocks=False, block_size=1 << 20))}))
     launches.update(chained_launches)
-    for k, err in zip(kernels, (enc_err, dec_err, stream_err, chain_err)):
+    for k, err in zip(kernels, (stream_err, chain_err)):
         k["launches"] = launches[k["name"]]
         k["max_abs_err"] = err
     t0 = time.perf_counter()
@@ -1640,6 +2016,25 @@ def main(argv=None) -> int:
     for k in xxh_kernels:
         k["launches"] = cs_launches[k.pop("path")]["xxh32_windows"]
     kernels += xxh_kernels
+    for k in fast_kernels:  # each shape's path: the main path, 1 MiB, CLI default
+        name, _, label = k["name"].partition(":")
+        counts = {"": launches, "1MiB": big_launches,
+                  "4MiB": cs_launches["cli_default"]}[label]
+        key = name
+        if name.startswith("rows_"):  # each pass's own launches (rows_jump: rounds)
+            counts = cs_launches["cli_default"]
+        elif name == "decode_blocks" and not label:
+            key = "decode_rows"  # the one-warp kernel
+        elif name == "decode_blocks":  # the passes: calls, each kernel's own beside
+            k["kernel_launches"] = {p: counts[p] for p in ROW_PASSES}
+        k["launches"] = counts[key]
+        if name == "encode_blocks":
+            k["max_abs_err"] = max(k["max_abs_err"], enc_err, fast_err_d)
+        elif name == "decode_blocks" or name.startswith("rows_"):
+            k["max_abs_err"] = max(k["max_abs_err"], dec_err, *fast_err_a.values())
+        else:
+            k["max_abs_err"] = max(k["max_abs_err"], fast_err_d, stream_err)
+    kernels = fast_kernels + kernels
     print(json.dumps({"cli_default": profile_path(data, dev, _cli_default())}))
     print(json.dumps({"e2e_hc": hc_e2e, "hc_launches": hc_launches}))
     print(json.dumps({"e2e_checksums": cs_e2e, "checksum_launches": cs_launches,

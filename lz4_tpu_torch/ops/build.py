@@ -26,8 +26,7 @@ _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("decode", "encode", "encode_stream", "decode_stream", "xxh32",
-                  "encode_opt")
+KERNEL_SOURCES = ("decode", "encode_stream", "decode_stream", "xxh32", "encode_opt")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

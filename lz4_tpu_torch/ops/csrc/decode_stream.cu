@@ -262,17 +262,8 @@ __global__ void __launch_bounds__(256) chain_literals(
   const int warps = blockDim.x >> 5;
   const int* rows = seqs + kRow * sbase[k];
   for (int i = blockIdx.y * warps + (threadIdx.x >> 5); i < n;
-       i += gridDim.y * warps) {
-    const int* r = rows + kRow * i;
-    const int lit = r[0], ll = r[1], op = r[2], off = r[3], ml = r[4];
-    for (int j = lane; j < ll; j += 32) {
-      dst[op + j] = src[lit + j];
-      pk[op + j] = base + op + j;
-    }
-    const int d = op + ll;
-    for (int j = lane; j < ml; j += 32)
-      pk[d + j] = base + d - off + (j < off ? j : j % off);
-  }
+       i += gridDim.y * warps)
+    place_sequence(rows + kRow * i, src, dst, pk, base, lane);
 }
 
 // One round of pointer jumping over the stream's index array (entries are
@@ -285,15 +276,8 @@ __global__ void __launch_bounds__(256) chain_jump(
   const long long n = status[0];
   bool changed = false;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const Idx v = ptr[i];
-    if (v < kWindow) continue;
-    const Idx w = ptr[v - kWindow];
-    if (w != v) {
-      ptr[i] = w;
-      changed = true;
-    }
-  }
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    changed |= jump_entry(ptr, i, static_cast<Idx>(kWindow));
   if (__syncthreads_or(changed) && threadIdx.x == 0) flags[round] = 1;
 }
 

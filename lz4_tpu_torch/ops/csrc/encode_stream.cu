@@ -11,7 +11,11 @@
 // compressed bytes go to out[r, 0:out_stride], clens[r] is their count and
 // errs[r] is 1 when that count exceeds `ocap`.
 //
-// Two scans (lz4_encode_body.cuh, shared with kernel B):
+// It also replaces the FAST arms of `pallas_encode5` (encode_pallas5.py,
+// kernel B): B's rows of at most 64 KB come here as windows without a
+// prefix (`ops.encode.encode_blocks`).
+//
+// Two scans (lz4_encode_body.cuh):
 // - dense (every row with a prefix, or on request): the 15-bit finder with
 //   the prefix seeded at stride 2, byte-identical to the native engine's
 //   `lz4tpu_encode_fast` with a dictionary;
@@ -20,15 +24,25 @@
 // The TPU kernel's rings, DMA and per-byte words existed to stream blocks
 // through its 1 MB of scalar memory; on the card the row is read in place.
 //
-// What bounds it on the card: as for kernel B, the parse is serial per row
-// (each probe's lookup decides the next probe), not the bytes it moves.
+// What bounds it on the card: the parse is serial per row (each probe's
+// lookup decides the next probe, each match's length where the scan
+// resumes), not the bytes it moves: a 1 MiB row of noise makes ~226 K
+// probes and one of text ~132 K sequences.
 //
-// What this design does about that: nothing yet.  One CTA of 32 threads per
-// row; they zero the table, then one thread parses.  The dense table holds
-// 2^15 positions + 1 as 32-bit words (128 KB of dynamic shared memory: a
-// window passes 65,535 bytes as soon as a 64 KB block has a prefix), so one
-// CTA fits on an SM (227 KB) and 132 rows run at once.  The canonical
-// tables are 16 KB (2^13 u16 or 2^12 u32 entries): 14 CTAs per SM.
+// What this design does about that: one warp per row runs the scan, every
+// lane on every step: 32 probes of a search a step (the probe positions
+// are known in advance, the table's writes inside a step resolved with
+// __match_any_sync), match lengths 128 bytes a step, literal runs and the
+// dense prefix seed 32 at a time (lz4_encode_body.cuh says how each stays
+// exact).  Back-extension and the immediate retry after a match stay
+// serial.  One CTA of one warp per row; the dense table holds 2^15
+// positions + 1, as 16-bit words when every window of the launch is at
+// most 64 KB (kernel B's rows: 64 KB of dynamic shared memory, 3 CTAs per
+// SM), else as 32-bit words (128 KB: a window passes 65,535 bytes as soon
+// as a 64 KB block has a prefix), so one CTA fits on an SM (227 KB) and
+// 132 rows run at once, one warp per SM (a limit this design keeps).  The
+// canonical tables are 16 KB (2^13 u16 or 2^12 u32 entries): 14 CTAs per
+// SM.
 //
 // The HC (levels 3-9) and OPT (levels 10-12) arms, `encode_windows_hc`,
 // replace the `hc_body` and `opt_body` arms of both `pallas_encode_stream`
@@ -64,29 +78,36 @@ __global__ void __launch_bounds__(32) encode_windows(
     const uint8_t* __restrict__ base, const long long* __restrict__ starts,
     const int* __restrict__ src_offs, const int* __restrict__ lens,
     uint8_t* __restrict__ out, long long out_stride, int ocap, int accel,
-    int dense, int* __restrict__ clens, int* __restrict__ errs) {
+    int table, int* __restrict__ clens, int* __restrict__ errs) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int row = blockIdx.x;
   const int n = lens[row];
   const bool u16 = n < kCanon64K;
   // 32-bit words of the table this row uses
-  const int nwords = dense ? (1 << kDenseHashLog)
-                           : (u16 ? (1 << kCanonHashLog16) / 2 : (1 << kCanonHashLog32));
+  // 32-bit words of the table this row uses (table: 0 canonical, 1 dense
+  // with 16-bit entries, 2 dense with 32-bit entries)
+  const int nwords = table == 1   ? (1 << kDenseHashLog) / 2
+                     : table == 2 ? (1 << kDenseHashLog)
+                     : u16        ? (1 << kCanonHashLog16) / 2
+                                  : (1 << kCanonHashLog32);
   uint32_t* words = reinterpret_cast<uint32_t*>(smem);
   for (int i = threadIdx.x; i < nwords; i += blockDim.x) words[i] = 0;
   __syncthreads();
-  if (threadIdx.x != 0) return;
 
   const uint8_t* s = base + starts[row];
-  Sink o{out + row * out_stride, 0, static_cast<int>(out_stride)};
-  if (dense)
+  WarpSink o{out + row * out_stride, 0, static_cast<int>(out_stride)};
+  if (table == 1)
+    dense_scan(s, src_offs[row], n, accel, o, reinterpret_cast<uint16_t*>(smem));
+  else if (table == 2)
     dense_scan(s, src_offs[row], n, accel, o, words);
   else if (u16)
     canon_scan(s, n, accel, o, reinterpret_cast<uint16_t*>(smem));
   else
     canon_scan(s, n, accel, o, words);
-  clens[row] = o.op;
-  errs[row] = o.op > ocap ? 1 : 0;
+  if (threadIdx.x == 0) {
+    clens[row] = o.op;
+    errs[row] = o.op > ocap ? 1 : 0;
+  }
 }
 
 // The HC (kOpt false, levels 3-9) and OPT (kOpt true, levels 10-12) arms,
@@ -135,9 +156,19 @@ auto hc_kernel(int opt) { return opt ? encode_windows_hc<true> : encode_windows_
 // ---- C interface (ctypes) ------------------------------------------------
 
 // Dynamic shared memory of one CTA: the largest table of the geometry.
-extern "C" int lz4t_encode_stream_shared_bytes(int dense) {
-  return dense ? (1 << kDenseHashLog) * static_cast<int>(sizeof(uint32_t))
-               : (1 << kCanonHashLog16) * static_cast<int>(sizeof(uint16_t));
+// The table of a launch: 0 canonical, 1 dense with 16-bit entries (every
+// window at most kDense16Max bytes: kernel B's rows), 2 dense with 32-bit
+// entries.
+static int fast_table(int dense, int longest) {
+  return dense ? (longest <= kDense16Max ? 1 : 2) : 0;
+}
+
+extern "C" int lz4t_encode_stream_shared_bytes(int dense, int longest) {
+  switch (fast_table(dense, longest)) {
+    case 1: return (1 << kDenseHashLog) * static_cast<int>(sizeof(uint16_t));
+    case 2: return (1 << kDenseHashLog) * static_cast<int>(sizeof(uint32_t));
+    default: return (1 << kCanonHashLog16) * static_cast<int>(sizeof(uint16_t));
+  }
 }
 
 // Launches on `stream`, does not synchronise, returns the first CUDA error
@@ -146,16 +177,17 @@ extern "C" int lz4t_encode_stream_shared_bytes(int dense) {
 extern "C" int lz4t_encode_stream(const void* base, const void* starts,
                                   const void* src_offs, const void* lens,
                                   void* out, long long out_stride, int ocap,
-                                  int accel, int dense, void* clens,
-                                  void* errs, int nrows, void* stream) {
-  const int smem = lz4t_encode_stream_shared_bytes(dense);
+                                  int accel, int dense, int longest,
+                                  void* clens, void* errs, int nrows,
+                                  void* stream) {
+  const int smem = lz4t_encode_stream_shared_bytes(dense, longest);
   cudaError_t e = cudaFuncSetAttribute(
       encode_windows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   encode_windows<<<nrows, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(base), static_cast<const long long*>(starts),
       static_cast<const int*>(src_offs), static_cast<const int*>(lens),
-      static_cast<uint8_t*>(out), out_stride, ocap, accel, dense,
+      static_cast<uint8_t*>(out), out_stride, ocap, accel, fast_table(dense, longest),
       static_cast<int*>(clens), static_cast<int*>(errs));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,30 @@
 """Batched LZ4 block decode: kernel A (`csrc/decode.cu`) and its plain
-version.
+versions.
 
 The port of `lz4_tpu/ops/decode_pallas6.py` (`pallas_decode6`, wrapper
-`decode_blocks_pallas6`), with the same outputs.  The kernel's source
-says what bounds it on the card and what its design does about that.
+`decode_blocks_pallas6`), with the same outputs.  On the card rows larger
+than 64 KB decode through a parallel parse: every position parsed
+speculatively, the true sequences the orbit of position 0, then the
+literal copies and the match bytes resolved by pointer jumping (the passes
+of `rows_passes`), on groups of rows whose scratch fits
+`GROUP_SCRATCH_BYTES` (`row_groups`); rows of at most 64 KB take the
+one-warp route, faster there.
+Beside it: `decode_blocks_plain`, the serial reference (one scalar parse
+per row, `_decode_row`); one plain version per pass (`rows_nn_plain`,
+`rows_spans_plain`, `rows_hops_plain`, `rows_table_plain`,
+`rows_literals_plain`, `rows_resolve_plain`); and `rows_passes`, every
+pass's output of one decode (the plain passes chained on the CPU), for
+holding each pass to its plain version.
+The kernel's source says what bounds it on the card and what its design
+does about that.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .build import check, load
@@ -17,6 +32,27 @@ from .build import check, load
 MIN_MATCH = 4
 DICT_CAP = 65536
 MODES = ("full", "full2", "full2v")
+# positions of one segment of the parallel parse (the kernel's kSeg)
+SEG = 4096
+# successor of a chain's last sequence, and the cap of every saturated sum
+END = (1 << 31) - 1
+# columns of the sequence table: literal source, literal length, output
+# position, offset, match length (0: the literal-only last sequence, -1: a
+# sequence that fails a structural check)
+SEQ_COLUMNS = 5
+# the most a row of L compressed bytes decodes to is 255 L
+MAX_EXPANSION = 255
+# rows of at most this out_cap decode on the one-warp route, larger ones
+# on the parallel passes (a fixed size rule: each the faster route at its
+# sizes on the H100, PERF.md §6)
+WARP_ROUTE_MAX = 65536
+# bytes of scratch of the parallel passes per position (nn, exits, counts,
+# sums), segment (entry, seq_at, op_at), sequence-table row and index entry
+# of `rows_layout`: about 23 bytes per compressed byte and 4 per output byte
+SCRATCH_BYTES = (16, 12, 4 * SEQ_COLUMNS, 4)
+# the scratch of one group of rows (`row_groups`): a frame of any size
+# decodes in groups of this much, reused from group to group
+GROUP_SCRATCH_BYTES = 1 << 31
 
 _lib = None
 
@@ -25,12 +61,17 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = load("decode")
-        lib.lz4t_decode.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.lz4t_decode.restype = ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.lz4t_rows_parse.argtypes = [p, ll, p, i, p, i, i] + [p] * 15
+        lib.lz4t_rows_literals.argtypes = [p, ll, i, i, i] + [p] * 11
+        lib.lz4t_rows_resolve.argtypes = [p, p, p, i, p, p, p, i, i, i, p]
+        lib.lz4t_decode_warp.argtypes = [p, ll, p, p, i, p, p, p, p, i, p]
+        for fn in (lib.lz4t_rows_parse, lib.lz4t_rows_literals,
+                   lib.lz4t_rows_resolve, lib.lz4t_decode_warp,
+                   lib.lz4t_rows_segment):
+            fn.restype = ctypes.c_int
+        if lib.lz4t_rows_segment() != SEG:
+            raise RuntimeError("csrc/decode.cu's kSeg differs from SEG")
         _lib = lib
     return _lib
 
@@ -158,6 +199,524 @@ def _validate(comps_u8, comp_lens, out_cap, dicts_u8, dict_lens, mode):
     return comps, clens, dicts, dls
 
 
+# ---- the parallel parse and its passes, plain --------------------------
+
+
+class RowsLayout(NamedTuple):
+    """Where each row's scratch starts, from its comp_len c = max(comp_len,
+    0): positions (c + 1 of them: nn, exits, counts, sums), segments
+    (ceil((c + 1) / SEG): entry, seq_at, op_at), sequence-table rows
+    (c // 3 + 1: every sequence but the last takes at least 3 bytes) and
+    index entries (min(out_cap, 255 c)); each int64 [B], with the totals."""
+    cbase: torch.Tensor
+    gbase: torch.Tensor
+    sbase: torch.Tensor
+    pbase: torch.Tensor
+    positions: int
+    segments: int
+    rows: int
+    slots: int
+
+
+def _row_parts(comp_lens, out_cap: int):
+    c = torch.as_tensor(comp_lens).cpu().to(torch.int64).clamp(min=0)
+    return [c + 1, (c + SEG) // SEG, c // 3 + 1,
+            (c * MAX_EXPANSION).clamp(max=out_cap)]
+
+
+def rows_layout(comp_lens, out_cap: int) -> RowsLayout:
+    parts = _row_parts(comp_lens, out_cap)
+    bases = [torch.cumsum(x, 0) - x for x in parts]
+    return RowsLayout(*bases, *(int(x.sum()) for x in parts))
+
+
+def _row_bytes(comps, b: int, clen: int) -> np.ndarray:
+    """Row b's compressed bytes and two zeros (int64)."""
+    c = max(clen, 0)
+    row = np.zeros(c + 2, np.int64)
+    row[:c] = comps[b, :c]
+    return row
+
+
+def _nn(row: np.ndarray, c: int) -> np.ndarray:
+    """For positions 0..c, the next one whose byte is not 255 (or c)."""
+    q = np.arange(c + 1, dtype=np.int64)
+    stop = np.ones(c + 1, bool)
+    stop[:c] = row[:c] != 255
+    return np.minimum.accumulate(np.where(stop, q, c)[::-1])[::-1]
+
+
+def _speculate(row: np.ndarray, c: int, nn: np.ndarray):
+    """The sequence that would start at every position 0..c (the kernel's
+    `parse_at`): kind (0 match, 1 the literal-only last sequence, 2 a
+    structural failure), literal source and length, offset, match length
+    and successor (END unless a match), int64 each."""
+    q = np.arange(c + 1, dtype=np.int64)
+
+    def vle(t):
+        inside = t < c
+        e = nn[np.minimum(t, c)]
+        has = inside & (e < c)
+        v = np.where(has, 255 * (e - t) + row[np.minimum(e, c)],
+                     np.where(inside, 255 * (c - t), 0))
+        return v, np.where(has, e + 1, np.where(inside, c, t))
+
+    tok = row[q]
+    ll = tok >> 4
+    v, t_ext = vle(q + 1)
+    ll = np.where(ll == 15, ll + v, ll)
+    t = np.where(tok >> 4 == 15, t_ext, q + 1)
+    fail = (q >= c) | (t + ll > c)
+    lit = t
+    t = t + ll
+    last = ~fail & (t >= c)
+    fail |= ~last & (t + 2 > c)
+    at = np.minimum(t, c)
+    off = row[at] | (row[np.minimum(at + 1, c + 1)] << 8)
+    ml = (tok & 15) + MIN_MATCH
+    v, t_ext = vle(t + 2)
+    ml = np.where(tok & 15 == 15, ml + v, ml)
+    t = np.where(tok & 15 == 15, t_ext, t + 2)
+    fail |= ~last & (off == 0)
+    match = ~fail & ~last
+    kind = np.where(match, 0, np.where(last, 1, 2))
+    lit = np.where(fail, 0, lit)
+    ll = np.where(fail, 0, ll)
+    return (kind, lit, ll, np.where(match, off, 0), np.where(match, ml, 0),
+            np.where(match, t, END))
+
+
+def _rows(comps_u8, comp_lens):
+    comps = torch.as_tensor(comps_u8).cpu().numpy()
+    return comps, [int(x) for x in torch.as_tensor(comp_lens).cpu().tolist()]
+
+
+def rows_nn_plain(comps_u8, comp_lens):
+    """Pass 1: every row's `_nn` at positions 0..c, flat at `rows_layout`'s
+    cbase (int32)."""
+    comps, clens = _rows(comps_u8, comp_lens)
+    parts = [_nn(_row_bytes(comps, b, n), max(n, 0)) for b, n in enumerate(clens)]
+    return torch.from_numpy(np.concatenate(parts).astype(np.int32))
+
+
+def _contrib(kind, ll, ml):
+    return np.where(kind == 2, 0, np.minimum(ll + ml, END))
+
+
+def rows_spans_plain(comps_u8, comp_lens, nn):
+    """Pass 2, from pass 1's ``nn``: for every position of every row, the
+    first position at or past its segment's end that the chain from it
+    reaches (or END), the sequences on the way and the bytes they decode
+    to (saturated at END); int32, flat at cbase each."""
+    comps, clens = _rows(comps_u8, comp_lens)
+    nn = torch.as_tensor(nn).cpu().numpy().astype(np.int64)
+    lay = rows_layout(clens, 0)
+    out = [], [], []
+    for b, n in enumerate(clens):
+        c = max(n, 0)
+        at = int(lay.cbase[b])
+        kind, _, ll, _, ml, nx = _speculate(_row_bytes(comps, b, n), c, nn[at:at + c + 1])
+        q = np.arange(c + 1, dtype=np.int64)
+        seg_end = np.minimum((q // SEG + 1) * SEG, c + 1)
+        cn = np.ones(c + 1, np.int64)
+        os = _contrib(kind, ll, ml)
+        while True:
+            inside = np.flatnonzero(nx < seg_end)
+            if inside.size == 0:
+                break
+            u = nx[inside]
+            nx[inside], cn[inside], os[inside] = (
+                nx[u], cn[inside] + cn[u], np.minimum(os[inside] + os[u], END))
+        for part, x in zip(out, (nx, cn, os)):
+            part.append(x)
+    return tuple(torch.from_numpy(np.concatenate(x).astype(np.int32)) for x in out)
+
+
+def rows_hops_plain(comp_lens, exits, counts, sums):
+    """Pass 3: each row's hops from position 0, segment to segment: per
+    segment the chain's entry (-1 where it skips the segment), the sequence
+    index and the output position (saturated) there (int32, flat at gbase
+    each; 0 where skipped), and per row the sequence count and the bytes
+    decoded (saturated)."""
+    clens = [int(x) for x in torch.as_tensor(comp_lens).cpu().tolist()]
+    lay = rows_layout(clens, 0)
+    exits, counts, sums = (torch.as_tensor(x).cpu().numpy() for x in (exits, counts, sums))
+    entry = np.full(lay.segments, -1, np.int32)
+    seq_at = np.zeros(lay.segments, np.int32)
+    op_at = np.zeros(lay.segments, np.int32)
+    nseq = np.zeros(len(clens), np.int32)
+    total = np.zeros(len(clens), np.int32)
+    for b in range(len(clens)):
+        cb, gb = int(lay.cbase[b]), int(lay.gbase[b])
+        e = seq = op = 0
+        while e != END:
+            k = gb + e // SEG
+            entry[k], seq_at[k], op_at[k] = e, seq, op
+            seq += int(counts[cb + e])
+            op = min(op + int(sums[cb + e]), END)
+            e = int(exits[cb + e])
+        nseq[b], total[b] = seq, op
+    return tuple(torch.from_numpy(x) for x in (entry, seq_at, op_at, nseq, total))
+
+
+def _chain_rows(row, c, nn, out_cap, dlen):
+    """The orbit of position 0 as sequence-table rows (int64 [n, 5], the
+    output position and lengths saturated at END) and the index of its
+    first failing sequence (END if none)."""
+    kind, lit, ll, off, ml, nxt = _speculate(row, c, nn)
+    chain, p = [], 0
+    while True:
+        chain.append(p)
+        if kind[p] != 0:
+            break
+        p = int(nxt[p])
+    ch = np.asarray(chain, dtype=np.int64)
+    k, lt, l, o, m = kind[ch], lit[ch], ll[ch], off[ch], ml[ch]
+    contrib = np.where(k == 2, 0, l + m)
+    op = np.cumsum(contrib) - contrib
+    bad = (k == 2) | (op + l > out_cap) | (
+        (k == 0) & ((o > op + l + dlen) | (op + l + m > out_cap)))
+    rows = np.stack([lt, np.minimum(l, END), np.minimum(op, END), o,
+                     np.where(k == 0, np.minimum(m, END), np.where(k == 1, 0, -1))], 1)
+    first = int(np.argmax(bad)) if bad.any() else END
+    return rows, first
+
+
+def rows_table_plain(comps_u8, comp_lens, out_cap: int, dict_lens, nn):
+    """Pass 4, from pass 1's ``nn``: every row's sequence table (the orbit of
+    position 0: int32 [rows, 5] at sbase, zeros in the rows no sequence
+    took) and the index of its first failing sequence (int32 [B]; END if
+    none), by the checks that need the output position too."""
+    comps, clens = _rows(comps_u8, comp_lens)
+    nn = torch.as_tensor(nn).cpu().numpy().astype(np.int64)
+    dls = ([0] * len(clens) if dict_lens is None
+           else [int(x) for x in torch.as_tensor(dict_lens).cpu().tolist()])
+    lay = rows_layout(clens, out_cap)
+    seqs = np.zeros((max(lay.rows, 1), SEQ_COLUMNS), np.int64)
+    fail = np.zeros(len(clens), np.int32)
+    for b, n in enumerate(clens):
+        c, at = max(n, 0), int(lay.cbase[b])
+        rows, fail[b] = _chain_rows(_row_bytes(comps, b, n), c,
+                                    nn[at:at + c + 1], out_cap, dls[b])
+        s0 = int(lay.sbase[b])
+        seqs[s0:s0 + rows.shape[0]] = rows
+    return torch.from_numpy(seqs.astype(np.int32)), torch.from_numpy(fail)
+
+
+def spans(counts):
+    """For each unit of `counts` (int64), its owner and its index within
+    the owner."""
+    owner = torch.repeat_interleave(torch.arange(counts.numel()), counts)
+    first = torch.cumsum(counts, 0) - counts
+    return owner, torch.arange(owner.numel()) - first[owner]
+
+
+def used_rows(sbase, nseq):
+    """The sequence-table rows a parse filled (int64, row by row)."""
+    owner, local = spans(torch.as_tensor(nseq).cpu().to(torch.int64))
+    return torch.as_tensor(sbase).cpu()[owner] + local
+
+
+def used_slots(pbase, lens):
+    """The index entries of the bytes each row wrote (int64, row by row)."""
+    return used_rows(pbase, torch.as_tensor(lens).cpu().clamp(min=0))
+
+
+def sequence_bytes(lit, ll, op, off, ml):
+    """Where the bytes of sequence-table rows go (int64 [n] each, the
+    literal pass of both parallel decoders): the literal bytes' owner,
+    source and destination, and the match bytes' owner, destination and
+    index entry (byte j of a match at d: d - off + j mod off, one hop out
+    of its own match however much it overlaps).  The caller adds each
+    owner's bases."""
+    seq, j = spans(ll)
+    literals = seq, lit[seq] + j, op[seq] + j
+    seq, j = spans(ml)
+    d = op[seq] + ll[seq]
+    return literals, (seq, d + j, d - off[seq] + j % off[seq])
+
+
+def jump_plain(ptr, prefix: int):
+    """Pointer jumping over the index array of a buffer [prefix | stream]
+    (int64: entry i is stream byte i's, a position in the buffer; the
+    prefix's positions are final) until no entry changes: the resolve pass
+    of both parallel decoders."""
+    full = torch.cat([torch.arange(prefix), torch.as_tensor(ptr, dtype=torch.int64)])
+    while True:
+        nxt = full[full]
+        if torch.equal(nxt, full):
+            return full[prefix:]
+        full = nxt
+
+
+def rows_literals_plain(comps_u8, comp_lens, out_cap: int, seqs, nseq, total,
+                        fail):
+    """Pass 5, from the sequence table: each row's lens and errs (the
+    output position of its first failing sequence and 1, or its bytes and
+    0), the output (uint8 [B, out_cap]) with the literal runs of the
+    sequences before the failing one in place, and the index array (int32,
+    flat at pbase; entries past lens unwritten, here -1): a literal byte
+    points to itself, byte j of a match at d to d - off + j mod off."""
+    comps = torch.as_tensor(comps_u8).cpu()
+    lay = rows_layout(comp_lens, out_cap)
+    seqs, nseq, total, fail = (torch.as_tensor(x).cpu().to(torch.int64)
+                               for x in (seqs, nseq, total, fail))
+    nb = comps.shape[0]
+    out = torch.zeros((nb, out_cap), dtype=torch.uint8)
+    ptr = torch.full((max(lay.slots, 1),), -1, dtype=torch.int64)
+    lens = torch.zeros(nb, dtype=torch.int32)
+    errs = torch.zeros(nb, dtype=torch.int32)
+    for b in range(nb):
+        n, f = int(nseq[b]), int(fail[b])
+        s0, p0 = int(lay.sbase[b]), int(lay.pbase[b])
+        lens[b] = int(seqs[s0 + f, 2] if f < n else total[b])
+        errs[b] = int(f < n)
+        (_, src, dst), (_, at, entry) = sequence_bytes(
+            *seqs[s0:s0 + min(f, n)].unbind(1))
+        out[b, dst] = comps[b, src]
+        ptr[p0 + dst] = dst
+        ptr[p0 + at] = entry
+    return out, ptr.to(torch.int32), lens, errs
+
+
+def rows_resolve_plain(comp_lens, out_cap: int, lit_out, lit_ptr, lens,
+                       dicts_u8=None):
+    """Pass 6, from pass 5's output: every row's index array (its first lens
+    entries) jumped until no entry changes, then every match byte gathered
+    from the literal or dictionary byte it points to.  Returns the output
+    (uint8 [B, out_cap]) and the index array."""
+    lay = rows_layout(comp_lens, out_cap)
+    out = torch.as_tensor(lit_out).cpu().clone()
+    ptr = torch.as_tensor(lit_ptr).cpu().to(torch.int64).clone()
+    for b, n in enumerate(torch.as_tensor(lens).cpu().tolist()):
+        p0 = int(lay.pbase[b])
+        # the row's buffer: [its dictionary row | its output]
+        v = jump_plain(ptr[p0:p0 + n] + DICT_CAP, DICT_CAP)
+        ptr[p0:p0 + n] = v - DICT_CAP
+        window = (torch.zeros(DICT_CAP, dtype=torch.uint8) if dicts_u8 is None
+                  else torch.as_tensor(dicts_u8)[b].cpu())
+        out[b, :n] = torch.cat([window, out[b, :n]])[v]
+    return out, ptr.to(torch.int32)
+
+
+class RowPasses(NamedTuple):
+    """Every pass's output of one decode (`rows_passes`): the layout; pass 1
+    nn; pass 2 exits, counts, sums; pass 3 entry, seq_at, op_at, nseq,
+    total; pass 4 the sequence table and each row's first failing sequence;
+    pass 5 lens, errs, the output and index array after the literal copies;
+    pass 6 the index array and the output `decode_blocks` returns."""
+    layout: RowsLayout
+    nn: torch.Tensor
+    exits: torch.Tensor
+    counts: torch.Tensor
+    sums: torch.Tensor
+    entry: torch.Tensor
+    seq_at: torch.Tensor
+    op_at: torch.Tensor
+    nseq: torch.Tensor
+    total: torch.Tensor
+    seqs: torch.Tensor
+    fail: torch.Tensor
+    lens: torch.Tensor
+    errs: torch.Tensor
+    lit_out: torch.Tensor
+    lit_ptr: torch.Tensor
+    ptr: torch.Tensor
+    out: torch.Tensor
+
+
+def rows_passes(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
+                dict_lens=None, mode: str = "full2"):
+    """Every pass of one decode of a batch (`RowPasses`): the plain versions
+    chained for a CPU tensor, the kernels for a CUDA tensor (then the
+    output and index array after pass 5 are copies taken before pass 6
+    runs, and scratch no pass wrote, sequence-table rows past a row's
+    sequences and index entries past its lens, holds whatever the card
+    left there)."""
+    comps, clens, dicts, dls = _validate(
+        comps_u8, comp_lens, out_cap, dicts_u8, dict_lens, mode
+    )
+    if comps.device.type == "cuda":
+        return _launch_rows(comps, clens, out_cap, dicts, dls, keep=True)
+    lay = rows_layout(clens, out_cap)
+    nn = rows_nn_plain(comps, clens)
+    exits, counts, sums = rows_spans_plain(comps, clens, nn)
+    entry, seq_at, op_at, nseq, total = rows_hops_plain(clens, exits, counts, sums)
+    seqs, fail = rows_table_plain(comps, clens, out_cap, dls, nn)
+    lit_out, lit_ptr, lens, errs = rows_literals_plain(
+        comps, clens, out_cap, seqs, nseq, total, fail)
+    out, ptr = rows_resolve_plain(clens, out_cap, lit_out, lit_ptr, lens, dicts)
+    return RowPasses(lay, nn, exits, counts, sums, entry, seq_at, op_at, nseq,
+                     total, seqs, fail, lens, errs, lit_out, lit_ptr, ptr, out)
+
+
+# ---- the kernels ---------------------------------------------------------
+
+
+def row_groups(comp_lens, out_cap: int) -> list[tuple[int, int]]:
+    """Consecutive [first, end) row ranges whose scratch for the parallel
+    passes (`SCRATCH_BYTES` per part of `rows_layout`) fits
+    `GROUP_SCRATCH_BYTES`; a row larger than that makes a group of its
+    own."""
+    parts = _row_parts(comp_lens, out_cap)
+    need = sum(w * x for w, x in zip(SCRATCH_BYTES, parts)).tolist()
+    groups, first, size = [], 0, 0
+    for r, n in enumerate(need):
+        if r > first and size + n > GROUP_SCRATCH_BYTES:
+            groups.append((first, r))
+            first, size = r, 0
+        size += n
+    groups.append((first, len(need)))
+    return groups
+
+
+def _scratch(dev, positions, segments, rows, slots, rounds):
+    i32 = dict(dtype=torch.int32, device=dev)
+    return {"pos": torch.empty((4, max(positions, 1)), **i32),
+            "seg": torch.empty((3, max(segments, 1)), **i32),
+            "seqs": torch.empty((max(rows, 1), SEQ_COLUMNS), **i32),
+            "ptr": torch.empty((max(slots, 1),), **i32),
+            "flags": torch.empty((max(rounds, 1),), **i32)}
+
+
+def _rounds(c, out_cap: int) -> int:
+    """Pointer-jumping rounds that resolve any row of comp_lens c."""
+    return max(min(out_cap, MAX_EXPANSION * int(c.max())), 1).bit_length() + 2
+
+
+def _launch_group(comps, clens, c, out_cap, dicts, dls, lay, buf, out, lens,
+                  errs, keep=False):
+    """Enqueue the passes over one group of rows on the current stream, in
+    the scratch ``buf`` (`_scratch`, at least this group's size); no host
+    round trip between them (the sizes they need from one another stay on
+    the card).  ``keep``: copy the output and index array between passes 5
+    and 6."""
+    dev = comps.device
+    nb = comps.shape[0]
+    max_c = int(c.max())
+    max_slot = min(out_cap, MAX_EXPANSION * max_c)
+    rounds = _rounds(c, out_cap)
+    meta = torch.cat([lay.cbase, lay.gbase, lay.sbase, lay.pbase]).to(dev)
+    cbase, gbase, sbase, pbase = meta.split(nb)
+    nn, exits, counts, sums = buf["pos"][:, :lay.positions]
+    entry, seq_at, op_at = buf["seg"][:, :lay.segments]
+    entry.fill_(-1)
+    seq_at.zero_()
+    op_at.zero_()
+    seqs = buf["seqs"][:max(lay.rows, 1)]
+    ptr = buf["ptr"][:max(lay.slots, 1)]
+    flags = buf["flags"][:rounds].zero_()
+    nseq, total = torch.empty((2, nb), dtype=torch.int32, device=dev)
+    fail = torch.full((nb,), END, dtype=torch.int32, device=dev)
+    lib = _kernel()
+    dl = dls.data_ptr() if dls is not None else None
+    with torch.cuda.device(dev):
+        s = torch.cuda.current_stream(dev).cuda_stream
+        check(lib.lz4t_rows_parse(
+            comps.data_ptr(), comps.stride(0), clens.data_ptr(), out_cap, dl,
+            nb, max_c, cbase.data_ptr(), gbase.data_ptr(), sbase.data_ptr(),
+            nn.data_ptr(), exits.data_ptr(), counts.data_ptr(), sums.data_ptr(),
+            entry.data_ptr(), seq_at.data_ptr(), op_at.data_ptr(),
+            nseq.data_ptr(), total.data_ptr(), seqs.data_ptr(), fail.data_ptr(),
+            s), "decode parse")
+        for name in ("rows_nn", "rows_spans", "rows_hops", "rows_table"):
+            kernel_launches[name] += 1
+        check(lib.lz4t_rows_literals(
+            comps.data_ptr(), comps.stride(0), out_cap, nb,
+            -(-(max_c // 3 + 1) // 64), sbase.data_ptr(), pbase.data_ptr(),
+            seqs.data_ptr(), nseq.data_ptr(), total.data_ptr(), fail.data_ptr(),
+            out.data_ptr(), ptr.data_ptr(), lens.data_ptr(), errs.data_ptr(),
+            s), "decode literals")
+        kernel_launches["rows_literals"] += 1
+        lit_out = out.clone() if keep else None
+        lit_ptr = ptr.clone() if keep else None
+        check(lib.lz4t_rows_resolve(
+            pbase.data_ptr(), lens.data_ptr(), ptr.data_ptr(), out_cap,
+            dicts.data_ptr() if dicts is not None else None, out.data_ptr(),
+            flags.data_ptr(), rounds, nb, -(-max_slot // 2048), s),
+            "decode resolve")
+        kernel_launches["rows_jump"] += rounds
+        kernel_launches["rows_gather"] += 1
+    return RowPasses(lay, nn, exits, counts, sums, entry, seq_at, op_at, nseq,
+                     total, seqs, fail, lens, errs, lit_out, lit_ptr, ptr, out)
+
+
+def _launch_rows(comps, clens, out_cap, dicts, dls, keep=False):
+    """The parallel passes over checked rows on the card, group by group
+    (`row_groups`), the scratch allocated once for the largest group.
+    Returns (out, lens, errs), or with ``keep`` every pass's output
+    (`RowPasses`) of the batch run as one group."""
+    dev = comps.device
+    comps = comps.contiguous()
+    nb = comps.shape[0]
+    out = torch.zeros((nb, out_cap), dtype=torch.uint8, device=dev)
+    lens, errs = torch.zeros((2, nb), dtype=torch.int32, device=dev)
+    c = clens.cpu().to(torch.int64).clamp(min=0)
+    if nb == 0:
+        return (RowPasses(rows_layout(c, out_cap), *([lens] * 9),
+                          lens.reshape(0, SEQ_COLUMNS), lens, lens, errs, out,
+                          lens, lens, out) if keep else (out, lens, errs))
+    if dicts is not None:
+        dicts = dicts.contiguous()
+    groups = [(0, nb)] if keep else row_groups(c, out_cap)
+    lays = [rows_layout(c[g0:g1], out_cap) for g0, g1 in groups]
+    buf = _scratch(dev, *(max(getattr(lay, k) for lay in lays)
+                          for k in ("positions", "segments", "rows", "slots")),
+                   _rounds(c, out_cap))
+    for (g0, g1), lay in zip(groups, lays):
+        part = slice(g0, g1)
+        got = _launch_group(comps[part], clens[part], c[part], out_cap,
+                            None if dicts is None else dicts[part],
+                            None if dls is None else dls[part], lay, buf,
+                            out[part], lens[part], errs[part], keep)
+    return got if keep else (out, lens, errs)
+
+
+def _launch_warp(comps, clens, out_cap, dicts, dls):
+    """One launch of the one-warp route: a warp per row walking the serial
+    parse (`decode_rows` in `csrc/decode.cu`)."""
+    dev = comps.device
+    comps = comps.contiguous()
+    nb = comps.shape[0]
+    out = torch.zeros((nb, out_cap), dtype=torch.uint8, device=dev)
+    lens = torch.empty((nb,), dtype=torch.int32, device=dev)
+    errs = torch.empty((nb,), dtype=torch.int32, device=dev)
+    if nb == 0:
+        return out, lens, errs
+    if dicts is not None:
+        dicts = dicts.contiguous()
+    with torch.cuda.device(dev):
+        rc = _kernel().lz4t_decode_warp(
+            comps.data_ptr(), comps.stride(0), clens.data_ptr(),
+            out.data_ptr(), out_cap,
+            dicts.data_ptr() if dicts is not None else None,
+            dls.data_ptr() if dls is not None else None,
+            lens.data_ptr(), errs.data_ptr(), nb,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(rc, "decode (one warp per row)")
+    kernel_launches["decode_rows"] += 1
+    return out, lens, errs
+
+
+ROUTES = {"warp": _launch_warp, "rows": _launch_rows}
+
+
+def _decode(route, comps_u8, comp_lens, out_cap: int, dicts_u8=None,
+            dict_lens=None, mode: str = "full2"):
+    """`decode_blocks` on ``route``: "warp" (the one-warp route), "rows" (the
+    parallel passes) or None (by `WARP_ROUTE_MAX`).  Returns the outputs
+    and whether the card ran them (a CPU tensor runs the plain version)."""
+    comps, clens, dicts, dls = _validate(
+        comps_u8, comp_lens, out_cap, dicts_u8, dict_lens, mode
+    )
+    if comps.device.type != "cuda":
+        return decode_blocks_plain(comps, clens, out_cap, dicts, dls, mode), False
+    if route is None:
+        route = "warp" if out_cap <= WARP_ROUTE_MAX else "rows"
+    return ROUTES[route](comps, clens, out_cap, dicts, dls), True
+
+
 def decode_blocks(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
                   dict_lens=None, mode: str = "full2"):
     """Decode B independent LZ4 blocks.
@@ -169,37 +728,24 @@ def decode_blocks(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
     variants, which give the same bytes; here they all run the same kernel.
 
     Returns (out uint8 [B, out_cap], lens int32 [B], errs int32 [B]) on the
-    input's device: errs is 0, 1 (malformed) or 2 (trailing garbage).  A
-    CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    input's device: errs is 0 or 1 (malformed), each row on its own; on
+    error lens counts the bytes before the failing sequence.  A CPU tensor
+    runs the serial plain version.  A CUDA tensor launches the kernel,
+    counted here (each of its kernels in `kernel_launches`): rows of
+    ``out_cap`` <= 64 KB on the one-warp route (a warp per row walks the
+    serial parse: the faster route there, PERF.md §6), larger ones on the
+    parallel passes (every row at once, in groups of rows whose scratch
+    fits `GROUP_SCRATCH_BYTES`).
     """
-    comps, clens, dicts, dls = _validate(
-        comps_u8, comp_lens, out_cap, dicts_u8, dict_lens, mode
-    )
-    if comps.device.type != "cuda":
-        return decode_blocks_plain(comps, clens, out_cap, dicts, dls, mode)
-    comps = comps.contiguous()
-    nb = comps.shape[0]
-    dev = comps.device
-    out = torch.zeros((nb, out_cap), dtype=torch.uint8, device=dev)
-    lens = torch.empty((nb,), dtype=torch.int32, device=dev)
-    errs = torch.empty((nb,), dtype=torch.int32, device=dev)
-    if nb == 0:
-        return out, lens, errs
-    if dicts is not None:
-        dicts = dicts.contiguous()
-    lib = _kernel()
-    with torch.cuda.device(dev):
-        rc = lib.lz4t_decode(
-            comps.data_ptr(), comps.stride(0), clens.data_ptr(),
-            out.data_ptr(), out_cap,
-            dicts.data_ptr() if dicts is not None else None,
-            dls.data_ptr() if dls is not None else None,
-            lens.data_ptr(), errs.data_ptr(), nb,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(rc, "decode")
-    decode_blocks.launches += 1
-    return out, lens, errs
+    got, launched = _decode(None, comps_u8, comp_lens, out_cap, dicts_u8,
+                            dict_lens, mode)
+    decode_blocks.launches += launched
+    return got
 
 
 decode_blocks.launches = 0
+# launches of each of kernel A's kernels on the card (rows_jump: one per
+# pointer-jumping round enqueued)
+kernel_launches = dict.fromkeys(
+    ("decode_rows", "rows_nn", "rows_spans", "rows_hops", "rows_table",
+     "rows_literals", "rows_jump", "rows_gather"), 0)

@@ -36,7 +36,8 @@ import torch
 
 from .build import check, load
 from .common import round_up
-from .decode import MIN_MATCH, _decode_row, decode_blocks
+from .decode import (MIN_MATCH, _decode_row, decode_blocks, jump_plain,
+                     sequence_bytes, spans, used_rows)
 
 STREAM_MODES = ("full", "full2v")
 WINDOW = 65536
@@ -246,20 +247,6 @@ def chain_parse_plain(frame_u8, table, block_size: int):
     return torch.from_numpy(seqs), nseq, size, err
 
 
-def _spans(counts):
-    """For each unit of `counts` (int64), its owner and its index within
-    the owner."""
-    owner = torch.repeat_interleave(torch.arange(counts.numel()), counts)
-    first = torch.cumsum(counts, 0) - counts
-    return owner, torch.arange(owner.numel()) - first[owner]
-
-
-def used_rows(sbase, nseq):
-    """The sequence-table rows a parse filled (int64, block by block)."""
-    blk, local = _spans(nseq.cpu().to(torch.int64))
-    return sbase.cpu()[blk] + local
-
-
 def chain_place_plain(table, seqs, nseq, size, err, preset_len: int):
     """Pass 2: each block's start in the stream (the exclusive scan of the
     sizes, int64 [nb]); the window check, an offset past op + ll +
@@ -274,7 +261,7 @@ def chain_place_plain(table, seqs, nseq, size, err, preset_len: int):
     n = nseq.to(torch.int64)
     sizes = size.to(torch.int64)
     start = torch.cumsum(sizes, 0) - sizes
-    blk, local = _spans(n)
+    blk, local = spans(n)
     rows = seqs[sbase[blk] + local].to(torch.int64)
     dlen = (preset_len + start[blk]).clamp(max=WINDOW)
     fails = (rows[:, 4] > 0) & (rows[:, 3] > rows[:, 2] + rows[:, 1] + dlen)
@@ -317,18 +304,15 @@ def chain_literals_plain(frame_u8, table, seqs, start, use, preset: bytes,
     stored = tab[:, 2] != 0
     applied = use.to(torch.int64)
     # stored blocks
-    blk, j = _spans(torch.where(stored & (applied > 0), tab[:, 1], 0))
+    blk, j = spans(torch.where(stored & (applied > 0), tab[:, 1], 0))
     out[WINDOW + start[blk] + j] = frame[tab[blk, 0] + j]
-    # literal runs
-    blk, local = _spans(torch.where(stored, 0, applied))
-    lit, ll, op, off, ml = seqs[sbase[blk] + local].to(torch.int64).unbind(1)
-    seq, j = _spans(ll)
-    out[WINDOW + start[blk[seq]] + op[seq] + j] = \
-        frame[tab[blk[seq], 0] + lit[seq] + j]
-    # match bytes
-    seq, j = _spans(ml)
-    d = start[blk[seq]] + op[seq] + ll[seq]
-    ptr[d + j] = WINDOW + d - off[seq] + j % off[seq]
+    # literal runs and match bytes
+    blk, local = spans(torch.where(stored, 0, applied))
+    (seq, src, dst), (seq_m, at, entry) = sequence_bytes(
+        *seqs[sbase[blk] + local].to(torch.int64).unbind(1))
+    out[WINDOW + start[blk[seq]] + dst] = frame[tab[blk[seq], 0] + src]
+    base = start[blk[seq_m]]
+    ptr[base + at] = WINDOW + base + entry
     return out, ptr
 
 
@@ -339,14 +323,9 @@ def chain_resolve_plain(out, ptr, status):
     Returns the buffer and the resolved index array."""
     written = int(status[0])
     out, ptr = out.cpu().clone(), ptr.cpu().to(torch.int64).clone()
-    full = torch.cat([torch.arange(WINDOW), ptr[:written]])
-    while True:
-        nxt = full[full]
-        if torch.equal(nxt, full):
-            break
-        full = nxt
-    ptr[:written] = full[WINDOW:]
-    out[WINDOW:WINDOW + written] = out[full[WINDOW:]]
+    full = jump_plain(ptr[:written], WINDOW)
+    ptr[:written] = full
+    out[WINDOW:WINDOW + written] = out[full]
     return out, ptr
 
 

@@ -1,25 +1,25 @@
-"""Batched LZ4 block encode of blocks up to 64 KB at every level: kernel B
-(`csrc/encode.cu`) and its plain versions.
+"""Batched LZ4 block encode of blocks up to 64 KB at every level (kernel B)
+and the FAST scans' plain versions.
 
 The port of `lz4_tpu/ops/encode_pallas5.py` (`pallas_encode5`, wrapper
-`encode_blocks_pallas5`), with the same bytes: at levels 0-2 the FAST arm,
-the canonical byU16 schedule (LZ4_compress_default) or the dense 15-bit
-schedule (`encode_rows`); at levels 3-9 the HC arm and at 10-12 the OPT
-arm, which run on kernel D's HC/OPT kernel with the rows as its windows
-(`encode_stream.encode_windows_hc`/`_opt`; plain versions in
-`ops/encode_hc.py`).  The kernel's source says what bounds it on the card
-and what its design does about that.
+`encode_blocks_pallas5`), with the same bytes.  Every level runs on kernel
+D (`csrc/encode_stream.cu`) with the rows as its windows: at levels 0-2 its
+FAST scan, one warp per row (the canonical byU16 schedule of
+LZ4_compress_default, or the dense 15-bit schedule); at levels 3-9 its HC
+arm and at 10-12 its OPT arm (`encode_stream.encode_windows_hc`/`_opt`;
+plain versions in `ops/encode_hc.py`).  The FAST scans' plain versions
+live here: the serial scans (`_encode_canonical`, `_encode_dense`), the
+reference, and the kernel's batched probe search (`_encode_canonical_warp`,
+`_encode_dense_warp`: 32 probes a step, the table's writes inside a step
+resolved as the warp resolves them), which gives the same bytes.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
 
 from ..constants import compress_bound
-from .build import check, load
 from .common import align1024, emit, read32, run_length
 from .encode_hc import encode_row, level_arm
 
@@ -32,30 +32,8 @@ MAX_BLOCK = 65536  # kernel B's rows (16-bit tables); larger ones go to D
 CANON_64K = 65536 + MF_LIMIT - 1  # upstream LZ4_64Klimit: byU32 at/above
 GEOMETRIES = ("canonical", "dense")
 
-_lib = None
-
-
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = load("encode")
-        lib.lz4t_encode.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.lz4t_encode.restype = ctypes.c_int
-        lib.lz4t_encode_shared_bytes.argtypes = [ctypes.c_int]
-        lib.lz4t_encode_shared_bytes.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def shared_bytes(fast_schedule: str) -> int:
-    """Dynamic shared memory of one CTA of kernel B for a geometry (its
-    hash table)."""
-    return _kernel().lz4t_encode_shared_bytes(int(fast_schedule == "dense"))
+WARP = 32  # probes of one step of the kernel's batched search
+SERIAL_PROBES = 2  # probes a search makes one at a time before going WARP wide
 
 
 def _encode_canonical(s: bytes, accel: int) -> bytearray:
@@ -173,6 +151,213 @@ def _encode_dense(s: bytes, accel: int, src_off: int = 0) -> bytearray:
     return out
 
 
+def _canon_hash(s: bytes, n: int):
+    """The canonical schedule's table and hash: byU16 below 65,547 bytes,
+    byU32 at and above."""
+    if n < CANON_64K:
+        return [0] * (1 << 13), lambda p: (
+            ((read32(s, p) * 2654435761) & 0xFFFFFFFF) >> 19)
+    return [0] * (1 << 12), lambda p: (
+        (((int.from_bytes(s[p:p + 8], "little") << 24) * 889523592379)
+         & 0xFFFFFFFFFFFFFFFF) >> 52)
+
+
+def _probe_step(tab, hash_of, positions, valid, accept):
+    """One step of the warp's search over its probes (one, or WARP): each
+    valid probe reads the table as it stood when the step began, or the
+    position of the latest earlier probe of the step in its bucket
+    (`accept` tests a candidate: ("table", value) or ("lane", position)).
+    Returns the first probe that hits (the step's width if none) with its
+    candidate, the first probe that is not valid (the width if none), and
+    a function that makes the table writes of the probes up to a given one
+    (in order: the highest of a bucket wins)."""
+    hashes = [hash_of(p) if v else None for p, v in zip(positions, valid)]
+    latest: dict = {}
+    width = len(positions)
+    first = width
+    cand = None
+    for k, (p, v, h) in enumerate(zip(positions, valid, hashes)):
+        if not v:
+            break
+        c = latest.get(h, ("table", tab[h]))
+        latest[h] = ("lane", p)
+        if first == width and accept(c, p):
+            first, cand = k, c
+    stop = valid.index(False) if False in valid else width
+
+    def commit(last, value):
+        for k in range(last + 1):
+            tab[hashes[k]] = value(positions[k])
+
+    return first, cand, stop, commit
+
+
+def _encode_canonical_warp(s: bytes, accel: int, steps=None) -> bytearray:
+    """`_encode_canonical` as kernel D's warp computes it: each search
+    makes its first SERIAL_PROBES probes one at a time, then WARP a step
+    (`_probe_step`); the bytes are the same.
+    ``steps``, a dict, counts the warp's probe steps and sequences."""
+    steps = {} if steps is None else steps
+    steps.setdefault("probe_steps", 0)
+    steps.setdefault("sequences", 0)
+    n = len(s)
+    out = bytearray()
+    anchor = 0
+    if n >= MF_LIMIT + 1:
+        u16 = n < CANON_64K
+        tab, h = _canon_hash(s, n)
+        mf1 = n - MF_LIMIT + 1
+        match_limit = n - LAST_LITERALS
+        ramp = accel << SKIP_TRIGGER
+
+        def accept(c, p):
+            m = c[1]
+            return (u16 or m + MAX_DISTANCE >= p) and read32(s, m) == read32(s, p)
+
+        start = 1
+        while True:
+            p, j = start, 0
+            while True:
+                width = 1 if j < SERIAL_PROBES else WARP
+                positions, valid = [], []
+                for k in range(width):
+                    i = j + k
+                    positions.append(p)
+                    p += (ramp + i - 1) >> SKIP_TRIGGER if i else 1
+                    valid.append(p <= mf1)
+                first, cand, stop, commit = _probe_step(
+                    tab, h, positions, valid, accept)
+                steps["probe_steps"] += 1
+                if first < stop:
+                    commit(first, lambda q: q)
+                    ip, match = positions[first], cand[1]
+                    break
+                if stop < width:
+                    emit(out, s, anchor, n - anchor, 0, 0)
+                    return out
+                commit(width - 1, lambda q: q)
+                j += width
+            while ip > anchor and match > 0 and s[ip - 1] == s[match - 1]:
+                ip -= 1
+                match -= 1
+            while True:
+                ml = MIN_MATCH + run_length(
+                    s, match + MIN_MATCH, ip + MIN_MATCH, match_limit
+                )
+                emit(out, s, anchor, ip - anchor, ip - match, ml)
+                steps["sequences"] += 1
+                ip += ml
+                anchor = ip
+                if ip >= mf1:
+                    emit(out, s, anchor, n - anchor, 0, 0)
+                    return out
+                tab[h(ip - 2)] = ip - 2
+                h2 = h(ip)
+                m2 = tab[h2]
+                tab[h2] = ip
+                if not u16 and m2 + MAX_DISTANCE < ip:
+                    break
+                if read32(s, m2) != read32(s, ip):
+                    break
+                match = m2
+            start = ip + 1
+    emit(out, s, anchor, n - anchor, 0, 0)
+    return out
+
+
+def dense_seed_warp(s: bytes, src_off: int, tab=None) -> list:
+    """The dense scan's prefix seed as the warp makes it: WARP stride-2
+    positions a step, the highest of a bucket writing position + 1 (the
+    later insert wins).  Returns the table (0 == empty)."""
+    tab = [0] * (1 << 15) if tab is None else tab
+    for base in range(0, src_off - MIN_MATCH + 1, 2 * WARP):
+        step = {}
+        for k in range(WARP):
+            i = base + 2 * k
+            if i + MIN_MATCH > src_off:
+                break
+            step[((read32(s, i) * 2654435761) & 0xFFFFFFFF) >> 17] = i + 1
+        for hh, v in step.items():
+            tab[hh] = v
+    return tab
+
+
+def _encode_dense_warp(s: bytes, accel: int, src_off: int = 0,
+                       steps=None) -> bytearray:
+    """`_encode_dense` as kernel D's warp computes it: the seed WARP
+    positions a step (`dense_seed_warp`), each search its first
+    SERIAL_PROBES probes one at a time, then WARP a step (`_probe_step`);
+    the bytes are the same.  The table holds position + 1
+    (0 == empty).  ``steps``, a dict, counts the warp's probe steps and
+    sequences."""
+    steps = {} if steps is None else steps
+    steps.setdefault("probe_steps", 0)
+    steps.setdefault("sequences", 0)
+    n = len(s)
+    out = bytearray()
+
+    def h(p):
+        return ((read32(s, p) * 2654435761) & 0xFFFFFFFF) >> 17
+
+    tab = dense_seed_warp(s, src_off)
+    anchor = src_off
+    if n - src_off > MF_LIMIT:
+        mf_limit = n - MF_LIMIT
+        match_limit = n - LAST_LITERALS
+        ramp = accel << SKIP_TRIGGER
+
+        def accept(c, p):
+            m = c[1] - 1 if c[0] == "table" else c[1]
+            return m >= 0 and p - m <= MAX_DISTANCE and read32(s, m) == read32(s, p)
+
+        p = src_off
+        while True:
+            j = 0
+            while True:
+                width = 1 if j < SERIAL_PROBES else WARP
+                positions, valid, q = [], [], p
+                for k in range(width):
+                    positions.append(q)
+                    valid.append(q < mf_limit)
+                    q += (ramp + j + k) >> SKIP_TRIGGER
+                first, cand, stop, commit = _probe_step(
+                    tab, h, positions, valid, accept)
+                steps["probe_steps"] += 1
+                if first < stop:
+                    commit(first, lambda x: x + 1)
+                    p = positions[first]
+                    c = cand[1] - 1 if cand[0] == "table" else cand[1]
+                    break
+                if stop < width:
+                    emit(out, s, anchor, n - anchor, 0, 0)
+                    return out
+                commit(width - 1, lambda x: x + 1)
+                p, j = q, j + width
+            while p > anchor and c > 0 and s[p - 1] == s[c - 1]:
+                p -= 1
+                c -= 1
+            ml = MIN_MATCH + run_length(s, c + MIN_MATCH, p + MIN_MATCH, match_limit)
+            emit(out, s, anchor, p - anchor, p - c, ml)
+            steps["sequences"] += 1
+            p += ml
+            anchor = p
+            if p >= mf_limit:
+                break
+            tab[h(p - 2)] = p - 1
+    emit(out, s, anchor, n - anchor, 0, 0)
+    return out
+
+
+def encode_row_warp(s: bytes, accel: int, fast_schedule: str,
+                    src_off: int = 0):
+    """One FAST row through the batched plain version of its schedule:
+    (compressed bytes, {"probe_steps", "sequences"})."""
+    steps: dict = {}
+    if fast_schedule == "dense":
+        return _encode_dense_warp(s, accel, src_off, steps), steps
+    return _encode_canonical_warp(s, accel, steps), steps
+
+
 def clip_acceleration(acceleration: int, fast_schedule: str) -> int:
     """Check the FAST geometry and clip ``acceleration`` as the kernels
     take it."""
@@ -270,36 +455,31 @@ def encode_blocks(bufs_u8, lens, bcap: int, level: int = 0,
     Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) on the
     input's device, OCAP = align1024(compress_bound(bcap)); errs is 1 where a
     row's output exceeds OCAP.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel.
+    tensor launches kernel D's FAST scan over the rows as windows (counted
+    here).
     """
     bufs, lens_t, accel = _validate(
         bufs_u8, lens, bcap, acceleration, fast_schedule
     )
-    if level_arm(level)[0] != "fast":
-        # imported here: encode_stream imports this module's plain encoders
-        from .encode_stream import encode_blocks_stream
+    # imported here: encode_stream imports this module's plain encoders
+    from .encode_stream import encode_blocks_stream, launch_fast
 
+    if level_arm(level)[0] != "fast":
         return encode_blocks_stream(bufs, lens_t, bcap, level)
     if bufs.device.type != "cuda":
         return encode_blocks_plain(
             bufs, lens_t, bcap, level, acceleration, fast_schedule
         )
-    bufs = bufs.contiguous()
-    nb = bufs.shape[0]
-    out, clens, errs = _outputs(nb, bcap, bufs.device)
+    nb, width = bufs.shape
     if nb == 0:
-        return out, clens, errs
-    lib = _kernel()
-    with torch.cuda.device(bufs.device):
-        rc = lib.lz4t_encode(
-            bufs.data_ptr(), bufs.stride(0), lens_t.data_ptr(),
-            out.data_ptr(), out.shape[1], out.shape[1], accel,
-            int(fast_schedule == "dense"), clens.data_ptr(), errs.data_ptr(),
-            nb, torch.cuda.current_stream(bufs.device).cuda_stream,
-        )
-    check(rc, "encode")
+        return _outputs(nb, bcap, bufs.device)
+    got = launch_fast(
+        bufs.contiguous().reshape(-1), torch.arange(nb, dtype=torch.int64) * width,
+        torch.zeros((nb,), dtype=torch.int32), lens_t.cpu(), bcap, accel,
+        fast_schedule,
+    )
     encode_blocks.launches += 1
-    return out, clens, errs
+    return got
 
 
 encode_blocks.launches = 0

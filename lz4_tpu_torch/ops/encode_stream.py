@@ -3,9 +3,11 @@ every level: kernel D (`csrc/encode_stream.cu`) and its plain versions.
 
 The port of `lz4_tpu/ops/encode_pallas_stream.py` (`pallas_encode_stream`,
 wrapper `encode_blocks_pallas_stream`), with the same bytes.  At levels 0-2
-(`encode_windows`) rows without a dictionary take the canonical schedule
-(LZ4_compress_default: byU16 below 65,547 bytes, byU32 at and above) or
-the dense one; rows of a batch with dictionaries all take the dense one.
+(`encode_windows`, one warp per row) rows without a dictionary take the
+canonical schedule (LZ4_compress_default: byU16 below 65,547 bytes, byU32
+at and above) or the dense one; rows of a batch with dictionaries all take
+the dense one.  Kernel B's FAST rows (`ops.encode.encode_blocks`) run on
+the same launcher (`launch_fast`).
 Levels 3-9 run the HC arm and 10-12 the OPT arm (`encode_windows_hc`, plain
 versions in `ops/encode_hc.py`), every prefix inserted into the chain; on
 the card level 12 runs as the three passes of `ops/encode_opt.py`.
@@ -43,8 +45,8 @@ def _kernel():
         lib.lz4t_encode_stream.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.lz4t_encode_stream_hc.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -54,7 +56,7 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.lz4t_encode_stream_hc_slots.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.lz4t_encode_stream_shared_bytes.argtypes = [ctypes.c_int]
+        lib.lz4t_encode_stream_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.lz4t_encode_stream_hc_shared_bytes.argtypes = [ctypes.c_int]
         for fn in (lib.lz4t_encode_stream, lib.lz4t_encode_stream_hc,
                    lib.lz4t_encode_stream_hc_slots,
@@ -65,15 +67,17 @@ def _kernel():
     return _lib
 
 
-def shared_bytes(fast_schedule: str, level: int = 0) -> int:
+def shared_bytes(fast_schedule: str, level: int = 0,
+                 longest: int = 2 * WINDOW) -> int:
     """Dynamic shared memory of one CTA of kernel D: a FAST geometry's
-    largest table or, at levels 3 and up, the HC or OPT arm's delta ring and
-    price table."""
+    largest table for windows of at most ``longest`` bytes (the dense
+    table's entries are 16-bit up to 64 KB) or, at levels 3 and up, the HC
+    or OPT arm's delta ring and price table."""
     arm = level_arm(level)[0]
     if arm != "fast":
         return _kernel().lz4t_encode_stream_hc_shared_bytes(int(arm == "opt"))
     return _kernel().lz4t_encode_stream_shared_bytes(
-        int(fast_schedule == "dense")
+        int(fast_schedule == "dense"), longest
     )
 
 
@@ -103,7 +107,8 @@ def _validate_windows(base_u8, starts, src_offs, lens, bcap, level,
                 "dictionary need fast_schedule='dense'"
             )
     dev = base.device
-    return base, st.to(dev), so.to(dev), ln.to(dev), accel
+    longest = int(ln.max()) if ln.numel() else 0
+    return base, st.to(dev), so.to(dev), ln.to(dev), accel, longest
 
 
 def encode_windows_plain(base_u8, starts, src_offs, lens, bcap: int,
@@ -111,7 +116,7 @@ def encode_windows_plain(base_u8, starts, src_offs, lens, bcap: int,
                          fast_schedule: str = "canonical"):
     """The plain PyTorch version of `encode_windows`: the same checks, the
     same outputs, one scalar parse per row on the host."""
-    base, st, so, ln, accel = _validate_windows(
+    base, st, so, ln, accel, _ = _validate_windows(
         base_u8, starts, src_offs, lens, bcap, level, acceleration,
         fast_schedule,
     )
@@ -144,13 +149,14 @@ def encode_windows(base_u8, starts, src_offs, lens, bcap: int,
     Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) on the
     input's device, OCAP = align1024(compress_bound(bcap)); errs is 1 where a
     row's output exceeds OCAP.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel (counted in `encode_blocks_stream.launches`).
+    tensor launches the kernel, one warp per row (counted in
+    `encode_blocks_stream.launches`).
     """
     arm = level_arm(level)[0]
     if arm != "fast":
         launch = encode_windows_opt if arm == "opt" else encode_windows_hc
         return launch(base_u8, starts, src_offs, lens, bcap, level)
-    base, st, so, ln, accel = _validate_windows(
+    base, st, so, ln, accel, longest = _validate_windows(
         base_u8, starts, src_offs, lens, bcap, level, acceleration,
         fast_schedule,
     )
@@ -158,22 +164,41 @@ def encode_windows(base_u8, starts, src_offs, lens, bcap: int,
         return encode_windows_plain(
             base, st, so, ln, bcap, level, acceleration, fast_schedule
         )
+    if st.shape[0] == 0:
+        return _outputs(0, bcap, base.device)
+    got = _launch_fast(base, st, so, ln, bcap, accel, fast_schedule, longest)
+    encode_blocks_stream.launches += 1
+    return got
+
+
+def _launch_fast(base, st, so, ln, bcap, accel, fast_schedule, longest):
+    """One launch of the FAST scan (`encode_windows` in
+    `csrc/encode_stream.cu`) over checked windows on the card, the longest
+    ``longest`` bytes; the caller counts it."""
     base = base.contiguous()
     nb = st.shape[0]
     out, clens, errs = _outputs(nb, bcap, base.device)
-    if nb == 0:
-        return out, clens, errs
     lib = _kernel()
     with torch.cuda.device(base.device):
         rc = lib.lz4t_encode_stream(
             base.data_ptr(), st.data_ptr(), so.data_ptr(), ln.data_ptr(),
             out.data_ptr(), out.shape[1], out.shape[1], accel,
-            int(fast_schedule == "dense"), clens.data_ptr(), errs.data_ptr(),
+            int(fast_schedule == "dense"), longest, clens.data_ptr(), errs.data_ptr(),
             nb, torch.cuda.current_stream(base.device).cuda_stream,
         )
     check(rc, "encode_stream")
-    encode_blocks_stream.launches += 1
     return out, clens, errs
+
+
+def launch_fast(base_u8, starts, src_offs, lens, bcap: int, accel: int,
+                fast_schedule: str = "canonical"):
+    """The FAST scan over a CUDA tensor's windows (no prefix on canonical
+    rows), checked as `encode_windows` checks them: kernel B's launch
+    (`ops.encode.encode_blocks`, which counts it)."""
+    base, st, so, ln, accel, longest = _validate_windows(
+        base_u8, starts, src_offs, lens, bcap, 0, accel, fast_schedule
+    )
+    return _launch_fast(base, st, so, ln, bcap, accel, fast_schedule, longest)
 
 
 def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm,
@@ -183,7 +208,7 @@ def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm,
     plain version on the CPU."""
     if level_arm(level)[0] != arm:
         raise ValueError(f"level {level} does not run the {arm.upper()} arm")
-    base, st, so, ln, _ = _validate_windows(
+    base, st, so, ln, _, _ = _validate_windows(
         base_u8, starts, src_offs, lens, bcap, level, 1, "dense"
     )
     if base.device.type != "cuda":

@@ -387,3 +387,74 @@ def test_cli_default_round_trip_on_the_card(cuda):
     assert xxh32.xxh32_windows.launches == e0 + 2
     head = data[:1 << 20]
     assert frame.compress(head, settings) == frame.compress(head, settings, device="cpu")
+
+
+@pytest.mark.parametrize("sched", ["canonical", "dense"])
+def test_fast_warp_scan_matches_the_batched_plain_scan(sched, cuda):
+    """Kernel D's warp on the edge rows (12, 13, 65,546 and 65,547
+    bytes), a 64 KB row whose probes collide in one bucket, and 1 MiB of
+    zeros, against the serial and the batched plain scans."""
+    data = chip_smoke.make_corpus(4 << 20, 9)
+    rows = [data[:12], data[:13], data[:65546], data[1 << 20:(1 << 20) + 65547],
+            chip_smoke.collision_row(BLOCK, 2), bytes(1 << 20)]
+    bufs, lens = chip_smoke._stage(rows, 1 << 20)
+    st = torch.arange(len(rows), dtype=torch.int64) * bufs.shape[1]
+    zeros = torch.zeros(len(rows), dtype=torch.int32)
+    got = encode_stream.encode_windows(bufs.reshape(-1).to(cuda), st, zeros, lens,
+                                       1 << 20, fast_schedule=sched)
+    torch.cuda.synchronize()
+    out, clens = got[0].cpu(), got[1].cpu()
+    for i, r in enumerate(rows):
+        want, _ = encode.encode_row_warp(r, 1, sched)
+        assert out[i, :int(clens[i])].numpy().tobytes() == bytes(want)
+    _equal(got, encode_stream.encode_windows_plain(
+        bufs.reshape(-1), st, zeros, lens, 1 << 20, fast_schedule=sched))
+
+
+@pytest.mark.parametrize("out_cap", [BLOCK, 4 << 20])
+def test_decode_passes_match_plain(out_cap, cuda):
+    """Each pass of kernel A against its plain version on clean rows of
+    the mix, the corrupt kinds and a zero row's long length runs; the whole
+    equal to the one-warp route."""
+    data = chip_smoke.make_corpus(4 << 20, 10)
+    rows = [data[k << 20:(k << 20) + BLOCK] for k in range(4)] + [bytes(out_cap)]
+    bufs, lens = chip_smoke._stage(rows, out_cap)
+    out, clens, _ = encode_stream.encode_blocks_stream_plain(bufs, lens, out_cap)
+    streams = [out[i, :int(clens[i])].numpy().tobytes() for i in range(len(rows))]
+    streams += chip_smoke.corrupt_rows(streams[0])
+    comps, cl = chip_smoke._stage(streams, comp_capacity(out_cap))
+    errs, _ = chip_smoke.hold_rows_passes(comps, cl, out_cap, cuda)
+    assert set(errs.values()) == {0}
+    new, _ = decode._decode("rows", comps.to(cuda), cl.to(cuda), out_cap)
+    old, _ = decode._decode("warp", comps.to(cuda), cl.to(cuda), out_cap)
+    torch.cuda.synchronize()
+    _equal(new, old)
+
+
+def test_decode_passes_in_groups_match_one_group(cuda, monkeypatch):
+    """Kernel A's passes over a batch cut into several groups of rows
+    (`decode.row_groups` under a small scratch budget, the scratch reused
+    from group to group) give what one group and the plain version give:
+    rows of the mix, corrupt rows and dictionary rows."""
+    rng = np.random.default_rng(12)
+    data = chip_smoke.make_corpus(4 << 20, 12)
+    out_cap = 1 << 20
+    rows = [data[k << 20:(k + 1) << 20] for k in range(4)] + [bytes(out_cap)]
+    bufs, lens = chip_smoke._stage(rows, out_cap)
+    out, clens, _ = encode_stream.encode_blocks_stream_plain(bufs, lens, out_cap)
+    streams = [out[i, :int(clens[i])].numpy().tobytes() for i in range(len(rows))]
+    streams += chip_smoke.corrupt_rows(streams[0])
+    comps, cl = chip_smoke._stage(streams, comp_capacity(out_cap))
+    dicts = torch.from_numpy(rng.integers(0, 256, (len(streams), 65536), dtype=np.uint8))
+    dls = torch.from_numpy(rng.integers(0, 65537, len(streams)).astype(np.int32))
+    args = comps.to(cuda), cl.to(cuda), out_cap, dicts.to(cuda), dls.to(cuda)
+    whole, _ = decode._decode("rows", *args)
+    monkeypatch.setattr(decode, "GROUP_SCRATCH_BYTES", 32 << 20)
+    assert len(decode.row_groups(cl, out_cap)) > 1
+    before = dict(decode.kernel_launches)
+    parts, _ = decode._decode("rows", *args)
+    torch.cuda.synchronize()
+    assert decode.kernel_launches["rows_gather"] - before["rows_gather"] == len(
+        decode.row_groups(cl, out_cap))
+    _equal(parts, whole)
+    _equal(parts, decode.decode_blocks_plain(comps, cl, out_cap, dicts, dls))

@@ -4,6 +4,7 @@ unless asked for the CPU, and its kernel wrappers take the plain versions
 only for CPU tensors."""
 
 import ast
+import ctypes
 import os
 import subprocess
 import sys
@@ -174,7 +175,7 @@ def test_build_is_keyed_by_the_source(monkeypatch, tmp_path):
     with open(tmp_path / "decode.cu", "a") as f:
         f.write("// edited\n")
     assert build._library("decode") != before["decode"]
-    assert build._library("encode") == before["encode"]
+    assert build._library("encode_stream") == before["encode_stream"]
 
 
 def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
@@ -204,3 +205,54 @@ def test_public_names():
         assert hasattr(lz4_tpu_torch, name)
     assert issubclass(lz4_tpu_torch.LZ4Error, ValueError)
     assert issubclass(frame.LZ4FormatError, ValueError)
+
+
+def _c_signatures():
+    """Each `extern "C"` entry point of csrc/*.cu: its parameters as
+    ctypes kinds (a pointer, an int, a long long)."""
+    import re
+
+    sigs = {}
+    for src in build._CSRC.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\((.*?)\)\s*\{',
+                                       src.read_text(), flags=re.S):
+            kinds = []
+            for prm in filter(None, (x.strip() for x in params.split(","))):
+                kinds.append(ctypes.c_void_p if "*" in prm else
+                             ctypes.c_longlong if "long long" in prm else ctypes.c_int)
+            sigs[name] = kinds
+    return sigs
+
+
+@pytest.mark.parametrize("module", ["decode", "decode_stream", "encode_stream",
+                                    "encode_opt", "xxh32"])
+def test_bindings_match_the_c_signatures(module, monkeypatch):
+    """Every argtypes list a wrapper sets holds one entry per parameter of
+    its C entry point, of the same kind: ctypes passes an argument past
+    the list as a 32-bit int, so a pointer there is cut."""
+    import importlib
+
+    mod = importlib.import_module(f"lz4_tpu_torch.ops.{module}")
+
+    class Fn:
+        argtypes = None
+        restype = None
+
+        def __call__(self, *args):
+            return getattr(mod, "SEG", 0)
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = Fn()
+            setattr(self, name, fn)
+            return fn
+
+    lib = Lib()
+    monkeypatch.setattr(mod, "load", lambda name: lib)
+    monkeypatch.setattr(mod, "_lib", None)
+    mod._kernel()
+    sigs = _c_signatures()
+    bound = {k: v for k, v in vars(lib).items() if v.argtypes is not None}
+    assert bound
+    for name, fn in bound.items():
+        assert list(fn.argtypes) == sigs[name], name
