@@ -66,18 +66,21 @@ Phases, each fatal on failure:
    of phase 5, the --mb MiB frame of phase 7 and a 16 MiB L9 frame), their
    plain versions and bounds, and the end to end compress and decompress
    rates of each path;
-12. kernel B's HC and OPT arms (kernel D's HC/OPT kernel over B's rows;
-   level 12 the three passes of `csrc/encode_opt.cu`) against their plain
-   version at levels 3, 6, 9, 10, 11 and 12: four sampled 64 KB rows, the
-   26,200-byte wordy regression row, rows of 0, 12, 13 and 4,096 bytes and
-   a 64 KB row of random bytes: equal bytes, lengths and flags; and each
+12. kernel B's HC and OPT arms (levels 3-9 the three HC passes of
+   `csrc/encode_opt.cu` and `csrc/encode_hc_passes.cu`, levels 10-11 kernel
+   D's serial OPT arm over B's rows, level 12 the three passes of
+   `csrc/encode_opt.cu`) against their plain version at levels 3, 6, 9, 10,
+   11 and 12, and at 3, 6 and 9 the serial HC arm too: four sampled 64 KB
+   rows, the 26,200-byte wordy regression row, rows of 0, 12, 13 and 4,096
+   bytes and a 64 KB row of random bytes: equal bytes, lengths and flags;
+   and each level 9 pass (`opt_chain`, `hc_episodes`, `hc_parse`) and
    level 12 pass (`opt_chain`, `opt_matches`, `opt_parse`) against its own
    plain version on every row, fed the kernel's output of the pass before;
 13. kernel D's HC and OPT arms against their plain version at levels 3, 9,
    10 and 12: four chained windows (64 KB blocks with their 64 KB
    prefixes), 64 KB blocks with dictionaries of 3,000, 65,536 and 0 bytes,
-   and one 1 MiB row; each level 12 pass against its plain version on the
-   chained windows and the dictionary rows;
+   and one 1 MiB row; each level 9 and level 12 pass against its plain
+   version on the chained windows and the dictionary rows;
 14. the HC/OPT paths: 16 MiB round trips at levels 9, 10 and 12, each
    independent (64 KB blocks: the HC or OPT arm of kernel B, then kernel A)
    and with the default chained settings (kernel D's arm, then the chained
@@ -85,14 +88,21 @@ Phases, each fatal on failure:
    (level 12 counts the three passes), exact and deterministic over three
    runs after a warm-up; the level 9 independent frame of the first 1 MiB
    equal byte for byte to the plain route's (the plain parse of all 16 MiB
-   would take minutes); then the HC arm at level 9 and the serial OPT arm
-   at levels 10 and 12 timed at their paths' shapes and held byte for byte
-   to the plain version on four rows of the timed launch, two of them
-   taken by CTAs that had already encoded a row; at level 12 the passes'
-   whole output held to the serial OPT arm's on all 256 rows of both
-   paths, each pass timed (profiler device time) and held to its plain
-   version on the same four rows; and one profiled level 9 chained and
-   level 12 independent and chained compress and decompress;
+   would take minutes); then the serial HC arm at level 9 and the serial
+   OPT arm at levels 10 and 12 timed at their paths' shapes and held byte
+   for byte to the plain version on four rows of the timed launch, two of
+   them taken by CTAs that had already encoded a row; at levels 9 and 12
+   the passes' whole output held to the serial arm's on all 256 rows of
+   both paths, each pass timed (level 9: CUDA events between the passes;
+   level 12: profiler device time) and held to its plain version on the
+   same four rows, the HC passes' dependent-step bounds from the plain
+   versions' counts; the `lz4 -9` path (`_cli_hc`: 4 MiB independent
+   blocks, a content checksum, level 9) over --mb MiB, counts set to 0
+   just before and read just after, exact and deterministic over three
+   runs after a warm-up, every block of its frame equal to the serial HC
+   arm's output on the same rows (timed once beside the passes); and one
+   profiled level 9 chained, `lz4 -9`, and level 12 independent and
+   chained compress and decompress;
 15. kernel E (xxHash32) against its plain version: rows of 0-65,536 bytes
    with noise past each length, windows at every alignment of one flat
    tensor, all 1,024 rows of 64 KB of its timed batch and its timed 64 MiB
@@ -132,6 +142,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 BLOCK = 65536
+CLI_BLOCK = 4 << 20  # the `lz4` command line's default block
 
 
 def _cli_default():
@@ -267,6 +278,7 @@ def phase_build():
     for name, smem in encode_opt.shared_bytes().items():
         print(f"[build] encode_opt.cu: dynamic shared memory {smem} bytes per "
               f"CTA ({name}; opt_matches 0)")
+    print("[build] encode_hc_passes.cu: dynamic shared memory 0 bytes per CTA")
 
 
 def sample_rows(data: bytes, rng):
@@ -1349,7 +1361,7 @@ def _plain_call(qualname: str, args, kwargs):
 
     out = fn(*map(tensor, args), **{k: tensor(v) for k, v in kwargs.items()})
     if isinstance(out, tuple):
-        return tuple(t.numpy() for t in out)
+        return tuple(t.numpy() if isinstance(t, torch.Tensor) else t for t in out)
     return out.numpy() if isinstance(out, torch.Tensor) else out
 
 
@@ -1421,37 +1433,117 @@ def hold_opt_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool):
         ]
 
     def finish():
-        errs = dict.fromkeys(OPT_PASSES, 0)
-        seconds = dict.fromkeys(OPT_PASSES, 0.0)
-        for name, mine, fut in jobs:
-            out, sec = fut.result()
-            want = [torch.from_numpy(x) for x in (out if isinstance(out, tuple) else (out,))]
-            err = _max_abs_err(mine, want)
-            _require(err == 0, f"{name} on rows {list(picks)}: kernel != plain")
-            errs[name] = max(errs[name], err)
-            seconds[name] += sec
+        errs, seconds, _ = _finish_holds(jobs, OPT_PASSES, picks)
         return errs, seconds, given_up
+
+    return finish
+
+
+def _finish_holds(jobs, names, picks):
+    """Wait for the plain versions of held passes: each job is (pass, the
+    kernel's output, future of (plain output, seconds)), the plain output
+    of a counted job (`_timed_counted_call`) (output, per-row counts).
+    Returns each pass's max_abs_err, the plain versions' seconds and the
+    counted passes' counts."""
+    import torch
+
+    errs = dict.fromkeys(names, 0)
+    seconds = dict.fromkeys(names, 0.0)
+    counts = {}
+    for name, mine, fut in jobs:
+        out, sec = fut.result()
+        if isinstance(out, tuple) and isinstance(out[-1], list):
+            out, got = out
+            counts.setdefault(name, []).extend(got)
+        want = [torch.from_numpy(x) for x in (out if isinstance(out, tuple) else (out,))]
+        err = _max_abs_err(mine, want)
+        _require(err == 0, f"{name} on rows {list(picks)}: kernel != plain")
+        errs[name] = max(errs[name], err)
+        seconds[name] += sec
+    return errs, seconds, counts
+
+
+HC_PASSES = ("opt_chain", "hc_episodes", "hc_parse")
+
+
+def hold_hc_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
+                   level: int = 9, parse_picks=()):
+    """The HC passes on the card over a batch of windows at ``level``, each
+    held to its plain version on the batch's rows ``picks`` (the parse also
+    on ``parse_picks``) with the same inputs (the kernel's own output of the
+    pass before), the plain versions on ``pool`` (the episode and parse
+    passes with their counts).  Returns a function that waits for them and
+    returns each pass's max_abs_err, the plain versions' seconds for the
+    picked rows, the searches given up by the episode pass and the plain
+    passes' per-row counts."""
+    import torch
+    from lz4_tpu_torch.ops import encode_hc_passes as hp
+    from lz4_tpu_torch.ops import encode_opt
+    from lz4_tpu_torch.ops.encode_hc import level_arm
+
+    depth = level_arm(level)[1]
+    st = torch.as_tensor(starts, dtype=torch.int64).cpu()
+    so = torch.as_tensor(src_offs, dtype=torch.int32).cpu()
+    ln = torch.as_tensor(lens, dtype=torch.int32).cpu()
+    base_d = base.to(dev)
+    prev = encode_opt.opt_chain(base_d, st, ln)
+    first, more, deltas = hp.hc_episodes(base_d, st, so, ln, prev, depth)
+    got = hp.hc_parse(base_d, st, so, ln, prev, (first, more, deltas), bcap, depth)
+    torch.cuda.synchronize()
+    # a search given up holds -1 - L, L >= 3 (first) or >= 4; -1 is no search
+    given_up = sum(int((t < -1).sum()) for t in (first[:, 0], first[:, 2], more[:, :, 3]))
+    toff, _ = encode_opt.table_offsets(ln)
+    soff, _ = hp.slot_offsets(so, ln)
+    base_h = base.cpu()
+    outs = [t.cpu() for t in got]
+    jobs = []
+    for r in list(picks) + [r for r in parse_picks if r not in picks]:
+        a, t, q, n, off = int(st[r]), int(toff[r]), int(soff[r]), int(ln[r]), int(so[r])
+        row = (base_h[a:a + n].numpy(), [0], so[r:r + 1].numpy(), ln[r:r + 1].numpy())
+        pv, dl = prev[t:t + n].cpu(), deltas[t:t + n].cpu()
+        f, m = first[q:q + n - off].cpu(), more[q:q + n - off].cpu()
+        if r in picks:
+            jobs += [
+                ("opt_chain", [pv], _submit_timed(
+                    pool, encode_opt.opt_chain_plain, row[0], [0], ln[r:r + 1])),
+                ("hc_episodes", [f, m, dl], pool.submit(
+                    _timed_counted_call, f"{hp.__name__}.hc_episodes_plain",
+                    (*row, pv.numpy(), depth), {}))]
+        jobs += [
+            ("hc_parse", [o[r:r + 1] for o in outs], pool.submit(
+                _timed_counted_call, f"{hp.__name__}.hc_parse_plain",
+                (*row, pv.numpy(), (f.numpy(), m.numpy(), dl.numpy()), bcap, depth), {})),
+        ]
+
+    def finish():
+        errs, seconds, counts = _finish_holds(jobs, HC_PASSES, picks)
+        return errs, seconds, given_up, counts
 
     return finish
 
 
 def phase_hc_encode(data: bytes, rng, dev, pool):
     """Kernel B's HC and OPT arms against their plain version (computed on
-    `pool`), and each level 12 pass against its own on every row.  Returns
-    the worst difference of each kernel."""
+    `pool`), at levels 3-9 the serial HC arm too (the passes' reference),
+    and each level 9 and level 12 pass against its own on every row.
+    Returns the worst difference of each kernel."""
     import torch
-    from lz4_tpu_torch.ops import encode
+    from lz4_tpu_torch.ops import encode, encode_stream
 
     rows = _hc_rows(data, rng)
     bufs, lens = _stage(rows, BLOCK + 1024)
     levels = (3, 6, 9, 10, 11, 12)
     wants = {level: submit_plain(pool, encode.encode_blocks_plain, bufs, lens, BLOCK, level)
              for level in levels}
-    passes = hold_opt_passes(bufs.reshape(-1), [i * bufs.shape[1] for i in range(len(rows))],
-                             [0] * len(rows), lens, BLOCK, range(len(rows)), dev, pool)
+    windows = (bufs.reshape(-1), [i * bufs.shape[1] for i in range(len(rows))],
+               [0] * len(rows), lens)
+    passes = hold_opt_passes(*windows, BLOCK, range(len(rows)), dev, pool)
+    hc_passes = hold_hc_passes(*windows, BLOCK, range(len(rows)), dev, pool)
     worst = {}
     for level in levels:
         got = encode.encode_blocks(bufs.to(dev), lens.to(dev), BLOCK, level)
+        serial = (encode_stream.encode_windows_hc_serial(
+            windows[0].to(dev), *windows[1:], BLOCK, level) if level <= 9 else got)
         torch.cuda.synchronize()
         want = plain_result(wants[level])
         err = _max_abs_err(got, want)
@@ -1459,23 +1551,34 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
         _require(not bool(want[2].any()), f"encode level {level}: overflow flag set")
         fn = _hc_kernel(level)
         worst[fn] = max(worst.get(fn, 0), err)
-        print(f"[hc encode] level {level}: {len(rows)} rows equal, "
-              f"clens={want[1].tolist()}")
+        if level <= 9:
+            err = _max_abs_err(serial, want)
+            _require(err == 0, f"encode level {level}: the serial HC arm != plain")
+            worst["encode_windows_hc"] = max(worst.get("encode_windows_hc", 0), err)
+        print(f"[hc encode] level {level}: {len(rows)} rows equal"
+              + (" (the passes and the serial HC arm)" if level <= 9 else "")
+              + f", clens={want[1].tolist()}")
     errs, _, given_up = passes()
     worst.update(errs)
     print(f"[hc encode] level 12 passes {', '.join(OPT_PASSES)}: each equal to "
           f"its plain version on all {len(rows)} rows ({given_up} searches "
           f"given up by the match pass)")
+    errs, _, given_up, _ = hc_passes()
+    for name, err in errs.items():
+        worst[name] = max(worst.get(name, 0), err)
+    print(f"[hc encode] level 9 passes {', '.join(HC_PASSES)}: each equal to "
+          f"its plain version on all {len(rows)} rows ({given_up} searches "
+          f"given up by the episode pass)")
     return worst
 
 
 def _hc_kernel(level: int) -> str:
-    """The kernel a level's encode counts its launch on: kernel D's HC arm,
-    its serial OPT arm (levels 10-11), or the level 12 passes (the whole
-    output's difference is kept with the parse, which writes it)."""
+    """The kernel that writes a level's encode: the HC passes' parse
+    (levels 3-9), kernel D's serial OPT arm (levels 10-11) or the level 12
+    passes' parse (the whole output's difference is kept with the parse)."""
     if level >= 12:
         return "opt_parse"
-    return "encode_windows_opt" if level >= 10 else "encode_windows_hc"
+    return "encode_windows_opt" if level >= 10 else "hc_parse"
 
 
 def phase_hc_stream(data: bytes, rng, dev, pool):
@@ -1525,13 +1628,14 @@ def phase_hc_stream(data: bytes, rng, dev, pool):
         submit_plain(pool, encode_stream.encode_blocks_stream_plain, big,
                      big_lens, 1 << 20, level),
     ) for level in levels}
-    # each level 12 pass on the chained windows and the dictionary rows (the
-    # 1 MiB row's plain match pass would take minutes: its whole output is
-    # held below)
+    # each level 9 and 12 pass on the chained windows and the dictionary rows
+    # (the 1 MiB row's plain match and episode passes would take minutes:
+    # its whole output is held below)
     flat, d_st, d_so, d_ln, _ = encode_stream._stage(bufs, lens, BLOCK, dicts, dls, "dense")
-    passes = [hold_opt_passes(window, st[chained] - lo, offs[chained], wl[chained], BLOCK,
-                              range(len(chained)), dev, pool),
-              hold_opt_passes(flat, d_st, d_so, d_ln, BLOCK, range(len(picks)), dev, pool)]
+    sets = ((window, st[chained] - lo, offs[chained], wl[chained], BLOCK,
+             range(len(chained))), (flat, d_st, d_so, d_ln, BLOCK, range(len(picks))))
+    passes = [held(*rows, dev, pool) for held in (hold_opt_passes, hold_hc_passes)
+              for rows in sets]
     for level in levels:
         fn = _hc_kernel(level)
         w_chain, w_dict, w_big = wants[level]
@@ -1546,11 +1650,12 @@ def phase_hc_stream(data: bytes, rng, dev, pool):
         got = encode_stream.encode_blocks_stream(
             big.to(dev), big_lens.to(dev), 1 << 20, level)
         hold(f"level {level}, one 1 MiB row", got, plain_result(w_big))
-    for finish, what in zip(passes, ("chained windows", "dictionary rows")):
-        errs, _, given_up = finish()
+    for finish, (level, what) in zip(passes, ((12, "chained windows"), (12, "dictionary rows"),
+                                             (9, "chained windows"), (9, "dictionary rows"))):
+        errs, _, given_up, *_ = finish()
         for name, err in errs.items():
             worst[name] = max(worst.get(name, 0), err)
-        print(f"[hc encode_stream] level 12 passes on the {what}: each equal to "
+        print(f"[hc encode_stream] level {level} passes on the {what}: each equal to "
               f"its plain version ({given_up} searches given up)")
     return worst
 
@@ -1572,15 +1677,16 @@ def check_hc_frame(data: bytes, dev, pool):
 
 
 def _hc_counts(level: int):
-    """The wrappers that count a level's encode launches: kernel D's HC arm
-    (3-9), its serial OPT arm (10-11) or the three level 12 passes."""
-    from lz4_tpu_torch.ops import encode_opt, encode_stream
+    """The wrappers that count a level's encode launches: the three HC
+    passes (3-9), kernel D's serial OPT arm (10-11) or the three level 12
+    passes."""
+    from lz4_tpu_torch.ops import encode_hc_passes, encode_opt, encode_stream
 
     if level >= 12:
         return [encode_opt.opt_chain, encode_opt.opt_matches, encode_opt.opt_parse]
     if level >= 10:
         return [encode_stream.encode_windows_opt]
-    return [encode_stream.encode_windows_hc]
+    return [encode_opt.opt_chain, encode_hc_passes.hc_episodes, encode_hc_passes.hc_parse]
 
 
 def phase_hc_paths(data: bytes, dev):
@@ -1611,33 +1717,117 @@ OPT_KERNELS = {"opt_chain": "opt_chain_rows", "opt_matches": "opt_matches_rows",
                "opt_parse": "opt_parse_rows"}
 
 
-def phase_hc_times(data: bytes, dev):
-    """Kernel D's HC and OPT arms and the level 12 passes at their paths'
-    shapes: 256 rows of 64 KB (kernel B's rows, the independent path) and
-    256 chained windows.  The HC arm at level 9 and the serial OPT arm at
-    level 10 (its paths) and 12 (the reference of the passes): CUDA-event
-    times, the plain version on four rows of the timed launch spread over
-    the batch, two of them past the 132 resident CTAs (taken by a CTA that
-    had already encoded a row), held byte for byte to the launch's output
-    and timed, scaled to the batch.  Level 12: the whole output of the
-    passes held to the serial OPT arm's on all 256 rows, the passes' call
-    timed with CUDA events and each pass by the profiler's device time,
-    each pass held to its plain version on the same four rows (the plain
-    versions in a pool started after the timings) and its plain time
-    scaled to the batch.  Bounds: the bytes each function must move.
-    Returns the `kernels` entries and the level 12 summary."""
+def hc_pass_ms(base_d, starts, src_offs, lens, bcap: int, level: int = 9,
+               iters: int = 2):
+    """Each HC pass's time per call on a batch of windows: CUDA events
+    between the wrappers' calls (each enqueues its kernel after copying its
+    row tables to the card), the mean of ``iters`` calls.  Returns
+    ({pass: ms}, the passes' output)."""
     import torch
-    from lz4_tpu_torch.ops import encode, encode_stream
+    from lz4_tpu_torch.ops import encode_hc_passes as hp
+    from lz4_tpu_torch.ops import encode_opt
+    from lz4_tpu_torch.ops.encode_hc import level_arm
+
+    depth = level_arm(level)[1]
+    total = dict.fromkeys(HC_PASSES, 0.0)
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        prev = encode_opt.opt_chain(base_d, starts, lens)
+        ev[1].record()
+        tables = hp.hc_episodes(base_d, starts, src_offs, lens, prev, depth)
+        ev[2].record()
+        got = hp.hc_parse(base_d, starts, src_offs, lens, prev, tables, bcap, depth)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(HC_PASSES):
+            total[name] += ev[i].elapsed_time(ev[i + 1])
+        del prev, tables
+    return {k: v / iters for k, v in total.items()}, got
+
+
+def hc_pass_entries(label: str, held: str, replaces: str, windows, got, pass_ms,
+                    clock: float) -> list:
+    """The `kernels` entries of the HC passes on a batch of windows (``got``
+    their output), bounds from the bytes each pass must move (the step
+    bounds and plain times are filled in when the plain versions end)."""
+    from lz4_tpu_torch.ops import encode_hc_passes as hp
+
+    _, _, wso, wln = windows
+    nb = len(wln)
+    total = int(wln.sum())
+    block = int((wln - wso).sum())
+    clen = int(got[1].sum())
+    tables = block * 4 * (hp.HEAD_INTS + hp.SLOT_INTS * max(hp.SLOTS - 2, 0)) + 2 * total
+    # each pass's inputs read once and outputs written once: the windows,
+    # prev, the episode tables (the parse: the first searches' table), the
+    # compressed bytes and the per-row values
+    moved = {"opt_chain": total + 4 * total + 20 * nb,
+             "hc_episodes": total + 4 * total + tables + 32 * nb,
+             "hc_parse": block + 8 * block + clen + 40 * nb}
+    return [{
+        "name": f"{name}:{label}", "route": "cuda",
+        "source": ("lz4_tpu_torch/ops/csrc/encode_opt.cu" if name == "opt_chain"
+                   else "lz4_tpu_torch/ops/csrc/encode_hc_passes.cu"),
+        "replaces": f"{replaces} (HC arm, level 9; lz4_tpu/ops/encode_pallas5.py:953 hc_body)",
+        "path": label, "held": held, "max_abs_err": 0,
+        "ms": pass_ms[name], "plain_ms": None,
+        "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "byte_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None} for name in HC_PASSES]
+
+
+def settle_hc_entries(entries, finish, scale: dict, clock: float) -> dict:
+    """Fill the HC passes' entries from their plain versions on the picked
+    rows: max_abs_err, the plain time scaled to the batch (times
+    ``scale[pass]``), and the dependent-step bound, one L1 round trip
+    (L1_CYCLES at the card's top clock) a step: the episode pass's slowest
+    position (its chain steps), the parse's slowest row (its table reads
+    and the chain steps of its searches made on the spot).  Returns the
+    plain passes' counts."""
+    errs, seconds, given_up, counts = finish()
+    steps = {"opt_chain": 0,
+             "hc_episodes": max(c["most_steps"] for c in counts["hc_episodes"]),
+             "hc_parse": max(c["read"] + c["spot_steps"] for c in counts["hc_parse"])}
+    for e, name in zip(entries, HC_PASSES):
+        e["max_abs_err"] = errs[name]
+        e["plain_ms"] = seconds[name] * 1e3 * scale[name]
+        step_ms = steps[name] * L1_CYCLES / clock * 1e3
+        e["step_bound_ms"] = step_ms
+        if step_ms > e["bound_ms"]:
+            e["bound_ms"], e["bound_by"] = step_ms, "operations"
+    return {"given_up": given_up, "episodes_of_picked_rows": counts["hc_episodes"],
+            "parse_of_picked_rows": counts["hc_parse"]}
+
+
+def phase_hc_times(data: bytes, dev):
+    """Kernel D's serial HC and OPT arms, the HC passes and the level 12
+    passes at their paths' shapes: 256 rows of 64 KB (kernel B's rows, the
+    independent path) and 256 chained windows.  The serial HC arm at level
+    9 (the passes' reference) and the serial OPT arm at level 10 (its
+    paths) and 12 (the reference of the passes): CUDA-event times, the
+    plain version on four rows of the timed launch spread over the batch,
+    two of them past the 132 resident CTAs (taken by a CTA that had already
+    encoded a row), held byte for byte to the launch's output and timed,
+    scaled to the batch.  Levels 9 and 12: the whole output of the passes
+    held to the serial arm's on all 256 rows, the passes' call timed with
+    CUDA events and each pass (level 9: CUDA events between the passes;
+    level 12: the profiler's device time), each pass held to its plain
+    version on the same four rows (the plain versions in a pool started
+    after the timings) and its plain time scaled to the batch.  Bounds: the
+    bytes each function must move, and the HC passes' dependent steps.
+    Returns the `kernels` entries and the level 9 and 12 summaries."""
+    import torch
+    from lz4_tpu_torch.ops import encode_hc_passes, encode_stream
     from lz4_tpu_torch.parallel.blocks import split_blocks
 
     bufs, lens = split_blocks(data, BLOCK)
     nb = bufs.shape[0]
-    bufs_d, lens_d = bufs.to(dev), lens.to(dev)
-    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
     payload_h = torch.frombuffer(bytearray(data), dtype=torch.uint8)
     st, offs, wl = chained_windows(len(data), BLOCK)
     picks = [q * nb // 4 + nb // 4 - 1 for q in range(4)]
     width = bufs.shape[1]
+    clock = float(_nvidia_smi("clocks.max.sm", "nounits")) * 1e6
     windows = {  # each path's rows as kernel D's windows
         "independent": (bufs.reshape(-1), torch.arange(nb, dtype=torch.int64) * width,
                         torch.zeros(nb, dtype=torch.int32), lens),
@@ -1645,23 +1835,21 @@ def phase_hc_times(data: bytes, dev):
     }
     replaces = {"independent": "lz4_tpu/ops/encode_pallas5.py:1922",
                 "chained": "lz4_tpu/ops/encode_pallas_stream.py:266"}
-    entries, summary, held = [], {}, []
-    for level, arm in ((9, "hc"), (10, "opt")):
-        for path, run, plain, row_bytes in (
-            ("independent",
-             lambda: encode.encode_blocks(bufs_d, lens_d, BLOCK, level),
-             lambda: encode.encode_blocks_plain(bufs[picks], lens[picks], BLOCK, level),
-             12),
-            ("chained",
-             lambda: encode_stream.encode_windows(payload, st, offs, wl, BLOCK, level),
-             lambda: encode_stream.encode_windows_plain(
-                 payload_h, st[picks], offs[picks], wl[picks], BLOCK, level),
-             24),
-        ):
+    entries, summary, held, serial_l9 = [], {"L9": {}, "L12": {}}, [], {}
+    for level, arm, serial in ((9, "hc", encode_stream.encode_windows_hc_serial),
+                               (10, "opt", encode_stream.encode_windows_opt_serial)):
+        for path, row_bytes in (("independent", 12), ("chained", 24)):
+            base, wst, wso, wln = windows[path]
+            base_d = base.to(dev)
+
+            def run():
+                return serial(base_d, wst, wso, wln, BLOCK, level)
+
             got = run()
             ms = _cuda_ms(run, 2)
             t0 = time.perf_counter()
-            want = plain()
+            want = encode_stream.encode_windows_plain(
+                base, wst[picks], wso[picks], wln[picks], BLOCK, level)
             plain_ms = (time.perf_counter() - t0) * 1e3 / len(picks) * nb
             err = _max_abs_err([t[picks] for t in got], want)
             _require(err == 0, f"encode_windows_{arm} on the L{level} {path} "
@@ -1674,14 +1862,16 @@ def phase_hc_times(data: bytes, dev):
                 "name": f"encode_windows_{arm}:{path}", "route": "cuda",
                 "source": "lz4_tpu_torch/ops/csrc/encode_stream.cu",
                 "replaces": f"{replaces[path]} ({arm.upper()} arm, level {level})",
-                "path": f"L{level}_{path}", "max_abs_err": err,
+                "path": f"L{level}_{path}", "held": path, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                 "library_ms": None}
-            if arm == "opt":
+            if arm == "hc":
+                serial_l9[path] = got
+                entry["role"] = ("the serial reference of the HC passes: no path "
+                                 "runs it, so it launches 0 times on the L9 paths")
+            else:
                 # the serial arm at level 12, the passes' reference
-                base, wst, wso, wln = windows[path]
-                base_d = base.to(dev)
                 entry["ms_L12"] = _cuda_ms(lambda: encode_stream.encode_windows_opt_serial(
                     base_d, wst, wso, wln, BLOCK, 12), 2)
             entries.append(entry)
@@ -1689,6 +1879,31 @@ def phase_hc_times(data: bytes, dev):
                   f"{ms:.3f} ms over {nb} rows, {clen} compressed bytes; rows "
                   f"{picks} equal to the plain version"
                   + (f"; level 12 {entry['ms_L12']:.3f} ms" if arm == "opt" else ""))
+    for path, rows in windows.items():  # the HC passes at level 9
+        base, wst, wso, wln = rows
+        base_d = base.to(dev)
+
+        def run():
+            return encode_stream.encode_windows(base_d, wst, wso, wln, BLOCK, 9)
+
+        got = run()
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, serial_l9[path])
+        _require(err == 0, f"level 9 {path}: the passes' output != the serial HC arm's")
+        whole_ms = _cuda_ms(run, 2)
+        pass_ms, _ = hc_pass_ms(base_d, wst, wso, wln, BLOCK)
+        hc = hc_pass_entries(f"L9_{path}", path, replaces[path], rows, got, pass_ms, clock)
+        entries += hc
+        summary["L9"][path] = {
+            "passes_call_ms": whole_ms, "pass_ms": pass_ms,
+            "serial_ms": next(e["ms"] for e in entries
+                              if e["name"] == f"encode_windows_hc:{path}"),
+            "rows_equal_to_serial": nb, "max_abs_err": err,
+            "slots": encode_hc_passes.SLOTS}
+        held.append(("L9", path, rows, hc, hold_hc_passes))
+        print(f"[hc times] level 9 {path}: passes {whole_ms:.3f} ms per call ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
+              + f"), all {nb} rows equal to the serial HC arm's")
     for path, (base, wst, wso, wln) in windows.items():
         base_d = base.to(dev)
 
@@ -1716,28 +1931,114 @@ def phase_hc_times(data: bytes, dev):
                 "source": "lz4_tpu_torch/ops/csrc/encode_opt.cu",
                 "replaces": (f"{replaces[path]} (OPT arm at level 12; "
                              "lz4_tpu/ops/encode_pallas5.py:1172 opt_body)"),
-                "path": f"L12_{path}", "max_abs_err": 0,
+                "path": f"L12_{path}", "held": path, "max_abs_err": 0,
                 "ms": pass_ms[kernel], "plain_ms": None,
                 "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                 "library_ms": None})
-        summary[path] = {"passes_call_ms": whole_ms, "pass_device_ms": pass_ms,
-                         "rows_equal_to_serial": nb, "max_abs_err": err}
-        held.append((path, windows[path], entries[-3:]))
+        summary["L12"][path] = {"passes_call_ms": whole_ms, "pass_device_ms": pass_ms,
+                                "rows_equal_to_serial": nb, "max_abs_err": err}
+        held.append(("L12", path, windows[path], entries[-3:], hold_opt_passes))
         print(f"[hc times] level 12 {path}: passes {whole_ms:.3f} ms per call "
               f"(device: " + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
               + f"), all {nb} rows equal to the serial OPT arm's")
     with plain_pool() as pool:
-        finishes = [(path, ents, hold_opt_passes(*rows, BLOCK, picks, dev, pool))
-                    for path, rows, ents in held]
-        for path, ents, finish in finishes:
+        finishes = [(lv, path, ents, hold(*rows, BLOCK, picks, dev, pool))
+                    for lv, path, rows, ents, hold in held]
+        for lv, path, ents, finish in finishes:
+            if lv == "L9":
+                summary[lv][path].update(settle_hc_entries(
+                    ents, finish, dict.fromkeys(HC_PASSES, nb / len(picks)), clock))
+                print(f"[hc times] level 9 {path}: each pass equal to its plain "
+                      f"version on rows {picks}; step bounds " + ", ".join(
+                          f"{e['name']} {e['step_bound_ms']:.3f} ms" for e in ents))
+                continue
             errs, seconds, given_up = finish()
-            summary[path]["given_up"] = given_up
+            summary[lv][path]["given_up"] = given_up
             for e, name in zip(ents, OPT_KERNELS):
                 e["max_abs_err"] = errs[name]
                 e["plain_ms"] = seconds[name] * 1e3 / len(picks) * nb
             print(f"[hc times] level 12 {path}: each pass equal to its plain "
                   f"version on rows {picks}; {given_up} searches given up")
     return entries, summary
+
+
+def _cli_hc():
+    """`lz4 -9`'s settings: the command line's defaults (independent 4 MB
+    blocks, a content checksum) at level 9."""
+    from lz4_tpu_torch import frame
+
+    return frame.EncoderSettings(chain_blocks=False, block_size=CLI_BLOCK,
+                                 content_checksum=True, compression_level=9)
+
+
+def phase_cli_hc(data: bytes, dev, pool):
+    """The `lz4 -9` path: --mb MiB through `frame.compress` /
+    `frame.decompress` with `_cli_hc`'s settings (the HC passes, kernel A's
+    passes, kernel E), counts set to 0 just before and read just after,
+    exact and deterministic over three runs after a warm-up; the frame's
+    blocks held byte for byte to the serial HC arm's output on the same
+    rows (timed once); the passes timed on those rows (CUDA events between
+    them), the parse held to its plain version on the first row (text, the
+    slowest: its counts give the step bound) and each pass on 256 KB of a
+    row of runs and of noise, as rows of their own (the plain episode pass
+    over a 4 MiB row would take an hour).  Returns the launches, the rates,
+    the `kernels` entries and a summary."""
+    import torch
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.frame.api import _scan_single_frame
+    from lz4_tpu_torch.ops import decode, encode_stream, xxh32
+    from lz4_tpu_torch.parallel.blocks import split_blocks
+
+    settings = _cli_hc()
+    launches, e2e = _round_trips(data, settings, dev,
+                                 _hc_counts(9) + [decode.decode_blocks, xxh32.xxh32_windows],
+                                 ROW_PASSES)
+    blob = frame.compress(data, settings, device=dev)
+    size = CLI_BLOCK
+    bufs, lens = split_blocks(data, size)
+    nb = bufs.shape[0]
+    rows = (bufs.reshape(-1), torch.arange(nb, dtype=torch.int64) * bufs.shape[1],
+            torch.zeros(nb, dtype=torch.int32), lens)
+    base_d = rows[0].to(dev)
+    clock = float(_nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    pass_ms, got = hc_pass_ms(base_d, *rows[1:], size, iters=1)
+    t0 = time.perf_counter()
+    serial = encode_stream.encode_windows_hc_serial(base_d, *rows[1:], size, 9)
+    torch.cuda.synchronize()
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    err = _max_abs_err(got, serial)
+    _require(err == 0, "lz4 -9 rows: the passes' output != the serial HC arm's")
+    _, blocks, _ = _scan_single_frame(blob)
+    _require(len(blocks) == nb, "lz4 -9 frame: wrong number of blocks")
+    out, clens = serial[0].cpu(), serial[1].cpu()
+    for k, (off, length, stored) in enumerate(blocks):
+        n, c = int(lens[k]), int(clens[k])
+        want = data[k * size:k * size + n] if c >= n else out[k, :c].numpy().tobytes()
+        _require(stored == (c >= n) and blob[off:off + length] == want,
+                 f"lz4 -9 frame: block {k} != the serial HC arm's bytes")
+    entries = hc_pass_entries("lz4_9", "independent", "lz4_tpu/ops/encode_pallas_stream.py:266",
+                              rows, got, pass_ms, clock)
+    # 256 KB of a row of runs and of noise as rows of their own, after the 16
+    cut = size // 16
+    held = (rows[0], torch.cat([rows[1], rows[1][[nb * 3 // 4 - 1, nb - 1]]]),
+            torch.cat([rows[2], rows[2][:2]]), torch.cat([lens, torch.tensor([cut, cut])]))
+    finish = hold_hc_passes(*held, size, [nb, nb + 1], dev, pool, parse_picks=[0])
+    summary = {"pass_ms": pass_ms, "passes_ms": sum(pass_ms.values()),
+               "serial_ms": serial_ms, "rows_equal_to_serial": nb,
+               "frame_equal_to_serial": True}
+    held_bytes = 2 * cut
+    summary.update(settle_hc_entries(entries, finish, {
+        "opt_chain": len(data) / held_bytes, "hc_episodes": len(data) / held_bytes,
+        "hc_parse": len(data) / (held_bytes + int(lens[0]))}, clock))
+    print(f"[lz4 -9] {len(data)} bytes -> {e2e['frame_bytes']} bytes (ratio "
+          f"{len(data) / e2e['frame_bytes']:.4f}), round trip exact, deterministic, "
+          f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
+          f"compress, {e2e['decompress_GBps_median']:.4f} GB/s decompress; passes "
+          + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
+          + f" ms, the serial HC arm {serial_ms:.1f} ms on the same {nb} rows, "
+          f"every block of the frame equal to its output; each pass equal to its "
+          f"plain version (the parse on the first row)")
+    return launches, e2e, entries, summary
 
 
 XXH_LENGTHS = [0, 1, 3, 4, 15, 16, 17, 31, 32, 100, 1024, 4097, 65536]
@@ -1786,6 +2087,14 @@ def _timed_plain_call(qualname: str, args, kwargs):
     t0 = time.perf_counter()
     out = _plain_call(qualname, args, kwargs)
     return out, time.perf_counter() - t0
+
+
+def _timed_counted_call(qualname: str, args, kwargs):
+    """`_timed_plain_call` of a plain version that fills a ``counts`` list:
+    ((output, its per-row counts), seconds)."""
+    counts = []
+    out, seconds = _timed_plain_call(qualname, args, {**kwargs, "counts": counts})
+    return (out, counts), seconds
 
 
 def xxh32_windows_in_pool(pool, data: bytes):
@@ -1996,13 +2305,18 @@ def main(argv=None) -> int:
         xxh_kernels, host_xxh32_s = phase_xxh32(
             data, rng, dev, xxh_windows, xxh_futures)
     hc_launches, hc_e2e = phase_hc_paths(data16, dev)
-    hc_kernels, opt12 = phase_hc_times(data16, dev)
-    for k in hc_kernels:
-        fn, path = k["name"].split(":")
-        k["launches"] = hc_launches[k.pop("path")][fn]
-        k["max_abs_err"] = max(k["max_abs_err"], hc_err[path].get(fn, 0))
-    kernels += hc_kernels
-    print(json.dumps({"opt12": opt12}))
+    hc_kernels, hc_times = phase_hc_times(data16, dev)
+    with plain_pool() as pool:
+        cli_hc_launches, cli_hc_e2e, cli_hc_kernels, cli_hc = phase_cli_hc(data, dev, pool)
+    hc_launches["lz4_9"] = cli_hc_launches
+    for k in hc_kernels + cli_hc_kernels:  # the serial HC arm: 0 on the L9 paths
+        fn = k["name"].split(":")[0]
+        k["launches"] = hc_launches[k.pop("path")].get(fn, 0)
+        k["max_abs_err"] = max(k["max_abs_err"], hc_err[k.pop("held")].get(fn, 0))
+    kernels += hc_kernels + cli_hc_kernels
+    print(json.dumps({"hc9": hc_times["L9"], "opt12": hc_times["L12"]}))
+    print(json.dumps({"e2e_hc_cli": cli_hc_e2e, "lz4_9": cli_hc}))
+    print(json.dumps({"cli_hc": profile_path(data, dev, _cli_hc())}))
     print(json.dumps({"hc_L9_chained": profile_path(
         data16, dev, frame.EncoderSettings(compression_level=9))}))
     print(json.dumps({"hc_L12_independent": profile_path(

@@ -26,7 +26,8 @@ _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("decode", "encode_stream", "decode_stream", "xxh32", "encode_opt")
+KERNEL_SOURCES = ("decode", "encode_stream", "decode_stream", "xxh32", "encode_opt",
+                  "encode_hc_passes")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -20,10 +20,12 @@
 //
 // The search (wider_match) reads its chain through a source type: Chain,
 // the ring above, filled as the scan goes, or TableChain, the read-only
-// tables of every position of a row that the level 12 passes build
-// (encode_opt.cu).  The OPT parse (opt_parse) takes its search as a
-// callable: opt_scan hands it the ring's, the level 12 parse pass a read of
-// the table of every position's match.
+// tables of every position of a row that the level 12 and HC passes build
+// (encode_opt.cu, encode_hc_passes.cu; FrontierChain reads the ring's
+// answers from those tables when positions past the search are inserted).
+// The OPT parse (opt_parse) and one HC episode (hc_episode) take their
+// search as a callable: opt_scan and hc_scan hand them the ring's, the
+// passes a read of a table of searches made ahead.
 
 #pragma once
 
@@ -121,6 +123,39 @@ struct TableChainT {
 };
 using TableChain = TableChainT<false>;
 using BudgetChain = TableChainT<true>;
+
+// The ring's answers read from the same tables when positions past the
+// search may already be inserted: `frontier` is the ring's insert mark
+// (every position below it inserted, raised to the search position by
+// insert).  The head read at pos is then the latest position below the
+// frontier with pos's hash, and the ring's delta at q is the one of the
+// latest position below the frontier that shares q's ring slot
+// (q & 0xFFFF), as the ring overwrites it.  With frontier == pos it reads
+// what TableChain reads.  Each step reads `delta`, min(q - prev[q],
+// 0xFFFF) as a u16 per position: half prev's bytes, so that a row's last
+// 64 K steps and bytes fit one SM's L1.
+struct FrontierChain {
+  const uint8_t* s;
+  const int* prev;
+  const uint16_t* delta;
+  int ihigh;
+  int attempts;
+  int frontier;
+  static constexpr bool kBudgeted = false;
+
+  __device__ __forceinline__ void insert(int pos) {
+    if (pos > frontier) frontier = pos;
+  }
+  __device__ inline int first(int h, int pos) const {
+    if (frontier <= pos) return prev[pos];
+    for (int q = frontier - 1; q > pos; --q)
+      if (hash4<kHcHashLog>(read32(s, q)) == h) return q;
+    return pos;  // pos itself is inserted
+  }
+  __device__ __forceinline__ int step(int q) const {
+    return delta[q + (((frontier - 1 - q) >> 16) << 16)];
+  }
+};
 
 // Forward length over which bytes repeat the little-endian 4-byte pattern.
 __device__ inline int count_pattern(const uint8_t* s, int p, int end, uint32_t pattern) {
@@ -297,143 +332,190 @@ __device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
   return longest;
 }
 
-// The HC arm (lz4tpu.c lz4tpu_encode_hc): the three-candidate lookahead
-// parse.  After finding ML1, probe for a strictly longer ML2 overlapping
-// it, then an ML3 beyond ML2, resolving the overlaps with the OPTIMAL_ML
-// trim rules.  `attempts` chain steps per search; pattern analysis from 256
-// (level 9) up.
-__device__ void hc_scan(const uint8_t* s, int src_off, int n, int attempts, Sink& o,
-                        int* head, uint16_t* delta) {
-  int anchor = src_off;
-  if (n - src_off >= kMfLimit + 1) {
-    const bool pa = attempts > 128;
-    const int mflimit = n - kMfLimit;
-    Chain c{s, head, delta, 0, n - kMinMatch + 1, n - kLastLiterals, attempts};
-    chain_insert(c, src_off);
-    int ip = src_off;
-    int ml, ml0, ml2, ml3, ref, ref0, ref2, ref3, start0, start2, start3;
-    while (ip <= mflimit) {
-      {
-        int ms = ip, mp = -1;
-        ml = wider_match(c, ip, ip, kMinMatch - 1, ms, mp, pa, false);
-        if (ml < kMinMatch) {
-          ++ip;
-          continue;
-        }
-        ref = mp;
-      }
-      start0 = ip;
-      ref0 = ref;
-      ml0 = ml;
+// A sink that writes nothing: the episode pass runs episodes for their
+// searches alone.
+struct NullSink {};
 
-    search2:
-      if (ip + ml <= mflimit) {
-        start2 = ip + ml - 2;
-        ref2 = -1;
-        ml2 = wider_match(c, start2, ip, ml, start2, ref2, pa, false);
-      } else {
-        ml2 = ml;
-      }
-      if (ml2 == ml) {  // no better overlap: emit ML1
-        emit(o, s, anchor, ip - anchor, ip - ref, ml);
-        ip += ml;
-        anchor = ip;
-        continue;
-      }
-      if (start0 < ip && start2 < ip + ml0) {  // the skipped ML1 still fits: restore it
-        ip = start0;
-        ref = ref0;
-        ml = ml0;
-      }
-      if (start2 - ip < 3) {  // ML1 too short to keep: ML2 replaces it
-        ml = ml2;
-        ip = start2;
-        ref = ref2;
-        goto search2;
-      }
+__device__ __forceinline__ void emit(NullSink&, const uint8_t*, int, int, int, int) {}
 
-    search3:
-      if (start2 - ip < kOptimalMl) {  // trim ML1 so the pair packs token-optimally
-        int new_ml = ml > kOptimalMl ? kOptimalMl : ml;
-        if (ip + new_ml > start2 + ml2 - kMinMatch) new_ml = (start2 - ip) + ml2 - kMinMatch;
-        const int corr = new_ml - (start2 - ip);
-        if (corr > 0) {
-          start2 += corr;
-          ref2 += corr;
-          ml2 -= corr;
-        }
-      }
-      if (start2 + ml2 <= mflimit) {
-        start3 = start2 + ml2 - 3;
-        ref3 = -1;
-        ml3 = wider_match(c, start3, start2, ml2, start3, ref3, pa, false);
-      } else {
-        ml3 = ml2;
-      }
-      if (ml3 == ml2) {  // stable pair: emit ML1 then ML2
-        if (start2 < ip + ml) ml = start2 - ip;
-        emit(o, s, anchor, ip - anchor, ip - ref, ml);
-        anchor = ip + ml;
-        emit(o, s, anchor, start2 - anchor, start2 - ref2, ml2);
-        ip = start2 + ml2;
-        anchor = ip;
-        continue;
-      }
-      if (start3 < ip + ml + 3) {  // ML3 kills ML2
-        if (start3 >= ip + ml) {   // ML1 can go now; ML3 becomes the new ML1
-          if (start2 < ip + ml) {
-            const int corr = (ip + ml) - start2;
-            start2 += corr;
-            ref2 += corr;
-            ml2 -= corr;
-            if (ml2 < kMinMatch) {
-              start2 = start3;
-              ref2 = ref3;
-              ml2 = ml3;
-            }
-          }
-          emit(o, s, anchor, ip - anchor, ip - ref, ml);
-          anchor = ip + ml;
-          ip = start3;
-          ref = ref3;
-          ml = ml3;
-          start0 = start2;
-          ref0 = ref2;
-          ml0 = ml2;
-          goto search2;
-        }
-        start2 = start3;
-        ref2 = ref3;
-        ml2 = ml3;
-        goto search3;
-      }
-      // three ascending matches: emit ML1 (trimmed), shift the window
+// The HC arm's search over a chain source: wider_match without the chain
+// swap, pattern analysis from 256 attempts (level 9) up.  A search callable
+// of hc_episode is search(ip, ilow, longest, m_start, m_pos) -> length, the
+// caller presetting m_start = ip and m_pos = -1; one whose kCanStop is set
+// may return a negative length, which ends the episode where it stands.
+template <class C>
+struct ChainSearch {
+  C& c;
+  bool pa;
+  static constexpr bool kCanStop = false;
+  __device__ __forceinline__ void begin(int) {}
+  __device__ __forceinline__ int operator()(int ip, int ilow, int longest, int& m_start,
+                                            int& m_pos) {
+    return wider_match(c, ip, ilow, longest, m_start, m_pos, pa, false);
+  }
+};
+
+// One episode of the HC arm (lz4tpu.c lz4tpu_encode_hc): the
+// three-candidate lookahead parse from ip.  A first search at ip; on a match
+// ML1, probe for a strictly longer ML2 overlapping it, then an ML3 beyond
+// ML2, resolving the overlaps with the OPTIMAL_ML trim rules, until the
+// sequences are emitted.  Advances ip and anchor to where the parse goes
+// on.  What an episode searches depends only on the window, ip and its
+// searches' answers; its emits only add anchor.  Returns false where a
+// search stopped it (Search::kCanStop), leaving ip and anchor as they were
+// changed so far.
+template <class Search, class Out>
+__device__ __forceinline__ bool hc_episode(const uint8_t* s, int mflimit, int& ip, int& anchor,
+                                           Out& o, Search& search) {
+  int ml, ml0, ml2, ml3, ref, ref0, ref2, ref3, start0, start2, start3;
+  {
+    int ms = ip, mp = -1;
+    ml = search(ip, ip, kMinMatch - 1, ms, mp);
+    if (Search::kCanStop && ml < 0) return false;
+    if (ml < kMinMatch) {
+      ++ip;
+      return true;
+    }
+    ref = mp;
+  }
+  start0 = ip;
+  ref0 = ref;
+  ml0 = ml;
+
+search2:
+  if (ip + ml <= mflimit) {
+    start2 = ip + ml - 2;
+    ref2 = -1;
+    ml2 = search(start2, ip, ml, start2, ref2);
+    if (Search::kCanStop && ml2 < 0) return false;
+  } else {
+    ml2 = ml;
+  }
+  if (ml2 == ml) {  // no better overlap: emit ML1
+    emit(o, s, anchor, ip - anchor, ip - ref, ml);
+    ip += ml;
+    anchor = ip;
+    return true;
+  }
+  if (start0 < ip && start2 < ip + ml0) {  // the skipped ML1 still fits: restore it
+    ip = start0;
+    ref = ref0;
+    ml = ml0;
+  }
+  if (start2 - ip < 3) {  // ML1 too short to keep: ML2 replaces it
+    ml = ml2;
+    ip = start2;
+    ref = ref2;
+    goto search2;
+  }
+
+search3:
+  if (start2 - ip < kOptimalMl) {  // trim ML1 so the pair packs token-optimally
+    int new_ml = ml > kOptimalMl ? kOptimalMl : ml;
+    if (ip + new_ml > start2 + ml2 - kMinMatch) new_ml = (start2 - ip) + ml2 - kMinMatch;
+    const int corr = new_ml - (start2 - ip);
+    if (corr > 0) {
+      start2 += corr;
+      ref2 += corr;
+      ml2 -= corr;
+    }
+  }
+  if (start2 + ml2 <= mflimit) {
+    start3 = start2 + ml2 - 3;
+    ref3 = -1;
+    ml3 = search(start3, start2, ml2, start3, ref3);
+    if (Search::kCanStop && ml3 < 0) return false;
+  } else {
+    ml3 = ml2;
+  }
+  if (ml3 == ml2) {  // stable pair: emit ML1 then ML2
+    if (start2 < ip + ml) ml = start2 - ip;
+    emit(o, s, anchor, ip - anchor, ip - ref, ml);
+    anchor = ip + ml;
+    emit(o, s, anchor, start2 - anchor, start2 - ref2, ml2);
+    ip = start2 + ml2;
+    anchor = ip;
+    return true;
+  }
+  if (start3 < ip + ml + 3) {  // ML3 kills ML2
+    if (start3 >= ip + ml) {   // ML1 can go now; ML3 becomes the new ML1
       if (start2 < ip + ml) {
-        if (start2 - ip < kOptimalMl) {
-          if (ml > kOptimalMl) ml = kOptimalMl;
-          if (ip + ml > start2 + ml2 - kMinMatch) ml = (start2 - ip) + ml2 - kMinMatch;
-          const int corr = ml - (start2 - ip);
-          if (corr > 0) {
-            start2 += corr;
-            ref2 += corr;
-            ml2 -= corr;
-          }
-        } else {
-          ml = start2 - ip;
+        const int corr = (ip + ml) - start2;
+        start2 += corr;
+        ref2 += corr;
+        ml2 -= corr;
+        if (ml2 < kMinMatch) {
+          start2 = start3;
+          ref2 = ref3;
+          ml2 = ml3;
         }
       }
       emit(o, s, anchor, ip - anchor, ip - ref, ml);
       anchor = ip + ml;
-      ip = start2;
-      ref = ref2;
-      ml = ml2;
-      start2 = start3;
-      ref2 = ref3;
-      ml2 = ml3;
-      goto search3;
+      ip = start3;
+      ref = ref3;
+      ml = ml3;
+      start0 = start2;
+      ref0 = ref2;
+      ml0 = ml2;
+      goto search2;
+    }
+    start2 = start3;
+    ref2 = ref3;
+    ml2 = ml3;
+    goto search3;
+  }
+  // three ascending matches: emit ML1 (trimmed), shift the window
+  if (start2 < ip + ml) {
+    if (start2 - ip < kOptimalMl) {
+      if (ml > kOptimalMl) ml = kOptimalMl;
+      if (ip + ml > start2 + ml2 - kMinMatch) ml = (start2 - ip) + ml2 - kMinMatch;
+      const int corr = ml - (start2 - ip);
+      if (corr > 0) {
+        start2 += corr;
+        ref2 += corr;
+        ml2 -= corr;
+      }
+    } else {
+      ml = start2 - ip;
+    }
+  }
+  emit(o, s, anchor, ip - anchor, ip - ref, ml);
+  anchor = ip + ml;
+  ip = start2;
+  ref = ref2;
+  ml = ml2;
+  start2 = start3;
+  ref2 = ref3;
+  ml2 = ml3;
+  goto search3;
+}
+
+// The HC arm's parse of a row: episodes from src_off until the last match
+// position, then the final literals.  search.begin(ip) is called where each
+// episode starts.
+template <class Search>
+__device__ void hc_parse(const uint8_t* s, int src_off, int n, Sink& o, Search& search) {
+  int anchor = src_off;
+  if (n - src_off >= kMfLimit + 1) {
+    const int mflimit = n - kMfLimit;
+    int ip = src_off;
+    while (ip <= mflimit) {
+      search.begin(ip);
+      hc_episode(s, mflimit, ip, anchor, o, search);
     }
   }
   emit(o, s, anchor, n - anchor, 0, 0);
+}
+
+// The HC arm over the ring: every prefix position inserted, then the parse
+// with the ring's search (`attempts` chain steps per search).
+__device__ void hc_scan(const uint8_t* s, int src_off, int n, int attempts, Sink& o,
+                        int* head, uint16_t* delta) {
+  Chain c{s, head, delta, 0, n - kMinMatch + 1, n - kLastLiterals, attempts};
+  if (n - src_off >= kMfLimit + 1) chain_insert(c, src_off);
+  ChainSearch<Chain> search{c, attempts > 128};
+  hc_parse(s, src_off, n, o, search);
 }
 
 __device__ __forceinline__ int lit_price(int litlen) {

@@ -6,8 +6,9 @@ The port of `lz4_tpu/ops/encode_pallas5.py` (`pallas_encode5`, wrapper
 D (`csrc/encode_stream.cu`) with the rows as its windows: at levels 0-2 its
 FAST scan, one warp per row (the canonical byU16 schedule of
 LZ4_compress_default, or the dense 15-bit schedule); at levels 3-9 its HC
-arm and at 10-12 its OPT arm (`encode_stream.encode_windows_hc`/`_opt`;
-plain versions in `ops/encode_hc.py`).  The FAST scans' plain versions
+arm and at 10-12 its OPT arm (`encode_stream.encode_windows_hc`/`_opt`:
+on the card levels 3-9 and 12 as passes; plain versions in
+`ops/encode_hc.py`).  The FAST scans' plain versions
 live here: the serial scans (`_encode_canonical`, `_encode_dense`), the
 reference, and the kernel's batched probe search (`_encode_canonical_warp`,
 `_encode_dense_warp`: 32 probes a step, the table's writes inside a step
@@ -446,9 +447,9 @@ def encode_blocks(bufs_u8, lens, bcap: int, level: int = 0,
     bufs_u8: uint8 [B, CAP >= bcap], row b's bytes at [0, lens[b]).  Levels
     0-2 run the FAST arm ("canonical": byte-identical to
     LZ4_compress_default; "dense": the 15-bit finder), levels 3-9 the HC arm
-    and 10 and up the OPT arm (above 12 as 12), both on kernel D's HC/OPT
-    kernel with the rows as its windows (counted in
-    `encode_stream.encode_windows_hc`/`_opt`); ``acceleration`` and
+    and 10 and up the OPT arm (above 12 as 12), with the rows as kernel
+    D's windows (`encode_stream.encode_windows_hc`/`_opt`, which say where
+    each level's launches are counted); ``acceleration`` and
     ``fast_schedule`` act at the FAST levels only.  ``bcap`` > 65536 raises
     ValueError (kernel D, `ops.encode_stream`, takes those).
 

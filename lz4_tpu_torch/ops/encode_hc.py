@@ -6,7 +6,9 @@ The port's own copy of the JAX package's host oracle
 which the TPU kernel `pallas_encode5` reproduces byte for byte: a hash-chain
 finder over a u16 delta ring (wider match with backward extension,
 repeated-pattern acceleration, chain swap), the ML1/ML2/ML3 lookahead parse
-and the price-model optimal parse over 4,096-position windows.  Every
+in episodes (`hc_episode`, each over a search it is handed, as the HC
+passes of `encode_hc_passes` replay it) and the price-model optimal parse
+over 4,096-position windows.  Every
 function works over a flat window s = [prefix | block]: the prefix
 s[:src_off] (a dictionary, or the 64 KB of a chained frame before the block)
 enters the chain through the normal insert, and matches may reach it.  As in
@@ -66,6 +68,7 @@ class ChainFinder:
 
     mask = 0xFFFF  # a search reads delta[q & mask]
     budget = 1 << 62  # the work after which a search gives up (`wider_match`)
+    steps = 0  # chain steps of every search so far
 
     def __init__(self, s, match_limit: int, max_attempts: int):
         self.s = s
@@ -124,6 +127,7 @@ class ChainFinder:
             if work > budget:
                 return -1 - longest, ip, -1
             work += 1
+            self.steps += 1
             match_len = 0
             attempts -= 1
             # quick reject: the two bytes that would extend the best must match
@@ -225,108 +229,142 @@ class ChainFinder:
         return longest, m_start, m_pos
 
 
-def encode_hc(s: bytes, src_off: int, attempts: int) -> bytearray:
-    """The HC arm: the 3-candidate (ML1/ML2/ML3) lookahead parse of
-    s[src_off:] with ``attempts`` chain steps per search; pattern analysis
-    from 256 attempts (level 9) up."""
+def _no_emit(out, s, anchor, ll, off, ml):
+    pass
+
+
+def hc_episode(s, ip: int, anchor: int, mf_limit: int, search, out):
+    """One episode of the HC arm (`csrc/lz4_hc_body.cuh` hc_episode): the
+    3-candidate (ML1/ML2/ML3) lookahead parse from ``ip``.  A first search
+    at ip; on a match ML1, probe for a strictly longer ML2 overlapping it,
+    then an ML3 beyond ML2, resolving the overlaps with the OPTIMAL_ML trim
+    rules, until the sequences are emitted to ``out`` (None: nowhere).
+
+    ``search(ip, ilow, longest)`` is the widest-match search, (length,
+    m_start, m_pos) with m_start = ip and m_pos = -1 when nothing beat
+    ``longest``, or None, which ends the episode where it stands.  What an
+    episode searches depends only on the window, ip and those answers.
+    Returns (ip, anchor) where the parse goes on, or None."""
+    put = emit if out is not None else _no_emit
+    got = search(ip, ip, MIN_MATCH - 1)
+    if got is None:
+        return None
+    ml, _, ref = got
+    if ml < MIN_MATCH:
+        return ip + 1, anchor
+    start0, ref0, ml0 = ip, ref, ml
+    state = 2
+    ml2 = ml3 = start2 = ref2 = start3 = ref3 = 0
+    while True:
+        if state == 2:
+            if ip + ml <= mf_limit:
+                got = search(ip + ml - 2, ip, ml)
+                if got is None:
+                    return None
+                ml2, start2, ref2 = got
+            else:
+                ml2 = ml
+            if ml2 == ml:  # no better overlap: emit ML1
+                put(out, s, anchor, ip - anchor, ip - ref, ml)
+                return ip + ml, ip + ml
+            if start0 < ip and start2 < ip + ml0:
+                # the skipped original ML1 still fits before ML2
+                ip, ref, ml = start0, ref0, ml0
+            if start2 - ip < 3:  # ML1 too short to keep
+                ml, ip, ref = ml2, start2, ref2
+                continue
+            state = 3
+            continue
+        # state 3
+        if start2 - ip < OPTIMAL_ML:
+            new_ml = min(ml, OPTIMAL_ML)
+            if ip + new_ml > start2 + ml2 - MIN_MATCH:
+                new_ml = (start2 - ip) + ml2 - MIN_MATCH
+            corr = new_ml - (start2 - ip)
+            if corr > 0:
+                start2 += corr
+                ref2 += corr
+                ml2 -= corr
+        if start2 + ml2 <= mf_limit:
+            got = search(start2 + ml2 - 3, start2, ml2)
+            if got is None:
+                return None
+            ml3, start3, ref3 = got
+        else:
+            ml3 = ml2
+        if ml3 == ml2:  # stable pair: emit ML1 then ML2
+            if start2 < ip + ml:
+                ml = start2 - ip
+            put(out, s, anchor, ip - anchor, ip - ref, ml)
+            anchor = ip + ml
+            put(out, s, anchor, start2 - anchor, start2 - ref2, ml2)
+            return start2 + ml2, start2 + ml2
+        if start3 < ip + ml + 3:  # ML3 kills ML2
+            if start3 >= ip + ml:
+                # ML1 can be emitted now; ML3 becomes the new ML1
+                if start2 < ip + ml:
+                    corr = (ip + ml) - start2
+                    start2 += corr
+                    ref2 += corr
+                    ml2 -= corr
+                    if ml2 < MIN_MATCH:
+                        start2, ref2, ml2 = start3, ref3, ml3
+                put(out, s, anchor, ip - anchor, ip - ref, ml)
+                anchor = ip + ml
+                ip, ref, ml = start3, ref3, ml3
+                start0, ref0, ml0 = start2, ref2, ml2
+                state = 2
+                continue
+            start2, ref2, ml2 = start3, ref3, ml3
+            continue
+        # three ascending matches: emit ML1 (trimmed), shift the window
+        if start2 < ip + ml:
+            if start2 - ip < OPTIMAL_ML:
+                ml = min(ml, OPTIMAL_ML)
+                if ip + ml > start2 + ml2 - MIN_MATCH:
+                    ml = (start2 - ip) + ml2 - MIN_MATCH
+                corr = ml - (start2 - ip)
+                if corr > 0:
+                    start2 += corr
+                    ref2 += corr
+                    ml2 -= corr
+            else:
+                ml = start2 - ip
+        put(out, s, anchor, ip - anchor, ip - ref, ml)
+        anchor = ip + ml
+        ip, ref, ml = start2, ref2, ml2
+        start2, ref2, ml2 = start3, ref3, ml3
+
+
+def hc_parse_row(s, src_off: int, episode_search) -> bytearray:
+    """The HC arm's parse of s[src_off:]: episodes (`hc_episode`) from
+    src_off until the last match position, then the final literals.
+    ``episode_search(ip)`` gives the search of the episode at ip, one that
+    never ends it."""
     n = len(s)
     out = bytearray()
     anchor = ip = src_off
     if n - src_off >= MF_LIMIT + 1:
-        pa = attempts > 128
         mf_limit = n - MF_LIMIT
-        finder = ChainFinder(s, n - LAST_LITERALS, attempts)
-        finder.insert_upto(src_off)
         while ip <= mf_limit:
-            ml, _, ref = finder.wider_match(ip, ip, MIN_MATCH - 1, pa)
-            if ml < MIN_MATCH or ref < 0:
-                ip += 1
-                continue
-            start0, ref0, ml0 = ip, ref, ml
-            state = 2
-            ml2 = ml3 = start2 = ref2 = start3 = ref3 = 0
-            while True:
-                if state == 2:
-                    if ip + ml <= mf_limit:
-                        ml2, start2, p2 = finder.wider_match(ip + ml - 2, ip, ml, pa)
-                        if p2 >= 0:
-                            ref2 = p2
-                    else:
-                        ml2 = ml
-                    if ml2 == ml:  # no better overlap: emit ML1
-                        emit(out, s, anchor, ip - anchor, ip - ref, ml)
-                        ip += ml
-                        anchor = ip
-                        break
-                    if start0 < ip and start2 < ip + ml0:
-                        # the skipped original ML1 still fits before ML2
-                        ip, ref, ml = start0, ref0, ml0
-                    if start2 - ip < 3:  # ML1 too short to keep
-                        ml, ip, ref = ml2, start2, ref2
-                        continue
-                    state = 3
-                    continue
-                # state 3
-                if start2 - ip < OPTIMAL_ML:
-                    new_ml = min(ml, OPTIMAL_ML)
-                    if ip + new_ml > start2 + ml2 - MIN_MATCH:
-                        new_ml = (start2 - ip) + ml2 - MIN_MATCH
-                    corr = new_ml - (start2 - ip)
-                    if corr > 0:
-                        start2 += corr
-                        ref2 += corr
-                        ml2 -= corr
-                if start2 + ml2 <= mf_limit:
-                    ml3, start3, p3 = finder.wider_match(start2 + ml2 - 3, start2, ml2, pa)
-                    if p3 >= 0:
-                        ref3 = p3
-                else:
-                    ml3 = ml2
-                if ml3 == ml2:  # stable pair: emit ML1 then ML2
-                    if start2 < ip + ml:
-                        ml = start2 - ip
-                    emit(out, s, anchor, ip - anchor, ip - ref, ml)
-                    anchor = ip + ml
-                    emit(out, s, anchor, start2 - anchor, start2 - ref2, ml2)
-                    ip = anchor = start2 + ml2
-                    break
-                if start3 < ip + ml + 3:  # ML3 kills ML2
-                    if start3 >= ip + ml:
-                        # ML1 can be emitted now; ML3 becomes the new ML1
-                        if start2 < ip + ml:
-                            corr = (ip + ml) - start2
-                            start2 += corr
-                            ref2 += corr
-                            ml2 -= corr
-                            if ml2 < MIN_MATCH:
-                                start2, ref2, ml2 = start3, ref3, ml3
-                        emit(out, s, anchor, ip - anchor, ip - ref, ml)
-                        anchor = ip + ml
-                        ip, ref, ml = start3, ref3, ml3
-                        start0, ref0, ml0 = start2, ref2, ml2
-                        state = 2
-                        continue
-                    start2, ref2, ml2 = start3, ref3, ml3
-                    continue
-                # three ascending matches: emit ML1 (trimmed), shift the window
-                if start2 < ip + ml:
-                    if start2 - ip < OPTIMAL_ML:
-                        ml = min(ml, OPTIMAL_ML)
-                        if ip + ml > start2 + ml2 - MIN_MATCH:
-                            ml = (start2 - ip) + ml2 - MIN_MATCH
-                        corr = ml - (start2 - ip)
-                        if corr > 0:
-                            start2 += corr
-                            ref2 += corr
-                            ml2 -= corr
-                    else:
-                        ml = start2 - ip
-                emit(out, s, anchor, ip - anchor, ip - ref, ml)
-                anchor = ip + ml
-                ip, ref, ml = start2, ref2, ml2
-                start2, ref2, ml2 = start3, ref3, ml3
+            ip, anchor = hc_episode(s, ip, anchor, mf_limit, episode_search(ip), out)
     emit(out, s, anchor, n - anchor, 0, 0)
     return out
+
+
+def encode_hc(s: bytes, src_off: int, attempts: int) -> bytearray:
+    """The HC arm: the 3-candidate (ML1/ML2/ML3) lookahead parse of
+    s[src_off:] with ``attempts`` chain steps per search over the ring;
+    pattern analysis from 256 attempts (level 9) up."""
+    finder = ChainFinder(s, len(s) - LAST_LITERALS, attempts)
+    if len(s) - src_off >= MF_LIMIT + 1:
+        finder.insert_upto(src_off)
+    pa = attempts > 128
+
+    def search(ip, ilow, longest):
+        return finder.wider_match(ip, ilow, longest, pa)
+
+    return hc_parse_row(s, src_off, lambda ip: search)
 
 
 def _lit_price(litlen: int) -> int:

@@ -10,7 +10,8 @@ the dense one.  Kernel B's FAST rows (`ops.encode.encode_blocks`) run on
 the same launcher (`launch_fast`).
 Levels 3-9 run the HC arm and 10-12 the OPT arm (`encode_windows_hc`, plain
 versions in `ops/encode_hc.py`), every prefix inserted into the chain; on
-the card level 12 runs as the three passes of `ops/encode_opt.py`.
+the card levels 3-9 run as the three passes of `ops/encode_hc_passes.py`
+and level 12 as those of `ops/encode_opt.py`.
 The kernel reads each row as a window of one flat byte tensor, so the
 chained-frame path (`parallel.blocks.encode_blocks_chained_device`) hands
 it the payload itself, each block's 64 KB window in place before it.  The
@@ -31,6 +32,7 @@ from .encode import (
     _encode_canonical, _encode_dense, _outputs, clip_acceleration, pack_rows,
 )
 from .encode_hc import encode_row, level_arm
+from .encode_hc_passes import encode_windows_hc_passes
 from .encode_opt import encode_windows_full
 
 WINDOW = 65536  # the most a prefix can hold: LZ4's farthest match offset + 1
@@ -203,9 +205,10 @@ def launch_fast(base_u8, starts, src_offs, lens, bcap: int, accel: int,
 
 def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm,
                         passes=True):
-    """Kernel D's HC or OPT arm (``arm``) on a batch of windows, level 12
-    and up as `encode_windows_full`'s passes unless ``passes`` is False; the
-    plain version on the CPU."""
+    """Kernel D's HC or OPT arm (``arm``) on a batch of windows, levels 3-9
+    as `encode_windows_hc_passes`' passes and 12 and up as
+    `encode_windows_full`'s unless ``passes`` is False; the plain version on
+    the CPU."""
     if level_arm(level)[0] != arm:
         raise ValueError(f"level {level} does not run the {arm.upper()} arm")
     base, st, so, ln, _, _ = _validate_windows(
@@ -214,7 +217,9 @@ def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm,
     if base.device.type != "cuda":
         return encode_windows_plain(base, st, so, ln, bcap, level)
     _, depth, sufficient, full = level_arm(level)
-    if full and passes:
+    if passes and arm == "hc":
+        return encode_windows_hc_passes(base, st, so, ln, bcap, level)
+    if passes and full:
         return encode_windows_full(base, st, so, ln, bcap, level)
     base = base.contiguous()
     nb, dev = st.shape[0], base.device
@@ -248,9 +253,20 @@ def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm,
 
 def encode_windows_hc(base_u8, starts, src_offs, lens, bcap: int,
                       level: int = 9):
-    """`encode_windows` at levels 3-9: kernel D's HC arm on a CUDA tensor
-    (one launch, counted here), the plain version on a CPU tensor."""
+    """`encode_windows` at levels 3-9: on a CUDA tensor the three passes of
+    `encode_hc_passes.encode_windows_hc_passes` (counted there); a CPU
+    tensor runs the plain version, the serial parse of
+    `encode_hc.encode_hc`, which gives the passes' bytes."""
     return _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, "hc")
+
+
+def encode_windows_hc_serial(base_u8, starts, src_offs, lens, bcap: int,
+                             level: int = 9):
+    """Kernel D's serial HC arm at levels 3-9: the card's reference for the
+    HC passes (one launch, counted in `encode_windows_hc.launches`); the
+    plain version on a CPU tensor."""
+    return _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level,
+                               "hc", passes=False)
 
 
 def encode_windows_opt(base_u8, starts, src_offs, lens, bcap: int,

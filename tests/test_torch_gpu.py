@@ -12,7 +12,9 @@ import torch
 import chip_smoke
 from lz4_tpu_torch import frame
 from lz4_tpu_torch.frame.api import _scan_single_frame
-from lz4_tpu_torch.ops import decode, decode_stream, encode, encode_opt, encode_stream, xxh32
+from lz4_tpu_torch.ops import (
+    decode, decode_stream, encode, encode_hc_passes, encode_opt, encode_stream, xxh32,
+)
 from lz4_tpu_torch.parallel.blocks import comp_capacity
 
 pytestmark = pytest.mark.gpu
@@ -330,6 +332,44 @@ def test_opt_passes_equal_the_serial_arm(budget, cuda):
     got = encode_opt.opt_parse(base_d, st, so, ln, prev, matches, BLOCK)
     _equal(got, encode_stream.encode_windows_opt_serial(base_d, st, so, ln, BLOCK, 12))
     _equal(got, encode_stream.encode_windows(base_d, st, so, ln, BLOCK, 12))
+
+
+def test_hc_passes_match_plain(cuda):
+    """Each HC pass at level 9 against its plain version on the kernel's
+    own output of the pass before, one launch each (the level 12 passes'
+    rows: chained windows, the mix, short rows and long repeats)."""
+    base, st, so, ln = _opt_rows()
+    before = _launches(9)
+    prev = encode_opt.opt_chain(base.to(cuda), st, ln)
+    tables = encode_hc_passes.hc_episodes(base.to(cuda), st, so, ln, prev)
+    got = encode_hc_passes.hc_parse(base.to(cuda), st, so, ln, prev, tables, BLOCK)
+    torch.cuda.synchronize()
+    assert _launches(9) == [n + 1 for n in before]
+    prev_h, tables_h = prev.cpu(), tuple(t.cpu() for t in tables)
+    _equal(tables_h, encode_hc_passes.hc_episodes_plain(base, st, so, ln, prev_h))
+    _equal(got, encode_hc_passes.hc_parse_plain(base, st, so, ln, prev_h, tables_h, BLOCK))
+    assert int((tables_h[0][:, 0] < -1).sum()) > 0  # the repeats gave up
+
+
+@pytest.mark.parametrize("level", [3, 9])
+@pytest.mark.parametrize("slots,budget", [(1, 0), (encode_hc_passes.SLOTS, 1 << 16)])
+def test_hc_passes_equal_the_serial_arm(level, slots, budget, cuda):
+    """The passes' output equals kernel D's serial HC arm, with every
+    search made on the spot by the parse (one slot, budget 0) or read from
+    the tables, and `encode_windows` runs the passes."""
+    base, st, so, ln = _opt_rows()
+    base_d = base.to(cuda)
+    depth = 4 if level == 3 else 256
+    prev = encode_opt.opt_chain(base_d, st, ln)
+    tables = encode_hc_passes.hc_episodes(base_d, st, so, ln, prev, depth, slots,
+                                          budget=budget, first_budget=budget)
+    got = encode_hc_passes.hc_parse(base_d, st, so, ln, prev, tables, BLOCK, depth)
+    serial0 = encode_stream.encode_windows_hc.launches
+    want = encode_stream.encode_windows_hc_serial(base_d, st, so, ln, BLOCK, level)
+    assert encode_stream.encode_windows_hc.launches == serial0 + 1
+    _equal(got, want)
+    _equal(encode_stream.encode_windows(base_d, st, so, ln, BLOCK, level), want)
+    assert encode_stream.encode_windows_hc.launches == serial0 + 1
 
 
 @pytest.mark.parametrize("level", [9, 12])

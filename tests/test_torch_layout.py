@@ -16,7 +16,7 @@ import torch
 
 import lz4_tpu_torch
 from lz4_tpu_torch import block, frame, parallel
-from lz4_tpu_torch.ops import build, decode, decode_stream, encode, encode_stream
+from lz4_tpu_torch.ops import build, decode, decode_stream, encode, encode_hc_passes, encode_stream
 from lz4_tpu_torch.parallel import blocks
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -30,6 +30,7 @@ def test_import_without_jax_or_the_jax_package():
         "import lz4_tpu_torch.ops.encode, lz4_tpu_torch.ops.decode\n"
         "import lz4_tpu_torch.ops.encode_stream, lz4_tpu_torch.ops.decode_stream\n"
         "import lz4_tpu_torch.ops.encode_hc, lz4_tpu_torch.ops.xxh32\n"
+        "import lz4_tpu_torch.ops.encode_hc_passes\n"
         "import lz4_tpu_torch.block\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'lz4_tpu' or m.startswith('lz4_tpu.')]\n"
@@ -115,11 +116,14 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     lens = torch.tensor([data.size], dtype=torch.int32)
     e0, d0 = encode.encode_blocks.launches, decode.decode_blocks.launches
     h0, o0 = encode_stream.encode_windows_hc.launches, encode_stream.encode_windows_opt.launches
-    for level in (9, 12):
+    passes = [encode_hc_passes.hc_episodes, encode_hc_passes.hc_parse]
+    p0 = [f.launches for f in passes]
+    for level in (3, 9, 12):
         hc = encode.encode_blocks(bufs, lens, 64, level)
         assert hc[0].device.type == "cpu" and int(hc[2][0]) == 0
     assert encode_stream.encode_windows_hc.launches == h0
     assert encode_stream.encode_windows_opt.launches == o0
+    assert [f.launches for f in passes] == p0
     out, clens, errs = encode.encode_blocks(bufs, lens, 64)
     comps = torch.zeros((1, 128), dtype=torch.uint8)
     comps[0, : int(clens[0])] = out[0, : int(clens[0])]
@@ -225,7 +229,7 @@ def _c_signatures():
 
 
 @pytest.mark.parametrize("module", ["decode", "decode_stream", "encode_stream",
-                                    "encode_opt", "xxh32"])
+                                    "encode_opt", "encode_hc_passes", "xxh32"])
 def test_bindings_match_the_c_signatures(module, monkeypatch):
     """Every argtypes list a wrapper sets holds one entry per parameter of
     its C entry point, of the same kind: ctypes passes an argument past
