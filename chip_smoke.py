@@ -381,17 +381,19 @@ def phase_decode(streams, rng, dev):
     return worst
 
 
-def _round_trips(data: bytes, settings, dev, counts, kernels=()):
+def _round_trips(data: bytes, settings, dev, counts, kernels=(), idle=()):
     """Three timed compress + decompress runs of one path, the launch
     counts set to 0 just before the first and read just after it: each
-    wrapper's in `counts`, and kernel A's kernels named in ``kernels``
-    (`decode.kernel_launches`)."""
+    wrapper's in `counts` and in ``idle``, and kernel A's kernels named in
+    ``kernels`` (`decode.kernel_launches`).  Each count of `counts` and
+    ``kernels`` must be above 0, each of ``idle`` (a reference the path
+    must not launch) 0."""
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.ops import decode
 
     warm = frame.compress(data[:4 * BLOCK], settings, device=dev)
     _require(frame.decompress(warm, device=dev) == data[:4 * BLOCK], "warm-up round trip")
-    for fn in counts:
+    for fn in (*counts, *idle):
         fn.launches = 0
     for k in decode.kernel_launches:
         decode.kernel_launches[k] = 0
@@ -405,11 +407,15 @@ def _round_trips(data: bytes, settings, dev, counts, kernels=()):
         if launches is None:
             launches = {fn.__name__: fn.launches for fn in counts}
             launches.update({k: decode.kernel_launches[k] for k in kernels})
+            unused = {fn.__name__: fn.launches for fn in idle}
         _require(back == data, "round trip is not exact")
         _require(blob is None or b == blob, "compress is not deterministic")
         blob = b
     for name, n in launches.items():
         _require(n > 0, f"path never launched {name}")
+    for name, n in unused.items():
+        _require(n == 0, f"path launched {name}, which it must not run, {n} times")
+    launches.update(unused)
     c_s = sorted(t[0] for t in times)[1]
     d_s = sorted(t[1] for t in times)[1]
     return launches, {
@@ -1689,6 +1695,14 @@ def _hc_counts(level: int):
     return [encode_opt.opt_chain, encode_hc_passes.hc_episodes, encode_hc_passes.hc_parse]
 
 
+def _hc_idle(level: int):
+    """The wrappers a level's encode must not launch: at levels 3-9 the
+    serial HC arm (`encode_windows_hc` counts only that reference)."""
+    from lz4_tpu_torch.ops import encode_stream
+
+    return [encode_stream.encode_windows_hc] if level <= 9 else []
+
+
 def phase_hc_paths(data: bytes, dev):
     """The HC/OPT round trips of 16 MiB at levels 9, 10 and 12."""
     from lz4_tpu_torch import frame
@@ -1702,7 +1716,8 @@ def phase_hc_paths(data: bytes, dev):
     ):
         dec = decode_stream.decode_chain if chained else decode.decode_blocks
         settings = frame.EncoderSettings(compression_level=level, chain_blocks=chained)
-        counts, rates = _round_trips(data, settings, dev, _hc_counts(level) + [dec])
+        counts, rates = _round_trips(data, settings, dev, _hc_counts(level) + [dec],
+                                     idle=_hc_idle(level))
         launches[name] = counts
         e2e[name] = rates
         print(f"[hc paths] {name}: {len(data)} bytes -> {rates['frame_bytes']} "
@@ -1868,8 +1883,8 @@ def phase_hc_times(data: bytes, dev):
                 "library_ms": None}
             if arm == "hc":
                 serial_l9[path] = got
-                entry["role"] = ("the serial reference of the HC passes: no path "
-                                 "runs it, so it launches 0 times on the L9 paths")
+                entry["role"] = ("the serial reference of the HC passes: its count, "
+                                 "read around the L9 path's run, must be 0")
             else:
                 # the serial arm at level 12, the passes' reference
                 entry["ms_L12"] = _cuda_ms(lambda: encode_stream.encode_windows_opt_serial(
@@ -1979,23 +1994,31 @@ def phase_cli_hc(data: bytes, dev, pool):
     blocks held byte for byte to the serial HC arm's output on the same
     rows (timed once); the passes timed on those rows (CUDA events between
     them), the parse held to its plain version on the first row (text, the
-    slowest: its counts give the step bound) and each pass on 256 KB of a
-    row of runs and of noise, as rows of their own (the plain episode pass
-    over a 4 MiB row would take an hour).  Returns the launches, the rates,
+    most searches made on the spot) and the last (noise, the most
+    episodes): the step bound is the slower of the two; each pass on 256 KB
+    of a row of runs and of noise, as rows of their own (the plain episode
+    pass over a 4 MiB row would take an hour).  The device memory one
+    compress allocates at its peak, beside the HC passes' tables
+    (`encode_hc_passes.table_bytes`).  Returns the launches, the rates,
     the `kernels` entries and a summary."""
     import torch
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.frame.api import _scan_single_frame
-    from lz4_tpu_torch.ops import decode, encode_stream, xxh32
+    from lz4_tpu_torch.ops import decode, encode_hc_passes, encode_stream, xxh32
     from lz4_tpu_torch.parallel.blocks import split_blocks
 
     settings = _cli_hc()
     launches, e2e = _round_trips(data, settings, dev,
                                  _hc_counts(9) + [decode.decode_blocks, xxh32.xxh32_windows],
-                                 ROW_PASSES)
+                                 ROW_PASSES, idle=_hc_idle(9))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_before = torch.cuda.memory_allocated(dev)
     blob = frame.compress(data, settings, device=dev)
+    peak = torch.cuda.max_memory_allocated(dev) - held_before
     size = CLI_BLOCK
     bufs, lens = split_blocks(data, size)
+    tables = sum(encode_hc_passes.table_bytes(int(n), int(n)) for n in lens)
     nb = bufs.shape[0]
     rows = (bufs.reshape(-1), torch.arange(nb, dtype=torch.int64) * bufs.shape[1],
             torch.zeros(nb, dtype=torch.int32), lens)
@@ -2022,14 +2045,18 @@ def phase_cli_hc(data: bytes, dev, pool):
     cut = size // 16
     held = (rows[0], torch.cat([rows[1], rows[1][[nb * 3 // 4 - 1, nb - 1]]]),
             torch.cat([rows[2], rows[2][:2]]), torch.cat([lens, torch.tensor([cut, cut])]))
-    finish = hold_hc_passes(*held, size, [nb, nb + 1], dev, pool, parse_picks=[0])
+    finish = hold_hc_passes(*held, size, [nb, nb + 1], dev, pool, parse_picks=[0, nb - 1])
     summary = {"pass_ms": pass_ms, "passes_ms": sum(pass_ms.values()),
                "serial_ms": serial_ms, "rows_equal_to_serial": nb,
-               "frame_equal_to_serial": True}
+               "frame_equal_to_serial": True, "hc_table_bytes": tables,
+               "hc_table_bytes_per_payload_byte": tables / len(data),
+               "compress_peak_allocated_bytes": peak,
+               "compress_peak_per_payload_byte": peak / len(data),
+               "group_budget_bytes": encode_hc_passes.group_budget(dev)}
     held_bytes = 2 * cut
     summary.update(settle_hc_entries(entries, finish, {
         "opt_chain": len(data) / held_bytes, "hc_episodes": len(data) / held_bytes,
-        "hc_parse": len(data) / (held_bytes + int(lens[0]))}, clock))
+        "hc_parse": len(data) / (held_bytes + int(lens[0]) + int(lens[nb - 1]))}, clock))
     print(f"[lz4 -9] {len(data)} bytes -> {e2e['frame_bytes']} bytes (ratio "
           f"{len(data) / e2e['frame_bytes']:.4f}), round trip exact, deterministic, "
           f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
@@ -2037,7 +2064,8 @@ def phase_cli_hc(data: bytes, dev, pool):
           + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
           + f" ms, the serial HC arm {serial_ms:.1f} ms on the same {nb} rows, "
           f"every block of the frame equal to its output; each pass equal to its "
-          f"plain version (the parse on the first row)")
+          f"plain version (the parse on the first and last rows); a compress "
+          f"allocates {peak} bytes at its peak, the HC tables {tables}")
     return launches, e2e, entries, summary
 
 
@@ -2311,7 +2339,7 @@ def main(argv=None) -> int:
     hc_launches["lz4_9"] = cli_hc_launches
     for k in hc_kernels + cli_hc_kernels:  # the serial HC arm: 0 on the L9 paths
         fn = k["name"].split(":")[0]
-        k["launches"] = hc_launches[k.pop("path")].get(fn, 0)
+        k["launches"] = hc_launches[k.pop("path")][fn]
         k["max_abs_err"] = max(k["max_abs_err"], hc_err[k.pop("held")].get(fn, 0))
     kernels += hc_kernels + cli_hc_kernels
     print(json.dumps({"hc9": hc_times["L9"], "opt12": hc_times["L12"]}))

@@ -1,34 +1,47 @@
 #!/usr/bin/env python3
-"""The HC passes (levels 3-9) on one card at level 9: searches kept per
-episode, the parse by kind of data, and the parse with every search made
-on the spot against the serial HC arm.
+"""The measurements behind the HC passes (levels 3-9): on one card at
+level 9, searches kept per episode, the parse by kind of data, and the
+parse with every search made on the spot against the serial HC arm; with
+``--host``, where the plain parses spend their search time.
 
-    python3 hc9bench.py [--seed 1] [--root DIR]
+    python3 hc9bench.py [--seed 1]
+    python3 hc9bench.py --host [--seed 0] [--rows 4]
 
 Payloads as kernel D's windows: 16 MiB of the bench mix
 (`chip_smoke.make_corpus`, the seed chip_smoke.py's level 9 paths use) as
 256 independent 64 KB rows and as 256 chained windows, and 64 MiB (seed 0,
 chip_smoke.py's `lz4 -9` payload) as 16 independent rows of 4 MiB.  For
 each number of slots (`encode_hc_passes.hc_episodes`; 8, 10 and 12 on the 4
-MiB rows, each batch one group of rows) each pass's time (CUDA events between the passes, after a warm-up
+MiB rows) each pass's time (CUDA events between the passes, after a warm-up
 call on the 64 KB rows) and the output, equal to the serial HC arm's
 (timed too); the parse pass's time on each quarter of the rows (the mix's
 four kinds of data); and the parse with one slot and a budget of 0 (every
 search given up to the parse, which makes it on the spot over the tables)
 beside the serial arm on the same rows, which makes the same searches over
 its ring (on the 4 MiB rows: their first MiB each, as rows of their
-own).  ``--root`` imports `lz4_tpu_torch` and `chip_smoke` from another
-tree (an archive of a parent commit), so that two trees run in one call.
-Prints one JSON line per payload, then the card's name and power limit.
-Needs a CUDA card.
+own).  Prints one JSON line per payload, then the card's name and power
+limit.  Needs a CUDA card.
+
+``--host`` needs no card: one 64 KB row from each quarter of
+`chip_smoke.make_corpus(4 MiB, seed)` (text, records, runs, noise), parsed
+by the plain versions (`lz4_tpu_torch.ops.encode_hc`), each search timed on
+the host clock.  Level 9 (`encode_hc.hc_parse_row`): the share of the
+search time and the count of searches by the search's index in its
+episode (0 the first search, 1 the one after it, ...), which sets how many
+searches an episode table keeps (`encode_hc_passes.SLOTS`).  Levels 10 and
+11 (`encode_hc.opt_parse_row`): the share of the search time in searches
+whose minimum length is above 3, which a table of every position's
+min-length-3 search (level 12's `encode_opt`) cannot answer.  One JSON line
+per level; the shares are of the plain parse's time on the host, not of
+any device time.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
+import time
 
 SLOTS = (1, 2, 4, 8, 10, 12)
 BIG_SLOTS = (8, 10, 12)
@@ -108,13 +121,96 @@ def _report(cs, base, st, so, ln, block: int, dev) -> dict:
     return out
 
 
+def _hc_by_index(s: bytes) -> dict:
+    """The plain level 9 parse of ``s``: each search index's count and
+    host seconds."""
+    from lz4_tpu_torch.constants import LAST_LITERALS
+    from lz4_tpu_torch.ops import encode_hc
+
+    finder = encode_hc.ChainFinder(s, len(s) - LAST_LITERALS, 256)
+    seconds, counts = {}, {}
+    index = [0]
+
+    def search(ip, ilow, longest):
+        t0 = time.perf_counter()
+        got = finder.wider_match(ip, ilow, longest, True)
+        j = index[0]
+        index[0] += 1
+        seconds[j] = seconds.get(j, 0.0) + time.perf_counter() - t0
+        counts[j] = counts.get(j, 0) + 1
+        return got
+
+    def episode_search(ip):
+        index[0] = 0
+        return search
+
+    encode_hc.hc_parse_row(s, 0, episode_search)
+    total = sum(seconds.values())
+    return {str(j): {"searches": counts[j], "seconds": seconds[j],
+                     "time_share": seconds[j] / total} for j in sorted(seconds)}
+
+
+def _opt_by_min_length(s: bytes, level: int) -> dict:
+    """The plain level 10-11 parse of ``s``: the searches and host seconds
+    at minimum length 3 and above it."""
+    from lz4_tpu_torch.constants import LAST_LITERALS
+    from lz4_tpu_torch.ops import encode_hc
+
+    _, searches, sufficient, full = encode_hc.level_arm(level)
+    finder = encode_hc.ChainFinder(s, len(s) - LAST_LITERALS, searches)
+    seconds = {"min_3": 0.0, "above_3": 0.0}
+    counts = dict.fromkeys(seconds, 0)
+
+    def find(p, min_len):
+        t0 = time.perf_counter()
+        ln, _, mp = finder.wider_match(p, p, min_len, True, True)
+        kind = "min_3" if min_len <= 3 else "above_3"
+        seconds[kind] += time.perf_counter() - t0
+        counts[kind] += 1
+        return (ln, p - mp) if ln > min_len and mp >= 0 else (0, 0)
+
+    encode_hc.opt_parse_row(s, 0, find, sufficient, full)
+    total = sum(seconds.values())
+    return {"searches": counts, "seconds": seconds,
+            "time_share_above_3": seconds["above_3"] / total}
+
+
+def search_split(seed: int, nrows: int) -> None:
+    """``--host``: one JSON line for level 9 and one each for 10 and 11."""
+    import chip_smoke
+
+    data = chip_smoke.make_corpus(4 << 20, seed)
+    quarter = len(data) // 4
+    rows = [data[q * quarter + 12345:q * quarter + 12345 + 65536] for q in range(nrows)]
+    kinds = ("text", "records", "runs", "noise")
+    by_row = {kinds[q]: _hc_by_index(s) for q, s in enumerate(rows)}
+    total = sum(v["seconds"] for r in by_row.values() for v in r.values())
+    kept = {}  # the share of all rows' search time in the first k searches
+    for k in (1, 2, 4, 8, 12, 16):
+        kept[k] = sum(v["seconds"] for r in by_row.values() for j, v in r.items()
+                      if int(j) < k) / total
+    print(json.dumps({"level": 9, "share_in_first_k_searches": kept,
+                      "by_search_index": by_row}), flush=True)
+    for level in (10, 11):
+        by_row = {kinds[q]: _opt_by_min_length(s, level) for q, s in enumerate(rows)}
+        above = sum(r["seconds"]["above_3"] for r in by_row.values())
+        total = sum(sum(r["seconds"].values()) for r in by_row.values())
+        print(json.dumps({"level": level, "time_share_above_3": above / total,
+                          "by_min_length": by_row}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
-                    help="the tree whose lz4_tpu_torch and chip_smoke to import")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="the corpus seed (default 1 on the card, 0 with --host)")
+    ap.add_argument("--host", action="store_true",
+                    help="the plain parses' search split on the host (no card)")
+    ap.add_argument("--rows", type=int, default=4,
+                    help="--host: quarters of the corpus to parse, in order")
     args = ap.parse_args(argv)
-    sys.path.insert(0, os.path.abspath(args.root))
+    if args.host:
+        search_split(0 if args.seed is None else args.seed, args.rows)
+        return 0
 
     import torch
 
@@ -122,16 +218,14 @@ def main(argv=None) -> int:
         print("hc9bench: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from lz4_tpu_torch.ops import encode_hc_passes
 
-    encode_hc_passes.GROUP_TABLE_BYTES = 24 << 30  # every batch one group at 12 slots
     dev = torch.device("cuda", 0)
-    mix = cs.make_corpus(16 << 20, args.seed)
+    mix = cs.make_corpus(16 << 20, 1 if args.seed is None else args.seed)
     for name, data, block, chained in (
         ("mix_independent", mix, 1 << 16, False), ("mix_chained", mix, 1 << 16, True),
         ("lz4_9_rows", cs.make_corpus(64 << 20, 0), 4 << 20, False),
     ):
-        report = {"payload": name, "root": args.root,
+        report = {"payload": name,
                   **_report(cs, *_windows(cs, data, block, chained), block, dev)}
         print(json.dumps(report), flush=True)
     print(cs.card_line())

@@ -32,10 +32,14 @@ the search gave up under its work budget (`encode_opt.FIRST_BUDGET`,
 second search) its back does not fit 16 bits; ip -1 marks a later search
 the episode did not reach.  `deltas` holds every window position's chain step,
 min(p - prev[p], 0xFFFF), as the bits of a u16 (int16 storage), which the
-parse reads at its searches made on the spot.  `encode_windows_hc_passes` runs the passes on
-groups of rows whose tables fit `GROUP_TABLE_BYTES`.  A CPU tensor runs
-each pass's plain version; a CUDA tensor launches its kernel (counted on
-the wrapper) or raises.
+parse reads at its searches made on the spot.  `encode_windows_hc_passes`
+runs the passes on groups of rows whose tables fit `group_budget`.  A CPU
+tensor runs each pass's plain version; a CUDA tensor launches its kernel
+(counted on the wrapper) or raises.  `encode_stream.encode_windows` sends
+levels 3-9 here only on a CUDA tensor: on a CPU tensor it keeps the serial
+plain parse (`encode_hc.encode_hc`, the same bytes), as level 12 keeps
+`encode_hc.encode_opt`, since the plain episode pass runs a Python episode
+at every block position where the parse runs one per parse step.
 
 The frontier property: the serial arm inserts into its chain up to each
 search position, so a search made below an earlier one would see
@@ -64,16 +68,18 @@ from .encode_opt import (
 )
 
 # Searches kept per episode.  Text rows run episodes of up to ~17 searches
-# (`searchcount.py`: the first 8 hold 98.3% of the plain parse's search
+# (`hc9bench.py --host`: the first 8 hold 98.3% of the plain parse's search
 # time, the first 12 99.8%); on the card more slots move search work from
 # the parse (one thread per row) to the episode pass (one per position)
 # (`hc9bench.py`, PERF.md).
 SLOTS = 10
 SLOT_INTS = 6  # a third search on: key (ip, ilow, longest), answer (length, m_start, m_pos)
 HEAD_INTS = 4  # the first two searches: (length, m_pos, length, back << 16 | offset)
-# The tables of one group of rows (~214 bytes per block byte at 10 slots):
-# a 64 MiB `lz4 -9` frame's 16 rows of 4 MiB in one group, whose parse runs
-# every row at once.
+# The tables of one group of rows (`table_bytes`: 6 bytes per window byte
+# and 208 per block byte at 10 slots): a 64 MiB `lz4 -9` frame's 16 rows of
+# 4 MiB in one group (13.4 GiB), whose parse runs every row at once.  On a
+# card a group also takes at most half the memory free for it
+# (`group_budget`).
 GROUP_TABLE_BYTES = 16 << 30
 
 _lib = None
@@ -421,16 +427,31 @@ def table_bytes(n: int, block: int) -> int:
     return 6 * n + 4 * (HEAD_INTS + SLOT_INTS * (SLOTS - 2)) * block
 
 
-def row_groups(src_offs, lens) -> list[tuple[int, int]]:
-    """Consecutive [first, end) row ranges whose tables fit
-    `GROUP_TABLE_BYTES` (a row larger than that makes a group of its own)
-    and whose rows fit one episode-pass launch."""
+def group_budget(dev) -> int:
+    """The table bytes one group of rows may take on ``dev``:
+    `GROUP_TABLE_BYTES`, and on a card at most half of what is free for the
+    tables (the device's free memory and the blocks PyTorch's allocator
+    holds unused), so that a card shared with other work, or a payload of
+    tens of GB, runs in more groups rather than out of memory."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return GROUP_TABLE_BYTES
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return min(GROUP_TABLE_BYTES, (free + cached) // 2)
+
+
+def row_groups(src_offs, lens, budget: int | None = None) -> list[tuple[int, int]]:
+    """Consecutive [first, end) row ranges whose tables fit ``budget``
+    bytes (`GROUP_TABLE_BYTES` if None; a row larger than that makes a
+    group of its own) and whose rows fit one episode-pass launch."""
+    budget = GROUP_TABLE_BYTES if budget is None else budget
     groups, first, size = [], 0, 0
     ln = torch.as_tensor(lens).tolist()
     so = torch.as_tensor(src_offs).tolist()
     for r, (n, off) in enumerate(zip(ln, so)):
         need = table_bytes(n, n - off)
-        if r > first and (size + need > GROUP_TABLE_BYTES or r - first == MAX_GROUP_ROWS):
+        if r > first and (size + need > budget or r - first == MAX_GROUP_ROWS):
             groups.append((first, r))
             first, size = r, 0
         size += need
@@ -440,16 +461,16 @@ def row_groups(src_offs, lens) -> list[tuple[int, int]]:
 
 def encode_windows_hc_passes(base_u8, starts, src_offs, lens, bcap: int, level: int = 9):
     """`encode_stream.encode_windows` at levels 3-9: on each group of rows
-    (`row_groups`), `encode_opt.opt_chain`, `hc_episodes` and `hc_parse`,
-    one launch of each on a CUDA tensor, their plain versions on a CPU
-    tensor.  Returns (out, clens, errs) as `encode_windows` does, the same
-    bytes as kernel D's serial HC arm."""
+    (`row_groups` under `group_budget`), `encode_opt.opt_chain`,
+    `hc_episodes` and `hc_parse`, one launch of each on a CUDA tensor,
+    their plain versions on a CPU tensor.  Returns (out, clens, errs) as
+    `encode_windows` does, the same bytes as kernel D's serial HC arm."""
     arm, depth, _, _ = level_arm(level)
     if arm != "hc":
         raise ValueError(f"level {level} is not an HC level (3-9)")
     base, st, so, ln, _, _ = _rows(base_u8, starts, src_offs, lens)
     parts = []
-    for g0, g1 in row_groups(so, ln):
+    for g0, g1 in row_groups(so, ln, group_budget(base.device)):
         rows = st[g0:g1], so[g0:g1], ln[g0:g1]
         prev = opt_chain(base, rows[0], rows[2])
         tables = hc_episodes(base, *rows, prev, depth)

@@ -256,7 +256,9 @@ def encode_windows_hc(base_u8, starts, src_offs, lens, bcap: int,
     """`encode_windows` at levels 3-9: on a CUDA tensor the three passes of
     `encode_hc_passes.encode_windows_hc_passes` (counted there); a CPU
     tensor runs the plain version, the serial parse of
-    `encode_hc.encode_hc`, which gives the passes' bytes."""
+    `encode_hc.encode_hc`, which gives the passes' bytes (the plain passes
+    would run a Python episode at every position, not only at the parse's
+    steps; the tests compose them directly)."""
     return _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, "hc")
 
 

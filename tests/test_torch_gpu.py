@@ -247,6 +247,12 @@ def _launches(level):
     return [c.launches for c in chip_smoke._hc_counts(level)]
 
 
+def _idle(level):
+    """The launch counts a level's encode must leave alone: at levels 3-9
+    the serial HC arm's."""
+    return [c.launches for c in chip_smoke._hc_idle(level)]
+
+
 @pytest.mark.parametrize("level", [3, 9, 12])
 def test_hc_encode_kernel_matches_plain(level, cuda):
     """Kernel B's HC and OPT arms (on kernel D's kernel): corpus rows, the wordy regression row,
@@ -257,10 +263,11 @@ def test_hc_encode_kernel_matches_plain(level, cuda):
     rows = [data[a:a + BLOCK] for a in starts] + [
         chip_smoke.wordy_row(), b"", data[:12], data[:13]]
     bufs, lens = chip_smoke._stage(rows, BLOCK + 1024)
-    before = _launches(level)
+    before, idle = _launches(level), _idle(level)
     got = encode.encode_blocks(bufs.to(cuda), lens.to(cuda), BLOCK, level)
     torch.cuda.synchronize()
     assert _launches(level) == [n + 1 for n in before]
+    assert _idle(level) == idle
     _equal(got, encode.encode_blocks_plain(bufs, lens, BLOCK, level))
 
 
@@ -272,11 +279,12 @@ def test_hc_stream_kernel_matches_plain(level, cuda):
     payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
     st, offs, wl = chip_smoke.chained_windows(len(data), BLOCK)
     rows = [0, 1, 30, 63]
-    before = _launches(level)
+    before, idle = _launches(level), _idle(level)
     got = encode_stream.encode_windows(
         payload.to(cuda), st[rows], offs[rows], wl[rows], BLOCK, level)
     torch.cuda.synchronize()
     assert _launches(level) == [n + 1 for n in before]
+    assert _idle(level) == idle
     _equal(got, encode_stream.encode_windows_plain(
         payload, st[rows], offs[rows], wl[rows], BLOCK, level))
     bufs, lens = chip_smoke._stage([data[1 << 20:(1 << 20) + 300000]], 300000)
@@ -370,6 +378,35 @@ def test_hc_passes_equal_the_serial_arm(level, slots, budget, cuda):
     _equal(got, want)
     _equal(encode_stream.encode_windows(base_d, st, so, ln, BLOCK, level), want)
     assert encode_stream.encode_windows_hc.launches == serial0 + 1
+
+
+def test_hc_passes_in_groups_match_one_group(cuda, monkeypatch):
+    """The HC passes over a batch cut into several groups of rows
+    (`encode_hc_passes.row_groups` under a small table budget, one launch
+    of each pass per group) give what one group and the serial arm give;
+    on the card the budget is also held under half the free memory."""
+    data = chip_smoke.make_corpus(1 << 20, 15)
+    base = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+    nb = len(data) // BLOCK
+    st = torch.arange(nb, dtype=torch.int64) * BLOCK
+    so = torch.zeros(nb, dtype=torch.int32)
+    ln = torch.full((nb,), BLOCK, dtype=torch.int32)
+    whole = encode_hc_passes.encode_windows_hc_passes(base, st, so, ln, BLOCK, 9)
+    free, _ = torch.cuda.mem_get_info(cuda)
+    budget = encode_hc_passes.group_budget(cuda)
+    assert 0 < budget <= encode_hc_passes.GROUP_TABLE_BYTES
+    assert budget <= (free + torch.cuda.memory_reserved(cuda)) // 2
+    monkeypatch.setattr(encode_hc_passes, "GROUP_TABLE_BYTES",
+                        3 * encode_hc_passes.table_bytes(BLOCK, BLOCK))
+    groups = encode_hc_passes.row_groups(so, ln, encode_hc_passes.group_budget(cuda))
+    assert len(groups) == -(-nb // 3)
+    before, idle = _launches(9), _idle(9)
+    parts = encode_hc_passes.encode_windows_hc_passes(base, st, so, ln, BLOCK, 9)
+    torch.cuda.synchronize()
+    assert _launches(9) == [n + len(groups) for n in before]
+    assert _idle(9) == idle
+    _equal(parts, whole)
+    _equal(parts, encode_stream.encode_windows_hc_serial(base, st, so, ln, BLOCK, 9))
 
 
 @pytest.mark.parametrize("level", [9, 12])

@@ -305,6 +305,17 @@ def test_rows_in_groups_give_the_same_bytes(monkeypatch):
     assert HP.row_groups([0, 0, 0], [10 ** 8, 5, 5]) == [(0, 1), (1, 3)]
 
 
+def test_group_budget_is_explicit_and_the_constant_on_the_cpu():
+    """`row_groups` cuts under the budget it is given (the constant when
+    None), and off the card `group_budget` is `GROUP_TABLE_BYTES`."""
+    _, _, so, ln, _ = _case("bench_mix")
+    assert HP.group_budget("cpu") == HP.GROUP_TABLE_BYTES
+    assert HP.row_groups(so, ln, HP.group_budget("cpu")) == HP.row_groups(so, ln) == [(0, 4)]
+    need = [HP.table_bytes(int(n), int(n) - int(o)) for n, o in zip(ln, so)]
+    assert HP.row_groups(so, ln, need[0] + need[1]) == [(0, 2), (2, 4)]
+    assert HP.row_groups(so, ln, 1) == [(0, 1), (1, 2), (2, 3), (3, 4)]
+
+
 def test_cpu_tensors_count_no_launch_and_tables_are_checked():
     base, st, so, ln, bcap = _case("12_and_13_bytes")
     passes = (EO.opt_chain, HP.hc_episodes, HP.hc_parse)
