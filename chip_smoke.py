@@ -67,42 +67,48 @@ Phases, each fatal on failure:
    plain versions and bounds, and the end to end compress and decompress
    rates of each path;
 12. kernel B's HC and OPT arms (levels 3-9 the three HC passes of
-   `csrc/encode_opt.cu` and `csrc/encode_hc_passes.cu`, levels 10-11 kernel
-   D's serial OPT arm over B's rows, level 12 the three passes of
-   `csrc/encode_opt.cu`) against their plain version at levels 3, 6, 9, 10,
-   11 and 12, and at 3, 6 and 9 the serial HC arm too: four sampled 64 KB
-   rows, the 26,200-byte wordy regression row, rows of 0, 12, 13 and 4,096
-   bytes and a 64 KB row of random bytes: equal bytes, lengths and flags;
-   and each level 9 pass (`opt_chain`, `hc_episodes`, `hc_parse`) and
-   level 12 pass (`opt_chain`, `opt_matches`, `opt_parse`) against its own
-   plain version on every row, fed the kernel's output of the pass before;
+   `csrc/encode_opt.cu` and `csrc/encode_hc_passes.cu`, levels 10-11 the
+   chain and match passes and the parse by rounds of `csrc/encode_opt.cu`,
+   level 12 its three level 12 passes) against their plain version at
+   levels 3, 6, 9, 10, 11 and 12, and the serial HC or OPT arm too: four
+   sampled 64 KB rows, the 26,200-byte wordy regression row, rows of 0, 12,
+   13 and 4,096 bytes and a 64 KB row of random bytes: equal bytes, lengths
+   and flags; and each level 9 pass (`opt_chain`, `hc_episodes`,
+   `hc_parse`), level 10 pass (`opt_chain`, `opt_matches`,
+   `opt_parse_spec`) and level 12 pass (`opt_chain`, `opt_matches`,
+   `opt_parse`) against its own plain version on every row, fed the
+   kernel's output of the pass before;
 13. kernel D's HC and OPT arms against their plain version at levels 3, 9,
    10 and 12: four chained windows (64 KB blocks with their 64 KB
    prefixes), 64 KB blocks with dictionaries of 3,000, 65,536 and 0 bytes,
-   and one 1 MiB row; each level 9 and level 12 pass against its plain
+   and one 1 MiB row; each level 9, 10 and 12 pass against its plain
    version on the chained windows and the dictionary rows;
 14. the HC/OPT paths: 16 MiB round trips at levels 9, 10 and 12, each
-   independent (64 KB blocks: the HC or OPT arm of kernel B, then kernel A)
-   and with the default chained settings (kernel D's arm, then the chained
-   decoder), counts set to 0 just before and read just after each path
-   (level 12 counts the three passes), exact and deterministic over three
-   runs after a warm-up; the level 9 independent frame of the first 1 MiB
-   equal byte for byte to the plain route's (the plain parse of all 16 MiB
-   would take minutes); then the serial HC arm at level 9 and the serial
-   OPT arm at levels 10 and 12 timed at their paths' shapes and held byte
-   for byte to the plain version on four rows of the timed launch, two of
-   them taken by CTAs that had already encoded a row; at levels 9 and 12
-   the passes' whole output held to the serial arm's on all 256 rows of
-   both paths, each pass timed (level 9: CUDA events between the passes;
-   level 12: profiler device time) and held to its plain version on the
-   same four rows, the HC passes' dependent-step bounds from the plain
-   versions' counts; the `lz4 -9` path (`_cli_hc`: 4 MiB independent
+   independent (64 KB blocks: the HC or OPT passes over kernel B's rows,
+   then kernel A) and with the default chained settings (kernel D's
+   passes, then the chained decoder), and at level 11 independent, counts
+   set to 0 just before and read just after each path (each level's three
+   passes; the serial HC arm at level 9 and the serial OPT arm at 10-12
+   must stay at 0), exact and deterministic over three runs after a
+   warm-up; the level 9 independent frame of the first 1 MiB equal byte
+   for byte to the plain route's (the plain parse of all 16 MiB would take
+   minutes); then the serial HC arm at level 9 and the serial OPT arm at
+   levels 10, 11 (independent) and 12 timed at their paths' shapes and
+   held byte for byte to the plain version on four rows of the timed
+   launch, two of them taken by CTAs that had already encoded a row; at
+   levels 9, 10 and 12 on both paths and 11 on the independent rows the
+   passes' whole output held to the serial arm's on all 256 rows, each
+   pass timed (levels 9-11: CUDA events between the passes; level 12:
+   profiler device time) and held to its plain version on the same four
+   rows, the HC passes' and the level 10-11 parse's dependent-step bounds
+   from the plain versions' counts; the device memory of one level 10
+   compress; the `lz4 -9` path (`_cli_hc`: 4 MiB independent
    blocks, a content checksum, level 9) over --mb MiB, counts set to 0
    just before and read just after, exact and deterministic over three
    runs after a warm-up, every block of its frame equal to the serial HC
    arm's output on the same rows (timed once beside the passes); and one
-   profiled level 9 chained, `lz4 -9`, and level 12 independent and
-   chained compress and decompress;
+   profiled level 9 chained, `lz4 -9`, level 10 independent, and level 12
+   independent and chained compress and decompress;
 15. kernel E (xxHash32) against its plain version: rows of 0-65,536 bytes
    with noise past each length, windows at every alignment of one flat
    tensor, all 1,024 rows of 64 KB of its timed batch and its timed 64 MiB
@@ -1389,6 +1395,14 @@ def plain_result(future):
 
 
 OPT_PASSES = ("opt_chain", "opt_matches", "opt_parse")
+SPEC_PASSES = ("opt_chain", "opt_matches", "opt_parse_spec")  # levels 10-11
+
+
+def _opt_passes(level: int):
+    """The names of a level's OPT passes: level 12's, or 10-11's."""
+    from lz4_tpu_torch.ops.encode_hc import level_arm
+
+    return OPT_PASSES if level_arm(level)[3] else SPEC_PASSES
 
 
 def _submit_timed(pool, fn, *args, **kwargs):
@@ -1402,23 +1416,30 @@ def _submit_timed(pool, fn, *args, **kwargs):
                        {k: array(v) for k, v in kwargs.items()})
 
 
-def hold_opt_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool):
-    """The level 12 passes on the card over a batch of windows, each held
-    to its plain version on the batch's rows ``picks`` with the same inputs
-    (the kernel's own output of the pass before), the plain versions on
-    ``pool``.  Returns a function that waits for them and returns each
-    pass's max_abs_err and the plain versions' seconds for the picked rows,
-    and the given-up entries of the match pass."""
+def hold_opt_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
+                    level: int = 12):
+    """The OPT passes at ``level`` (10-12) on the card over a batch of
+    windows, each held to its plain version on the batch's rows ``picks``
+    with the same inputs (the kernel's own output of the pass before), the
+    plain versions on ``pool`` (the level 10-11 parse with its counts).
+    Returns a function that waits for them and returns each pass's
+    max_abs_err, the plain versions' seconds for the picked rows, the
+    given-up entries of the match pass and the plain parse's per-row counts
+    (empty at level 12)."""
     import torch
     from lz4_tpu_torch.ops import encode_opt
+    from lz4_tpu_torch.ops.encode_hc import level_arm
 
+    _, depth, sufficient, full = level_arm(level)
+    names = _opt_passes(level)
     st = torch.as_tensor(starts, dtype=torch.int64).cpu()
     so = torch.as_tensor(src_offs, dtype=torch.int32).cpu()
     ln = torch.as_tensor(lens, dtype=torch.int32).cpu()
     base_d = base.to(dev)
     prev = encode_opt.opt_chain(base_d, st, ln)
-    matches = encode_opt.opt_matches(base_d, st, so, ln, prev)
-    got = encode_opt.opt_parse(base_d, st, so, ln, prev, matches, bcap)
+    matches = encode_opt.opt_matches(base_d, st, so, ln, prev, depth)
+    parse = encode_opt.opt_parse if full else encode_opt.opt_parse_spec
+    got = parse(base_d, st, so, ln, prev, matches, bcap, depth, sufficient)
     torch.cuda.synchronize()
     given_up = int((matches[:, 0] < 0).sum())
     toff, _ = encode_opt.table_offsets(ln)
@@ -1433,14 +1454,18 @@ def hold_opt_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool):
             ("opt_chain", [pv], _submit_timed(
                 pool, encode_opt.opt_chain_plain, row[0], [0], ln[r:r + 1])),
             ("opt_matches", [mt], _submit_timed(
-                pool, encode_opt.opt_matches_plain, *row, pv)),
-            ("opt_parse", [o[r:r + 1] for o in outs], _submit_timed(
-                pool, encode_opt.opt_parse_plain, *row, pv, mt, bcap)),
+                pool, encode_opt.opt_matches_plain, *row, pv, depth)),
+            (names[2], [o[r:r + 1] for o in outs], _submit_timed(
+                pool, encode_opt.opt_parse_plain, *row, pv, mt, bcap, depth, sufficient)
+             if full else pool.submit(
+                 _timed_counted_call, f"{encode_opt.__name__}.opt_parse_spec_plain",
+                 (*(x.numpy() if hasattr(x, "numpy") else x for x in row), pv.numpy(),
+                  mt.numpy(), bcap, depth, sufficient), {})),
         ]
 
     def finish():
-        errs, seconds, _ = _finish_holds(jobs, OPT_PASSES, picks)
-        return errs, seconds, given_up
+        errs, seconds, counts = _finish_holds(jobs, names, picks)
+        return errs, seconds, given_up, counts.get(names[2], [])
 
     return finish
 
@@ -1530,9 +1555,9 @@ def hold_hc_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
 
 def phase_hc_encode(data: bytes, rng, dev, pool):
     """Kernel B's HC and OPT arms against their plain version (computed on
-    `pool`), at levels 3-9 the serial HC arm too (the passes' reference),
-    and each level 9 and level 12 pass against its own on every row.
-    Returns the worst difference of each kernel."""
+    `pool`), the serial HC and OPT arms too (the passes' references), and
+    each level 9, 10 and 12 pass against its own on every row.  Returns the
+    worst difference of each kernel."""
     import torch
     from lz4_tpu_torch.ops import encode, encode_stream
 
@@ -1543,13 +1568,15 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
              for level in levels}
     windows = (bufs.reshape(-1), [i * bufs.shape[1] for i in range(len(rows))],
                [0] * len(rows), lens)
-    passes = hold_opt_passes(*windows, BLOCK, range(len(rows)), dev, pool)
+    passes = {level: hold_opt_passes(*windows, BLOCK, range(len(rows)), dev, pool, level)
+              for level in (12, 10)}
     hc_passes = hold_hc_passes(*windows, BLOCK, range(len(rows)), dev, pool)
     worst = {}
     for level in levels:
         got = encode.encode_blocks(bufs.to(dev), lens.to(dev), BLOCK, level)
-        serial = (encode_stream.encode_windows_hc_serial(
-            windows[0].to(dev), *windows[1:], BLOCK, level) if level <= 9 else got)
+        ref = "hc" if level <= 9 else "opt"
+        serial = getattr(encode_stream, f"encode_windows_{ref}_serial")(
+            windows[0].to(dev), *windows[1:], BLOCK, level)
         torch.cuda.synchronize()
         want = plain_result(wants[level])
         err = _max_abs_err(got, want)
@@ -1557,18 +1584,18 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
         _require(not bool(want[2].any()), f"encode level {level}: overflow flag set")
         fn = _hc_kernel(level)
         worst[fn] = max(worst.get(fn, 0), err)
-        if level <= 9:
-            err = _max_abs_err(serial, want)
-            _require(err == 0, f"encode level {level}: the serial HC arm != plain")
-            worst["encode_windows_hc"] = max(worst.get("encode_windows_hc", 0), err)
-        print(f"[hc encode] level {level}: {len(rows)} rows equal"
-              + (" (the passes and the serial HC arm)" if level <= 9 else "")
-              + f", clens={want[1].tolist()}")
-    errs, _, given_up = passes()
-    worst.update(errs)
-    print(f"[hc encode] level 12 passes {', '.join(OPT_PASSES)}: each equal to "
-          f"its plain version on all {len(rows)} rows ({given_up} searches "
-          f"given up by the match pass)")
+        err = _max_abs_err(serial, want)
+        _require(err == 0, f"encode level {level}: the serial {ref.upper()} arm != plain")
+        worst[f"encode_windows_{ref}"] = max(worst.get(f"encode_windows_{ref}", 0), err)
+        print(f"[hc encode] level {level}: {len(rows)} rows equal (the passes and the "
+              f"serial {ref.upper()} arm), clens={want[1].tolist()}")
+    for level, finish in passes.items():
+        errs, _, given_up, _ = finish()
+        for name, err in errs.items():
+            worst[name] = max(worst.get(name, 0), err)
+        print(f"[hc encode] level {level} passes {', '.join(_opt_passes(level))}: each "
+              f"equal to its plain version on all {len(rows)} rows ({given_up} searches "
+              f"given up by the match pass)")
     errs, _, given_up, _ = hc_passes()
     for name, err in errs.items():
         worst[name] = max(worst.get(name, 0), err)
@@ -1580,18 +1607,18 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
 
 def _hc_kernel(level: int) -> str:
     """The kernel that writes a level's encode: the HC passes' parse
-    (levels 3-9), kernel D's serial OPT arm (levels 10-11) or the level 12
-    passes' parse (the whole output's difference is kept with the parse)."""
-    if level >= 12:
-        return "opt_parse"
-    return "encode_windows_opt" if level >= 10 else "hc_parse"
+    (levels 3-9) or the OPT passes' (10-11, 12) (the whole output's
+    difference is kept with the parse)."""
+    if level >= 10:
+        return _opt_passes(level)[2]
+    return "hc_parse"
 
 
 def phase_hc_stream(data: bytes, rng, dev, pool):
     """Kernel D's HC and OPT arms against their plain version (computed on
-    `pool`), and each level 12 pass against its own on the chained windows
-    and the dictionary rows.  Returns the worst difference of each
-    kernel."""
+    `pool`), and each level 9, 10 and 12 pass against its own on the
+    chained windows and the dictionary rows.  Returns the worst difference
+    of each kernel."""
     import torch
     from lz4_tpu_torch.ops import encode_stream
 
@@ -1634,7 +1661,7 @@ def phase_hc_stream(data: bytes, rng, dev, pool):
         submit_plain(pool, encode_stream.encode_blocks_stream_plain, big,
                      big_lens, 1 << 20, level),
     ) for level in levels}
-    # each level 9 and 12 pass on the chained windows and the dictionary rows
+    # each level 9, 10 and 12 pass on the chained windows and the dictionary rows
     # (the 1 MiB row's plain match and episode passes would take minutes:
     # its whole output is held below)
     flat, d_st, d_so, d_ln, _ = encode_stream._stage(bufs, lens, BLOCK, dicts, dls, "dense")
@@ -1642,6 +1669,7 @@ def phase_hc_stream(data: bytes, rng, dev, pool):
              range(len(chained))), (flat, d_st, d_so, d_ln, BLOCK, range(len(picks))))
     passes = [held(*rows, dev, pool) for held in (hold_opt_passes, hold_hc_passes)
               for rows in sets]
+    passes += [hold_opt_passes(*rows, dev, pool, 10) for rows in sets]
     for level in levels:
         fn = _hc_kernel(level)
         w_chain, w_dict, w_big = wants[level]
@@ -1657,7 +1685,8 @@ def phase_hc_stream(data: bytes, rng, dev, pool):
             big.to(dev), big_lens.to(dev), 1 << 20, level)
         hold(f"level {level}, one 1 MiB row", got, plain_result(w_big))
     for finish, (level, what) in zip(passes, ((12, "chained windows"), (12, "dictionary rows"),
-                                             (9, "chained windows"), (9, "dictionary rows"))):
+                                             (9, "chained windows"), (9, "dictionary rows"),
+                                             (10, "chained windows"), (10, "dictionary rows"))):
         errs, _, given_up, *_ = finish()
         for name, err in errs.items():
             worst[name] = max(worst.get(name, 0), err)
@@ -1684,27 +1713,26 @@ def check_hc_frame(data: bytes, dev, pool):
 
 def _hc_counts(level: int):
     """The wrappers that count a level's encode launches: the three HC
-    passes (3-9), kernel D's serial OPT arm (10-11) or the three level 12
-    passes."""
-    from lz4_tpu_torch.ops import encode_hc_passes, encode_opt, encode_stream
+    passes (3-9), or the three OPT passes (10-11 with the parse by rounds,
+    12 with level 12's parse)."""
+    from lz4_tpu_torch.ops import encode_hc_passes, encode_opt
 
-    if level >= 12:
-        return [encode_opt.opt_chain, encode_opt.opt_matches, encode_opt.opt_parse]
     if level >= 10:
-        return [encode_stream.encode_windows_opt]
+        return [getattr(encode_opt, name) for name in _opt_passes(level)]
     return [encode_opt.opt_chain, encode_hc_passes.hc_episodes, encode_hc_passes.hc_parse]
 
 
 def _hc_idle(level: int):
-    """The wrappers a level's encode must not launch: at levels 3-9 the
-    serial HC arm (`encode_windows_hc` counts only that reference)."""
+    """The wrappers a level's encode must not launch: the serial HC arm at
+    levels 3-9 and the serial OPT arm at 10 and up (`encode_windows_hc` and
+    `encode_windows_opt` count only those references)."""
     from lz4_tpu_torch.ops import encode_stream
 
-    return [encode_stream.encode_windows_hc] if level <= 9 else []
+    return [encode_stream.encode_windows_hc if level <= 9 else encode_stream.encode_windows_opt]
 
 
 def phase_hc_paths(data: bytes, dev):
-    """The HC/OPT round trips of 16 MiB at levels 9, 10 and 12."""
+    """The HC/OPT round trips of 16 MiB at levels 9, 10, 11 and 12."""
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.ops import decode, decode_stream
 
@@ -1712,6 +1740,7 @@ def phase_hc_paths(data: bytes, dev):
     for name, level, chained in (
         ("L9_independent", 9, False), ("L9_chained", 9, True),
         ("L10_independent", 10, False), ("L10_chained", 10, True),
+        ("L11_independent", 11, False),
         ("L12_independent", 12, False), ("L12_chained", 12, True),
     ):
         dec = decode_stream.decode_chain if chained else decode.decode_blocks
@@ -1815,23 +1844,90 @@ def settle_hc_entries(entries, finish, scale: dict, clock: float) -> dict:
             "parse_of_picked_rows": counts["hc_parse"]}
 
 
+def opt_memory(data: bytes, dev) -> dict:
+    """The device memory of one level 10 compress of ``data``, independent
+    and chained: the peak `max_memory_allocated` above what was held
+    before, per payload byte, beside the OPT tables' bytes per block byte
+    (`encode_opt.TABLE_BYTES` per window byte: a chained block's window
+    holds its 64 KB prefix too)."""
+    import torch
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.ops import encode_opt
+
+    out = {}
+    for name, chained in (("independent", False), ("chained", True)):
+        settings = frame.EncoderSettings(compression_level=10, chain_blocks=chained)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held_before = torch.cuda.memory_allocated(dev)
+        frame.compress(data, settings, device=dev)
+        peak = torch.cuda.max_memory_allocated(dev) - held_before
+        window = 2 * BLOCK if chained else BLOCK
+        out[name] = {"peak_bytes": peak, "peak_per_payload_byte": peak / len(data),
+                     "table_bytes_per_block_byte": encode_opt.TABLE_BYTES * window / BLOCK}
+    return out
+
+
+def opt_pass_ms(base_d, starts, src_offs, lens, bcap: int, level: int, iters: int = 2):
+    """Each level 10-11 pass's time per call on a batch of windows: CUDA
+    events between the wrappers' calls, as `hc_pass_ms`.  Returns ({pass:
+    ms}, the passes' output)."""
+    import torch
+    from lz4_tpu_torch.ops import encode_opt
+    from lz4_tpu_torch.ops.encode_hc import level_arm
+
+    _, depth, sufficient, _ = level_arm(level)
+    total = dict.fromkeys(SPEC_PASSES, 0.0)
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        prev = encode_opt.opt_chain(base_d, starts, lens)
+        ev[1].record()
+        matches = encode_opt.opt_matches(base_d, starts, src_offs, lens, prev, depth)
+        ev[2].record()
+        got = encode_opt.opt_parse_spec(base_d, starts, src_offs, lens, prev, matches, bcap,
+                                        depth, sufficient)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(SPEC_PASSES):
+            total[name] += ev[i].elapsed_time(ev[i + 1])
+        del prev, matches
+    return {k: v / iters for k, v in total.items()}, got
+
+
+def _opt_moved(windows, got) -> dict:
+    """The bytes each OPT pass must move on a batch of windows (``got``
+    their output): its windows and tables read once, its table or the
+    compressed bytes written once, the per-row values."""
+    _, _, wso, wln = windows
+    nb = len(wln)
+    total = int(wln.sum())
+    block = int((wln - wso).sum())
+    clen = int(got[1].sum())
+    return {"opt_chain": total + 4 * total + 20 * nb,
+            "opt_matches": total + 4 * total + 8 * total + 24 * nb,
+            "opt_parse": block + 8 * block + clen + 32 * nb,
+            "opt_parse_spec": block + 8 * block + clen + 32 * nb}
+
+
 def phase_hc_times(data: bytes, dev):
-    """Kernel D's serial HC and OPT arms, the HC passes and the level 12
-    passes at their paths' shapes: 256 rows of 64 KB (kernel B's rows, the
+    """Kernel D's serial HC and OPT arms, the HC passes and the OPT passes
+    at their paths' shapes: 256 rows of 64 KB (kernel B's rows, the
     independent path) and 256 chained windows.  The serial HC arm at level
-    9 (the passes' reference) and the serial OPT arm at level 10 (its
-    paths) and 12 (the reference of the passes): CUDA-event times, the
-    plain version on four rows of the timed launch spread over the batch,
-    two of them past the 132 resident CTAs (taken by a CTA that had already
-    encoded a row), held byte for byte to the launch's output and timed,
-    scaled to the batch.  Levels 9 and 12: the whole output of the passes
-    held to the serial arm's on all 256 rows, the passes' call timed with
-    CUDA events and each pass (level 9: CUDA events between the passes;
-    level 12: the profiler's device time), each pass held to its plain
-    version on the same four rows (the plain versions in a pool started
-    after the timings) and its plain time scaled to the batch.  Bounds: the
-    bytes each function must move, and the HC passes' dependent steps.
-    Returns the `kernels` entries and the level 9 and 12 summaries."""
+    9 and the serial OPT arm at levels 10 and 12 (and 11 on the independent
+    rows), the passes' references: CUDA-event times, the plain version on
+    four rows of the timed launch spread over the batch, two of them past
+    the 132 resident CTAs (taken by a CTA that had already encoded a row),
+    held byte for byte to the launch's output and timed, scaled to the
+    batch.  Levels 9, 10 and 12 on both paths and 11 on the independent
+    rows: the whole output of the passes held to the serial arm's on all
+    256 rows, the passes' call timed with CUDA events and each pass (levels
+    9-11: CUDA events between the passes; level 12: the profiler's device
+    time), each pass held to its plain version on the same four rows (the
+    plain versions in a pool started after the timings) and its plain time
+    scaled to the batch.  Bounds: the bytes each function must move, and
+    the HC passes' and the level 10-11 parse's dependent steps.  Returns
+    the `kernels` entries and the per-level summaries."""
     import torch
     from lz4_tpu_torch.ops import encode_hc_passes, encode_stream
     from lz4_tpu_torch.parallel.blocks import split_blocks
@@ -1850,7 +1946,8 @@ def phase_hc_times(data: bytes, dev):
     }
     replaces = {"independent": "lz4_tpu/ops/encode_pallas5.py:1922",
                 "chained": "lz4_tpu/ops/encode_pallas_stream.py:266"}
-    entries, summary, held, serial_l9 = [], {"L9": {}, "L12": {}}, [], {}
+    entries, held, serial_out = [], [], {}
+    summary = {"L9": {}, "L10": {}, "L11": {}, "L12": {}}
     for level, arm, serial in ((9, "hc", encode_stream.encode_windows_hc_serial),
                                (10, "opt", encode_stream.encode_windows_opt_serial)):
         for path, row_bytes in (("independent", 12), ("chained", 24)):
@@ -1881,19 +1978,27 @@ def phase_hc_times(data: bytes, dev):
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                 "library_ms": None}
+            serial_out[(level, path)] = got
             if arm == "hc":
-                serial_l9[path] = got
                 entry["role"] = ("the serial reference of the HC passes: its count, "
                                  "read around the L9 path's run, must be 0")
             else:
-                # the serial arm at level 12, the passes' reference
-                entry["ms_L12"] = _cuda_ms(lambda: encode_stream.encode_windows_opt_serial(
-                    base_d, wst, wso, wln, BLOCK, 12), 2)
+                entry["role"] = ("the serial reference of the OPT passes: its count, "
+                                 "read around the L10, L11 and L12 paths' runs, must be 0")
+                # the serial arm at level 12 (and 11), the passes' reference
+                for other in (12, 11) if path == "independent" else (12,):
+                    def at(other=other):
+                        return encode_stream.encode_windows_opt_serial(
+                            base_d, wst, wso, wln, BLOCK, other)
+
+                    serial_out[(other, path)] = at()
+                    entry[f"ms_L{other}"] = _cuda_ms(at, 2)
             entries.append(entry)
             print(f"[hc times] encode_windows_{arm} level {level}, {path}: "
                   f"{ms:.3f} ms over {nb} rows, {clen} compressed bytes; rows "
                   f"{picks} equal to the plain version"
-                  + (f"; level 12 {entry['ms_L12']:.3f} ms" if arm == "opt" else ""))
+                  + "".join(f"; level {lv} {entry[f'ms_L{lv}']:.3f} ms" for lv in (11, 12)
+                            if f"ms_L{lv}" in entry))
     for path, rows in windows.items():  # the HC passes at level 9
         base, wst, wso, wln = rows
         base_d = base.to(dev)
@@ -1903,7 +2008,7 @@ def phase_hc_times(data: bytes, dev):
 
         got = run()
         torch.cuda.synchronize()
-        err = _max_abs_err(got, serial_l9[path])
+        err = _max_abs_err(got, serial_out[(9, path)])
         _require(err == 0, f"level 9 {path}: the passes' output != the serial HC arm's")
         whole_ms = _cuda_ms(run, 2)
         pass_ms, _ = hc_pass_ms(base_d, wst, wso, wln, BLOCK)
@@ -1919,6 +2024,42 @@ def phase_hc_times(data: bytes, dev):
         print(f"[hc times] level 9 {path}: passes {whole_ms:.3f} ms per call ("
               + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
               + f"), all {nb} rows equal to the serial HC arm's")
+    for level, path in ((10, "independent"), (10, "chained"), (11, "independent")):
+        rows = windows[path]
+        base, wst, wso, wln = rows
+        base_d = base.to(dev)
+
+        def run():
+            return encode_stream.encode_windows(base_d, wst, wso, wln, BLOCK, level)
+
+        got = run()
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, serial_out[(level, path)])
+        _require(err == 0, f"level {level} {path}: the passes' output != the serial OPT arm's")
+        whole_ms = _cuda_ms(run, 2)
+        pass_ms, _ = opt_pass_ms(base_d, wst, wso, wln, BLOCK, level)
+        moved = _opt_moved(rows, got)
+        ents = [{
+            "name": f"{name}:L{level}_{path}", "route": "cuda",
+            "source": "lz4_tpu_torch/ops/csrc/encode_opt.cu",
+            "replaces": (f"{replaces[path]} (OPT arm at level {level}; "
+                         "lz4_tpu/ops/encode_pallas5.py:1172 opt_body)"),
+            "path": f"L{level}_{path}", "held": path, "max_abs_err": 0,
+            "ms": pass_ms[name], "plain_ms": None,
+            "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "byte_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None} for name in SPEC_PASSES]
+        entries += ents
+        serial_ms = next(e for e in entries if e["name"] == f"encode_windows_opt:{path}")
+        summary[f"L{level}"][path] = {
+            "passes_call_ms": whole_ms, "pass_ms": pass_ms,
+            "serial_ms": serial_ms["ms" if level == 10 else f"ms_L{level}"],
+            "rows_equal_to_serial": nb, "max_abs_err": err}
+        held.append((f"L{level}", path, rows, ents,
+                     lambda *a, level=level: hold_opt_passes(*a, level=level)))
+        print(f"[hc times] level {level} {path}: passes {whole_ms:.3f} ms per call ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
+              + f"), all {nb} rows equal to the serial OPT arm's")
     for path, (base, wst, wso, wln) in windows.items():
         base_d = base.to(dev)
 
@@ -1926,20 +2067,12 @@ def phase_hc_times(data: bytes, dev):
             return encode_stream.encode_windows(base_d, wst, wso, wln, BLOCK, 12)
 
         got = run()
-        serial = encode_stream.encode_windows_opt_serial(base_d, wst, wso, wln, BLOCK, 12)
         torch.cuda.synchronize()
-        err = _max_abs_err(got, serial)
+        err = _max_abs_err(got, serial_out[(12, path)])
         _require(err == 0, f"level 12 {path}: the passes' output != the serial arm's")
         whole_ms = _cuda_ms(run, 2)
         pass_ms = _device_ms_by(run, tuple(OPT_KERNELS.values()), 2)
-        total = int(wln.sum())
-        block = int((wln - wso).sum())
-        clen = int(got[1].sum())
-        # bytes each pass must move: its windows and tables read once, its
-        # table or the compressed bytes written once, the per-row values
-        moved = {"opt_chain": total + 4 * total + 20 * nb,
-                 "opt_matches": total + 4 * total + 8 * total + 24 * nb,
-                 "opt_parse": block + 8 * block + clen + 32 * nb}
+        moved = _opt_moved(windows[path], got)
         for name, kernel in OPT_KERNELS.items():
             entries.append({
                 "name": f"{name}:{path}", "route": "cuda",
@@ -1967,13 +2100,22 @@ def phase_hc_times(data: bytes, dev):
                       f"version on rows {picks}; step bounds " + ", ".join(
                           f"{e['name']} {e['step_bound_ms']:.3f} ms" for e in ents))
                 continue
-            errs, seconds, given_up = finish()
+            errs, seconds, given_up, counts = finish()
             summary[lv][path]["given_up"] = given_up
-            for e, name in zip(ents, OPT_KERNELS):
+            for e in ents:
+                name = e["name"].split(":")[0]
                 e["max_abs_err"] = errs[name]
                 e["plain_ms"] = seconds[name] * 1e3 / len(picks) * nb
-            print(f"[hc times] level 12 {path}: each pass equal to its plain "
-                  f"version on rows {picks}; {given_up} searches given up")
+            if counts:  # the level 10-11 parse: its slowest held row's dependent steps
+                steps = max(c["steps"] for c in counts)
+                e = ents[-1]
+                e["step_bound_ms"] = steps * L1_CYCLES / clock * 1e3
+                if e["step_bound_ms"] > e["bound_ms"]:
+                    e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
+                summary[lv][path]["parse_of_picked_rows"] = counts
+            print(f"[hc times] level {lv[1:]} {path}: each pass equal to its plain "
+                  f"version on rows {picks}; {given_up} searches given up"
+                  + (f"; parse step bound {ents[-1]['step_bound_ms']:.3f} ms" if counts else ""))
     return entries, summary
 
 
@@ -2342,11 +2484,15 @@ def main(argv=None) -> int:
         k["launches"] = hc_launches[k.pop("path")][fn]
         k["max_abs_err"] = max(k["max_abs_err"], hc_err[k.pop("held")].get(fn, 0))
     kernels += hc_kernels + cli_hc_kernels
-    print(json.dumps({"hc9": hc_times["L9"], "opt12": hc_times["L12"]}))
+    print(json.dumps({"hc9": hc_times["L9"], "opt10": hc_times["L10"],
+                      "opt11": hc_times["L11"], "opt12": hc_times["L12"]}))
+    print(json.dumps({"opt10_memory": opt_memory(data16, dev)}))
     print(json.dumps({"e2e_hc_cli": cli_hc_e2e, "lz4_9": cli_hc}))
     print(json.dumps({"cli_hc": profile_path(data, dev, _cli_hc())}))
     print(json.dumps({"hc_L9_chained": profile_path(
         data16, dev, frame.EncoderSettings(compression_level=9))}))
+    print(json.dumps({"hc_L10_independent": profile_path(
+        data16, dev, frame.EncoderSettings(compression_level=10, chain_blocks=False))}))
     print(json.dumps({"hc_L12_independent": profile_path(
         data16, dev, frame.EncoderSettings(compression_level=12, chain_blocks=False))}))
     print(json.dumps({"hc_L12_chained": profile_path(

@@ -4,8 +4,8 @@ level 9, searches kept per episode, the parse by kind of data, and the
 parse with every search made on the spot against the serial HC arm; with
 ``--host``, where the plain parses spend their search time.
 
-    python3 hc9bench.py [--seed 1]
-    python3 hc9bench.py --host [--seed 0] [--rows 4]
+    python3 hc9bench.py [--seed 1] [--opt]
+    python3 hc9bench.py --host [--seed 0] [--rows 4] [--opt]
 
 Payloads as kernel D's windows: 16 MiB of the bench mix
 (`chip_smoke.make_corpus`, the seed chip_smoke.py's level 9 paths use) as
@@ -22,6 +22,14 @@ its ring (on the 4 MiB rows: their first MiB each, as rows of their
 own).  Prints one JSON line per payload, then the card's name and power
 limit.  Needs a CUDA card.
 
+``--opt`` on the card: the level 10 and 11 passes (`encode_opt`: chain,
+match pass at the level's depth, the parse by rounds) on the 16 MiB mix as
+256 independent 64 KB rows and as 256 chained windows (level 11: the
+independent rows), each pass's time (CUDA events between the passes,
+after a warm-up call), the output equal to the serial OPT arm's (timed
+too), and the parse pass's time on each quarter of the rows.  One JSON
+line per level and payload, then the card's name and power limit.
+
 ``--host`` needs no card: one 64 KB row from each quarter of
 `chip_smoke.make_corpus(4 MiB, seed)` (text, records, runs, noise), parsed
 by the plain versions (`lz4_tpu_torch.ops.encode_hc`), each search timed on
@@ -34,6 +42,20 @@ whose minimum length is above 3, which a table of every position's
 min-length-3 search (level 12's `encode_opt`) cannot answer.  One JSON line
 per level; the shares are of the plain parse's time on the host, not of
 any device time.
+
+``--host --opt`` counts, on the same rows at levels 10 and 11, what the
+level 10-11 passes do: from the serial plain parse, its searches, those
+with a minimum length of 3 or less (which the match pass's table answers),
+those above 3, those that find a match, their chain steps, the chain steps
+the chain swap's scans read and the bytes the pattern runs measure (each
+a dependent read on the card), and the share of its search time above 3; from the parse by rounds (`encode_opt.opt_parse_rounds_row`, 32
+lanes, over the row's chain table, each table entry searched where it is
+read), its rounds (every window end a barrier), those in which a lane
+searched on the spot, its table reads, the searches it makes on the spot
+(the lanes past a round's first match included) and its dependent steps
+(a round's longest lane's chain steps, at least one, and one per
+window-start read), the count that sets the pass's step bound.  One JSON
+line per level.
 """
 
 from __future__ import annotations
@@ -121,6 +143,53 @@ def _report(cs, base, st, so, ln, block: int, dev) -> dict:
     return out
 
 
+def _opt_passes_ms(base, st, so, ln, block: int, level: int):
+    """Each level 10-11 pass's time (CUDA events between them) and the
+    output."""
+    import torch
+    from lz4_tpu_torch.ops import encode_hc, encode_opt
+
+    _, depth, sufficient, _ = encode_hc.level_arm(level)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    prev = encode_opt.opt_chain(base, st, ln)
+    ev[1].record()
+    matches = encode_opt.opt_matches(base, st, so, ln, prev, depth)
+    ev[2].record()
+    got = encode_opt.opt_parse_spec(base, st, so, ln, prev, matches, block, depth, sufficient)
+    ev[3].record()
+    torch.cuda.synchronize()
+    names = ("opt_chain", "opt_matches", "opt_parse_spec")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}, got
+
+
+def _opt_report(cs, base, st, so, ln, block: int, level: int, dev) -> dict:
+    """``--opt``: the level 10-11 passes against the serial OPT arm."""
+    import torch
+    from lz4_tpu_torch.ops import encode_stream
+
+    base = base.to(dev)
+
+    def serial():
+        return encode_stream.encode_windows_opt_serial(base, st, so, ln, block, level)
+
+    want = serial()
+    _opt_passes_ms(base, st, so, ln, block, level)  # warm
+    ms, got = _opt_passes_ms(base, st, so, ln, block, level)
+    cs._require(cs._max_abs_err(got, want) == 0,
+                f"level {level}: the passes' output != the serial OPT arm's")
+    nb = st.numel()
+    quarters = []
+    for q in range(4):
+        rows = slice(q * nb // 4, (q + 1) * nb // 4)
+        quarters.append(_opt_passes_ms(base, st[rows], so[rows], ln[rows], block,
+                                       level)[0]["opt_parse_spec"])
+    torch.cuda.synchronize()
+    return {"level": level, "pass_ms": ms, "passes_ms": sum(ms.values()),
+            "serial_ms": cs._cuda_ms(serial, 1), "parse_ms_by_quarter": quarters,
+            "compressed_bytes": int(want[1].sum())}
+
+
 def _hc_by_index(s: bytes) -> dict:
     """The plain level 9 parse of ``s``: each search index's count and
     host seconds."""
@@ -175,14 +244,90 @@ def _opt_by_min_length(s: bytes, level: int) -> dict:
             "time_share_above_3": seconds["above_3"] / total}
 
 
-def search_split(seed: int, nrows: int) -> None:
-    """``--host``: one JSON line for level 9 and one each for 10 and 11."""
+class _Searched:
+    """A row's match table (`encode_opt.opt_matches`, unbudgeted) with each
+    entry searched where it is first read."""
+
+    def __init__(self, finder):
+        self.finder = finder
+        self.got = {}
+
+    def __getitem__(self, p: int):
+        if p not in self.got:
+            ml, _, mp = self.finder.wider_match(p, p, 3, True, True)
+            self.got[p] = (ml, p - mp) if ml > 3 and mp >= 0 else (0, 0)
+        return self.got[p]
+
+
+def _opt_rounds(s: bytes, level: int) -> dict:
+    """The serial plain level 10-11 parse's searches and the parse by
+    rounds' counts (``--opt``)."""
+    import torch
+    from lz4_tpu_torch.constants import LAST_LITERALS
+    from lz4_tpu_torch.ops import encode_hc, encode_opt
+
+    _, searches, sufficient, full = encode_hc.level_arm(level)
+    finder = encode_hc.ChainFinder(s, len(s) - LAST_LITERALS, searches)
+    serial = {"searches": 0, "min_3": 0, "above_3": 0, "found": 0}
+    seconds = {"min_3": 0.0, "above_3": 0.0}
+
+    def find(p, min_len):
+        t0 = time.perf_counter()
+        ln, _, mp = finder.wider_match(p, p, min_len, True, True)
+        kind = "min_3" if min_len <= 3 else "above_3"
+        seconds[kind] += time.perf_counter() - t0
+        got = (ln, p - mp) if ln > min_len and mp >= 0 else (0, 0)
+        serial["searches"] += 1
+        serial[kind] += 1
+        serial["found"] += got[0] != 0
+        return got
+
+    want = encode_hc.opt_parse_row(s, 0, find, sufficient, full)
+    serial.update(steps=finder.steps, swap_reads=finder.swap_reads,
+                  pattern_bytes=finder.pattern_bytes)
+    base = torch.frombuffer(bytearray(s), dtype=torch.uint8)
+    prev = encode_opt.opt_chain_plain(base, [0], [len(s)]).tolist()
+    table = encode_opt.TableFinder(s, len(s) - LAST_LITERALS, searches, prev)
+
+    def search(p, min_len):
+        steps = table.steps
+        ml, _, mp = table.wider_match(p, p, min_len, True, True)
+        got = (ml, p - mp) if ml > min_len and mp >= 0 else (0, 0)
+        return (*got, table.steps - steps)
+
+    rounds = {}
+    got = encode_opt.opt_parse_rounds_row(
+        s, 0, _Searched(encode_opt.TableFinder(s, len(s) - LAST_LITERALS, searches, prev)),
+        search, sufficient, 32, rounds)
+    assert got == want, "the parse by rounds != the serial parse"
+    return {"serial": serial, "search_seconds": seconds,
+            "time_share_above_3": seconds["above_3"] / sum(seconds.values()),
+            "rounds": rounds}
+
+
+def opt_split(rows, kinds) -> None:
+    """``--host --opt``: one JSON line each for levels 10 and 11."""
+    for level in (10, 11):
+        by_row = {kinds[q]: _opt_rounds(s, level) for q, s in enumerate(rows)}
+        above = sum(r["search_seconds"]["above_3"] for r in by_row.values())
+        total = sum(sum(r["search_seconds"].values()) for r in by_row.values())
+        print(json.dumps({"level": level, "time_share_above_3": above / total,
+                          "most_steps": max(r["rounds"]["steps"] for r in by_row.values()),
+                          "by_row": by_row}), flush=True)
+
+
+def search_split(seed: int, nrows: int, opt: bool = False) -> None:
+    """``--host``: one JSON line for level 9 and one each for 10 and 11
+    (``opt``: `opt_split`'s lines instead)."""
     import chip_smoke
 
     data = chip_smoke.make_corpus(4 << 20, seed)
     quarter = len(data) // 4
     rows = [data[q * quarter + 12345:q * quarter + 12345 + 65536] for q in range(nrows)]
     kinds = ("text", "records", "runs", "noise")
+    if opt:
+        opt_split(rows, kinds)
+        return
     by_row = {kinds[q]: _hc_by_index(s) for q, s in enumerate(rows)}
     total = sum(v["seconds"] for r in by_row.values() for v in r.values())
     kept = {}  # the share of all rows' search time in the first k searches
@@ -207,9 +352,11 @@ def main(argv=None) -> int:
                     help="the plain parses' search split on the host (no card)")
     ap.add_argument("--rows", type=int, default=4,
                     help="--host: quarters of the corpus to parse, in order")
+    ap.add_argument("--opt", action="store_true",
+                    help="the level 10-11 passes (--host: their rounds and searches)")
     args = ap.parse_args(argv)
     if args.host:
-        search_split(0 if args.seed is None else args.seed, args.rows)
+        search_split(0 if args.seed is None else args.seed, args.rows, args.opt)
         return 0
 
     import torch
@@ -221,6 +368,14 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     mix = cs.make_corpus(16 << 20, 1 if args.seed is None else args.seed)
+    if args.opt:
+        for level, name, chained in ((10, "mix_independent", False),
+                                     (10, "mix_chained", True),
+                                     (11, "mix_independent", False)):
+            print(json.dumps({"payload": name, **_opt_report(
+                cs, *_windows(cs, mix, 1 << 16, chained), 1 << 16, level, dev)}), flush=True)
+        print(cs.card_line())
+        return 0
     for name, data, block, chained in (
         ("mix_independent", mix, 1 << 16, False), ("mix_chained", mix, 1 << 16, True),
         ("lz4_9_rows", cs.make_corpus(64 << 20, 0), 4 << 20, False),

@@ -47,9 +47,9 @@
 // The HC (levels 3-9) and OPT (levels 10-12) arms, `encode_windows_hc`,
 // replace the `hc_body` and `opt_body` arms of both `pallas_encode_stream`
 // and `pallas_encode5`: kernel B's rows at these levels come here as
-// windows without a prefix.  On the card levels 3-9 and 12 run as passes
-// (encode_hc_passes.cu, encode_opt.cu), levels 10-11 here; the HC arm and
-// the OPT arm at 12 stay as the passes' reference.  Their bodies live in lz4_hc_body.cuh.  Each
+// windows without a prefix.  On the card every level runs as passes
+// (encode_hc_passes.cu, encode_opt.cu); the HC and OPT arms here stay as
+// the passes' reference.  Their bodies live in lz4_hc_body.cuh.  Each
 // prefix is inserted into the chain as the native engine does, the delta
 // ring indexed pos & 0xFFFF at every window size (a 4 MiB row walks the
 // same 128 KB ring).

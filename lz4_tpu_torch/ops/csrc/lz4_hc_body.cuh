@@ -25,7 +25,9 @@
 // answers from those tables when positions past the search are inserted).
 // The OPT parse (opt_parse) and one HC episode (hc_episode) take their
 // search as a callable: opt_scan and hc_scan hand them the ring's, the
-// passes a read of a table of searches made ahead.
+// passes a read of a table of searches made ahead.  opt_parse_rounds is
+// the OPT parse at levels 10-11 by one warp, its searches made up to 32 at
+// a time over TableChain.
 
 #pragma once
 
@@ -169,10 +171,12 @@ __device__ inline int count_pattern(const uint8_t* s, int p, int end, uint32_t p
 }
 
 // Backward pattern run length from p (the pattern scanned from its last
-// byte), down to position `floor`.
+// byte), down to position `floor`: a word at a time while one fits (four
+// bytes back the pattern is the same word), then byte by byte.
 __device__ inline int count_back_pattern(const uint8_t* s, int p, uint32_t pattern,
                                          int floor = 0) {
   const int start = p;
+  while (p - 4 >= floor && read32(s, p - 4) == pattern) p -= 4;
   while (p > floor && s[p - 1] == (pattern >> 24)) {
     --p;
     pattern = (pattern << 8) | (pattern >> 24);
@@ -222,6 +226,10 @@ __device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
     }
     int match_len = 0;
     --attempts;
+    // the step at cand, loaded beside the bytes it is compared with (a table
+    // chain's steps are reads of device memory: one after the other they
+    // would double each step's latency)
+    const int d_here = c.step(cand);
     if (want == read16(s, cand - lookback + longest - 1) && read32(s, cand) == pattern) {
       int back = 0;
       if (lookback) {
@@ -250,7 +258,7 @@ __device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
       int step = 1, accel = 1 << 4;
       chain_off = 0;
       for (int q = 0; q < end; q += step) {
-        const int d = c.step(cand + q);
+        const int d = q ? c.step(cand + q) : d_here;
         step = accel++ >> 4;
         if (d > best_jump) {
           best_jump = d;
@@ -265,7 +273,7 @@ __device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
       }
     }
 
-    if (pa && c.step(cand) == 1 && chain_off == 0) {
+    if (pa && d_here == 1 && chain_off == 0) {
       // the candidate sits in a run of a repeated pattern: jump straight to
       // the best-aligned position of the run
       const int cand2 = cand - 1;
@@ -323,7 +331,7 @@ __device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
       }
     }
 
-    const int d = c.step(cand + chain_off);
+    const int d = chain_off ? c.step(cand + chain_off) : d_here;
     if (d > cand) break;
     cand -= d;
   }
@@ -545,6 +553,84 @@ __device__ __forceinline__ void opt_set(OptCell& cell, int price, int off, int m
   cell.litlen = litlen;
 }
 
+// The price table's steps, shared by the serial parse (opt_parse) and the
+// warp's (opt_parse_rounds).  Seed a window: leading literals, then the
+// first match at its start.
+__device__ inline void opt_seed(OptCell* cells, int llen, int first_len, int first_off) {
+  for (int r = 0; r < kMinMatch; ++r) opt_set(cells[r], lit_price(llen + r), 0, 1, llen + r);
+  for (int m = kMinMatch; m <= first_len; ++m)
+    opt_set(cells[m], seq_price(llen, m), first_off, m, llen);
+  for (int a = 1; a <= kOptTrailing; ++a)
+    opt_set(cells[first_len + a], cells[first_len].price + lit_price(a), 0, 1, a);
+}
+
+// Price the match (new_len, new_off) found at cur and the literals after
+// cur; returns the window's new last position.
+__device__ inline int opt_add(OptCell* cells, int cur, int new_len, int new_off, int last) {
+  {  // literal extensions from cur
+    const int base_ll = cells[cur].litlen;
+    const int base_p = cells[cur].price;
+    for (int l = 1; l < kMinMatch; ++l) {
+      const int price = base_p - lit_price(base_ll) + lit_price(base_ll + l);
+      if (price < cells[cur + l].price) opt_set(cells[cur + l], price, 0, 1, base_ll + l);
+    }
+  }
+  {  // match lengths from cur
+    const bool lit = cells[cur].mlen == 1;
+    const int ll = lit ? cells[cur].litlen : 0;
+    const int base = lit ? (cur > ll ? cells[cur - ll].price : 0) : cells[cur].price;
+    for (int m = kMinMatch; m <= new_len; ++m) {
+      const int p = cur + m;
+      const int price = base + seq_price(ll, m);
+      if (p > last + kOptTrailing || price <= cells[p].price) {
+        if (m == new_len && last < p) last = p;
+        opt_set(cells[p], price, new_off, m, ll);
+      }
+    }
+  }
+  for (int a = 1; a <= kOptTrailing; ++a)
+    opt_set(cells[last + a], cells[last].price + lit_price(a), 0, 1, a);
+  return last;
+}
+
+// Reverse the chosen path in place: its last step (sel_len, sel_off) ends
+// at cur + sel_len.
+__device__ inline void opt_reverse(OptCell* cells, int cur, int sel_len, int sel_off) {
+  for (int p = cur;;) {
+    const int nl = cells[p].mlen, no = cells[p].off;
+    cells[p].mlen = sel_len;
+    cells[p].off = sel_off;
+    sel_len = nl;
+    sel_off = no;
+    if (nl > p) break;  // reached the first step
+    p -= nl;
+  }
+}
+
+__device__ __forceinline__ void emit(WarpSink& o, const uint8_t* s, int anchor, int ll, int off,
+                                     int ml) {
+  warp_emit(o, s, anchor, ll, off, ml);
+}
+
+// Emit the reversed path of a window forward, from ip; advances ip and
+// anchor past it.
+template <class Out>
+__device__ inline void opt_emit(const uint8_t* s, const OptCell* cells, int last, int& ip,
+                                int& anchor, Out& o) {
+  for (int r = 0; r < last;) {
+    const int m = cells[r].mlen, off = cells[r].off;
+    if (m == 1) {
+      ++ip;
+      ++r;
+      continue;
+    }
+    r += m;
+    emit(o, s, anchor, ip - anchor, off, m);
+    ip += m;
+    anchor = ip;
+  }
+}
+
 // The OPT arm's parse (lz4tpu.c lz4tpu_encode_opt): the exact price-model
 // optimal parse over 4,096-position windows, a match longer than
 // `sufficient` (<= 4,095) taken at once, and with `full` (level 12) every
@@ -572,14 +658,8 @@ __device__ void opt_parse(const uint8_t* s, int src_off, int n, int sufficient, 
         anchor = ip;
         continue;
       }
-      // seed the price table: leading literals, then the first match
-      for (int r = 0; r < kMinMatch; ++r) opt_set(cells[r], lit_price(llen + r), 0, 1, llen + r);
-      for (int m = kMinMatch; m <= first_len; ++m)
-        opt_set(cells[m], seq_price(llen, m), first_off, m, llen);
+      opt_seed(cells, llen, first_len, first_off);
       int last = first_len;
-      for (int a = 1; a <= kOptTrailing; ++a)
-        opt_set(cells[last + a], cells[last].price + lit_price(a), 0, 1, a);
-
       int best_mlen, best_off, cur;
       for (cur = 1; cur < last; ++cur) {
         if (ip + cur > mflimit) break;
@@ -595,62 +675,143 @@ __device__ void opt_parse(const uint8_t* s, int src_off, int n, int sufficient, 
           last = cur + 1;
           goto encode;
         }
-        {  // literal extensions from cur
-          const int base_ll = cells[cur].litlen;
-          const int base_p = cells[cur].price;
-          for (int l = 1; l < kMinMatch; ++l) {
-            const int price = base_p - lit_price(base_ll) + lit_price(base_ll + l);
-            if (price < cells[cur + l].price) opt_set(cells[cur + l], price, 0, 1, base_ll + l);
-          }
-        }
-        {  // match lengths from cur
-          const bool lit = cells[cur].mlen == 1;
-          const int ll = lit ? cells[cur].litlen : 0;
-          const int base = lit ? (cur > ll ? cells[cur - ll].price : 0) : cells[cur].price;
-          for (int m = kMinMatch; m <= new_len; ++m) {
-            const int p = cur + m;
-            const int price = base + seq_price(ll, m);
-            if (p > last + kOptTrailing || price <= cells[p].price) {
-              if (m == new_len && last < p) last = p;
-              opt_set(cells[p], price, new_off, m, ll);
-            }
-          }
-        }
-        for (int a = 1; a <= kOptTrailing; ++a)
-          opt_set(cells[last + a], cells[last].price + lit_price(a), 0, 1, a);
+        last = opt_add(cells, cur, new_len, new_off, last);
       }
       best_mlen = cells[last].mlen;
       best_off = cells[last].off;
       cur = last - best_mlen;
 
     encode:
-      {  // reverse the chosen path in place, then emit it forward
-        int p = cur, sel_len = best_mlen, sel_off = best_off;
-        for (;;) {
-          const int nl = cells[p].mlen, no = cells[p].off;
-          cells[p].mlen = sel_len;
-          cells[p].off = sel_off;
-          sel_len = nl;
-          sel_off = no;
-          if (nl > p) break;  // reached the first step
-          p -= nl;
-        }
-      }
-      for (int r = 0; r < last;) {
-        const int m = cells[r].mlen, off = cells[r].off;
-        if (m == 1) {
-          ++ip;
-          ++r;
-          continue;
-        }
-        r += m;
-        emit(o, s, anchor, ip - anchor, off, m);
-        ip += m;
-        anchor = ip;
-      }
+      opt_reverse(cells, cur, best_mlen, best_off);
+      opt_emit(s, cells, last, ip, anchor, o);
     }
   }
   emit(o, s, anchor, n - anchor, 0, 0);
+}
+
+// The OPT arm's parse at levels 10-11 (opt_parse with `full` false) by one
+// warp, its searches made up to 32 at a time.  `t` is the row's table of
+// every position's min-length-3 search (encode_opt.cu opt_matches_rows: (0,
+// 0) for none, a length below 0 where it gave up); `c` makes a search on
+// the spot.  Two facts make the rounds exact:
+// 1. opt_find(p, m) equals opt_find(p, 3) for m <= 3: the quick reject's two
+//    bytes lie inside the 4-byte compare, every measured match and pattern
+//    length is at least 4, so the chain swap and pattern step act alike.
+//    So a search with a minimum length of 3 or less reads the table (one
+//    that gave up there is made on the spot).
+// 2. A search that finds nothing changes nothing: the parse goes on to the
+//    next position before it writes a cell or `last`.  From a given state
+//    every later position's skip test and minimum length (last - cur) stay
+//    as the state gives them up to the first search that finds a match.
+// So each round the lanes take the next <= 32 positions the state does not
+// skip, each searches (or reads the table) with the state's last - cur, and
+// the warp commits them in order up to the first that finds a match, which
+// it applies; the next round starts after it.  Where the window starts,
+// the lanes read 32 table entries and take the first nonzero one.  Every
+// lane keeps the same scalar state (positions, last, anchor, the output
+// cursor); lane 0 alone writes the cells, and a __syncwarp orders its
+// writes before the other lanes' reads and their reads before its next
+// writes.  `lane_pos` (32 ints of shared memory) hands each lane its
+// position.
+template <class C>
+__device__ void opt_parse_rounds(const uint8_t* s, int src_off, int n, int sufficient,
+                                 const int2* t, C& c, WarpSink& o, OptCell* cells,
+                                 int* lane_pos) {
+  const int lane = lane_id();
+  int anchor = src_off;
+  if (n - src_off >= kMfLimit + 1) {
+    const int mflimit = n - kMfLimit;
+    int ip = src_off;
+    while (ip <= mflimit) {
+      int first_len, first_off;
+      {  // the first of the next 32 table entries that is not (0, 0)
+        const int2 e = ip + lane <= mflimit ? t[ip + lane] : make_int2(0, 0);
+        const unsigned hit = __ballot_sync(kFull, e.x != 0);
+        if (hit == 0) {
+          ip += 32;
+          continue;
+        }
+        const int k = __ffs(static_cast<int>(hit)) - 1;
+        ip += k;
+        first_len = __shfl_sync(kFull, e.x, k);
+        first_off = __shfl_sync(kFull, e.y, k);
+      }
+      if (first_len < 0) first_len = opt_find(c, ip, kMinMatch - 1, first_off);  // gave up
+      if (first_len == 0) {
+        ++ip;
+        continue;
+      }
+      const int llen = ip - anchor;
+      if (first_len > sufficient) {  // long enough: take it outright
+        warp_emit(o, s, anchor, llen, first_off, first_len);
+        ip += first_len;
+        anchor = ip;
+        continue;
+      }
+      if (lane == 0) opt_seed(cells, llen, first_len, first_off);
+      int last = first_len, cur = 1, best_mlen = 0, best_off = 0;
+      bool early = false;
+      for (;;) {  // one round
+        const int end = min(last, mflimit - ip + 1);
+        if (cur >= end) break;
+        __syncwarp();  // lane 0's cells before the reads
+        int got = 0;   // positions not skipped, the first 32 in lane_pos
+        for (int c0 = cur; c0 < end && got < 32; c0 += 32) {
+          const int q = c0 + lane;
+          const bool open = q < end && cells[q + 1].price > cells[q].price;
+          const unsigned ball = __ballot_sync(kFull, open);
+          const int rank = got + __popc(ball & ((1u << lane) - 1u));
+          if (open && rank < 32) lane_pos[rank] = q;
+          got += __popc(ball);
+        }
+        __syncwarp();  // lane_pos before the reads; the cells' reads before lane 0's writes
+        const int mine = lane < got ? lane_pos[lane] : -1;
+        const int next = got >= 32 ? lane_pos[31] + 1 : end;
+        int len = 0, off = 0;
+        if (mine >= 0) {
+          const int m = last - mine;
+          const int2 e = m < kMinMatch ? t[ip + mine] : make_int2(-1, 0);
+          if (e.x >= 0) {
+            len = e.x;
+            off = e.y;
+          } else {
+            len = opt_find(c, ip + mine, m, off);
+          }
+        }
+        const unsigned found = __ballot_sync(kFull, len != 0);
+        if (found == 0) {
+          cur = next;
+          continue;
+        }
+        const int k = __ffs(static_cast<int>(found)) - 1;
+        cur = __shfl_sync(kFull, mine, k);
+        const int new_len = __shfl_sync(kFull, len, k);
+        const int new_off = __shfl_sync(kFull, off, k);
+        if (new_len > sufficient || new_len + cur >= kOptNum) {
+          best_mlen = new_len;
+          best_off = new_off;
+          last = cur + 1;
+          early = true;
+          break;
+        }
+        if (lane == 0) last = opt_add(cells, cur, new_len, new_off, last);
+        last = __shfl_sync(kFull, last, 0);
+        ++cur;
+      }
+      if (lane == 0) {
+        if (!early) {
+          best_mlen = cells[last].mlen;
+          best_off = cells[last].off;
+          cur = last - best_mlen;
+        }
+        opt_reverse(cells, cur, best_mlen, best_off);
+      }
+      __syncwarp();
+      opt_emit(s, cells, last, ip, anchor, o);  // every lane alike
+      __syncwarp();  // the cells' reads before lane 0 seeds the next window
+    }
+  }
+  warp_emit(o, s, anchor, n - anchor, 0, 0);
 }
 
 // The OPT arm over the ring: every prefix position inserted, then the parse

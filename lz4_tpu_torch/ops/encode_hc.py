@@ -69,6 +69,8 @@ class ChainFinder:
     mask = 0xFFFF  # a search reads delta[q & mask]
     budget = 1 << 62  # the work after which a search gives up (`wider_match`)
     steps = 0  # chain steps of every search so far
+    swap_reads = 0  # chain steps read by the chain swap's scans
+    pattern_bytes = 0  # bytes the pattern runs measured, forward and back
 
     def __init__(self, s, match_limit: int, max_attempts: int):
         self.s = s
@@ -159,6 +161,7 @@ class ChainFinder:
                 chain_off = 0
                 q = 0
                 while q < end:
+                    self.swap_reads += 1
                     d = delta[(cand + q) & mask]
                     step = accel >> 4
                     accel += 1
@@ -186,6 +189,7 @@ class ChainFinder:
                     if repeat_confirmed:
                         room = budget - work
                         run = _count_pattern(s, ip + 4, min(ihigh, ip + 5 + room), pattern)
+                        self.pattern_bytes += run
                         if run > room:
                             return -1 - max(longest, run + 4), ip, -1
                         work += run
@@ -193,12 +197,14 @@ class ChainFinder:
                 if repeat_confirmed and cand2 >= lowest and read32(s, cand2) == pattern:
                     room = budget - work
                     run = _count_pattern(s, cand2 + 4, min(ihigh, cand2 + 5 + room), pattern)
+                    self.pattern_bytes += run
                     if run > room:
                         return -1 - max(longest, run + 4), ip, -1
                     work += run
                     fwd = run + 4
                     room = budget - work
                     run = _count_back_pattern(s, cand2, pattern, max(0, cand2 - room - 1))
+                    self.pattern_bytes += run
                     if run > room:
                         return -1 - max(longest, run + 4), ip, -1
                     work += run
@@ -396,6 +402,73 @@ def encode_opt(s: bytes, src_off: int, searches: int, sufficient: int,
     return opt_parse_row(s, src_off, find, sufficient, full)
 
 
+def opt_seed(o: list, llen: int, first_len: int, first_off: int):
+    """Seed the price table ``o`` of a window (o[pos] = [price, off, mlen,
+    litlen], the cheapest way to reach ip + pos): leading literals, then the
+    first match at its start."""
+    for r in range(MIN_MATCH):
+        o[r] = [_lit_price(llen + r), 0, 1, llen + r]
+    for m in range(MIN_MATCH, first_len + 1):
+        o[m] = [_seq_price(llen, m), first_off, m, llen]
+    _trailing(o, first_len)
+
+
+def _trailing(o: list, last: int):
+    for a in range(1, TRAILING + 1):
+        o[last + a] = [o[last][0] + _lit_price(a), 0, 1, a]
+
+
+def opt_add(o: list, cur: int, new_len: int, new_off: int, last: int) -> int:
+    """Price the match (new_len, new_off) found at cur and the literals
+    after cur; returns the window's new last position."""
+    base_p, _, _, base_ll = o[cur]
+    for ext in range(1, MIN_MATCH):
+        price = base_p - _lit_price(base_ll) + _lit_price(base_ll + ext)
+        if price < o[cur + ext][0]:
+            o[cur + ext] = [price, 0, 1, base_ll + ext]
+    if o[cur][2] == 1:
+        ll = o[cur][3]
+        base = o[cur - ll][0] if cur > ll else 0
+    else:
+        ll, base = 0, o[cur][0]
+    for m in range(MIN_MATCH, new_len + 1):
+        pos = cur + m
+        price = base + _seq_price(ll, m)
+        if pos > last + TRAILING or price <= o[pos][0]:
+            if m == new_len and last < pos:
+                last = pos
+            o[pos] = [price, new_off, m, ll]
+    _trailing(o, last)
+    return last
+
+
+def opt_encode(out: bytearray, s, o: list, cur: int, sel_len: int, sel_off: int,
+               last: int, ip: int, anchor: int) -> tuple[int, int]:
+    """Reverse the chosen path in place (its last step (sel_len, sel_off)
+    ends at cur + sel_len), then emit it forward from ip; returns ip and
+    anchor past it."""
+    pos = cur
+    while True:
+        nl, no = o[pos][2], o[pos][1]
+        o[pos][2], o[pos][1] = sel_len, sel_off
+        sel_len, sel_off = nl, no
+        if nl > pos:
+            break
+        pos -= nl
+    r = 0
+    while r < last:
+        m, off = o[r][2], o[r][1]
+        if m == 1:
+            ip += 1
+            r += 1
+            continue
+        r += m
+        emit(out, s, anchor, ip - anchor, off, m)
+        ip += m
+        anchor = ip
+    return ip, anchor
+
+
 def opt_parse_row(s: bytes, src_off: int, find, sufficient: int,
                   full: bool) -> bytearray:
     """The OPT arm's parse of s[src_off:] with its searches delegated:
@@ -407,14 +480,7 @@ def opt_parse_row(s: bytes, src_off: int, find, sufficient: int,
     anchor = ip = src_off
     if n - src_off >= MF_LIMIT + 1:
         mf_limit = n - MF_LIMIT
-        # o[pos] = [price, off, mlen, litlen]: the cheapest way to reach
-        # ip + pos inside the current window
         o = [[0, 0, 0, 0] for _ in range(OPT_NUM + TRAILING)]
-
-        def trailing(last):
-            for a in range(1, TRAILING + 1):
-                o[last + a] = [o[last][0] + _lit_price(a), 0, 1, a]
-
         while ip <= mf_limit:
             llen = ip - anchor
             first_len, first_off = find(ip, MIN_MATCH - 1)
@@ -426,13 +492,8 @@ def opt_parse_row(s: bytes, src_off: int, find, sufficient: int,
                 ip += first_len
                 anchor = ip
                 continue
-            for r in range(MIN_MATCH):
-                o[r] = [_lit_price(llen + r), 0, 1, llen + r]
-            for m in range(MIN_MATCH, first_len + 1):
-                o[m] = [_seq_price(llen, m), first_off, m, llen]
+            opt_seed(o, llen, first_len, first_off)
             last = first_len
-            trailing(last)
-
             early = False
             cur = 1
             while cur < last:
@@ -451,49 +512,12 @@ def opt_parse_row(s: bytes, src_off: int, find, sufficient: int,
                     last = cur + 1
                     early = True
                     break
-                base_p, _, _, base_ll = o[cur]
-                for l in range(1, MIN_MATCH):
-                    price = base_p - _lit_price(base_ll) + _lit_price(base_ll + l)
-                    if price < o[cur + l][0]:
-                        o[cur + l] = [price, 0, 1, base_ll + l]
-                if o[cur][2] == 1:
-                    ll = o[cur][3]
-                    base2 = o[cur - ll][0] if cur > ll else 0
-                else:
-                    ll, base2 = 0, o[cur][0]
-                for m in range(MIN_MATCH, new_len + 1):
-                    pos = cur + m
-                    price = base2 + _seq_price(ll, m)
-                    if pos > last + TRAILING or price <= o[pos][0]:
-                        if m == new_len and last < pos:
-                            last = pos
-                        o[pos] = [price, new_off, m, ll]
-                trailing(last)
+                last = opt_add(o, cur, new_len, new_off, last)
                 cur += 1
-
             if not early:
                 best_mlen, best_off = o[last][2], o[last][1]
                 cur = last - best_mlen
-            # reverse the chosen path in place, then emit it forward
-            pos, sel_len, sel_off = cur, best_mlen, best_off
-            while True:
-                nl, no = o[pos][2], o[pos][1]
-                o[pos][2], o[pos][1] = sel_len, sel_off
-                sel_len, sel_off = nl, no
-                if nl > pos:
-                    break
-                pos -= nl
-            r = 0
-            while r < last:
-                m, off = o[r][2], o[r][1]
-                if m == 1:
-                    ip += 1
-                    r += 1
-                    continue
-                r += m
-                emit(out, s, anchor, ip - anchor, off, m)
-                ip += m
-                anchor = ip
+            ip, anchor = opt_encode(out, s, o, cur, best_mlen, best_off, last, ip, anchor)
     emit(out, s, anchor, n - anchor, 0, 0)
     return out
 

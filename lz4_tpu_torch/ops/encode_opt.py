@@ -1,25 +1,28 @@
-"""Level 12 of the OPT arm as three passes: kernels `opt_chain`,
-`opt_matches` and `opt_parse` (`csrc/encode_opt.cu`) and their plain
-versions.
+"""The OPT arm as three passes: kernels `opt_chain`, `opt_matches` and, at
+level 12, `opt_parse`, at levels 10-11 `opt_parse_spec` (`csrc/encode_opt.cu`),
+and their plain versions.
 
-The port, at level 12 and above, of the OPT arm `opt_body` of
-`pallas_encode5` (`lz4_tpu/ops/encode_pallas5.py:1172`) and of
-`pallas_encode_stream`'s OPT arm (`lz4_tpu/ops/encode_pallas_stream.py`),
-with the bytes of `encode_hc.encode_opt`.  At level 12 every search of the
-parse is the chain-swap search for a match longer than 3 bytes, and the
-arm inserts into the chain only up to the search position, so the search
-at p is a function of the row and p alone.  The passes therefore build the
-chain of every position of a row (`opt_chain`), search every position at
-once (`opt_matches`), then run the price parse with each search read from
-that table (`opt_parse`).  Levels 10 and 11 search for matches longer than
-a length the price table sets, and stay on kernel D's serial OPT arm.
+The port of the OPT arm `opt_body` of `pallas_encode5`
+(`lz4_tpu/ops/encode_pallas5.py:1172`) and of `pallas_encode_stream`'s OPT
+arm (`lz4_tpu/ops/encode_pallas_stream.py`), with the bytes of
+`encode_hc.encode_opt`.  The arm inserts into its chain only up to the
+search position, so the search at p with a given minimum length is a
+function of the row, p and that length.  The passes build the chain of
+every position of a row (`opt_chain`) and make every position's
+min-length-3 search at once with the level's depth (`opt_matches`).  At
+level 12 every search of the parse is that search, and `opt_parse` reads
+each from the table.  At levels 10-11 the parse asks for a match longer
+than a length its price table sets: `opt_parse_spec` reads the searches
+whose minimum length is 3 or less from the table (they give what the
+min-length-3 search gives) and makes the others on the spot, up to 32 at a
+time, one warp per row (`opt_parse_rounds_row` says why that is exact).
 
 Rows are kernel D's windows (`encode_stream.encode_windows`): row r is
 base_u8[starts[r] : starts[r] + lens[r]], its first src_offs[r] bytes a
 prefix that matches may reach.  A table holds every position of every row
 back to back, row r from the sum of the lengths before it
 (`table_offsets`); the tables take `TABLE_BYTES` per window byte, so
-`encode_windows_full` runs the passes on groups of rows under
+`encode_windows_opt_passes` runs the passes on groups of rows under
 `GROUP_TABLE_BYTES`.  A CPU tensor runs each pass's plain version; a CUDA
 tensor launches its kernel (counted on the wrapper) or raises.
 """
@@ -32,9 +35,12 @@ import torch
 
 from ..constants import LAST_LITERALS, MF_LIMIT, MIN_MATCH, compress_bound
 from .build import check, load
-from .common import align1024, read32
+from .common import align1024, emit, read32
 from .encode import _outputs, pack_rows
-from .encode_hc import ChainFinder, _hash, level_arm, opt_parse_row
+from .encode_hc import (
+    OPT_NUM, TRAILING, ChainFinder, _hash, level_arm, opt_add, opt_encode, opt_parse_row,
+    opt_seed,
+)
 
 HC_EMPTY = -65536  # prev of a position with no earlier one of its hash
 TABLE_BYTES = 12  # prev (int32) and the match (int32 length and offset)
@@ -62,8 +68,10 @@ def _kernel():
         lib.lz4t_opt_chain.argtypes = [p, p, p, p, p, i, p]
         lib.lz4t_opt_matches.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.lz4t_opt_parse.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, p, p, i, p]
+        lib.lz4t_opt_parse_spec.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, p, p, i, p]
         for fn in (lib.lz4t_opt_chain, lib.lz4t_opt_matches, lib.lz4t_opt_parse,
-                   lib.lz4t_opt_chain_shared_bytes, lib.lz4t_opt_parse_shared_bytes):
+                   lib.lz4t_opt_parse_spec, lib.lz4t_opt_chain_shared_bytes,
+                   lib.lz4t_opt_parse_shared_bytes, lib.lz4t_opt_parse_spec_shared_bytes):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -74,7 +82,8 @@ def shared_bytes() -> dict:
     match pass takes none)."""
     lib = _kernel()
     return {"opt_chain": lib.lz4t_opt_chain_shared_bytes(),
-            "opt_parse": lib.lz4t_opt_parse_shared_bytes()}
+            "opt_parse": lib.lz4t_opt_parse_shared_bytes(),
+            "opt_parse_spec": lib.lz4t_opt_parse_spec_shared_bytes()}
 
 
 def table_offsets(lens) -> tuple[torch.Tensor, int]:
@@ -326,6 +335,207 @@ def opt_parse(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
     return out, clens, errs
 
 
+# ---- pass 3 at levels 10-11: the price parse by rounds --------------------
+
+def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: int,
+                         lanes: int = 32, tally: dict | None = None) -> bytearray:
+    """The level 10-11 parse of s[src_off:] (`encode_hc.opt_parse_row` with
+    ``full`` False) as `opt_parse_spec` runs it, ``lanes`` searches a round.
+
+    ``t`` is the row's `opt_matches` table as (length, offset) pairs;
+    ``search(p, m)`` makes the search at p for a match longer than m on the
+    spot, (length, offset, chain steps), (0, 0, steps) for none.  Exact for
+    two reasons.  A search whose minimum length m is 3 or less gives what
+    the min-length-3 search gives (the quick reject reads two bytes inside
+    the 4-byte compare, and every length the search measures is at least
+    4), so it reads ``t`` unless the entry gave up.  A search that finds
+    nothing changes nothing (the parse moves on before it writes a price
+    or ``last``), so from one state every position up to the first match
+    is skipped or searched with the minimum length that state gives.  A
+    round therefore takes the next ``lanes`` positions the state does not
+    skip, makes all their searches with last - cur, and commits them in
+    order up to the first that finds a match, which it applies.  Where a
+    window starts, it reads ``lanes`` table entries and takes the first
+    that is not (0, 0).  Each round asserts that the committed lanes are
+    the positions, and their minimum lengths those, of the serial loop
+    walked over the live state.
+
+    ``tally``, if given, adds: windows, rounds, rounds in which a lane
+    searched on the spot, table reads, searches made on the spot and their
+    chain steps, and `steps`, the dependent steps of
+    the warp: one per window-start read and per round, a round's being its
+    longest lane's chain steps (at least one), plus the chain steps of a
+    window start's search made on the spot."""
+    n = len(s)
+    out = bytearray()
+    anchor = ip = src_off
+    tl = dict.fromkeys(("windows", "rounds", "search_rounds", "table_reads", "searches",
+                        "search_steps", "steps"), 0)
+    if n - src_off >= MF_LIMIT + 1:
+        mf_limit = n - MF_LIMIT
+        o = [[0, 0, 0, 0] for _ in range(OPT_NUM + TRAILING)]
+
+        def on_the_spot(p, m):
+            ln, off, steps = search(p, m)
+            tl["searches"] += 1
+            tl["search_steps"] += steps
+            return ln, off, steps
+
+        while ip <= mf_limit:
+            seen = [t[q] for q in range(ip, min(ip + lanes, mf_limit + 1))]
+            tl["table_reads"] += len(seen)
+            tl["steps"] += 1
+            k = next((j for j, e in enumerate(seen) if e[0] != 0), None)
+            if k is None:
+                ip += lanes
+                continue
+            ip += k
+            first_len, first_off = seen[k]
+            if first_len < 0:  # gave up in the match pass
+                first_len, first_off, steps = on_the_spot(ip, MIN_MATCH - 1)
+                tl["steps"] += steps
+            if first_len == 0:
+                ip += 1
+                continue
+            tl["windows"] += 1
+            llen = ip - anchor
+            if first_len > sufficient:
+                emit(out, s, anchor, llen, first_off, first_len)
+                ip += first_len
+                anchor = ip
+                continue
+            opt_seed(o, llen, first_len, first_off)
+            last = first_len
+            early = False
+            cur = 1
+            while True:  # one round
+                end = min(last, mf_limit - ip + 1)
+                if cur >= end:
+                    break
+                picked, q = [], cur  # (position, minimum length) of each lane
+                while q < end and len(picked) < lanes:
+                    if o[q + 1][0] > o[q][0]:
+                        picked.append((q, last - q))
+                    q += 1
+                nxt = picked[-1][0] + 1 if len(picked) == lanes else end
+                found, longest, searched = [], 1, tl["searches"]
+                for c, m in picked:
+                    e = t[ip + c]
+                    if m <= MIN_MATCH - 1 and e[0] >= 0:
+                        tl["table_reads"] += 1
+                        found.append(tuple(e))
+                        continue
+                    ln, off, steps = on_the_spot(ip + c, m)
+                    longest = max(longest, steps)
+                    found.append((ln, off))
+                tl["rounds"] += 1
+                tl["search_rounds"] += tl["searches"] > searched
+                tl["steps"] += longest
+                k = next((j for j, f in enumerate(found) if f[0] != 0), None)
+                q = cur  # the serial loop over the live state, up to the commit
+                for c, m in picked[:len(picked) if k is None else k + 1]:
+                    while q < c:
+                        assert q < last and ip + q <= mf_limit and o[q + 1][0] <= o[q][0], (
+                            f"round at {ip + cur}: the serial loop searches {ip + q}, "
+                            "which no lane took")
+                        q += 1
+                    assert o[q + 1][0] > o[q][0] and last - q == m, (
+                        f"round at {ip + cur}: the lane at {ip + c} searched with minimum "
+                        f"length {m}, the serial loop would not search there or with "
+                        f"{last - q}")
+                    q += 1
+                if k is None:
+                    cur = nxt
+                    continue
+                cur = picked[k][0]
+                new_len, new_off = found[k]
+                if new_len > sufficient or new_len + cur >= OPT_NUM:
+                    best_mlen, best_off = new_len, new_off
+                    last = cur + 1
+                    early = True
+                    break
+                last = opt_add(o, cur, new_len, new_off, last)
+                cur += 1
+            if not early:
+                best_mlen, best_off = o[last][2], o[last][1]
+                cur = last - best_mlen
+            ip, anchor = opt_encode(out, s, o, cur, best_mlen, best_off, last, ip, anchor)
+    emit(out, s, anchor, n - anchor, 0, 0)
+    if tally is not None:
+        for key, v in tl.items():
+            tally[key] = tally.get(key, 0) + v
+    return out
+
+
+def opt_parse_spec_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
+                         depth: int = 96, sufficient: int = 64, lanes: int = 32,
+                         counts: list | None = None):
+    """The plain PyTorch version of `opt_parse_spec`: `opt_parse_rounds_row`
+    with ``lanes`` searches a round, each made by a `TableFinder`.
+    ``counts``, if given, gets one tally per row (`opt_parse_rounds_row`)."""
+    if lanes < 1:
+        raise ValueError("lanes must be at least 1")
+    base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
+    prev = _table(prev, total, 1, "prev", base.device).cpu()
+    table = _table(matches, total, 2, "matches", base.device).cpu()
+    raw = base.cpu().numpy()
+    comps = []
+    for a, off, n, at in zip(st.tolist(), so.tolist(), ln.tolist(), toff.tolist()):
+        s = raw[a:a + n].tobytes()
+        finder = TableFinder(s, n - LAST_LITERALS, depth, prev[at:at + n].tolist())
+
+        def search(p, min_len, finder=finder):
+            steps = finder.steps
+            ml, _, mp = finder.wider_match(p, p, min_len, True, True)
+            got = (ml, p - mp) if ml > min_len and mp >= 0 else (0, 0)
+            return (*got, finder.steps - steps)
+
+        tally = {} if counts is not None else None
+        comps.append(opt_parse_rounds_row(s, off, table[at:at + n].tolist(), search,
+                                          sufficient, lanes, tally))
+        if counts is not None:
+            counts.append(tally)
+    return pack_rows(comps, align1024(compress_bound(bcap)), base.device)
+
+
+def opt_parse_spec(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
+                   depth: int = 96, sufficient: int = 64):
+    """The level 10-11 price parse of each row's block by one warp, its
+    searches made 32 at a time (`opt_parse_rounds_row`): a search whose
+    minimum length is 3 or less read from ``matches`` (`opt_matches`' table
+    of the same rows, made with ``depth``), any other, or one that gave up
+    there, made on the spot (``depth`` steps) over ``prev`` (`opt_chain`'s
+    table).
+
+    Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) as
+    `encode_stream.encode_windows` does, OCAP = align1024(compress_bound(
+    bcap)).  A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel once (counted here)."""
+    base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
+    prev = _table(prev, total, 1, "prev", base.device)
+    matches = _table(matches, total, 2, "matches", base.device)
+    if st.numel() and int((ln - so).max()) > bcap:
+        raise ValueError(f"block lengths must lie in [0, bcap={bcap}]")
+    if base.device.type != "cuda":
+        return opt_parse_spec_plain(base, st, so, ln, prev, matches, bcap, depth, sufficient)
+    dev = base.device
+    nb = st.numel()
+    out, clens, errs = _outputs(nb, bcap, dev)
+    if nb == 0:
+        return out, clens, errs
+    base = base.contiguous()
+    st_d, so_d, ln_d, toff_d = st.to(dev), so.to(dev), ln.to(dev), toff.to(dev)
+    with torch.cuda.device(dev):
+        rc = _kernel().lz4t_opt_parse_spec(
+            base.data_ptr(), st_d.data_ptr(), so_d.data_ptr(), ln_d.data_ptr(),
+            toff_d.data_ptr(), prev.data_ptr(), matches.data_ptr(), out.data_ptr(),
+            out.shape[1], out.shape[1], depth, sufficient, clens.data_ptr(),
+            errs.data_ptr(), nb, _stream(dev))
+    check(rc, "opt_parse_spec")
+    opt_parse_spec.launches += 1
+    return out, clens, errs
+
+
 # ---- the three passes over a batch ---------------------------------------
 
 def row_groups(lens) -> list[tuple[int, int]]:
@@ -344,23 +554,25 @@ def row_groups(lens) -> list[tuple[int, int]]:
     return groups
 
 
-def encode_windows_full(base_u8, starts, src_offs, lens, bcap: int,
-                        level: int = 12):
-    """`encode_stream.encode_windows` at level 12 and above: on each group of
-    rows (`row_groups`), `opt_chain`, `opt_matches` and `opt_parse`, one
+def encode_windows_opt_passes(base_u8, starts, src_offs, lens, bcap: int,
+                              level: int = 12):
+    """`encode_stream.encode_windows` at levels 10 and up: on each group of
+    rows (`row_groups`), `opt_chain`, `opt_matches` with the level's depth,
+    and `opt_parse` (level 12 and up) or `opt_parse_spec` (10-11), one
     launch of each on a CUDA tensor, their plain versions on a CPU tensor.
     Returns (out, clens, errs) as `encode_windows` does, the same bytes as
     kernel D's serial OPT arm."""
     arm, depth, sufficient, full = level_arm(level)
-    if arm != "opt" or not full:
-        raise ValueError(f"level {level} is not a level of the full OPT parse (12 and up)")
+    if arm != "opt":
+        raise ValueError(f"level {level} is not an OPT level (10 and up)")
+    parse = opt_parse if full else opt_parse_spec
     base, st, so, ln, _, _ = _rows(base_u8, starts, src_offs, lens)
     parts = []
     for g0, g1 in row_groups(ln):
         rows = st[g0:g1], so[g0:g1], ln[g0:g1]
         prev = opt_chain(base, rows[0], rows[2])
         matches = opt_matches(base, *rows, prev, depth)
-        parts.append(opt_parse(base, *rows, prev, matches, bcap, depth, sufficient))
+        parts.append(parse(base, *rows, prev, matches, bcap, depth, sufficient))
         del prev, matches
     if len(parts) == 1:
         return parts[0]
@@ -370,3 +582,4 @@ def encode_windows_full(base_u8, starts, src_offs, lens, bcap: int,
 opt_chain.launches = 0
 opt_matches.launches = 0
 opt_parse.launches = 0
+opt_parse_spec.launches = 0

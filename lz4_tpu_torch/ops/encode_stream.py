@@ -33,7 +33,7 @@ from .encode import (
 )
 from .encode_hc import encode_row, level_arm
 from .encode_hc_passes import encode_windows_hc_passes
-from .encode_opt import encode_windows_full
+from .encode_opt import encode_windows_opt_passes
 
 WINDOW = 65536  # the most a prefix can hold: LZ4's farthest match offset + 1
 
@@ -206,9 +206,9 @@ def launch_fast(base_u8, starts, src_offs, lens, bcap: int, accel: int,
 def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm,
                         passes=True):
     """Kernel D's HC or OPT arm (``arm``) on a batch of windows, levels 3-9
-    as `encode_windows_hc_passes`' passes and 12 and up as
-    `encode_windows_full`'s unless ``passes`` is False; the plain version on
-    the CPU."""
+    as `encode_windows_hc_passes`' passes and 10 and up as
+    `encode_windows_opt_passes`' unless ``passes`` is False; the plain
+    version on the CPU."""
     if level_arm(level)[0] != arm:
         raise ValueError(f"level {level} does not run the {arm.upper()} arm")
     base, st, so, ln, _, _ = _validate_windows(
@@ -216,11 +216,10 @@ def _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, arm,
     )
     if base.device.type != "cuda":
         return encode_windows_plain(base, st, so, ln, bcap, level)
+    if passes:
+        launch = encode_windows_hc_passes if arm == "hc" else encode_windows_opt_passes
+        return launch(base, st, so, ln, bcap, level)
     _, depth, sufficient, full = level_arm(level)
-    if passes and arm == "hc":
-        return encode_windows_hc_passes(base, st, so, ln, bcap, level)
-    if passes and full:
-        return encode_windows_full(base, st, so, ln, bcap, level)
     base = base.contiguous()
     nb, dev = st.shape[0], base.device
     out, clens, errs = _outputs(nb, bcap, dev)
@@ -273,19 +272,21 @@ def encode_windows_hc_serial(base_u8, starts, src_offs, lens, bcap: int,
 
 def encode_windows_opt(base_u8, starts, src_offs, lens, bcap: int,
                        level: int = 12):
-    """`encode_windows` at levels 10 and up.  On a CUDA tensor levels 10
-    and 11 run kernel D's OPT arm (one launch, counted here) and 12 and up
-    the three passes of `encode_opt.encode_windows_full` (counted there);
-    a CPU tensor runs the plain version, the serial parse of
-    `encode_hc.encode_opt`, which gives the passes' bytes."""
+    """`encode_windows` at levels 10 and up: on a CUDA tensor the three
+    passes of `encode_opt.encode_windows_opt_passes` (counted there); a CPU
+    tensor runs the plain version, the serial parse of
+    `encode_hc.encode_opt`, which gives the passes' bytes (the plain match
+    pass would make a Python search at every position, where the parse
+    makes one at the positions it does not skip; the tests compose the
+    plain passes directly)."""
     return _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level, "opt")
 
 
 def encode_windows_opt_serial(base_u8, starts, src_offs, lens, bcap: int,
                               level: int = 12):
-    """Kernel D's serial OPT arm at any level from 10, level 12 included:
-    the card's reference for the level 12 passes (one launch, counted in
-    `encode_windows_opt.launches`); the plain version on a CPU tensor."""
+    """Kernel D's serial OPT arm at any level from 10: the card's reference
+    for the OPT passes (one launch, counted in `encode_windows_opt.launches`);
+    the plain version on a CPU tensor."""
     return _encode_windows_arm(base_u8, starts, src_offs, lens, bcap, level,
                                "opt", passes=False)
 

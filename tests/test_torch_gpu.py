@@ -241,19 +241,19 @@ def test_chained_frame_round_trip_on_the_card(cuda):
 
 
 def _launches(level):
-    """The launch counts of a level's encode: kernel D's HC or serial OPT
-    arm, which also takes kernel B's rows at levels 3 and up, or at level
-    12 the three passes of `encode_opt`."""
+    """The launch counts of a level's encode, which also takes kernel B's
+    rows at levels 3 and up: the three HC passes (3-9) or OPT passes (10
+    and up)."""
     return [c.launches for c in chip_smoke._hc_counts(level)]
 
 
 def _idle(level):
-    """The launch counts a level's encode must leave alone: at levels 3-9
-    the serial HC arm's."""
+    """The launch counts a level's encode must leave alone: the serial HC
+    arm's at levels 3-9, the serial OPT arm's at 10 and up."""
     return [c.launches for c in chip_smoke._hc_idle(level)]
 
 
-@pytest.mark.parametrize("level", [3, 9, 12])
+@pytest.mark.parametrize("level", [3, 9, 10, 11, 12])
 def test_hc_encode_kernel_matches_plain(level, cuda):
     """Kernel B's HC and OPT arms (on kernel D's kernel): corpus rows, the wordy regression row,
     and rows of 0, 12 and 13 bytes."""
@@ -271,7 +271,7 @@ def test_hc_encode_kernel_matches_plain(level, cuda):
     _equal(got, encode.encode_blocks_plain(bufs, lens, BLOCK, level))
 
 
-@pytest.mark.parametrize("level", [3, 9, 12])
+@pytest.mark.parametrize("level", [3, 9, 10, 12])
 def test_hc_stream_kernel_matches_plain(level, cuda):
     """Kernel D's HC and OPT arms: chained windows (64 KB blocks with their
     64 KB prefixes) and a 300 KB row without a prefix."""
@@ -340,6 +340,92 @@ def test_opt_passes_equal_the_serial_arm(budget, cuda):
     got = encode_opt.opt_parse(base_d, st, so, ln, prev, matches, BLOCK)
     _equal(got, encode_stream.encode_windows_opt_serial(base_d, st, so, ln, BLOCK, 12))
     _equal(got, encode_stream.encode_windows(base_d, st, so, ln, BLOCK, 12))
+
+
+@pytest.mark.parametrize("level", [10, 11])
+def test_opt_spec_passes_match_plain(level, cuda):
+    """Each level 10-11 pass against its plain version on the kernel's own
+    output of the pass before, one launch each (the level 12 passes' rows:
+    chained windows, the mix, short rows and long repeats)."""
+    base, st, so, ln = _opt_rows()
+    _, depth, sufficient, _ = encode_opt.level_arm(level)
+    before, idle = _launches(level), _idle(level)
+    prev = encode_opt.opt_chain(base.to(cuda), st, ln)
+    matches = encode_opt.opt_matches(base.to(cuda), st, so, ln, prev, depth)
+    got = encode_opt.opt_parse_spec(base.to(cuda), st, so, ln, prev, matches, BLOCK, depth,
+                                    sufficient)
+    torch.cuda.synchronize()
+    assert _launches(level) == [n + 1 for n in before]
+    assert _idle(level) == idle
+    _equal([prev], [encode_opt.opt_chain_plain(base, st, ln)])
+    prev_h, matches_h = prev.cpu(), matches.cpu()
+    _equal([matches], [encode_opt.opt_matches_plain(base, st, so, ln, prev_h, depth)])
+    _equal(got, encode_opt.opt_parse_spec_plain(base, st, so, ln, prev_h, matches_h, BLOCK,
+                                                depth, sufficient))
+    assert int((matches_h[:, 0] < 0).sum()) > 0  # the repeats gave up
+
+
+@pytest.mark.parametrize("level", [10, 11])
+@pytest.mark.parametrize("budget", [0, 1 << 30])
+def test_opt_spec_passes_equal_the_serial_arm(level, budget, cuda):
+    """The level 10-11 passes' output equals kernel D's serial OPT arm on
+    256 rows of 64 KB of the mix, with every min-length-3 search given up
+    to the parse (budget 0) or none, and on the level 12 passes' rows."""
+    data = chip_smoke.make_corpus(16 << 20, 16)
+    nb = len(data) // BLOCK
+    rows = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda),
+            torch.arange(nb, dtype=torch.int64) * BLOCK, torch.zeros(nb, dtype=torch.int32),
+            torch.full((nb,), BLOCK, dtype=torch.int32))
+    base, st, so, ln = _opt_rows()
+    _, depth, sufficient, _ = encode_opt.level_arm(level)
+    for b, s, o, n in (rows, (base.to(cuda), st, so, ln)):
+        prev = encode_opt.opt_chain(b, s, n)
+        matches = encode_opt.opt_matches(b, s, o, n, prev, depth, budget, budget)
+        got = encode_opt.opt_parse_spec(b, s, o, n, prev, matches, BLOCK, depth, sufficient)
+        serial0 = encode_stream.encode_windows_opt.launches
+        want = encode_stream.encode_windows_opt_serial(b, s, o, n, BLOCK, level)
+        assert encode_stream.encode_windows_opt.launches == serial0 + 1
+        _equal(got, want)
+        _equal(encode_stream.encode_windows(b, s, o, n, BLOCK, level), want)
+        assert encode_stream.encode_windows_opt.launches == serial0 + 1
+
+
+def test_opt_spec_passes_in_groups_match_one_group(cuda, monkeypatch):
+    """The level 10 passes over a batch cut into several groups of rows
+    (`encode_opt.row_groups` under a small table budget, one launch of each
+    pass per group) give what one group and the serial arm give."""
+    data = chip_smoke.make_corpus(1 << 20, 15)
+    base = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+    nb = len(data) // BLOCK
+    st = torch.arange(nb, dtype=torch.int64) * BLOCK
+    so = torch.zeros(nb, dtype=torch.int32)
+    ln = torch.full((nb,), BLOCK, dtype=torch.int32)
+    whole = encode_opt.encode_windows_opt_passes(base, st, so, ln, BLOCK, 10)
+    monkeypatch.setattr(encode_opt, "GROUP_TABLE_BYTES", 3 * BLOCK * encode_opt.TABLE_BYTES)
+    groups = encode_opt.row_groups(ln)
+    assert len(groups) == -(-nb // 3)
+    before, idle = _launches(10), _idle(10)
+    parts = encode_opt.encode_windows_opt_passes(base, st, so, ln, BLOCK, 10)
+    torch.cuda.synchronize()
+    assert _launches(10) == [n + len(groups) for n in before]
+    assert _idle(10) == idle
+    _equal(parts, whole)
+    _equal(parts, encode_stream.encode_windows_opt_serial(base, st, so, ln, BLOCK, 10))
+
+
+@pytest.mark.parametrize("level", [10, 11])
+@pytest.mark.parametrize("chain", [False, True])
+def test_opt_spec_paths_leave_the_serial_arm_alone(level, chain, cuda):
+    """A level 10-11 frame runs the three passes and never the serial OPT
+    arm (its count unchanged), with the plain route's bytes."""
+    data = chip_smoke.make_corpus(1 << 18, 17)
+    settings = frame.EncoderSettings(compression_level=level, chain_blocks=chain)
+    before, idle = _launches(level), _idle(level)
+    blob = frame.compress(data, settings)
+    assert _idle(level) == idle
+    assert all(n > b for n, b in zip(_launches(level), before))
+    assert frame.decompress(blob) == data
+    assert blob == frame.compress(data, settings, device="cpu")
 
 
 def test_hc_passes_match_plain(cuda):

@@ -47,7 +47,7 @@ def _bytes(res):
 
 def _hold(base, starts, src_offs, lens, bcap):
     """The plain passes composed against the serial plain parse."""
-    ours = EO.encode_windows_full(base, starts, src_offs, lens, bcap, 12)
+    ours = EO.encode_windows_opt_passes(base, starts, src_offs, lens, bcap, 12)
     theirs = ES.encode_windows_plain(base, starts, src_offs, lens, bcap, 12)
     assert _bytes(ours) == _bytes(theirs)
     for a, b in zip(ours, theirs):
@@ -87,7 +87,7 @@ def test_passes_match_pallas(interpret):
     jout, jclens, jerrs = (np.asarray(t) for t in E5.encode_blocks_pallas5(bufs, lens, N, 12))
     flat = torch.from_numpy(bufs).reshape(-1)
     starts = [i * bufs.shape[1] for i in range(len(rows))]
-    out, clens, errs = EO.encode_windows_full(flat, starts, [0] * len(rows), lens.tolist(), N)
+    out, clens, errs = EO.encode_windows_opt_passes(flat, starts, [0] * len(rows), lens.tolist(), N)
     assert np.array_equal(clens.numpy(), jclens) and np.array_equal(errs.numpy(), jerrs)
     for i in range(len(rows)):
         assert np.array_equal(out[i, :clens[i]].numpy(), jout[i, :jclens[i]]), i
@@ -104,7 +104,7 @@ def passes_on_the_cpu_route(monkeypatch):
     def route(base, st, so, ln, bcap, level=0, *args):
         if level >= 12:
             taken.append(len(ln))
-            return EO.encode_windows_full(base, st, so, ln, bcap, level)
+            return EO.encode_windows_opt_passes(base, st, so, ln, bcap, level)
         return serial(base, st, so, ln, bcap, level, *args)
 
     monkeypatch.setattr(ES, "encode_windows_plain", route)
@@ -260,10 +260,10 @@ def test_rows_in_groups_give_the_same_bytes(monkeypatch):
     """Rows over `GROUP_TABLE_BYTES` run as several groups, one launch of
     each pass per group, with the bytes of one group."""
     base, st, so, ln, bcap = _case("bench_mix")
-    whole = EO.encode_windows_full(base, st, so, ln, bcap)
+    whole = EO.encode_windows_opt_passes(base, st, so, ln, bcap)
     monkeypatch.setattr(EO, "GROUP_TABLE_BYTES", 2 * 16384 * EO.TABLE_BYTES)
     assert EO.row_groups(ln) == [(0, 2), (2, 4)]
-    for a, b in zip(EO.encode_windows_full(base, st, so, ln, bcap), whole):
+    for a, b in zip(EO.encode_windows_opt_passes(base, st, so, ln, bcap), whole):
         assert torch.equal(a, b)
     assert EO.row_groups([10 ** 7, 5, 5]) == [(0, 1), (1, 3)]
 
@@ -281,8 +281,8 @@ def test_cpu_tensors_count_no_launch_and_tables_are_checked():
         EO.opt_parse(base, st, so, ln, prev, matches.to(torch.int64), bcap)
     with pytest.raises(ValueError, match="outside base_u8"):
         EO.opt_chain(base, [0], [base.numel() + 1])
-    with pytest.raises(ValueError, match="full OPT parse"):
-        EO.encode_windows_full(base, st, so, ln, bcap, 11)
+    with pytest.raises(ValueError, match="not an OPT level"):
+        EO.encode_windows_opt_passes(base, st, so, ln, bcap, 9)
 
 
 @pytest.mark.parametrize("retry_longest", [64, 1 << 20])
