@@ -1850,18 +1850,13 @@ def opt_memory(data: bytes, dev) -> dict:
     before, per payload byte, beside the OPT tables' bytes per block byte
     (`encode_opt.TABLE_BYTES` per window byte: a chained block's window
     holds its 64 KB prefix too)."""
-    import torch
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.ops import encode_opt
 
     out = {}
     for name, chained in (("independent", False), ("chained", True)):
         settings = frame.EncoderSettings(compression_level=10, chain_blocks=chained)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        held_before = torch.cuda.memory_allocated(dev)
-        frame.compress(data, settings, device=dev)
-        peak = torch.cuda.max_memory_allocated(dev) - held_before
+        _, peak = _compress_peak(data, settings, dev)
         window = 2 * BLOCK if chained else BLOCK
         out[name] = {"peak_bytes": peak, "peak_per_payload_byte": peak / len(data),
                      "table_bytes_per_block_byte": encode_opt.TABLE_BYTES * window / BLOCK}
@@ -2110,6 +2105,9 @@ def phase_hc_times(data: bytes, dev):
                 steps = max(c["steps"] for c in counts)
                 e = ents[-1]
                 e["step_bound_ms"] = steps * L1_CYCLES / clock * 1e3
+                # every lane of a round counted, those past its first match too
+                e["speculative_step_ms"] = (max(c["speculative_steps"] for c in counts)
+                                            * L1_CYCLES / clock * 1e3)
                 if e["step_bound_ms"] > e["bound_ms"]:
                     e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
                 summary[lv][path]["parse_of_picked_rows"] = counts
@@ -2119,13 +2117,43 @@ def phase_hc_times(data: bytes, dev):
     return entries, summary
 
 
-def _cli_hc():
-    """`lz4 -9`'s settings: the command line's defaults (independent 4 MB
-    blocks, a content checksum) at level 9."""
+def _cli_hc(level: int = 9):
+    """`lz4 -9`'s settings (``level`` 10 or 11: `lz4 -10`, `lz4 -11`): the
+    command line's defaults (independent 4 MB blocks, a content checksum)
+    at that level."""
     from lz4_tpu_torch import frame
 
     return frame.EncoderSettings(chain_blocks=False, block_size=CLI_BLOCK,
-                                 content_checksum=True, compression_level=9)
+                                 content_checksum=True, compression_level=level)
+
+
+def _compress_peak(data: bytes, settings, dev):
+    """One `frame.compress` of ``data`` and the device memory it allocates
+    at its peak above what was held before."""
+    import torch
+    from lz4_tpu_torch import frame
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_before = torch.cuda.memory_allocated(dev)
+    blob = frame.compress(data, settings, device=dev)
+    return blob, torch.cuda.max_memory_allocated(dev) - held_before
+
+
+def _hold_cli_frame(blob: bytes, data: bytes, serial, lens, size: int, what: str) -> None:
+    """Every block of ``blob``, a frame of ``data`` in independent blocks
+    of ``size``, equal to the serial arm's output ``serial`` on the same
+    rows (stored where that output does not shrink the block)."""
+    from lz4_tpu_torch.frame.api import _scan_single_frame
+
+    _, blocks, _ = _scan_single_frame(blob)
+    _require(len(blocks) == len(lens), f"{what} frame: wrong number of blocks")
+    out, clens = serial[0].cpu(), serial[1].cpu()
+    for k, (off, length, stored) in enumerate(blocks):
+        n, c = int(lens[k]), int(clens[k])
+        want = data[k * size:k * size + n] if c >= n else out[k, :c].numpy().tobytes()
+        _require(stored == (c >= n) and blob[off:off + length] == want,
+                 f"{what} frame: block {k} != the serial arm's bytes")
 
 
 def phase_cli_hc(data: bytes, dev, pool):
@@ -2144,8 +2172,6 @@ def phase_cli_hc(data: bytes, dev, pool):
     (`encode_hc_passes.table_bytes`).  Returns the launches, the rates,
     the `kernels` entries and a summary."""
     import torch
-    from lz4_tpu_torch import frame
-    from lz4_tpu_torch.frame.api import _scan_single_frame
     from lz4_tpu_torch.ops import decode, encode_hc_passes, encode_stream, xxh32
     from lz4_tpu_torch.parallel.blocks import split_blocks
 
@@ -2153,11 +2179,7 @@ def phase_cli_hc(data: bytes, dev, pool):
     launches, e2e = _round_trips(data, settings, dev,
                                  _hc_counts(9) + [decode.decode_blocks, xxh32.xxh32_windows],
                                  ROW_PASSES, idle=_hc_idle(9))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    held_before = torch.cuda.memory_allocated(dev)
-    blob = frame.compress(data, settings, device=dev)
-    peak = torch.cuda.max_memory_allocated(dev) - held_before
+    blob, peak = _compress_peak(data, settings, dev)
     size = CLI_BLOCK
     bufs, lens = split_blocks(data, size)
     tables = sum(encode_hc_passes.table_bytes(int(n), int(n)) for n in lens)
@@ -2173,14 +2195,7 @@ def phase_cli_hc(data: bytes, dev, pool):
     serial_ms = (time.perf_counter() - t0) * 1e3
     err = _max_abs_err(got, serial)
     _require(err == 0, "lz4 -9 rows: the passes' output != the serial HC arm's")
-    _, blocks, _ = _scan_single_frame(blob)
-    _require(len(blocks) == nb, "lz4 -9 frame: wrong number of blocks")
-    out, clens = serial[0].cpu(), serial[1].cpu()
-    for k, (off, length, stored) in enumerate(blocks):
-        n, c = int(lens[k]), int(clens[k])
-        want = data[k * size:k * size + n] if c >= n else out[k, :c].numpy().tobytes()
-        _require(stored == (c >= n) and blob[off:off + length] == want,
-                 f"lz4 -9 frame: block {k} != the serial HC arm's bytes")
+    _hold_cli_frame(blob, data, serial, lens, size, "lz4 -9")
     entries = hc_pass_entries("lz4_9", "independent", "lz4_tpu/ops/encode_pallas_stream.py:266",
                               rows, got, pass_ms, clock)
     # 256 KB of a row of runs and of noise as rows of their own, after the 16
@@ -2208,6 +2223,96 @@ def phase_cli_hc(data: bytes, dev, pool):
           f"every block of the frame equal to its output; each pass equal to its "
           f"plain version (the parse on the first and last rows); a compress "
           f"allocates {peak} bytes at its peak, the HC tables {tables}")
+    return launches, e2e, entries, summary
+
+
+def phase_cli_opt(data: bytes, dev, pool, level: int):
+    """The `lz4 -10` or `lz4 -11` path (``level``): --mb MiB through
+    `frame.compress` / `frame.decompress` with `_cli_hc(level)`'s settings
+    (the level 10-11 passes, kernel A's passes, kernel E), counts set to 0
+    just before and read just after, exact and deterministic over three
+    runs after a warm-up, the serial OPT arm's count 0; the frame's blocks
+    held byte for byte to the serial OPT arm's output on the same rows
+    (timed once); the passes timed once on those rows (CUDA events between
+    them); each pass run on 256 KB of the first row (text) and of the first
+    records row, as rows of their own, and held there to its plain version
+    (the plain match pass over a 4 MiB row would take minutes): the parse's
+    step bound is that of the slower cut, a lower bound for the 4 MiB rows.  The
+    device memory one compress allocates at its peak, beside the OPT
+    tables' bytes (`encode_opt.TABLE_BYTES` a block byte).  Returns the
+    launches, the rates, the `kernels` entries and a summary."""
+    import torch
+    from lz4_tpu_torch.ops import decode, encode_opt, encode_stream, xxh32
+    from lz4_tpu_torch.parallel.blocks import split_blocks
+
+    label = f"lz4_{level}"
+    settings = _cli_hc(level)
+    launches, e2e = _round_trips(data, settings, dev,
+                                 _hc_counts(level) + [decode.decode_blocks, xxh32.xxh32_windows],
+                                 ROW_PASSES, idle=_hc_idle(level))
+    blob, peak = _compress_peak(data, settings, dev)
+    size = CLI_BLOCK
+    bufs, lens = split_blocks(data, size)
+    nb = bufs.shape[0]
+    rows = (bufs.reshape(-1), torch.arange(nb, dtype=torch.int64) * bufs.shape[1],
+            torch.zeros(nb, dtype=torch.int32), lens)
+    base_d = rows[0].to(dev)
+    clock = float(_nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    pass_ms, got = opt_pass_ms(base_d, *rows[1:], size, level, iters=1)
+    t0 = time.perf_counter()
+    serial = encode_stream.encode_windows_opt_serial(base_d, *rows[1:], size, level)
+    torch.cuda.synchronize()
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    err = _max_abs_err(got, serial)
+    _require(err == 0, f"lz4 -{level} rows: the passes' output != the serial OPT arm's")
+    _hold_cli_frame(blob, data, serial, lens, size, f"lz4 -{level}")
+    moved = _opt_moved(rows, got)
+    entries = [{
+        "name": f"{name}:{label}", "route": "cuda",
+        "source": "lz4_tpu_torch/ops/csrc/encode_opt.cu",
+        "replaces": ("lz4_tpu/ops/encode_pallas_stream.py:266 (OPT arm at level "
+                     f"{level}; lz4_tpu/ops/encode_pallas5.py:1172 opt_body)"),
+        "path": label, "held": "independent", "max_abs_err": 0,
+        "ms": pass_ms[name], "plain_ms": None,
+        "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "byte_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None} for name in SPEC_PASSES]
+    # 256 KB of the first text row and the first records row as rows of their own
+    cut = size // 16
+    extra = [0, nb // 4]
+    errs, seconds, given_up, counts = hold_opt_passes(
+        rows[0], rows[1][extra], rows[2][extra], torch.tensor([cut, cut], dtype=torch.int32),
+        size, [0, 1], dev, pool, level=level)()
+    steps = max(c["steps"] for c in counts)
+    for e in entries:
+        name = e["name"].split(":")[0]
+        e["max_abs_err"] = errs[name]
+        e["plain_ms"] = seconds[name] * 1e3 * len(data) / (2 * cut)
+    e = entries[-1]
+    e["step_bound_ms"] = steps * L1_CYCLES / clock * 1e3
+    e["step_bound_of"] = "the held 256 KB cuts of the text and records rows"
+    e["speculative_step_ms"] = (max(c["speculative_steps"] for c in counts)
+                                * L1_CYCLES / clock * 1e3)
+    if e["step_bound_ms"] > e["bound_ms"]:
+        e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
+    tables = encode_opt.TABLE_BYTES * len(data)
+    summary = {"pass_ms": pass_ms, "passes_ms": sum(pass_ms.values()),
+               "serial_ms": serial_ms, "rows_equal_to_serial": nb,
+               "frame_equal_to_serial": True, "opt_table_bytes": tables,
+               "opt_table_bytes_per_payload_byte": tables / len(data),
+               "compress_peak_allocated_bytes": peak,
+               "compress_peak_per_payload_byte": peak / len(data),
+               "given_up_in_held_cuts": given_up, "parse_of_held_cuts": counts}
+    print(f"[lz4 -{level}] {len(data)} bytes -> {e2e['frame_bytes']} bytes (ratio "
+          f"{len(data) / e2e['frame_bytes']:.4f}), round trip exact, deterministic, "
+          f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
+          f"compress, {e2e['decompress_GBps_median']:.4f} GB/s decompress; passes "
+          + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
+          + f" ms, the serial OPT arm {serial_ms:.1f} ms on the same {nb} rows, "
+          f"every block of the frame equal to its output; each pass equal to its "
+          f"plain version on 256 KB of the text and records rows (parse step bound "
+          f"{e['step_bound_ms']:.3f} ms); a compress allocates {peak} bytes at its "
+          f"peak, the OPT tables {tables}")
     return launches, e2e, entries, summary
 
 
@@ -2476,8 +2581,14 @@ def main(argv=None) -> int:
             data, rng, dev, xxh_windows, xxh_futures)
     hc_launches, hc_e2e = phase_hc_paths(data16, dev)
     hc_kernels, hc_times = phase_hc_times(data16, dev)
+    cli_opt = {}
     with plain_pool() as pool:
         cli_hc_launches, cli_hc_e2e, cli_hc_kernels, cli_hc = phase_cli_hc(data, dev, pool)
+        for level in (10, 11):
+            got = phase_cli_opt(data, dev, pool, level)
+            hc_launches[f"lz4_{level}"] = got[0]
+            cli_hc_kernels += got[2]
+            cli_opt[f"lz4_{level}"] = {"e2e": got[1], **got[3]}
     hc_launches["lz4_9"] = cli_hc_launches
     for k in hc_kernels + cli_hc_kernels:  # the serial HC arm: 0 on the L9 paths
         fn = k["name"].split(":")[0]
@@ -2487,7 +2598,7 @@ def main(argv=None) -> int:
     print(json.dumps({"hc9": hc_times["L9"], "opt10": hc_times["L10"],
                       "opt11": hc_times["L11"], "opt12": hc_times["L12"]}))
     print(json.dumps({"opt10_memory": opt_memory(data16, dev)}))
-    print(json.dumps({"e2e_hc_cli": cli_hc_e2e, "lz4_9": cli_hc}))
+    print(json.dumps({"e2e_hc_cli": cli_hc_e2e, "lz4_9": cli_hc, **cli_opt}))
     print(json.dumps({"cli_hc": profile_path(data, dev, _cli_hc())}))
     print(json.dumps({"hc_L9_chained": profile_path(
         data16, dev, frame.EncoderSettings(compression_level=9))}))

@@ -48,13 +48,17 @@ level 10-11 passes do: from the serial plain parse, its searches, those
 with a minimum length of 3 or less (which the match pass's table answers),
 those above 3, those that find a match, their chain steps, the chain steps
 the chain swap's scans read and the bytes the pattern runs measure (each
-a dependent read on the card), and the share of its search time above 3; from the parse by rounds (`encode_opt.opt_parse_rounds_row`, 32
-lanes, over the row's chain table, each table entry searched where it is
-read), its rounds (every window end a barrier), those in which a lane
-searched on the spot, its table reads, the searches it makes on the spot
-(the lanes past a round's first match included) and its dependent steps
-(a round's longest lane's chain steps, at least one, and one per
-window-start read), the count that sets the pass's step bound.  One JSON
+a dependent read on the card), and the share of its search time above 3;
+from the plain passes (`encode_opt.opt_chain_plain`, `opt_matches_plain`
+at the level's depth with level 12's work budgets, then
+`opt_parse_spec_plain` at 32 lanes, its bytes held to the serial parse's),
+the match pass's given-up entries and the parse's counts: its rounds
+(every window end a barrier), those in which a lane searched on the spot,
+its table reads, the searches it makes on the spot (the lanes past a
+round's first match included), its dependent steps (a round's longest
+walk among the lanes it commits, at least one, and one per window-start
+read), the count that sets the pass's step bound, and the same with every
+lane of a round counted (`speculative_steps`).  One JSON
 line per level.
 """
 
@@ -143,26 +147,6 @@ def _report(cs, base, st, so, ln, block: int, dev) -> dict:
     return out
 
 
-def _opt_passes_ms(base, st, so, ln, block: int, level: int):
-    """Each level 10-11 pass's time (CUDA events between them) and the
-    output."""
-    import torch
-    from lz4_tpu_torch.ops import encode_hc, encode_opt
-
-    _, depth, sufficient, _ = encode_hc.level_arm(level)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    ev[0].record()
-    prev = encode_opt.opt_chain(base, st, ln)
-    ev[1].record()
-    matches = encode_opt.opt_matches(base, st, so, ln, prev, depth)
-    ev[2].record()
-    got = encode_opt.opt_parse_spec(base, st, so, ln, prev, matches, block, depth, sufficient)
-    ev[3].record()
-    torch.cuda.synchronize()
-    names = ("opt_chain", "opt_matches", "opt_parse_spec")
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}, got
-
-
 def _opt_report(cs, base, st, so, ln, block: int, level: int, dev) -> dict:
     """``--opt``: the level 10-11 passes against the serial OPT arm."""
     import torch
@@ -174,16 +158,16 @@ def _opt_report(cs, base, st, so, ln, block: int, level: int, dev) -> dict:
         return encode_stream.encode_windows_opt_serial(base, st, so, ln, block, level)
 
     want = serial()
-    _opt_passes_ms(base, st, so, ln, block, level)  # warm
-    ms, got = _opt_passes_ms(base, st, so, ln, block, level)
+    cs.opt_pass_ms(base, st, so, ln, block, level, iters=1)  # warm
+    ms, got = cs.opt_pass_ms(base, st, so, ln, block, level, iters=1)
     cs._require(cs._max_abs_err(got, want) == 0,
                 f"level {level}: the passes' output != the serial OPT arm's")
     nb = st.numel()
     quarters = []
     for q in range(4):
         rows = slice(q * nb // 4, (q + 1) * nb // 4)
-        quarters.append(_opt_passes_ms(base, st[rows], so[rows], ln[rows], block,
-                                       level)[0]["opt_parse_spec"])
+        quarters.append(cs.opt_pass_ms(base, st[rows], so[rows], ln[rows], block, level,
+                                       iters=1)[0]["opt_parse_spec"])
     torch.cuda.synchronize()
     return {"level": level, "pass_ms": ms, "passes_ms": sum(ms.values()),
             "serial_ms": cs._cuda_ms(serial, 1), "parse_ms_by_quarter": quarters,
@@ -244,24 +228,9 @@ def _opt_by_min_length(s: bytes, level: int) -> dict:
             "time_share_above_3": seconds["above_3"] / total}
 
 
-class _Searched:
-    """A row's match table (`encode_opt.opt_matches`, unbudgeted) with each
-    entry searched where it is first read."""
-
-    def __init__(self, finder):
-        self.finder = finder
-        self.got = {}
-
-    def __getitem__(self, p: int):
-        if p not in self.got:
-            ml, _, mp = self.finder.wider_match(p, p, 3, True, True)
-            self.got[p] = (ml, p - mp) if ml > 3 and mp >= 0 else (0, 0)
-        return self.got[p]
-
-
 def _opt_rounds(s: bytes, level: int) -> dict:
-    """The serial plain level 10-11 parse's searches and the parse by
-    rounds' counts (``--opt``)."""
+    """The serial plain level 10-11 parse's searches and the plain passes'
+    counts (``--opt``)."""
     import torch
     from lz4_tpu_torch.constants import LAST_LITERALS
     from lz4_tpu_torch.ops import encode_hc, encode_opt
@@ -286,23 +255,17 @@ def _opt_rounds(s: bytes, level: int) -> dict:
     serial.update(steps=finder.steps, swap_reads=finder.swap_reads,
                   pattern_bytes=finder.pattern_bytes)
     base = torch.frombuffer(bytearray(s), dtype=torch.uint8)
-    prev = encode_opt.opt_chain_plain(base, [0], [len(s)]).tolist()
-    table = encode_opt.TableFinder(s, len(s) - LAST_LITERALS, searches, prev)
-
-    def search(p, min_len):
-        steps = table.steps
-        ml, _, mp = table.wider_match(p, p, min_len, True, True)
-        got = (ml, p - mp) if ml > min_len and mp >= 0 else (0, 0)
-        return (*got, table.steps - steps)
-
-    rounds = {}
-    got = encode_opt.opt_parse_rounds_row(
-        s, 0, _Searched(encode_opt.TableFinder(s, len(s) - LAST_LITERALS, searches, prev)),
-        search, sufficient, 32, rounds)
-    assert got == want, "the parse by rounds != the serial parse"
+    row = (base, [0], [0], [len(s)])
+    prev = encode_opt.opt_chain_plain(base, [0], [len(s)])
+    matches = encode_opt.opt_matches_plain(*row, prev, searches)
+    counts = []
+    out, clens, _ = encode_opt.opt_parse_spec_plain(*row, prev, matches, len(s), searches,
+                                                    sufficient, 32, counts)
+    assert out[0, :int(clens[0])].numpy().tobytes() == bytes(want), (
+        "the parse by rounds != the serial parse")
     return {"serial": serial, "search_seconds": seconds,
             "time_share_above_3": seconds["above_3"] / sum(seconds.values()),
-            "rounds": rounds}
+            "given_up": int((matches[:, 0] < 0).sum()), "rounds": counts[0]}
 
 
 def opt_split(rows, kinds) -> None:
@@ -313,6 +276,8 @@ def opt_split(rows, kinds) -> None:
         total = sum(sum(r["search_seconds"].values()) for r in by_row.values())
         print(json.dumps({"level": level, "time_share_above_3": above / total,
                           "most_steps": max(r["rounds"]["steps"] for r in by_row.values()),
+                          "most_speculative_steps": max(r["rounds"]["speculative_steps"]
+                                                        for r in by_row.values()),
                           "by_row": by_row}), flush=True)
 
 

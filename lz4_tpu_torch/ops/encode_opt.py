@@ -362,15 +362,17 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
 
     ``tally``, if given, adds: windows, rounds, rounds in which a lane
     searched on the spot, table reads, searches made on the spot and their
-    chain steps, and `steps`, the dependent steps of
-    the warp: one per window-start read and per round, a round's being its
-    longest lane's chain steps (at least one), plus the chain steps of a
-    window start's search made on the spot."""
+    chain steps, and `steps`, the dependent steps the parse needs: one per
+    window-start read and per round, a round's being the longest chain walk
+    among the lanes it commits (at least one), plus the chain steps of a
+    window start's search made on the spot.  `speculative_steps` counts a
+    round as its longest lane's walk, the lanes past its first match
+    included, as the warp runs it."""
     n = len(s)
     out = bytearray()
     anchor = ip = src_off
     tl = dict.fromkeys(("windows", "rounds", "search_rounds", "table_reads", "searches",
-                        "search_steps", "steps"), 0)
+                        "search_steps", "steps", "speculative_steps"), 0)
     if n - src_off >= MF_LIMIT + 1:
         mf_limit = n - MF_LIMIT
         o = [[0, 0, 0, 0] for _ in range(OPT_NUM + TRAILING)]
@@ -385,6 +387,7 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
             seen = [t[q] for q in range(ip, min(ip + lanes, mf_limit + 1))]
             tl["table_reads"] += len(seen)
             tl["steps"] += 1
+            tl["speculative_steps"] += 1
             k = next((j for j, e in enumerate(seen) if e[0] != 0), None)
             if k is None:
                 ip += lanes
@@ -394,6 +397,7 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
             if first_len < 0:  # gave up in the match pass
                 first_len, first_off, steps = on_the_spot(ip, MIN_MATCH - 1)
                 tl["steps"] += steps
+                tl["speculative_steps"] += steps
             if first_len == 0:
                 ip += 1
                 continue
@@ -418,20 +422,22 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
                         picked.append((q, last - q))
                     q += 1
                 nxt = picked[-1][0] + 1 if len(picked) == lanes else end
-                found, longest, searched = [], 1, tl["searches"]
+                found, walks, searched = [], [], tl["searches"]
                 for c, m in picked:
                     e = t[ip + c]
                     if m <= MIN_MATCH - 1 and e[0] >= 0:
                         tl["table_reads"] += 1
                         found.append(tuple(e))
+                        walks.append(0)
                         continue
                     ln, off, steps = on_the_spot(ip + c, m)
-                    longest = max(longest, steps)
                     found.append((ln, off))
+                    walks.append(steps)
                 tl["rounds"] += 1
                 tl["search_rounds"] += tl["searches"] > searched
-                tl["steps"] += longest
                 k = next((j for j, f in enumerate(found) if f[0] != 0), None)
+                tl["steps"] += max([1, *walks[:len(walks) if k is None else k + 1]])
+                tl["speculative_steps"] += max([1, *walks])
                 q = cur  # the serial loop over the live state, up to the commit
                 for c, m in picked[:len(picked) if k is None else k + 1]:
                     while q < c:

@@ -163,6 +163,11 @@ def test_rounds_of_any_width_equal_the_serial_parse(lanes, level):
     assert int((matches[:, 0] < 0).sum()) > 10000
     assert all(c["windows"] > 0 for c in counts)
     assert all(c["searches"] >= c["search_rounds"] > 0 for c in counts[:4])
+    # the step count takes only the lanes a round commits; with one lane a
+    # round commits every lane it searched
+    assert all(c["steps"] <= c["speculative_steps"] for c in counts)
+    if lanes == 1:
+        assert all(c["steps"] == c["speculative_steps"] for c in counts)
 
 
 def test_levels_10_and_11_differ_on_the_mix():
