@@ -125,6 +125,23 @@ Phases, each fatal on failure:
    --mb MiB, and chained 64 KB blocks with both checksums over --mb MiB; and
    one profiled compress and decompress of the first.
 
+16. the host surface (`phase_streaming`): kernel E's streaming form
+   (`xxh32_stripes`) against its plain version on windows at starts and
+   lengths 1/15/16/17, a 4 MiB window and the timed 1 MiB update, and
+   `XXH32.update` over device updates of 1, 15, 16 and 17 bytes and of
+   4 MiB after a carried tail; kernel A's one-warp route with output limits against its
+   plain version (limits inside literal runs and overlapping matches,
+   dictionaries, rows malformed after the limit); then, counts set to 0
+   just before and read just after each (the host's stripe loop must stay
+   at 0): `LZ4FrameFile` writes and reads of 1 MiB over --mb MiB at the
+   `lz4` CLI default (also of 64 KiB, and of 1 MiB with 12 MiB of extra
+   memory: four blocks a launch) and chained with both checksums, each frame equal to
+   the one-shot frame; a three-frame stream with a skippable frame; a
+   16 MiB legacy frame (8 MiB blocks, A's passes); a ChainDecoder over a
+   chained frame's blocks (C's batch form); `partial_decode`, pickle and
+   legacy round trips; the streaming form, the limited route and C's
+   batch form timed at their paths' shapes.
+
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
 result, without a CUDA card or without the package beside it.  The data is
@@ -135,7 +152,9 @@ library time to compare with (library_ms is null).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import faulthandler
+import importlib
 import json
 import os
 import random
@@ -393,10 +412,13 @@ def _round_trips(data: bytes, settings, dev, counts, kernels=(), idle=()):
     wrapper's in `counts` and in ``idle``, and kernel A's kernels named in
     ``kernels`` (`decode.kernel_launches`).  Each count of `counts` and
     ``kernels`` must be above 0, each of ``idle`` (a reference the path
-    must not launch) 0."""
+    must not launch) 0; the host's stripe loop (`lz4_tpu_torch.xxh32.
+    host_stripes`) is idle on every path."""
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.ops import decode
 
+    host = importlib.import_module("lz4_tpu_torch.xxh32")  # the module, not the function
+    idle = (*idle, host.host_stripes)  # the plain stripe loop: 0 on every path
     warm = frame.compress(data[:4 * BLOCK], settings, device=dev)
     _require(frame.decompress(warm, device=dev) == data[:4 * BLOCK], "warm-up round trip")
     for fn in (*counts, *idle):
@@ -812,10 +834,6 @@ def phase_big_blocks(data: bytes, dev):
     return launches, e2e
 
 
-CHAIN_PASSES = ("chain_parse", "chain_place", "chain_literals", "chain_jump",
-                "chain_gather")
-
-
 def phase_times_stream(data: bytes, blob: bytes, chain_plain_ms: float, dev,
                        data64: bytes):
     """Kernel D on the chained path's rows, and the chained decoder on the
@@ -858,7 +876,8 @@ def phase_times_stream(data: bytes, blob: bytes, chain_plain_ms: float, dev,
             return decode_stream.decode_chain(frame_d, table, block_size)
 
         written = int(run()[1][0])
-        passes = _device_ms_by(run, CHAIN_PASSES, 3)
+        passes, _ = _device_ms_by(
+            run, lambda: dict(decode_stream.chain_kernel_launches), 3)
         # the frame read once, the content written once, the block table
         # and the status
         moved = len(b) + written + 24 * table.shape[0] + 24
@@ -1222,7 +1241,8 @@ def phase_fast_rows(data: bytes, dev, pool):
             print(f"[fast rows] A at {label}: {nb} rows in {groups} groups of at most "
                   f"256 MiB of scratch equal to one group")
         routes_ms = {"passes": _cuda_ms(rows_route, 3), "one_warp": _cuda_ms(warp_route, 3)}
-        pass_ms = _device_ms_by(rows_route, ROW_PASSES, 2)
+        pass_ms, _ = _device_ms_by(
+            rows_route, lambda: {k: decode.kernel_launches[k] for k in ROW_PASSES}, 2)
         torch.cuda.synchronize()
         err_old = max(_max_abs_err(back, rows_route()), _max_abs_err(back, warp_route()))
         _require(err_old == 0, f"A at {label}: its two routes differ")
@@ -1924,7 +1944,7 @@ def phase_hc_times(data: bytes, dev):
     the HC passes' and the level 10-11 parse's dependent steps.  Returns
     the `kernels` entries and the per-level summaries."""
     import torch
-    from lz4_tpu_torch.ops import encode_hc_passes, encode_stream
+    from lz4_tpu_torch.ops import encode_hc_passes, encode_opt, encode_stream
     from lz4_tpu_torch.parallel.blocks import split_blocks
 
     bufs, lens = split_blocks(data, BLOCK)
@@ -2066,7 +2086,9 @@ def phase_hc_times(data: bytes, dev):
         err = _max_abs_err(got, serial_out[(12, path)])
         _require(err == 0, f"level 12 {path}: the passes' output != the serial arm's")
         whole_ms = _cuda_ms(run, 2)
-        pass_ms = _device_ms_by(run, tuple(OPT_KERNELS.values()), 2)
+        pass_ms, _ = _device_ms_by(run, lambda: {
+            kernel: getattr(encode_opt, name).launches
+            for name, kernel in OPT_KERNELS.items()}, 2)
         moved = _opt_moved(windows[path], got)
         for name, kernel in OPT_KERNELS.items():
             entries.append({
@@ -2322,34 +2344,51 @@ XXH_LENGTHS = [0, 1, 3, 4, 15, 16, 17, 31, 32, 100, 1024, 4097, 65536]
 CHAIN_CYCLES_PER_STRIPE = 10
 
 
-def _device_ms(fn, kernel: str, iters: int) -> float:
-    """The device time of one launch of `kernel` (torch.profiler), for a
+def _device_ms(fn, kernel: str, count, iters: int):
+    """The device time of `kernel` per call of `fn` (torch.profiler), for a
     kernel shorter than its wrapper's host time: the wrapper's copies of
     its window table to the card synchronise the stream, so CUDA events
-    around its calls would time the host."""
-    return _device_ms_by(fn, (kernel,), iters)[kernel]
+    around its calls would time the host.  ``count()`` reads the wrapper's
+    launch count of it.  Returns (ms, the launches the profiler recorded)."""
+    ms, seen = _device_ms_by(fn, lambda: {kernel: count()}, iters)
+    return ms[kernel], seen[kernel]
 
 
-def _device_ms_by(fn, kernels, iters: int) -> dict:
-    """The device time per call of `fn` of each named kernel
-    (torch.profiler); every kernel must have run."""
+def _device_ms_by(fn, counts, iters: int):
+    """The device time per call of `fn` of each kernel that ``counts()``
+    names (torch.profiler), and the launches of each that the profiler
+    recorded over ``iters`` calls.  ``counts()`` reads the wrappers' launch
+    counts of those kernels; their growth over one call is each kernel's
+    launches per call.  The profiler drops events now and then, so a
+    kernel's time per call is its recorded total over its recorded
+    launches, times its launches per call; a record short of ``iters``
+    times that is printed.  Every kernel must have been recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    before = counts()
     fn()
     torch.cuda.synchronize()
+    per_call = {k: n - before[k] for k, n in counts().items()}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    totals = dict.fromkeys(kernels, 0.0)
+    totals = dict.fromkeys(per_call, 0.0)
+    seen = dict.fromkeys(per_call, 0)
     for e in prof.key_averages():
-        for k in kernels:
+        for k in per_call:
             if k in e.key:
                 totals[k] += e.self_device_time_total
-    for k, total in totals.items():
-        _require(total > 0, f"the profiler saw no {k} launch")
-    return {k: total / iters / 1e3 for k, total in totals.items()}
+                seen[k] += e.count
+    ms = {}
+    for k, n in per_call.items():
+        _require(n > 0, f"a call launched no {k}")
+        _require(seen[k] > 0 and totals[k] > 0, f"the profiler saw no {k} launch")
+        if seen[k] != iters * n:
+            print(f"[profiler] recorded {seen[k]} of {iters * n} {k} launches")
+        ms[k] = totals[k] / seen[k] * n / 1e3
+    return ms, seen
 
 
 def _timed_plain_call(qualname: str, args, kwargs):
@@ -2424,8 +2463,8 @@ def phase_xxh32(data: bytes, rng, dev, windows, futures):
     rows_d = rows.to(dev)
     got = xxh32.xxh32_blocks(rows_d, row_lens)
     rows_call_ms = _cuda_ms(lambda: xxh32.xxh32_blocks(rows_d, row_lens), 20)
-    rows_ms = _device_ms(lambda: xxh32.xxh32_blocks(rows_d, row_lens),
-                         "xxh32_windows", 20)
+    rows_ms, _ = _device_ms(lambda: xxh32.xxh32_blocks(rows_d, row_lens),
+                            "xxh32_windows", lambda: xxh32.xxh32_windows.launches, 20)
     t0 = time.perf_counter()
     want = xxh32.xxh32_blocks_plain(rows, row_lens)
     rows_plain_ms = (time.perf_counter() - t0) * 1e3
@@ -2502,6 +2541,435 @@ def phase_checksum_paths(data: bytes, dev):
               f"launches {got}; median {rates['compress_GBps_median']:.4f} GB/s "
               f"compress, {rates['decompress_GBps_median']:.4f} GB/s decompress")
     return launches, e2e
+
+
+STREAM_WRITE = 1 << 20  # the streaming path's write and read size
+SMALL_WRITE = 64 << 10  # ... and its small calls
+
+
+def _limited_bytes(comp: bytes, limit: int) -> int:
+    """The compressed bytes a partial decode at ``limit`` reads: the
+    sequences walked until the output reaches the limit (or the block
+    ends), for the limited decode's byte bound."""
+    ip, op, n = 0, 0, len(comp)
+    while ip < n:
+        token = comp[ip]
+        ip += 1
+        ll = token >> 4
+        if ll == 15:
+            while ip < n:
+                ip += 1
+                ll += comp[ip - 1]
+                if comp[ip - 1] != 255:
+                    break
+        if op + ll >= limit:
+            return ip + (limit - op)
+        ip += ll
+        op += ll
+        if ip >= n:
+            break
+        ip += 2
+        ml = (token & 15) + 4
+        if (token & 15) == 15:
+            while ip < n:
+                ip += 1
+                ml += comp[ip - 1]
+                if comp[ip - 1] != 255:
+                    break
+        op += ml
+        if op >= limit:
+            break
+    return min(ip, n)
+
+
+def hold_stripes(rng, dev) -> int:
+    """Kernel E's streaming form against its plain version on windows at
+    starts and lengths 1, 15, 16 and 17 and on a 4 MiB window (a CLI-default
+    pull's update) from random accumulators, and `XXH32.update` on CUDA
+    tensors of 1, 15, 16, 17 and longer splits (a tail carried across
+    device updates and from a host update) against the one-shot host hash,
+    and of 4 MiB after a carried tail against the plain hash."""
+    import torch
+    from lz4_tpu_torch.ops import xxh32
+
+    host = importlib.import_module("lz4_tpu_torch.xxh32")
+    raw = rng.integers(0, 256, 300000, dtype=np.uint8)
+    flat = torch.from_numpy(raw)
+    flat_d = flat.to(dev)
+    worst = 0
+    cases = [(a, n) for a in (0, 1, 15, 16, 17) for n in (0, 1, 15, 16, 17, 33, 65537, 250001)]
+    for a, n in cases:
+        accs = [int(x) for x in rng.integers(0, 1 << 32, 4, dtype=np.uint64)]
+        got = xxh32.xxh32_stripes(flat_d, a, n, accs)
+        torch.cuda.synchronize()
+        want = xxh32.xxh32_stripes_plain(flat, a, n, accs)
+        worst = max(worst, _max_abs_err([got.to(torch.int64) & 0xFFFFFFFF],
+                                        [want.to(torch.int64) & 0xFFFFFFFF]))
+    # a CLI-default pull's update: 4 MiB after a carried 9-byte tail
+    big = rng.integers(0, 256, (4 << 20) + 9, dtype=np.uint8)
+    big_h = torch.from_numpy(big)
+    big_d = big_h.to(dev)
+    accs = [int(x) for x in rng.integers(0, 1 << 32, 4, dtype=np.uint64)]
+    got = xxh32.xxh32_stripes(big_d, 9, 4 << 20, accs)
+    torch.cuda.synchronize()
+    want = xxh32.xxh32_stripes_plain(big_h, 9, 4 << 20, accs)
+    worst = max(worst, _max_abs_err([got.to(torch.int64) & 0xFFFFFFFF],
+                                    [want.to(torch.int64) & 0xFFFFFFFF]))
+    _require(worst == 0, "xxh32_stripes: kernel != plain")
+    h = host.XXH32()
+    h.update(big[:9].tobytes())
+    h.update(big_d[9:])
+    _require(h.digest() == xxh32.as_uint32(
+        xxh32.xxh32_windows_plain(big_h, [0], [big.size]))[0],
+        "XXH32 over a 4 MiB device update after a carried tail != the plain hash")
+    for splits, total in (([1, 15, 16, 17], 20000), ([17, 16, 15, 1], 20000),
+                          ([3, 65536, 5, 100000], raw.size)):
+        h = host.XXH32()
+        h.update(raw[:7].tobytes())  # a host update's tail carried over
+        pos, k = 7, 0
+        while pos < total:
+            n = splits[k % len(splits)]
+            h.update(flat_d[pos:min(pos + n, total)])
+            pos, k = pos + n, k + 1
+        _require(h.digest() == host.xxh32(raw[:total].tobytes()),
+                 f"XXH32 over device updates of {splits} != the one-shot hash")
+    print(f"[stream] xxh32_stripes: {len(cases)} windows at starts and lengths "
+          f"1/15/16/17 and a 4 MiB window at 9 equal to the plain version; XXH32 "
+          f"over device updates of 1, 15, 16 and 17 bytes equal to the host hash, "
+          f"over 4 MiB after a 9-byte tail to the plain hash")
+    return worst
+
+
+def hold_limited_decode(data: bytes, rng, dev):
+    """Kernel A's one-warp route with output limits against its plain
+    version: sequence-writer rows (overlapping matches, long runs) with and
+    without dictionaries, limits at random points (inside literal runs and
+    overlapping matches), past the end and 0; 64 KB rows of the mix; and
+    rows malformed after the limit (cut short or with their last bytes
+    flipped).  Returns (max_abs_err, rows, limits) for the timing."""
+    import torch
+    from lz4_tpu_torch import block
+    from lz4_tpu_torch.ops import decode
+    from lz4_tpu_torch.parallel.blocks import comp_capacity
+
+    rows, windows, limits, after = [], [], [], []
+    for k in range(12):
+        wlen = int(rng.choice([0, 100, 65536]))
+        window = rng.integers(0, 256, wlen, dtype=np.uint8).tobytes()
+        c, o = write_stream(rng, window, BLOCK)
+        for lim in (0, 1, int(rng.integers(1, len(o) + 1)), len(o) + 10):
+            rows.append(c)
+            windows.append(window)
+            limits.append(lim)
+    for k in range(8):
+        raw = data[k * 8 * BLOCK:k * 8 * BLOCK + BLOCK]
+        c = block.encode(raw, device=dev)
+        lim = int(rng.integers(1, BLOCK))
+        cut = bytearray(c[:len(c) // 2])
+        flipped = bytearray(c)
+        flipped[-8:] = bytes(8)
+        for row, l in ((c, lim), (bytes(cut), min(lim, 2000)), (bytes(flipped), 1000),
+                       (bytes(cut), BLOCK)):
+            if l < BLOCK and row is not c:
+                after.append(len(rows))
+            rows.append(row)
+            windows.append(b"")
+            limits.append(l)
+    comps, clens = _stage(rows, comp_capacity(BLOCK))
+    dicts = torch.zeros((len(rows), 65536), dtype=torch.uint8)
+    dlens = torch.tensor([len(w) for w in windows], dtype=torch.int32)
+    for i, w in enumerate(windows):
+        if w:
+            dicts[i, 65536 - len(w):] = torch.frombuffer(bytearray(w), dtype=torch.uint8)
+    lim = torch.tensor(limits, dtype=torch.int32)
+    got = decode.decode_blocks(comps.to(dev), clens.to(dev), BLOCK, dicts.to(dev),
+                               dlens.to(dev), limits=lim)
+    torch.cuda.synchronize()
+    want = decode.decode_blocks_plain(comps, clens, BLOCK, dicts, dlens, limits=lim)
+    err = _max_abs_err(got, want)
+    _require(err == 0, "decode with limits: kernel != plain")
+    _require(not bool(want[2][after].any()), "a row malformed after its limit was refused")
+    _require(bool(want[2].any()), "no row was malformed before its limit")
+    print(f"[stream] decode_rows with limits: {len(rows)} rows equal to the plain "
+          f"version ({int((want[2] != 0).sum())} flagged, malformed before their "
+          f"limits; the {len(after)} rows malformed after their limits decoded)")
+    return err
+
+
+def _stream_file(data: bytes, settings, dev, size: int = STREAM_WRITE):
+    """`LZ4FrameFile` writes of ``size`` bytes, then reads of as many:
+    (frame, write seconds, read seconds)."""
+    import io
+    import torch
+    from lz4_tpu_torch import frame
+
+    sink = io.BytesIO()
+    t0 = time.perf_counter()
+    with frame.open(sink, "wb", settings=settings, device=dev) as f:
+        for a in range(0, len(data), size):
+            f.write(data[a:a + size])
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    blob = sink.getvalue()
+    parts = []
+    t0 = time.perf_counter()
+    with frame.open(io.BytesIO(blob), "rb", device=dev) as f:
+        while True:
+            chunk = f.read(size)
+            if not chunk:
+                break
+            parts.append(chunk)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    _require(b"".join(parts) == data, "streaming round trip is not exact")
+    return blob, write_s, read_s
+
+
+def _counted(counts, kernels, idle, fn):
+    """``fn()`` with every count of ``counts`` and ``idle`` (wrappers) and
+    of kernel A's ``kernels`` set to 0 just before and read just after;
+    each of ``counts`` and ``kernels`` must be above 0, each of ``idle`` 0.
+    Returns (fn's result, the counts)."""
+    from lz4_tpu_torch.ops import decode
+
+    for f in (*counts, *idle):
+        f.launches = 0
+    for k in decode.kernel_launches:
+        decode.kernel_launches[k] = 0
+    out = fn()
+    got = {f.__name__: f.launches for f in counts}
+    got.update({k: decode.kernel_launches[k] for k in kernels})
+    for name, n in got.items():
+        _require(n > 0, f"path never launched {name}")
+    for f in idle:
+        _require(f.launches == 0, f"path launched {f.__name__} {f.launches} times")
+        got[f.__name__] = 0
+    return out, got
+
+
+def legacy_frame(data: bytes, dev) -> bytes:
+    """The lz4 CLI's legacy frame (`lz4 -l`) of ``data``: its magic, then
+    each 8 MiB block's u32 length and LZ4 block (encoded on the card)."""
+    from lz4_tpu_torch import block
+
+    parts = [struct.pack("<I", 0x184C2102)]
+    for a in range(0, len(data), 8 << 20):
+        c = block.encode(data[a:a + (8 << 20)], device=dev)
+        parts += [struct.pack("<I", len(c)), c]
+    return b"".join(parts)
+
+
+def phase_streaming(data: bytes, rng, dev):
+    """The streaming path and the other host-surface paths on the card:
+    LZ4FrameFile at the `lz4` CLI default and chained with both checksums
+    (1 MiB writes and reads, each frame equal to the one-shot frame), a
+    three-frame stream with a skippable frame, a 16 MiB legacy frame, a
+    ChainDecoder over a chained frame's blocks (C's batch form), and
+    `partial_decode`, `pickle` and `legacy.wrap` round trips; kernel E's
+    streaming form and kernel A's limited route held to their plain
+    versions and timed.  Returns (launches, rates, kernel entries)."""
+    import torch
+    from lz4_tpu_torch import block, frame, legacy, pickle, unpickle
+    from lz4_tpu_torch.block.incremental import ChainDecoder
+    from lz4_tpu_torch.frame.api import _scan_single_frame
+    from lz4_tpu_torch.ops import decode, decode_stream, encode_stream, xxh32
+    from lz4_tpu_torch.parallel.blocks import comp_capacity
+
+    host = importlib.import_module("lz4_tpu_torch.xxh32")
+    t_phase = time.perf_counter()
+    stripes_err = hold_stripes(rng, dev)
+    limit_err = hold_limited_decode(data, rng, dev)
+    idle = (host.host_stripes,)
+    launches, rates = {}, {}
+    cli_counts = [encode_stream.encode_blocks_stream, decode.decode_blocks,
+                  xxh32.xxh32_stripes]
+    for name, settings, counts, kernels, size in (
+        ("stream_cli_default", _cli_default(), cli_counts, ROW_PASSES, STREAM_WRITE),
+        # 64 KiB calls: a Linux pipe's buffer and shutil.copyfileobj's chunk
+        ("stream_cli_default_64k", _cli_default(), cli_counts, ROW_PASSES,
+         SMALL_WRITE),
+        # 12 MiB of extra memory: the writer holds four 4 MiB blocks and
+        # encodes them in one launch (the frame is the same)
+        ("stream_cli_default_extra",
+         dataclasses.replace(_cli_default(), extra_memory=12 << 20),
+         cli_counts, ROW_PASSES, STREAM_WRITE),
+        ("stream_chained_both",
+         frame.EncoderSettings(block_checksum=True, content_checksum=True),
+         [encode_stream.encode_blocks_stream, decode_stream.decode_chain,
+          xxh32.xxh32_windows, xxh32.xxh32_stripes], (), STREAM_WRITE),
+    ):
+        t0 = time.perf_counter()
+        one_shot = frame.compress(data, settings, device=dev)
+        t1 = time.perf_counter()
+        _require(frame.decompress(one_shot, device=dev) == data, "one-shot round trip")
+        t2 = time.perf_counter()
+        (blob, write_s, read_s), launches[name] = _counted(
+            counts, kernels, idle, lambda: _stream_file(data, settings, dev, size))
+        _require(blob == one_shot, f"{name}: the streamed frame != the one-shot frame")
+        rates[name] = {
+            "bytes": len(data), "frame_bytes": len(blob), "call_bytes": size,
+            "write_GBps": len(data) / write_s / 1e9,
+            "read_GBps": len(data) / read_s / 1e9,
+            "one_shot_compress_GBps": len(data) / (t1 - t0) / 1e9,
+            "one_shot_decompress_GBps": len(data) / (t2 - t1) / 1e9}
+        print(f"[stream] {name}: {len(data)} bytes in {size}-byte writes "
+              f"-> {len(blob)} bytes, equal to the one-shot frame, read back exact; "
+              f"write {rates[name]['write_GBps']:.4f} GB/s, read "
+              f"{rates[name]['read_GBps']:.4f} GB/s (one-shot "
+              f"{rates[name]['one_shot_compress_GBps']:.4f} / "
+              f"{rates[name]['one_shot_decompress_GBps']:.4f}); launches {launches[name]}")
+
+    # three frames, a skippable frame between the first two
+    q = 16 << 20
+    parts = [frame.compress(data[:q], _cli_default(), device=dev),
+             frame.skippable_frame(b"metadata", nibble=5),
+             frame.compress(data[q:2 * q], frame.EncoderSettings(content_checksum=True),
+                            device=dev),
+             frame.compress(data[2 * q:3 * q], frame.EncoderSettings(chain_blocks=False),
+                            device=dev)]
+    stream = b"".join(parts)
+    t0 = time.perf_counter()
+    got, launches["multi_frame"] = _counted(
+        [decode.decode_blocks, decode_stream.decode_chain, xxh32.xxh32_stripes],
+        (), idle, lambda: frame.decompress(stream, device=dev))
+    rates["multi_frame"] = {"bytes": 3 * q,
+                            "decompress_GBps": 3 * q / (time.perf_counter() - t0) / 1e9}
+    _require(got == data[:3 * q], "three-frame stream did not decode exactly")
+    print(f"[stream] three frames and a skippable frame ({len(stream)} bytes) "
+          f"decoded exact, {rates['multi_frame']['decompress_GBps']:.4f} GB/s; "
+          f"launches {launches['multi_frame']}")
+
+    # a 16 MiB legacy frame: two 8 MiB blocks on A's passes
+    leg = legacy_frame(data[:q], dev)
+    t0 = time.perf_counter()
+    got, launches["legacy_frame"] = _counted(
+        [decode.decode_blocks], ROW_PASSES, idle, lambda: frame.decompress(leg, device=dev))
+    rates["legacy_frame"] = {"bytes": q,
+                             "decompress_GBps": q / (time.perf_counter() - t0) / 1e9}
+    _require(got == data[:q], "legacy frame did not decode exactly")
+    print(f"[stream] legacy frame of {q} bytes decoded exact, "
+          f"{rates['legacy_frame']['decompress_GBps']:.4f} GB/s; "
+          f"launches {launches['legacy_frame']}")
+
+    # C's batch form: a ChainDecoder over a chained frame's blocks
+    chained = frame.compress(data[:2 << 20], device=dev)
+    _, blocks, _ = _scan_single_frame(chained)
+
+    def chain_decode():
+        dec = ChainDecoder(BLOCK, device=dev)
+        return b"".join(dec.inject_block(chained[o:o + n]) if st
+                        else dec.decode_block(chained[o:o + n]) for o, n, st in blocks)
+
+    got, launches["chain_decoder"] = _counted(
+        [decode_stream.decode_blocks_stream], ("decode_rows",), idle, chain_decode)
+    _require(got == data[:2 << 20], "ChainDecoder did not decode exactly")
+
+    # one block's partial decode, pickles and wraps
+    comp64 = block.encode(data[:BLOCK], device=dev)
+
+    def host_apis():
+        for lim in (0, 1, 4097, BLOCK):
+            _require(block.partial_decode(comp64, lim, device=dev) == data[:lim],
+                     f"partial_decode at {lim}")
+        _require(unpickle(pickle(data[:1 << 20], device=dev), device=dev)
+                 == data[:1 << 20], "pickle round trip")
+        _require(legacy.unwrap(legacy.wrap_hc(data[:BLOCK], device=dev), device=dev)
+                 == data[:BLOCK], "legacy wrap round trip")
+        return legacy.decode(legacy.encode(data[:4 << 20], device=dev), device=dev)
+
+    got, launches["host_apis"] = _counted(
+        [encode_stream.encode_blocks_stream, decode.decode_blocks],
+        ("decode_rows", "decode_rows_limit"), idle, host_apis)
+    _require(got == data[:4 << 20], "legacy stream round trip")
+    print(f"[stream] ChainDecoder over {len(blocks)} blocks exact, launches "
+          f"{launches['chain_decoder']}; partial_decode, pickle, legacy wrap and "
+          f"stream exact, launches {launches['host_apis']}")
+
+    # times at the paths' shapes: a 1 MiB update of the content hash, one
+    # 64 KB block's partial decode to half its length, one 64 KB block with
+    # a 64 KB dictionary (a ChainDecoder's)
+    clock = float(_nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    win = torch.frombuffer(bytearray(data[:STREAM_WRITE]), dtype=torch.uint8)
+    win_d = win.to(dev)
+    accs = list(xxh32._SEEDED)
+    stripes_fn = lambda: xxh32.xxh32_stripes(win_d, 0, STREAM_WRITE, accs)  # noqa: E731
+    stripes_ms, stripes_seen = _device_ms(
+        stripes_fn, "xxh32_windows", lambda: xxh32.xxh32_stripes.launches, 20)
+    stripes_call_ms = _cuda_ms(stripes_fn, 20)
+    t0 = time.perf_counter()
+    want = xxh32.xxh32_stripes_plain(win, 0, STREAM_WRITE, accs)
+    stripes_plain_ms = (time.perf_counter() - t0) * 1e3
+    got = stripes_fn()
+    stripes_err = max(stripes_err, _max_abs_err([got.to(torch.int64) & 0xFFFFFFFF],
+                                                [want.to(torch.int64) & 0xFFFFFFFF]))
+    _require(stripes_err == 0, "xxh32_stripes on a 1 MiB update: kernel != plain")
+    byte_ms = (STREAM_WRITE + 32) / HBM_BYTES_PER_S * 1e3
+    chain_ms = STREAM_WRITE // 16 * CHAIN_CYCLES_PER_STRIPE / clock * 1e3
+    limit = BLOCK // 2
+    rows_a = lambda: decode.kernel_launches["decode_rows"]  # noqa: E731
+    comps, clens = _stage([comp64], comp_capacity(BLOCK))
+    lim = torch.tensor([limit], dtype=torch.int32)
+    comps_d, clens_d, lim_d = comps.to(dev), clens.to(dev), lim.to(dev)
+    limit_fn = lambda: decode.decode_blocks(comps_d, clens_d, BLOCK, limits=lim_d)  # noqa: E731
+    limit_ms, limit_seen = _device_ms(limit_fn, "decode_rows", rows_a, 20)
+    limit_call_ms = _cuda_ms(limit_fn, 20)
+    t0 = time.perf_counter()
+    decode.decode_blocks_plain(comps, clens, BLOCK, limits=lim)
+    limit_plain_ms = (time.perf_counter() - t0) * 1e3
+    limit_bytes = _limited_bytes(comp64, limit) + limit
+    d_comp = block.encode(data[BLOCK:2 * BLOCK], dictionary=data[:BLOCK], device=dev)
+    dcomps, dclens = _stage([d_comp], comp_capacity(BLOCK))
+    dicts = torch.frombuffer(bytearray(data[:BLOCK]), dtype=torch.uint8).reshape(1, BLOCK)
+    dlens = torch.tensor([BLOCK], dtype=torch.int32)
+    args_d = [t.to(dev) for t in (dcomps, dclens)]
+    dict_d = [t.to(dev) for t in (dicts, dlens)]
+    dict_fn = lambda: decode_stream.decode_blocks_stream(  # noqa: E731
+        args_d[0], args_d[1], BLOCK, dict_d[0], dict_d[1])
+    dict_ms, dict_seen = _device_ms(dict_fn, "decode_rows", rows_a, 20)
+    dict_call_ms = _cuda_ms(dict_fn, 20)
+    t0 = time.perf_counter()
+    want = decode_stream.decode_blocks_stream(dcomps, dclens, BLOCK, dicts, dlens)
+    dict_plain_ms = (time.perf_counter() - t0) * 1e3
+    got = decode_stream.decode_blocks_stream(args_d[0], args_d[1], BLOCK, dict_d[0], dict_d[1])
+    dict_err = _max_abs_err(got, want)
+    _require(dict_err == 0 and want[0][0].numpy().tobytes() == data[BLOCK:2 * BLOCK],
+             "decode_blocks_stream with a dictionary: kernel != plain")
+    dict_bytes = len(d_comp) + 2 * BLOCK
+    entries = [
+        {"name": "xxh32_stripes", "route": "cuda",
+         "source": "lz4_tpu_torch/ops/csrc/xxh32.cu",
+         "replaces": "lz4_tpu/ops/xxh32_pallas.py:121",
+         "launches": launches["stream_cli_default"]["xxh32_stripes"],
+         "max_abs_err": stripes_err, "ms": stripes_ms, "plain_ms": stripes_plain_ms,
+         "bound_ms": max(byte_ms, chain_ms),
+         "bound_by": "bytes" if byte_ms >= chain_ms else "operations",
+         "byte_bound_ms": byte_ms, "chain_bound_ms": chain_ms, "library_ms": None,
+         "launches_chained_both": launches["stream_chained_both"]["xxh32_stripes"],
+         "call_ms": stripes_call_ms, "profiled_launches": stripes_seen},
+        {"name": "decode_blocks:limit", "route": "cuda",
+         "source": "lz4_tpu_torch/ops/csrc/decode.cu",
+         "replaces": "lz4_tpu/ops/decode_pallas6.py:643",
+         "launches": launches["host_apis"]["decode_rows_limit"],
+         "max_abs_err": limit_err, "ms": limit_ms, "plain_ms": limit_plain_ms,
+         "bound_ms": limit_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None, "call_ms": limit_call_ms, "profiled_launches": limit_seen},
+        {"name": "decode_blocks_stream", "route": "cuda",
+         "source": "lz4_tpu_torch/ops/csrc/decode.cu",
+         "replaces": "lz4_tpu/ops/decode_pallas_stream.py:636",
+         "launches": launches["chain_decoder"]["decode_blocks_stream"],
+         "max_abs_err": dict_err, "ms": dict_ms, "plain_ms": dict_plain_ms,
+         "bound_ms": dict_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None, "call_ms": dict_call_ms, "profiled_launches": dict_seen},
+    ]
+    print(f"[stream] device time per launch (profiled launches of 20; CUDA events "
+          f"per wrapper call): xxh32_stripes {stripes_ms:.4f} ms per 1 MiB update "
+          f"({stripes_seen}; {stripes_call_ms:.4f}; plain {stripes_plain_ms:.1f} ms, "
+          f"chain bound {chain_ms:.4f}); decode_rows with a limit {limit_ms:.4f} ms "
+          f"per 64 KB row to {limit} bytes ({limit_seen}; {limit_call_ms:.4f}; plain "
+          f"{limit_plain_ms:.1f}); with a 64 KB dictionary {dict_ms:.4f} ms "
+          f"({dict_seen}; {dict_call_ms:.4f}; plain {dict_plain_ms:.1f}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, rates, entries
 
 
 def _nvidia_smi(query: str, *fmt: str) -> str:
@@ -2612,6 +3080,7 @@ def main(argv=None) -> int:
                       "e2e_big_blocks": big_e2e,
                       "big_blocks_launches": big_launches}))
     cs_launches, cs_e2e = phase_checksum_paths(data, dev)
+    st_launches, st_rates, st_kernels = phase_streaming(data, rng, dev)
     for k in xxh_kernels:
         k["launches"] = cs_launches[k.pop("path")]["xxh32_windows"]
     kernels += xxh_kernels
@@ -2633,11 +3102,12 @@ def main(argv=None) -> int:
             k["max_abs_err"] = max(k["max_abs_err"], dec_err, *fast_err_a.values())
         else:
             k["max_abs_err"] = max(k["max_abs_err"], fast_err_d, stream_err)
-    kernels = fast_kernels + kernels
+    kernels = fast_kernels + kernels + st_kernels
     print(json.dumps({"cli_default": profile_path(data, dev, _cli_default())}))
     print(json.dumps({"e2e_hc": hc_e2e, "hc_launches": hc_launches}))
     print(json.dumps({"e2e_checksums": cs_e2e, "checksum_launches": cs_launches,
                       "host_xxh32_4MiB_s": host_xxh32_s}))
+    print(json.dumps({"e2e_streaming": st_rates, "streaming_launches": st_launches}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

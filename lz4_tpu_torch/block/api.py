@@ -1,12 +1,12 @@
 """One-block encode and decode on a device, with preset dictionaries.
 
-The port of the device routes of `lz4_tpu/block/api.py` (`_tpu_encode`,
-`_tpu_decode`): one block goes through the batch kernels as a batch of
-one, its width rounded up to a power of two.  A block of at most 64 KB
-with no dictionary encodes on kernel B, anything else on kernel D; decode
-takes kernel A, or C's batch form with a dictionary.  The host-only APIs
-(`encode_into`, `partial_decode`, the incremental encoders) are not ported
-yet (ROADMAP.md Queue 1, item 8).
+The port of `lz4_tpu/block/api.py`: one block goes through the batch
+kernels as a batch of one, its width rounded up to a power of two.  A
+block of at most 64 KB with no dictionary encodes on kernel B, anything
+else on kernel D; decode takes kernel A, or C's batch form with a
+dictionary, and `partial_decode` kernel A's one-warp route with an output
+limit.  `encode_into` and `decode_into` copy the result once from the card
+into the caller's buffer.
 """
 
 from __future__ import annotations
@@ -21,7 +21,15 @@ from ..ops import encode as _encode
 from ..ops import encode_stream as _encode_stream
 from ..ops.common import align1024, bucket, resolve_device
 
-__all__ = ["encode", "decode"]
+__all__ = [
+    "compress_bound",
+    "maximum_output_size",
+    "encode",
+    "decode",
+    "encode_into",
+    "decode_into",
+    "partial_decode",
+]
 
 _GEOMETRIES = ("canonical", "dense")
 
@@ -38,6 +46,12 @@ def _stage_dict_window(dictionary, dev):
     return dicts.to(dev), torch.tensor([len(win)], dtype=torch.int32, device=dev)
 
 
+def maximum_output_size(length: int) -> int:
+    """The most one block of ``length`` bytes compresses to (reference
+    `LZ4Codec.MaximumOutputSize`)."""
+    return compress_bound(length)
+
+
 def _row(data: bytes, width: int, dev) -> torch.Tensor:
     row = torch.zeros((1, width), dtype=torch.uint8)
     if data:
@@ -52,9 +66,11 @@ def encode(
     acceleration: int = 1,
     geometry: str = "canonical",
     device="cuda",
-) -> bytes:
+    target_capacity: int | None = None,
+) -> bytes | None:
     """Compress one block on ``device`` (the plain versions when
-    ``device="cpu"``).
+    ``device="cpu"``).  Returns None when ``target_capacity`` is given and
+    the result does not fit it.
 
     ``geometry`` (FAST levels, no dictionary): "canonical" reproduces
     LZ4_compress_default byte for byte; "dense" is the 15-bit finder.  A
@@ -85,7 +101,10 @@ def encode(
         )
     if int(errs[0]):
         raise LZ4Error("device encoder overflow")
-    return out[0, : int(clens[0])].cpu().numpy().tobytes()
+    clen = int(clens[0])
+    if target_capacity is not None and clen > target_capacity:
+        return None
+    return out[0, :clen].cpu().numpy().tobytes()
 
 
 def decode(
@@ -140,3 +159,69 @@ def decode(
         # `capacity` is a hard safety bound, not just an allocation hint
         raise LZ4Error(f"decoded {olen} bytes exceeds capacity {capacity}")
     return out[0, :olen].cpu().numpy().tobytes()
+
+
+def _writable(dest):
+    view = memoryview(dest).cast("B")
+    if view.readonly:
+        raise LZ4Error("destination buffer is read-only")
+    return view
+
+
+def encode_into(
+    data,
+    dest,
+    level: int = 0,
+    dictionary: bytes = b"",
+    acceleration: int = 1,
+    geometry: str = "canonical",
+    device="cuda",
+) -> int:
+    """Compress one block into the writable buffer ``dest``: returns the
+    bytes written, or minus the compressed length when ``dest`` is too
+    small (the reference's negative-length convention)."""
+    view = _writable(dest)
+    comp = encode(data, level=level, dictionary=dictionary,
+                  acceleration=acceleration, geometry=geometry, device=device)
+    if len(comp) > len(view):
+        return -len(comp)
+    view[: len(comp)] = comp
+    return len(comp)
+
+
+def decode_into(data, dest, dictionary: bytes = b"", device="cuda") -> int:
+    """Decompress one block into the writable buffer ``dest``, which bounds
+    its output: returns the decoded length; raises LZ4Error on a malformed
+    block or one that does not fit."""
+    view = _writable(dest)
+    raw = decode(data, dictionary=dictionary, capacity=len(view),
+                 device=device)
+    view[: len(raw)] = raw
+    return len(raw)
+
+
+def partial_decode(data, target_length: int, dictionary: bytes = b"",
+                   device="cuda") -> bytes:
+    """Decompress only the first ``target_length`` bytes of one block
+    (reference `LZ4Codec.PartialDecode`) on ``device`` (the plain version
+    when ``device="cpu"``): kernel A's one-warp route with an output limit,
+    whatever the block's size.  What follows the limit is not parsed, so a
+    block malformed past it decodes; one that ends first returns what it
+    decoded."""
+    dev = resolve_device(device)
+    data = _as_bytes(data)
+    target = int(target_length)
+    if target < 0:
+        raise ValueError("target_length must be >= 0")
+    out_cap = bucket(max(target, 16))
+    comps = _row(data, align1024(len(data) + 20), dev)
+    clens = torch.tensor([len(data)], dtype=torch.int32, device=dev)
+    dicts = dlens = None
+    if dictionary:
+        dicts, dlens = _stage_dict_window(dictionary, dev)
+    out, olens, errs = _decode.decode_blocks(
+        comps, clens, out_cap, dicts, dlens, limits=[target])
+    if int(errs[0]):
+        raise LZ4Error("malformed block before the partial decode's limit "
+                       "(device decoder)")
+    return out[0, : int(olens[0])].cpu().numpy().tobytes()

@@ -1,6 +1,6 @@
-"""One-shot frame compress and decompress.
+"""One-shot frame compress and decompress, and the frame facades.
 
-The port of the device path of `lz4_tpu/frame/api.py`.  `compress` encodes
+The port of `lz4_tpu/frame/api.py`.  `compress` encodes
 every block of the frame in one launch, at any level 0-12: independent
 blocks on kernel B (at most 64 KB) or D (larger), chained blocks on D, each
 with the 64 KB of plaintext before it as its dictionary.  `decompress`
@@ -11,13 +11,19 @@ decoder (every block at once).  Every block and content checksum is
 computed on the device by kernel E, over bytes that are already there: the
 payload and the compressed rows on compress, the frame and the decoded
 content on decompress.  An independent frame decodes as if a preset
-dictionary were absent: its blocks reach none.  Frames with a dictionary
-ID and multi-frame streams take the JAX package's FrameReader, which is
-not ported yet.
+dictionary were absent: its blocks reach none.  A stream that is not one
+whole frame (concatenated frames, skippable and legacy frames, a frame
+with a dictionary ID or a preset dictionary, a frame cut short) takes the
+port's `FrameReader`, which decodes each frame's blocks in one launch too,
+as the JAX package's host route takes its FrameReader; the two routes'
+exceptions are the JAX package's on each.  `compress_into`,
+`decompress_into`, `skippable_frame`, `LZ4FrameFile` and `open` are the
+JAX package's facades.
 """
 
 from __future__ import annotations
 
+import builtins
 import dataclasses
 import io
 import struct
@@ -26,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..block import LZ4Error
-from ..constants import _as_bytes, compress_bound
+from ..constants import SKIPPABLE_MAGIC_MIN, _as_bytes
 from ..ops.common import resolve_device
 from ..ops.decode_stream import decode_chain
 from ..ops.xxh32 import as_uint32, xxh32_windows
@@ -34,9 +40,19 @@ from ..parallel.blocks import (
     decode_frame_blocks, encode_blocks, encode_blocks_chained_device, upload,
 )
 from .descriptor import DecoderSettings, EncoderSettings
-from .header import LZ4FormatError, build_header, parse_header, parse_magic
+from .header import LZ4FormatError, build_header, parse_header
+from .reader import FrameReader, read_block
+from .writer import FrameWriter
 
-__all__ = ["compress", "decompress"]
+__all__ = [
+    "compress",
+    "compress_into",
+    "decompress",
+    "decompress_into",
+    "skippable_frame",
+    "LZ4FrameFile",
+    "open",
+]
 
 _UNCOMPRESSED_FLAG = 0x80000000
 
@@ -74,11 +90,19 @@ def _independent_geometry(settings) -> str:
     return "dense" if settings.geometry == "dense" else "canonical"
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} decode through FrameReader, which is not ported yet "
-        "(ROADMAP.md Queue 1, item 8)"
-    )
+def skippable_frame(user_data, nibble: int = 0) -> bytes:
+    """A skippable frame (magic 0x184D2A5n, LE u32 size, payload) carrying
+    ``user_data``: every conforming decoder ignores it.  ``nibble`` picks
+    one of the 16 skippable magics (0..15)."""
+    if not 0 <= nibble <= 0xF:
+        raise ValueError(f"skippable nibble {nibble} not in 0..15")
+    payload = _as_bytes(user_data)
+    if len(payload) > 0xFFFFFFFF:
+        raise ValueError(
+            f"skippable payload {len(payload)} bytes exceeds the frame-spec "
+            "u32 size field (4294967295)"
+        )
+    return struct.pack("<II", SKIPPABLE_MAGIC_MIN + nibble, len(payload)) + payload
 
 
 def compress(
@@ -138,8 +162,8 @@ def compress(
         # window engines, as every chained frame here does)
         raise ValueError(
             "canonical chained (continue-schedule) frames are a "
-            "sequential host path (ROADMAP.md Queue 1, item 8); use "
-            "geometry='auto' or 'dense' on a device"
+            "sequential host path, which the port does not run (ROADMAP.md "
+            "Queue 3); use geometry='auto' or 'dense' on a device"
         )
     d = settings.to_descriptor()
     payload = upload(data, dev)
@@ -166,6 +190,24 @@ def compress(
     return _assemble_frame(d, data, settings.block_size, blocks, csum, sums)
 
 
+def compress_into(data, dst, settings: EncoderSettings | None = None,
+                  device="cuda") -> int:
+    """Compress ``data`` into one LZ4 frame written to the caller's buffer
+    ``dst``: returns the frame's length; raises ValueError if it does not
+    fit."""
+    settings = settings or EncoderSettings()
+    view = memoryview(dst).cast("B")
+    if view.readonly:
+        raise ValueError("destination buffer is read-only")
+    blob = compress(data, settings=settings, device=device)
+    if len(blob) > len(view):
+        raise ValueError(
+            f"destination {len(view)} too small for {len(blob)}-byte frame"
+        )
+    view[: len(blob)] = blob
+    return len(blob)
+
+
 class _Scan(NamedTuple):
     """A frame's block table, scanned on the host up to its first fault."""
 
@@ -173,90 +215,52 @@ class _Scan(NamedTuple):
     blocks: list  # (offset, length, stored) of each whole block, in order
     tail: int  # the position after the EndMark
     fault: Exception | None = None
-    # False for a block length over the limit, which is raised before any
-    # block decodes, as the JAX package's scan raises it
-    decode_first: bool = True
 
-
-class _LengthOverLimit(Exception):
-    """A block length word over the frame's limit (`_scan_blocks`)."""
-
-
-def _scan_single_frame(data: bytes):
-    """Parse one frame's block table on the host.
-
-    Returns (descriptor, [(offset, length, stored)], tail_pos).  Raises
-    LZ4FormatError on a malformed or truncated frame and
-    NotImplementedError on what FrameReader alone decodes.  Block
-    checksums are not verified here (`_verify_blocks` does that on the
-    device)."""
-    scan = _scan_frame(data)
-    if scan.fault is not None:
-        raise scan.fault
-    return scan.descriptor, scan.blocks, scan.tail
+    @property
+    def end(self) -> int:
+        """The position after the frame."""
+        return self.tail + (4 if self.descriptor.content_checksum else 0)
 
 
 def _scan_frame(data: bytes) -> _Scan:
-    """`_scan_single_frame` that returns a fault found after the header
-    instead of raising it.  ``blocks`` then holds the blocks scanned before
-    the fault whose checksum field is whole, so that a checksum mismatch
-    and then a malformed block among them are reported first, as a
-    sequential reader would."""
-    src = io.BytesIO(data)
-    info = parse_header(src.read)
-    if info.kind != "frame":
-        raise _not_ported(f"{info.kind} frames")
+    """Parse the block table of the LZ4 frame at the start of ``data`` on
+    the host, with the reader's walker (`reader.read_block`).  A fault found
+    after the header (a cut, a length over the limit) is returned, not
+    raised: ``blocks`` then holds the blocks before it.  Block checksums are
+    not verified here."""
+    info = parse_header(io.BytesIO(data).read)
+    if info is None or info.kind != "frame":
+        raise ValueError("not an LZ4 frame")
     d = info.descriptor
-    if d.dictionary_id is not None:
-        raise _not_ported("frames with a dictionary ID")
-    blocks = []
+    view = memoryview(data)
     pos = info.header_length
+
+    def read(n):
+        nonlocal pos
+        out = view[pos:pos + n]
+        pos += len(out)
+        return out
+
+    blocks = []
     try:
-        pos = _scan_blocks(data, d, pos, blocks)
-    except _LengthOverLimit as e:
-        fault = LZ4FormatError(f"block length {e.args[0]} exceeds block size limit")
-        return _Scan(d, blocks, pos, fault, decode_first=False)
-    except (LZ4FormatError, NotImplementedError) as fault:
+        while (block := read_block(read, d)) is not None:
+            body, stored, checksum = block
+            end = pos - (4 if checksum is not None else 0)
+            blocks.append((end - len(body), len(body), stored))
+        if d.content_checksum and pos + 4 > len(data):
+            raise LZ4FormatError("truncated content checksum")
+    except LZ4FormatError as fault:
         return _Scan(d, blocks, pos, fault)
     return _Scan(d, blocks, pos)
 
 
-def _scan_blocks(data: bytes, d, pos: int, blocks: list) -> int:
-    """Walk the block table from ``pos``, appending each whole block's
-    (offset, length, stored) to ``blocks``; returns the position after the
-    EndMark, or raises on a malformed or truncated table or tail."""
-    n = len(data)
-    limit = d.block_size_limit
-    while True:
-        if pos + 4 > n:
-            raise LZ4FormatError("truncated block length")
-        (word,) = struct.unpack_from("<I", data, pos)
-        pos += 4
-        if word == 0:
-            break
-        stored = bool(word & _UNCOMPRESSED_FLAG)
-        length = word & ~_UNCOMPRESSED_FLAG
-        if length > (limit if stored else compress_bound(limit)):
-            # a crafted length word must not reach the decoder
-            raise _LengthOverLimit(length)
-        if pos + length > n:
-            raise LZ4FormatError("truncated block data")
-        if d.block_checksum and pos + length + 4 > n:
-            raise LZ4FormatError("truncated block checksum")
-        blocks.append((pos, length, stored))
-        pos += length + (4 if d.block_checksum else 0)
-    tail = 4 if d.content_checksum else 0
-    if pos + tail > n:
-        raise LZ4FormatError("truncated content checksum")
-    rest = data[pos + tail :]
-    if rest:
-        if len(rest) < 4:
-            raise LZ4FormatError("truncated frame magic")
-        (magic,) = struct.unpack_from("<I", rest)
-        if parse_magic(magic) is None:
-            raise LZ4FormatError(f"invalid magic 0x{magic:08X}")
-        raise _not_ported("multi-frame streams")
-    return pos
+def _scan_single_frame(data: bytes):
+    """A whole frame's (descriptor, [(offset, length, stored)], tail_pos);
+    raises on a malformed or truncated frame."""
+    scan = _scan_frame(data)
+    if scan.fault is not None:
+        raise scan.fault
+    return scan.descriptor, scan.blocks, scan.tail
 
 
 def _verify_blocks(frame, data: bytes, blocks) -> None:
@@ -271,67 +275,23 @@ def _verify_blocks(frame, data: bytes, blocks) -> None:
             raise LZ4FormatError("block checksum mismatch")
 
 
-def _decode_chained(frame, d, blocks, dictionary, error=LZ4FormatError):
-    """A chained frame's blocks, decoded in one call of the chained
-    decoder (every block at once); the first block's window is the last
-    64 KB of ``dictionary``.  Raises ``error`` on the first malformed
-    block.  Returns the content on the frame's device."""
-    preset = None
-    if dictionary:
-        preset = torch.frombuffer(
-            bytearray(bytes(dictionary)[-65536:]), dtype=torch.uint8
-        )
-    table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
-    stream, status = decode_chain(frame, table, d.block_size, preset)
-    written, bad, err = status.tolist()
-    if bad >= 0:
-        raise error(f"malformed chained block {bad} (err={err})")
-    return stream[:written]
-
-
-def _decode_blocks(frame, d, blocks, dictionary, error=LZ4FormatError):
-    """The content of ``blocks``: a chained frame in one call of the
-    chained decoder, an independent one in one batch on kernel A (its
-    blocks reach no dictionary, so a preset one is not used).  Raises on
-    the first malformed block: LZ4Error for an independent frame, ``error``
-    for a chained one."""
-    if d.block_chaining:
-        return _decode_chained(frame, d, blocks, dictionary, error)
-    return decode_frame_blocks(frame, blocks, d.block_size)
-
-
-def decompress(
-    data,
-    settings: DecoderSettings | None = None,
-    device="cuda",
-) -> bytes:
-    """Decompress one LZ4 frame on ``device`` (the plain versions when
-    ``device="cpu"``).  The frame goes to the device once and its block
-    checksums are verified there before any block decodes.  An independent
-    frame's compressed blocks decode in one batch and its stored ones are
-    copied, in frame order; a chained frame decodes in one call, with
-    ``settings.dictionary`` as the preset dictionary.  The content checksum
-    is verified on the decoded content on the device, which then comes
-    back in one copy.
-
-    A frame cut short or followed by other bytes raises in the order a
-    sequential reader gives: a block checksum mismatch, then a malformed
-    block before the fault (LZ4Error), then the fault itself."""
-    dev = resolve_device(device)
-    data = _as_bytes(data)
-    settings = settings or DecoderSettings()
-    if not data:
-        return b""
-    scan = _scan_frame(data)
+def _decode_frame(frame, data: bytes, scan: _Scan, chained_error):
+    """One whole frame, uploaded as ``frame`` and its block checksums
+    verified, on the one-shot route: an independent frame's compressed
+    blocks decoded in one batch on kernel A and its stored ones copied, a
+    chained frame in one call of the chained decoder (raising
+    ``chained_error`` on a malformed block), the content checksum verified
+    on the device.  Returns the content on the device."""
     d, blocks = scan.descriptor, scan.blocks
-    frame = upload(data, dev)
-    if d.block_checksum:
-        _verify_blocks(frame, data, blocks)
-    if scan.fault is not None:
-        if scan.decode_first and blocks:
-            _decode_blocks(frame, d, blocks, settings.dictionary, LZ4Error)
-        raise scan.fault
-    content = _decode_blocks(frame, d, blocks, settings.dictionary)
+    if d.block_chaining:
+        table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
+        stream, status = decode_chain(frame, table, d.block_size)
+        written, bad, err = status.tolist()
+        if bad >= 0:
+            raise chained_error(f"malformed chained block {bad} (err={err})")
+        content = stream[:written]
+    else:
+        content = decode_frame_blocks(frame, blocks, d.block_size)
     if d.content_checksum:
         (expected,) = struct.unpack_from("<I", data, scan.tail)
         if as_uint32(xxh32_windows(content, [0], [content.numel()]))[0] != expected:
@@ -340,4 +300,189 @@ def decompress(
         raise LZ4FormatError(
             f"content length mismatch: {content.numel()} != {d.content_length}"
         )
-    return content.cpu().numpy().tobytes()
+    return content
+
+
+def _decompress(data: bytes, settings, dev, min_independent: int,
+                chained_error) -> bytes:
+    """The JAX package's host route, on ``dev``.  It scans a first LZ4
+    frame without a dictionary ID, when no preset dictionary is given, and
+    raises a block checksum mismatch (the short message) or a length over
+    the limit found there before any block decodes.  It decodes that frame
+    on the one-shot route when it is the whole stream and not cut short (a
+    chained frame with a block, an independent one with at least
+    ``min_independent``), and anything else with `FrameReader`."""
+    if not data:
+        return b""
+    scan = None
+    if not settings.dictionary:
+        try:
+            scan = _scan_frame(data)
+        except ValueError:  # not an LZ4 frame, or a malformed header
+            pass
+    if scan is not None and scan.descriptor.dictionary_id is None:
+        d = scan.descriptor
+        least = 1 if d.block_chaining else min_independent
+        whole = (scan.fault is None and scan.end == len(data)
+                 and len(scan.blocks) >= least)
+        frame = upload(data, dev) if whole or d.block_checksum else None
+        if d.block_checksum:
+            _verify_blocks(frame, data, scan.blocks)
+        if scan.fault is not None and scan.fault.over_limit:
+            raise scan.fault
+        if whole:
+            content = _decode_frame(frame, data, scan, chained_error)
+            return content.cpu().numpy().tobytes()
+    reader = FrameReader(io.BytesIO(data), dictionary=settings.dictionary,
+                         device=dev, extra_memory=settings.extra_memory)
+    return reader.read_all()
+
+
+def decompress(
+    data,
+    settings: DecoderSettings | None = None,
+    device="cuda",
+) -> bytes:
+    """Decompress the LZ4 frames of ``data`` on ``device`` (the plain
+    versions when ``device="cpu"``).
+
+    One whole frame goes to the device once and its block checksums are
+    verified there before any block decodes.  An independent frame's
+    compressed blocks decode in one batch and its stored ones are copied,
+    in frame order; a chained frame decodes in one call.  The content
+    checksum is verified on the decoded content on the device, which then
+    comes back in one copy.  Any other stream (concatenated, skippable and
+    legacy frames, dictionary IDs, ``settings.dictionary`` as the preset
+    dictionary of chained frames, a frame cut short or followed by other
+    bytes) is decoded frame by frame by `FrameReader`, each frame's blocks
+    in one launch, and raises in the order a sequential reader gives: a
+    block checksum mismatch, then a malformed block before the fault
+    (LZ4Error), then the fault itself."""
+    dev = resolve_device(device)
+    return _decompress(_as_bytes(data), settings or DecoderSettings(), dev, 2,
+                       LZ4FormatError)
+
+
+def decompress_into(
+    data,
+    dst,
+    settings: DecoderSettings | None = None,
+    device="cuda",
+) -> int:
+    """Decompress LZ4 frames into the caller's buffer ``dst``, as
+    `decompress` does, with one copy from the card: returns the decoded
+    length; raises ValueError if ``dst`` is too small."""
+    dev = resolve_device(device)
+    data = _as_bytes(data)
+    settings = settings or DecoderSettings()
+    view = memoryview(dst).cast("B")
+    if view.readonly:
+        raise ValueError("destination buffer is read-only")
+    out = _decompress(data, settings, dev, 0, LZ4Error)
+    if len(out) > len(view):
+        raise ValueError(f"destination {len(view)} < decoded size {len(out)}")
+    view[: len(out)] = out
+    return len(out)
+
+
+class LZ4FrameFile(io.RawIOBase):
+    """A file-like LZ4 frame stream over ``inner``: a `FrameWriter` in a
+    write mode, a `FrameReader` otherwise, on ``device``."""
+
+    def __init__(
+        self,
+        inner,
+        mode: str = "rb",
+        settings: EncoderSettings | None = None,
+        dictionary: bytes = b"",
+        device="cuda",
+        close_inner: bool = True,
+    ):
+        self._inner = inner
+        self._close_inner = close_inner
+        self._mode = mode
+        if "w" in mode or "a" in mode or "x" in mode:
+            self._writer = FrameWriter(inner, settings, device=device)
+            self._reader = None
+        else:
+            self._reader = FrameReader(inner, dictionary=dictionary, device=device)
+            self._writer = None
+        self._pos = 0
+
+    def readable(self):
+        return self._reader is not None
+
+    def writable(self):
+        return self._writer is not None
+
+    def read(self, n: int = -1) -> bytes:
+        if self._reader is None:
+            raise io.UnsupportedOperation("not open for reading")
+        out = self._reader.read(n)
+        self._pos += len(out)
+        return out
+
+    def read1(self, n: int = -1) -> bytes:
+        if self._reader is None:
+            raise io.UnsupportedOperation("not open for reading")
+        out = self._reader.read1(n if n is not None else -1)
+        self._pos += len(out)
+        return out
+
+    def readinto(self, b) -> int:
+        data = self.read(len(b))
+        b[: len(data)] = data
+        return len(data)
+
+    def write(self, data) -> int:
+        if self._writer is None:
+            raise io.UnsupportedOperation("not open for writing")
+        n = self._writer.write(data)
+        self._pos += n
+        return n
+
+    def flush(self):
+        if self._writer is not None:
+            self._writer.flush()
+
+    def tell(self) -> int:
+        return self._pos
+
+    @property
+    def length(self) -> int | None:
+        """Decoded content length when the frame header carries it."""
+        if self._reader is not None:
+            return self._reader.frame_length()
+        return None
+
+    def close(self):
+        if self.closed:
+            return
+        try:
+            if self._writer is not None:
+                self._writer.close()
+        finally:
+            if self._close_inner and hasattr(self._inner, "close"):
+                self._inner.close()
+            super().close()
+
+
+def open(
+    filename,
+    mode: str = "rb",
+    settings: EncoderSettings | None = None,
+    dictionary: bytes = b"",
+    device="cuda",
+):
+    """Open an `.lz4` file (or a file object) for reading or writing, like
+    ``gzip.open``."""
+    if hasattr(filename, "read") or hasattr(filename, "write"):
+        inner = filename
+        close_inner = False
+    else:
+        resolve_device(device)  # before the file is created
+        inner = builtins.open(filename, mode if "b" in mode else mode + "b")
+        close_inner = True
+    return LZ4FrameFile(inner, mode=mode, settings=settings,
+                        dictionary=dictionary, device=device,
+                        close_inner=close_inner)

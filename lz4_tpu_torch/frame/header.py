@@ -34,6 +34,10 @@ class LZ4FormatError(ValueError):
     """Malformed or unsupported LZ4 frame data (analog of the reference's
     InvalidDataException paths, `Frames/LZ4FrameReader.cs:184-194`)."""
 
+    # True for a block length word over the frame's limit, which one-shot
+    # decompress raises before any block decodes (`reader.read_block`)
+    over_limit = False
+
 
 def _header_checksum(descriptor_bytes: bytes) -> int:
     """HC byte: second byte of xxh32 of FLG..end-of-descriptor."""

@@ -372,19 +372,23 @@ __global__ void __launch_bounds__(256) rows_gather(
 
 // The one-warp route: one CTA of one warp per row, every lane walking the
 // same serial parse (lz4_decode_body.cuh), the warp copying each literal
-// run and match together.
+// run and match together.  `limits` (may be null: no limit) gives each row
+// an output limit, -1 for none: a partial decode, which stops at the
+// limit (`decode_block`); its bound is the bytes up to the limit.
 __global__ void __launch_bounds__(32) decode_rows(
     const uint8_t* __restrict__ comps, long long comp_stride,
     const int* __restrict__ comp_lens, uint8_t* out, int out_cap,
     const uint8_t* __restrict__ dicts, const int* __restrict__ dict_lens,
-    int* __restrict__ lens, int* __restrict__ errs) {
+    const int* __restrict__ limits, int* __restrict__ lens,
+    int* __restrict__ errs) {
   const int row = blockIdx.x;
   const int dlen = dicts ? dict_lens[row] : 0;
   const uint8_t* dict_end = dicts ? dicts + (row + 1) * kDictCap : nullptr;
   int produced;
   const int err = lz4t::decode_block(comps + row * comp_stride, comp_lens[row],
                                      out + (long long)row * out_cap, out_cap,
-                                     dict_end, dlen, &produced);
+                                     dict_end, dlen, &produced,
+                                     limits ? limits[row] : -1);
   if (threadIdx.x == 0) {
     lens[row] = produced;
     errs[row] = err;
@@ -482,11 +486,13 @@ extern "C" int lz4t_rows_resolve(const void* pbase, const void* lens, void* ptr,
 extern "C" int lz4t_decode_warp(const void* comps, long long comp_stride,
                                 const void* comp_lens, void* out, int out_cap,
                                 const void* dicts, const void* dict_lens,
-                                void* lens, void* errs, int nrows, void* stream) {
+                                const void* limits, void* lens, void* errs,
+                                int nrows, void* stream) {
   decode_rows<<<nrows, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(comps), comp_stride,
       static_cast<const int*>(comp_lens), static_cast<uint8_t*>(out), out_cap,
       static_cast<const uint8_t*>(dicts), static_cast<const int*>(dict_lens),
-      static_cast<int*>(lens), static_cast<int*>(errs));
+      static_cast<const int*>(limits), static_cast<int*>(lens),
+      static_cast<int*>(errs));
   return static_cast<int>(cudaGetLastError());
 }

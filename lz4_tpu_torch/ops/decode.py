@@ -8,7 +8,8 @@ speculatively, the true sequences the orbit of position 0, then the
 literal copies and the match bytes resolved by pointer jumping (the passes
 of `rows_passes`), on groups of rows whose scratch fits
 `GROUP_SCRATCH_BYTES` (`row_groups`); rows of at most 64 KB take the
-one-warp route, faster there.
+one-warp route, faster there, and so do rows with an output limit (a
+partial decode, `block.partial_decode`), at any size.
 Beside it: `decode_blocks_plain`, the serial reference (one scalar parse
 per row, `_decode_row`); one plain version per pass (`rows_nn_plain`,
 `rows_spans_plain`, `rows_hops_plain`, `rows_table_plain`,
@@ -65,7 +66,7 @@ def _kernel():
         lib.lz4t_rows_parse.argtypes = [p, ll, p, i, p, i, i] + [p] * 15
         lib.lz4t_rows_literals.argtypes = [p, ll, i, i, i] + [p] * 11
         lib.lz4t_rows_resolve.argtypes = [p, p, p, i, p, p, p, i, i, i, p]
-        lib.lz4t_decode_warp.argtypes = [p, ll, p, p, i, p, p, p, p, i, p]
+        lib.lz4t_decode_warp.argtypes = [p, ll, p, p, i, p, p, p, p, p, i, p]
         for fn in (lib.lz4t_rows_parse, lib.lz4t_rows_literals,
                    lib.lz4t_rows_resolve, lib.lz4t_decode_warp,
                    lib.lz4t_rows_segment):
@@ -76,13 +77,17 @@ def _kernel():
     return _lib
 
 
-def _decode_row(src: bytes, clen: int, out_cap: int, window: bytes):
+def _decode_row(src: bytes, clen: int, out_cap: int, window: bytes,
+                limit: int = -1):
     """One row, byte for byte as the kernel decodes it.  Returns
     (decoded bytes, err); on error the bytes stop where the failing
-    sequence began."""
+    sequence began.  ``limit`` >= 0 is a partial decode: the row stops
+    cleanly at the first literal or match byte that brings the output to
+    ``limit`` (the checks of `lz4_decode_body.cuh` `decode_block`)."""
     dlen = len(window)
     buf = bytearray(window)
     cap = dlen + out_cap
+    stop = dlen + limit if limit >= 0 else -1
     ip, err = 0, 0
     while True:
         if ip >= clen:
@@ -98,7 +103,13 @@ def _decode_row(src: bytes, clen: int, out_cap: int, window: bytes):
                 q += 1
                 ll += b
         op = len(buf)
-        if q + ll > clen or op + ll > cap:
+        if q + ll > clen:
+            err = 1
+            break
+        if stop >= 0 and op + ll >= stop:  # the run reaches the limit
+            buf += src[q:q + stop - op]
+            return bytes(buf[dlen:]), 0
+        if op + ll > cap:
             err = 1
             break
         lit_at = q
@@ -119,16 +130,24 @@ def _decode_row(src: bytes, clen: int, out_cap: int, window: bytes):
                 b = src[q]
                 q += 1
                 ml += b
+            if stop >= 0 and b == 255:  # the extension ran out of input
+                err = 1
+                break
+        last = stop >= 0 and op + ll + ml >= stop
         # buf holds the window first, so op already counts dlen
-        if off == 0 or off > op + ll or op + ll + ml > cap:
+        if off == 0 or off > op + ll or (not last and op + ll + ml > cap):
             err = 1
             break
         buf += src[lit_at:lit_at + ll]
+        if last:
+            ml = stop - len(buf)
         base = len(buf) - off
         if off >= ml:
             buf += buf[base:base + ml]
         else:
             buf += (buf[base:] * (ml // off + 1))[:ml]
+        if last:
+            return bytes(buf[dlen:]), 0
         ip = q
     if err == 0 and ip != clen:
         err = 2
@@ -136,12 +155,13 @@ def _decode_row(src: bytes, clen: int, out_cap: int, window: bytes):
 
 
 def decode_blocks_plain(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
-                        dict_lens=None, mode: str = "full2"):
+                        dict_lens=None, mode: str = "full2", limits=None):
     """The plain PyTorch version of `decode_blocks`: the same checks, the
     same outputs, one scalar parse per row on the host."""
     comps, clens, dicts, dls = _validate(
         comps_u8, comp_lens, out_cap, dicts_u8, dict_lens, mode
     )
+    lim = _validate_limits(limits, clens.shape[0])
     nb = comps.shape[0]
     out = torch.zeros((nb, out_cap), dtype=torch.uint8)
     lens = torch.zeros((nb,), dtype=torch.int32)
@@ -156,7 +176,8 @@ def decode_blocks_plain(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
         window = b""
         if dl_list[b]:
             window = bytes(windows[b, DICT_CAP - dl_list[b]:].tolist())
-        data, err = _decode_row(src, clen, out_cap, window)
+        data, err = _decode_row(src, clen, out_cap, window,
+                                -1 if lim is None else int(lim[b]))
         if data:
             out[b, : len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
         lens[b] = len(data)
@@ -197,6 +218,19 @@ def _validate(comps_u8, comp_lens, out_cap, dicts_u8, dict_lens, mode):
         if dls.numel() and (int(dls.min()) < 0 or int(dls.max()) > DICT_CAP):
             raise ValueError("dict_lens must lie in [0, 65536]")
     return comps, clens, dicts, dls
+
+
+def _validate_limits(limits, nb: int):
+    """Per-row output limits as an int32 CPU tensor (-1: no limit), or
+    None."""
+    if limits is None:
+        return None
+    lim = torch.as_tensor(limits, dtype=torch.int32).cpu()
+    if lim.shape != (nb,):
+        raise ValueError("limits must hold one value per row")
+    if nb and int(lim.min()) < -1:
+        raise ValueError("limits must be >= -1")
+    return lim
 
 
 # ---- the parallel parse and its passes, plain --------------------------
@@ -672,9 +706,10 @@ def _launch_rows(comps, clens, out_cap, dicts, dls, keep=False):
     return got if keep else (out, lens, errs)
 
 
-def _launch_warp(comps, clens, out_cap, dicts, dls):
+def _launch_warp(comps, clens, out_cap, dicts, dls, limits=None):
     """One launch of the one-warp route: a warp per row walking the serial
-    parse (`decode_rows` in `csrc/decode.cu`)."""
+    parse (`decode_rows` in `csrc/decode.cu`), each row stopping at its
+    limit where ``limits`` gives one."""
     dev = comps.device
     comps = comps.contiguous()
     nb = comps.shape[0]
@@ -685,17 +720,21 @@ def _launch_warp(comps, clens, out_cap, dicts, dls):
         return out, lens, errs
     if dicts is not None:
         dicts = dicts.contiguous()
+    if limits is not None:
+        limits = limits.to(dev)
     with torch.cuda.device(dev):
         rc = _kernel().lz4t_decode_warp(
             comps.data_ptr(), comps.stride(0), clens.data_ptr(),
             out.data_ptr(), out_cap,
             dicts.data_ptr() if dicts is not None else None,
             dls.data_ptr() if dls is not None else None,
+            limits.data_ptr() if limits is not None else None,
             lens.data_ptr(), errs.data_ptr(), nb,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check(rc, "decode (one warp per row)")
     kernel_launches["decode_rows"] += 1
+    kernel_launches["decode_rows_limit"] += limits is not None
     return out, lens, errs
 
 
@@ -703,22 +742,29 @@ ROUTES = {"warp": _launch_warp, "rows": _launch_rows}
 
 
 def _decode(route, comps_u8, comp_lens, out_cap: int, dicts_u8=None,
-            dict_lens=None, mode: str = "full2"):
+            dict_lens=None, mode: str = "full2", limits=None):
     """`decode_blocks` on ``route``: "warp" (the one-warp route), "rows" (the
-    parallel passes) or None (by `WARP_ROUTE_MAX`).  Returns the outputs
+    parallel passes) or None (by `WARP_ROUTE_MAX`; the one-warp route for
+    rows with limits, the only one that takes them).  Returns the outputs
     and whether the card ran them (a CPU tensor runs the plain version)."""
     comps, clens, dicts, dls = _validate(
         comps_u8, comp_lens, out_cap, dicts_u8, dict_lens, mode
     )
+    lim = _validate_limits(limits, clens.shape[0])
     if comps.device.type != "cuda":
-        return decode_blocks_plain(comps, clens, out_cap, dicts, dls, mode), False
+        return decode_blocks_plain(comps, clens, out_cap, dicts, dls, mode,
+                                   lim), False
+    if lim is not None:
+        if route == "rows":
+            raise ValueError("the parallel passes take no output limit")
+        return _launch_warp(comps, clens, out_cap, dicts, dls, lim), True
     if route is None:
         route = "warp" if out_cap <= WARP_ROUTE_MAX else "rows"
     return ROUTES[route](comps, clens, out_cap, dicts, dls), True
 
 
 def decode_blocks(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
-                  dict_lens=None, mode: str = "full2"):
+                  dict_lens=None, mode: str = "full2", limits=None):
     """Decode B independent LZ4 blocks.
 
     comps_u8: uint8 [B, CAP], row b's compressed bytes at [0, comp_lens[b])
@@ -736,16 +782,21 @@ def decode_blocks(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
     serial parse: the faster route there, PERF.md §6), larger ones on the
     parallel passes (every row at once, in groups of rows whose scratch
     fits `GROUP_SCRATCH_BYTES`).
+
+    ``limits`` (int32 [B], -1 for none) makes each row a partial decode
+    that stops at its limit (`_decode_row`); rows with limits always take
+    the one-warp route, whatever ``out_cap``.
     """
     got, launched = _decode(None, comps_u8, comp_lens, out_cap, dicts_u8,
-                            dict_lens, mode)
+                            dict_lens, mode, limits)
     decode_blocks.launches += launched
     return got
 
 
 decode_blocks.launches = 0
 # launches of each of kernel A's kernels on the card (rows_jump: one per
-# pointer-jumping round enqueued)
+# pointer-jumping round enqueued; decode_rows_limit: the decode_rows
+# launches with output limits)
 kernel_launches = dict.fromkeys(
-    ("decode_rows", "rows_nn", "rows_spans", "rows_hops", "rows_table",
-     "rows_literals", "rows_jump", "rows_gather"), 0)
+    ("decode_rows", "decode_rows_limit", "rows_nn", "rows_spans", "rows_hops",
+     "rows_table", "rows_literals", "rows_jump", "rows_gather"), 0)

@@ -37,7 +37,7 @@ import torch
 from .build import check, load
 from .common import round_up
 from .decode import (MIN_MATCH, _decode_row, decode_blocks, jump_plain,
-                     sequence_bytes, spans, used_rows)
+                     kernel_launches, sequence_bytes, spans, used_rows)
 
 STREAM_MODES = ("full", "full2v")
 WINDOW = 65536
@@ -80,14 +80,22 @@ def decode_blocks_stream(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
     """Decode B independent LZ4 blocks at any ``out_cap``, optionally with
     right-aligned 64 KB dictionaries: kernel A's contract
     (`ops.decode.decode_blocks`), which it launches.  ``mode`` is "full" or
-    "full2v" (the TPU kernel's fast-arm variants; the same bytes)."""
+    "full2v" (the TPU kernel's fast-arm variants; the same bytes).  A CUDA
+    call that enqueues kernel A is counted here too
+    (`decode_blocks_stream.launches`)."""
     if mode not in STREAM_MODES:
         raise ValueError(
             f"unknown streaming decode mode {mode!r}; "
             "expected 'full' or 'full2v'"
         )
-    return decode_blocks(comps_u8, comp_lens, out_cap, dicts_u8, dict_lens,
-                         mode=mode)
+    enqueued = sum(kernel_launches.values())
+    got = decode_blocks(comps_u8, comp_lens, out_cap, dicts_u8, dict_lens,
+                        mode=mode)
+    decode_blocks_stream.launches += sum(kernel_launches.values()) > enqueued
+    return got
+
+
+decode_blocks_stream.launches = 0
 
 
 def _validate_chain(frame_u8, table, block_size, dict_u8):
@@ -447,6 +455,9 @@ def _launch(frame, tab, block_size, preset, cap, keep=False):
             flags.data_ptr(), rounds, grid, int(wide), s),
             "decode_chain resolve")
     decode_chain.launches += 1
+    for name in ("chain_parse", "chain_place", "chain_literals", "chain_gather"):
+        chain_kernel_launches[name] += 1
+    chain_kernel_launches["chain_jump"] += rounds
     return ChainPasses(seqs, sbase, nseq, size, err, start, use, lit_out,
                        lit_ptr, ptr[:cap], out[WINDOW:], status)
 
@@ -480,3 +491,7 @@ def decode_chain(frame_u8, table, block_size: int, dict_u8=None):
 
 
 decode_chain.launches = 0
+# launches of each of the chained decoder's kernels on the card (chain_jump:
+# one per pointer-jumping round enqueued)
+chain_kernel_launches = dict.fromkeys(
+    ("chain_parse", "chain_place", "chain_literals", "chain_jump", "chain_gather"), 0)

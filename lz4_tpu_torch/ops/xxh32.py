@@ -8,8 +8,11 @@ and content checksum from here, over bytes that already lie on the device:
 b * stride, a frame's blocks in place, the content as one window);
 `xxh32_blocks` is the counterpart of the TPU wrapper, its rows as windows.
 Both return the uint32 bits of each hash in an int32 tensor (`as_uint32`
-reads them back as Python ints).  The kernel's source says what bounds it
-on the card and what its design does about that.
+reads them back as Python ints).  `xxh32_stripes` is the streaming form,
+one window's whole stripes from four given accumulators: the content hash
+of a stream (`lz4_tpu_torch.xxh32.XXH32.update` on a CUDA tensor).  The
+kernel's source says what bounds it on the card and what its design does
+about that.
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
+        lib.lz4t_xxh32_stripes.argtypes = list(lib.lz4t_xxh32.argtypes)
         lib.lz4t_xxh32.restype = ctypes.c_int
+        lib.lz4t_xxh32_stripes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -202,4 +207,64 @@ def xxh32_blocks(bufs_u8, lens):
     return xxh32_windows(*_rows(bufs_u8, lens))
 
 
+# the most bytes one launch of the streaming form takes (its lengths are
+# int32); a longer update takes one launch per piece
+STRIPES_MAX = 1 << 30
+
+
+def _validate_stripes(flat_u8, start, nbytes, accs):
+    flat, st, ln = _validate_windows(flat_u8, [start], [nbytes])
+    if int(ln[0]) > STRIPES_MAX:
+        raise ValueError(f"nbytes must be at most {STRIPES_MAX}")
+    acc = torch.as_tensor(accs, dtype=torch.int64).cpu()
+    if acc.shape != (4,):
+        raise ValueError("accs must hold four accumulators")
+    return flat, int(st[0]), int(ln[0]), [a & _M32 for a in acc.tolist()]
+
+
+def _as_int32(values) -> list[int]:
+    """uint32 values as the int32 values of the same bits."""
+    return [v - (1 << 32) if v >= 1 << 31 else v for v in values]
+
+
+def xxh32_stripes_plain(flat_u8, start, nbytes, accs):
+    """The plain PyTorch version of `xxh32_stripes`: the same checks, the
+    stripes in Python ints (`_stripes_one`)."""
+    flat, a, n, acc = _validate_stripes(flat_u8, start, nbytes, accs)
+    raw = flat[a:a + n // 16 * 16].cpu().numpy()
+    for c in range(0, raw.size // 16, _ONE_CHUNK):
+        words = raw[16 * c:16 * (c + _ONE_CHUNK)].view("<u4").tolist()
+        acc = _stripes_one(words, acc)
+    return torch.tensor(_as_int32(acc), dtype=torch.int32).to(flat.device)
+
+
+def xxh32_stripes(flat_u8, start, nbytes, accs):
+    """The four xxHash32 accumulators ``accs`` (uint32 values) after the
+    whole 16-byte stripes of flat_u8[start : start + nbytes]: the bytes
+    after the last whole stripe are left to the caller, which finishes the
+    hash (`lz4_tpu_torch.xxh32.XXH32`).  Returns int32 [4] of uint32 bits
+    on the input's device.  A CPU tensor runs the plain version; a CUDA
+    tensor launches the streaming form of kernel E once, one warp on the
+    window (counted in `xxh32_stripes.launches`)."""
+    flat, a, n, acc = _validate_stripes(flat_u8, start, nbytes, accs)
+    if flat.device.type != "cuda":
+        return xxh32_stripes_plain(flat, a, n, acc)
+    dev = flat.device
+    flat = flat.contiguous()
+    # one int64 upload: the window's start, its length and the four
+    # accumulators (as int32 bits) side by side
+    meta = torch.tensor([a, n // 16 * 16, *_as_int32(acc)], dtype=torch.int64).to(dev)
+    lens = meta[1:2].to(torch.int32)
+    out = meta[2:].to(torch.int32)
+    with torch.cuda.device(dev):
+        rc = _kernel().lz4t_xxh32_stripes(
+            flat.data_ptr(), meta.data_ptr(), lens.data_ptr(), out.data_ptr(), 1,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(rc, "xxh32 stripes")
+    xxh32_stripes.launches += 1
+    return out
+
+
 xxh32_windows.launches = 0
+xxh32_stripes.launches = 0

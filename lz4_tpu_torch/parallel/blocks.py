@@ -140,7 +140,7 @@ def encode_blocks_device(bufs, lens, bcap: int, level: int = 0,
 
 def encode_blocks_chained_device(data, block_size: int, level: int = 0,
                                  acceleration: int = 1, device="cuda",
-                                 checksums: bool = False):
+                                 checksums: bool = False, prefix=None):
     """Encode the blocks of a chained frame in one launch of kernel D on
     ``device`` (the plain version when ``device="cpu"``).
 
@@ -149,17 +149,23 @@ def encode_blocks_chained_device(data, block_size: int, level: int = 0,
     k is the window [k * block_size - dl, (k + 1) * block_size) of it,
     dl = min(k * block_size, 65536), with the dense schedule at levels 0-2
     and the prefix in the chain at levels 3-12: the bytes of the sequential
-    chain encoder.  Returns each block's compressed payload, in frame order
-    (the caller stores a block whose payload is not smaller), and with
-    ``checksums=True`` the list of payloads and each block's checksum
-    (`block_checksums`)."""
+    chain encoder.  ``prefix`` (a 1-D uint8 tensor on ``device``, at most
+    64 KB) is the history before the first block, which then reaches it:
+    a stream's carried tail or a preset dictionary.  Returns each block's
+    compressed payload, in frame order (the caller stores a block whose
+    payload is not smaller), and with ``checksums=True`` the list of
+    payloads and each block's checksum (`block_checksums`)."""
     dev = resolve_device(device)
     payload = upload(data, dev)
+    p0 = 0
+    if prefix is not None and prefix.numel():
+        p0 = prefix.numel()
+        payload = torch.cat([prefix.to(dev), payload])
     n = payload.numel()
-    nb = -(-n // block_size)
+    nb = -(-(n - p0) // block_size)
     if nb == 0:
         return ([], []) if checksums else []
-    block_starts = torch.arange(nb, dtype=torch.int64) * block_size
+    block_starts = p0 + torch.arange(nb, dtype=torch.int64) * block_size
     dls = block_starts.clamp(max=_encode_stream.WINDOW)
     ends = (block_starts + block_size).clamp(max=n)
     out, out_lens, errs = _encode_stream.encode_windows(

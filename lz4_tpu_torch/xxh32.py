@@ -1,9 +1,14 @@
-"""xxHash32 — streaming and one-shot, host (numpy) implementation.
+"""xxHash32 — streaming and one-shot.
 
 The LZ4 frame format needs xxHash32 for the header checksum (HC byte), the
 optional per-block checksums and the optional content checksum.  A
 clean-room implementation of the public xxHash32 specification; the port's
-own copy of `lz4_tpu/xxh32.py` without the native hot path.
+own copy of `lz4_tpu/xxh32.py` without the native hot path.  `XXH32.update`
+on a tensor runs the stripes through kernel E's streaming form
+(`ops.xxh32.xxh32_stripes`: on the card for a CUDA tensor, its plain
+version for a CPU one); on bytes it runs them here, in `host_stripes`
+(counted in `host_stripes.launches`, so that a run can show that a card
+path never took it).
 """
 
 from __future__ import annotations
@@ -62,6 +67,13 @@ class XXH32:
         return self
 
     def update(self, data) -> "XXH32":
+        """Add ``data``: bytes-like, or a 1-D uint8 tensor.  A tensor goes
+        through `ops.xxh32.xxh32_stripes`, once per call: a CUDA tensor
+        launches kernel E's streaming form (the bytes left over from the
+        last update go to the card first; the accumulators and the bytes
+        after the last whole stripe come back)."""
+        if hasattr(data, "data_ptr"):  # a tensor
+            return self._update_tensor(data)
         if type(data) is not bytes:
             data = bytes(memoryview(data).cast("B"))
         self._total += len(data)
@@ -69,17 +81,26 @@ class XXH32:
             data = self._buf + data
         n_stripes = len(data) // 16
         if n_stripes:
-            body = np.frombuffer(
-                data[: n_stripes * 16], dtype="<u4"
-            ).reshape(n_stripes, 4)
-            a0, a1, a2, a3 = self._acc
-            for k in range(n_stripes):
-                a0 = _round(a0, int(body[k, 0]))
-                a1 = _round(a1, int(body[k, 1]))
-                a2 = _round(a2, int(body[k, 2]))
-                a3 = _round(a3, int(body[k, 3]))
-            self._acc = [a0, a1, a2, a3]
+            self._acc = host_stripes(self._acc, data, n_stripes)
         self._buf = data[n_stripes * 16 :]
+        return self
+
+    def _update_tensor(self, flat) -> "XXH32":
+        import torch
+
+        from .ops.xxh32 import STRIPES_MAX, as_uint32, xxh32_stripes
+
+        if flat.dtype != torch.uint8 or flat.dim() != 1:
+            raise ValueError("a tensor must be 1-D uint8")
+        self._total += flat.numel()
+        if self._buf:
+            head = torch.frombuffer(bytearray(self._buf), dtype=torch.uint8)
+            flat = torch.cat([head.to(flat.device), flat])
+        whole = flat.numel() // 16 * 16
+        for a in range(0, whole, STRIPES_MAX):
+            self._acc = as_uint32(xxh32_stripes(
+                flat, a, min(STRIPES_MAX, whole - a), self._acc))
+        self._buf = flat[whole:].cpu().numpy().tobytes()
         return self
 
     def digest(self) -> int:
@@ -103,45 +124,24 @@ class XXH32:
         return _avalanche(acc)
 
 
+def host_stripes(accs, data: bytes, n_stripes: int) -> list[int]:
+    """The four accumulators after the first ``n_stripes`` 16-byte stripes
+    of ``data``, on the host: the plain stripe loop."""
+    host_stripes.launches += 1
+    body = np.frombuffer(data[: n_stripes * 16], dtype="<u4").tolist()
+    a0, a1, a2, a3 = accs
+    it = iter(body)
+    for w0, w1, w2, w3 in zip(it, it, it, it):
+        a0 = _round(a0, w0)
+        a1 = _round(a1, w1)
+        a2 = _round(a2, w2)
+        a3 = _round(a3, w3)
+    return [a0, a1, a2, a3]
+
+
+host_stripes.launches = 0
+
+
 def xxh32(data, seed: int = 0) -> int:
-    """One-shot xxHash32."""
-    if type(data) is not bytes:
-        data = bytes(memoryview(data).cast("B"))
-    n = len(data)
-    if n >= 16:
-        n_stripes = n // 16
-        body = np.frombuffer(data[: n_stripes * 16], dtype="<u4").reshape(n_stripes, 4)
-        accs = np.array(
-            [
-                (seed + PRIME1 + PRIME2) & _M32,
-                (seed + PRIME2) & _M32,
-                seed & _M32,
-                (seed - PRIME1) & _M32,
-            ],
-            dtype=np.uint64,
-        )
-        p1 = np.uint64(PRIME1)
-        p2 = np.uint64(PRIME2)
-        m32 = np.uint64(_M32)
-        for k in range(n_stripes):
-            accs = (accs + body[k].astype(np.uint64) * p2) & m32
-            accs = ((accs << np.uint64(13)) | (accs >> np.uint64(19))) & m32
-            accs = (accs * p1) & m32
-        a0, a1, a2, a3 = (int(x) for x in accs)
-        acc = (_rotl(a0, 1) + _rotl(a1, 7) + _rotl(a2, 12) + _rotl(a3, 18)) & _M32
-        tail = data[n_stripes * 16 :]
-    else:
-        acc = (seed + PRIME5) & _M32
-        tail = data
-    acc = (acc + n) & _M32
-    i = 0
-    while i + 4 <= len(tail):
-        lane = int.from_bytes(tail[i : i + 4], "little")
-        acc = (acc + lane * PRIME3) & _M32
-        acc = (_rotl(acc, 17) * PRIME4) & _M32
-        i += 4
-    while i < len(tail):
-        acc = (acc + tail[i] * PRIME5) & _M32
-        acc = (_rotl(acc, 11) * PRIME1) & _M32
-        i += 1
-    return _avalanche(acc)
+    """One-shot xxHash32 (of a CUDA tensor on the card)."""
+    return XXH32(seed).update(data).digest()

@@ -59,25 +59,29 @@ def test_stored_blocks_carry_the_checksum_of_their_raw_bytes(chain):
 
 @pytest.fixture
 def no_host_hash(monkeypatch):
-    """`lz4_tpu_torch.xxh32` made to fail on more than 15 bytes (a frame
-    descriptor is at most 15), wherever the port has bound it."""
+    """`lz4_tpu_torch.xxh32`'s host stripe loop made to fail (a frame
+    descriptor, at most 15 bytes, has no whole stripe), and its one-shot
+    hash to fail on more than 15 bytes wherever the port has bound it.  A
+    stream's content hash (`XXH32.update` on a tensor) goes through kernel
+    E's streaming form, here its plain version."""
     mod = importlib.import_module("lz4_tpu_torch.xxh32")
-    real, real_update = mod.xxh32, mod.XXH32.update
+    real = mod.xxh32
 
     def short_only(data, seed=0):
         assert len(data) <= 15, f"{len(data)} bytes reached the host hash"
         return real(data, seed)
 
-    def short_update(self, data):
-        assert len(data) <= 15, f"{len(data)} bytes reached the host hash"
-        return real_update(self, data)
+    def no_stripes(accs, data, n_stripes):
+        raise AssertionError(f"{n_stripes} stripes reached the host hash")
 
     for name, m in list(sys.modules.items()):
         if name.split(".")[0] == "lz4_tpu_torch" and getattr(m, "xxh32", None) is real:
             monkeypatch.setattr(m, "xxh32", short_only)
-    monkeypatch.setattr(mod.XXH32, "update", short_update)
+    monkeypatch.setattr(mod, "host_stripes", no_stripes)
     with pytest.raises(AssertionError):
         mod.xxh32(bytes(16))
+    with pytest.raises(AssertionError):
+        mod.XXH32().update(bytes(16))
     return mod
 
 
@@ -135,4 +139,7 @@ def test_corrupt_checksummed_frames_raise_the_same_message(case):
     with pytest.raises(ValueError) as ours:
         tframe.decompress(blob, device="cpu")
     assert type(ours.value).__name__ == type(theirs.value).__name__ == "LZ4FormatError"
-    assert str(ours.value) == message
+    # the one-block CLI frame takes both packages' FrameReader, whose
+    # content checksum message names the two hashes
+    assert str(ours.value) == str(theirs.value)
+    assert str(ours.value).startswith(message)

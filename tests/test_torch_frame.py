@@ -155,8 +155,9 @@ def test_corrupt_frames_raise_the_jax_exception_types(case):
 def test_streaming_cases_are_not_ported(what):
     """Chained frames, with or without a preset dictionary, compress and
     decode as the JAX package's; an independent frame decodes as if a
-    preset dictionary were absent, as the JAX package's does; what only
-    FrameReader decodes raises."""
+    preset dictionary were absent, as the JAX package's does; what the
+    JAX package's FrameReader decodes (a dictionary ID, two frames) the
+    port's FrameReader decodes to the same bytes."""
     data = CORPUS[:150000]
     if what == "independent_with_dictionary":
         blob = _jax_frame(data)
@@ -182,10 +183,9 @@ def test_streaming_cases_are_not_ported(what):
         blob = _jax_frame(data, dictionary_id=7)
     elif what == "two_frames":
         blob = _jax_frame(data) * 2
-    else:
-        blob = _jax_frame(data)
-    with pytest.raises(NotImplementedError, match="FrameReader"):
-        tframe.decompress(blob, device="cpu")
+    want = jframe.decompress(blob, backend="host")
+    assert tframe.decompress(blob, device="cpu") == want == data * (
+        2 if what == "two_frames" else 1)
 
 
 def test_parallel_blocks_round_trip_and_refuse_malformed_blocks():

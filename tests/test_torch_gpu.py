@@ -621,3 +621,33 @@ def test_decode_passes_in_groups_match_one_group(cuda, monkeypatch):
         decode.row_groups(cl, out_cap))
     _equal(parts, whole)
     _equal(parts, decode.decode_blocks_plain(comps, cl, out_cap, dicts, dls))
+
+
+def test_xxh32_stripes_matches_plain_at_odd_splits(cuda):
+    rng = np.random.default_rng(12)
+    assert chip_smoke.hold_stripes(rng, cuda) == 0
+
+
+def test_decode_limits_match_plain(cuda):
+    rng = np.random.default_rng(13)
+    data = chip_smoke.make_corpus(4 << 20, 13)
+    before = decode.kernel_launches["decode_rows_limit"]
+    assert chip_smoke.hold_limited_decode(data, rng, cuda) == 0
+    assert decode.kernel_launches["decode_rows_limit"] == before + 1
+
+
+@pytest.mark.parametrize("chain", [False, True])
+def test_streaming_round_trip_on_the_card(chain, cuda):
+    import io
+
+    data = chip_smoke.make_corpus(8 << 20, 14)
+    settings = frame.EncoderSettings(chain_blocks=chain, block_checksum=True,
+                                     content_checksum=True)
+    before = xxh32.xxh32_stripes.launches
+    blob, _, _ = chip_smoke._stream_file(data, settings, cuda)
+    assert blob == frame.compress(data, settings, device=cuda)
+    assert xxh32.xxh32_stripes.launches > before
+    two = blob + frame.skippable_frame(b"x") + blob
+    assert frame.decompress(two, device=cuda) == data + data
+    r = frame.FrameReader(io.BytesIO(two), device=cuda)
+    assert r.read(12345) + r.read() == data + data

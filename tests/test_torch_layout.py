@@ -31,7 +31,9 @@ def test_import_without_jax_or_the_jax_package():
         "import lz4_tpu_torch.ops.encode_stream, lz4_tpu_torch.ops.decode_stream\n"
         "import lz4_tpu_torch.ops.encode_hc, lz4_tpu_torch.ops.xxh32\n"
         "import lz4_tpu_torch.ops.encode_hc_passes\n"
-        "import lz4_tpu_torch.block\n"
+        "import lz4_tpu_torch.block, lz4_tpu_torch.block.incremental\n"
+        "import lz4_tpu_torch.frame.aio, lz4_tpu_torch.legacy\n"
+        "import lz4_tpu_torch.pickler, lz4_tpu_torch.cli\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'lz4_tpu' or m.startswith('lz4_tpu.')]\n"
         "assert not bad, bad\n"
@@ -72,17 +74,25 @@ ENTRY_POINTS = (
     "parallel.decode_blocks", "encode_blocks_device", "decode_blocks_device",
     "frame.compress.chained", "frame.decompress.chained",
     "encode_blocks_chained_device", "block.encode", "block.decode",
+    "frame.FrameReader", "frame.FrameWriter", "frame.open",
+    "frame.decompress.two_frames", "block.partial_decode", "block.decode_into",
+    "pickle", "legacy.wrap", "cli",
 )
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
-def test_entry_points_need_the_card_unless_asked_for_cpu(name, monkeypatch):
+def test_entry_points_need_the_card_unless_asked_for_cpu(name, monkeypatch, tmp_path):
+    import io
+
+    from lz4_tpu_torch import cli, legacy
+
     data = b"abc" * 1000
     settings = frame.EncoderSettings(chain_blocks=False)
     blob = frame.compress(data, settings, device="cpu")
     chained = frame.compress(data * 30, device="cpu")
     comps = torch.zeros((1, 1024), dtype=torch.uint8)
     lens = torch.ones((1,), dtype=torch.int32)
+    (tmp_path / "in.txt").write_bytes(data)
     calls = {
         "frame.compress": lambda: frame.compress(data, settings),
         "frame.decompress": lambda: frame.decompress(blob),
@@ -103,10 +113,21 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name, monkeypatch):
         ),
         "block.encode": lambda: block.encode(data, dictionary=b"xyz"),
         "block.decode": lambda: block.decode(b"\x00", 0),
+        "frame.FrameReader": lambda: frame.FrameReader(io.BytesIO(blob)),
+        "frame.FrameWriter": lambda: frame.FrameWriter(io.BytesIO()),
+        "frame.open": lambda: frame.open(tmp_path / "out.lz4", "wb"),
+        "frame.decompress.two_frames": lambda: frame.decompress(blob + blob),
+        "block.partial_decode": lambda: block.partial_decode(b"\x00", 0),
+        "block.decode_into": lambda: block.decode_into(b"\x00", bytearray(8)),
+        "pickle": lambda: lz4_tpu_torch.pickle(data),
+        "legacy.wrap": lambda: legacy.wrap(data),
+        "cli": lambda: cli.main(["compress", str(tmp_path / "in.txt"),
+                                 str(tmp_path / "in.lz4")]),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[name]()
+    assert not (tmp_path / "out.lz4").exists()
 
 
 def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
@@ -139,6 +160,8 @@ def test_cpu_tensors_run_the_plain_streaming_versions_and_count_no_launch():
     data = b"hello hello hello hello hello!!" * 5000
     e0, c0 = encode_stream.encode_blocks_stream.launches, decode_stream.decode_chain.launches
     h0, o0 = encode_stream.encode_windows_hc.launches, encode_stream.encode_windows_opt.launches
+    k0 = dict(decode_stream.chain_kernel_launches)
+    s0 = decode_stream.decode_blocks_stream.launches
     blob = frame.compress(data, device="cpu")
     assert frame.decompress(blob, device="cpu") == data
     for level in (9, 12):
@@ -151,8 +174,14 @@ def test_cpu_tensors_run_the_plain_streaming_versions_and_count_no_launch():
         bufs, torch.tensor([64], dtype=torch.int32), 64
     )
     assert out.device.type == "cpu" and int(errs[0]) == 0
+    dec, dlens, derrs = decode_stream.decode_blocks_stream(
+        out, clens, 64, torch.zeros((1, 65536), dtype=torch.uint8),
+        torch.tensor([0], dtype=torch.int32))
+    assert dec.device.type == "cpu" and int(derrs[0]) == 0 and int(dlens[0]) == 64
     assert encode_stream.encode_blocks_stream.launches == e0
     assert decode_stream.decode_chain.launches == c0
+    assert decode_stream.chain_kernel_launches == k0
+    assert decode_stream.decode_blocks_stream.launches == s0
 
 
 def test_mesh_is_not_ported():
@@ -228,8 +257,12 @@ def _c_signatures():
     return sigs
 
 
-@pytest.mark.parametrize("module", ["decode", "decode_stream", "encode_stream",
-                                    "encode_opt", "encode_hc_passes", "xxh32"])
+BINDINGS = {"decode": ("lz4t_decode_warp",), "decode_stream": (),
+            "encode_stream": (), "encode_opt": (), "encode_hc_passes": (),
+            "xxh32": ("lz4t_xxh32", "lz4t_xxh32_stripes")}
+
+
+@pytest.mark.parametrize("module", sorted(BINDINGS))
 def test_bindings_match_the_c_signatures(module, monkeypatch):
     """Every argtypes list a wrapper sets holds one entry per parameter of
     its C entry point, of the same kind: ctypes passes an argument past
@@ -258,5 +291,6 @@ def test_bindings_match_the_c_signatures(module, monkeypatch):
     sigs = _c_signatures()
     bound = {k: v for k, v in vars(lib).items() if v.argtypes is not None}
     assert bound
+    assert set(BINDINGS[module]) <= set(bound)  # the entries this port added
     for name, fn in bound.items():
         assert list(fn.argtypes) == sigs[name], name
