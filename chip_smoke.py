@@ -141,6 +141,19 @@ Phases, each fatal on failure:
    chained frame's blocks (C's batch form); `partial_decode`, pickle and
    legacy round trips; the streaming form, the limited route and C's
    batch form timed at their paths' shapes.
+17. the dense codecs X1-X3 (`phase_dense`; PyTorch tensor ops, not
+   hand-written kernels, so they print a `dense` line of their own): X1 at
+   levels 0, 3, 9 and 12 on four 64 KB rows of the mix and X2 on its output
+   and a flipped row, on the card against the same functions on the CPU
+   (out bytes, lengths, error counts); `frame.compress/decompress` with
+   `mesh=make_mesh([card, card])` at FAST independent 64 KB over 16 MiB,
+   counts set to 0 just before and read just after (X1, X2, X3 must run,
+   kernels B and A must not), exact and deterministic over three runs, the
+   first 1 MiB's frame equal to a CPU mesh's; X1, X2 and X3 timed on one row
+   group of that path (CUDA events) with their peak memory per row;
+   unbounded `block.decode`s needing the first, second and third output
+   cap; `compress_distributed`/`decompress_distributed` in two processes on
+   the card over gloo, their frames equal to the single-process frames.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -2972,6 +2985,327 @@ def phase_streaming(data: bytes, rng, dev):
     return launches, rates, entries
 
 
+DENSE_LEVELS = (0, 3, 9, 12)
+
+
+def dense_rows(data: bytes, rng, rows: int = 4):
+    """``rows`` 64 KB rows of the mix, one from each quarter in turn, staged
+    as the dense encoder takes them (uint8 [rows, 64 KB + 1024] on the
+    CPU) with their lengths."""
+    import torch
+
+    q = len(data) // 4
+    bufs = torch.zeros((rows, BLOCK + 1024), dtype=torch.uint8)
+    for i in range(rows):
+        at = (i % 4) * q + int(rng.integers(0, q - BLOCK))
+        bufs[i, :BLOCK] = torch.frombuffer(bytearray(data[at:at + BLOCK]),
+                                           dtype=torch.uint8)
+    return bufs, torch.full((rows,), BLOCK, dtype=torch.int32)
+
+
+def hold_dense_rows(data: bytes, rng, dev) -> dict:
+    """X1 at levels 0, 3, 9 and 12 and X2 on its output and a flipped copy
+    of one row, on ``dev`` against the same functions on the CPU: out bytes,
+    lengths and error counts.  Returns each one's max_abs_err."""
+    import torch
+    from lz4_tpu_torch.ops import encode_dense
+    from lz4_tpu_torch.parallel import blocks as pb
+
+    bufs, lens = dense_rows(data, rng)
+    worst = {"X1": 0, "X2": 0}
+    streams = []
+    for level in DENSE_LEVELS:
+        depth = encode_dense.level_to_depth(level)
+        got = pb.batched_encode(bufs.to(dev), lens.to(dev), BLOCK, depth)
+        want = pb.batched_encode(bufs, lens, BLOCK, depth)
+        worst["X1"] = max(worst["X1"], _max_abs_err(got, want))
+        out, olens = want
+        streams += [out[i, :int(olens[i])].numpy().tobytes() for i in range(len(lens))]
+    bad = bytearray(streams[0])
+    bad[len(bad) // 3] ^= 0x10
+    streams.append(bytes(bad))
+    comps = torch.zeros((len(streams), pb.comp_capacity(BLOCK)), dtype=torch.uint8)
+    for i, s in enumerate(streams):
+        comps[i, :len(s)] = torch.frombuffer(bytearray(s), dtype=torch.uint8)
+    clens = torch.tensor([len(s) for s in streams], dtype=torch.int32)
+    got = pb.batched_decode(comps.to(dev), clens.to(dev), BLOCK)
+    want = pb.batched_decode(comps, clens, BLOCK)
+    worst["X2"] = _max_abs_err(got, want)
+    out, olens, errs = (t.cpu() for t in got)
+    for i in range(len(streams) - 1):
+        _require(int(errs[i]) == 0 and int(olens[i]) == BLOCK
+                 and torch.equal(out[i], bufs[i % len(lens), :BLOCK]),
+                 f"X2 did not decode X1's row {i}")
+    _require(worst == {"X1": 0, "X2": 0}, f"the dense codecs on the card differ "
+             f"from their CPU run: {worst}")
+    return worst
+
+
+def unbounded_decodes(rng, dev) -> list:
+    """`block.decode` with no bound on ``dev`` of three blocks that decode
+    only at the first, second and third of X2's output caps (4, 32 and 255
+    times the block's length): each equal to its payload and to the CPU's,
+    and tried at exactly k + 1 caps.  Returns each one's sizes and time."""
+    from lz4_tpu_torch import block
+    from lz4_tpu_torch.ops import decode_dense
+    from lz4_tpu_torch.ops.common import bucket
+
+    noise = rng.integers(0, 256, 1900, dtype=np.uint8).tobytes()
+    got = []
+    for k, zeros in enumerate((0, 30000, 300000)):
+        raw = noise + bytes(zeros)
+        comp = block.encode(raw, device=dev)
+        caps = sorted({bucket(max(64, len(comp) * f)) for f in (4, 32, 255)})
+        _require(len(caps) == 3 and (k == 0 or caps[k - 1] < len(raw)) and len(raw) <= caps[k],
+                 f"block {k} does not need cap {k} of {caps}")
+        decode_dense.decode_block_fixed.launches = 0
+        t0 = time.perf_counter()
+        back = block.decode(comp, device=dev)
+        seconds = time.perf_counter() - t0
+        tries = decode_dense.decode_block_fixed.launches
+        _require(back == raw and tries == k + 1,
+                 f"unbounded decode {k}: exact {back == raw}, {tries} caps tried")
+        _require(block.decode(comp, device="cpu") == raw, f"unbounded decode {k} on the CPU")
+        got.append({"comp_bytes": len(comp), "bytes": len(raw), "caps": caps,
+                    "caps_tried": tries, "s": seconds})
+    return got
+
+
+def _dense_counts():
+    from lz4_tpu_torch.ops import chain, decode_dense, encode_dense
+
+    return (encode_dense.encode_block_fixed, decode_dense.decode_block_fixed,
+            chain.materialize_chain)
+
+
+def dense_mesh_path(data: bytes, dev):
+    """`frame.compress/decompress(mesh=make_mesh([dev, dev]))` at FAST
+    independent 64 KB over ``data``: a warm-up, then three timed round
+    trips, the counts set to 0 just before the first and read just after
+    it (X1, X2 and X3 must run, kernels B's and A's wrappers must not);
+    exact and deterministic, and the frame of the first 1 MiB equal to the
+    same call's on a mesh of two CPU devices.  Returns (launches, e2e)."""
+    import torch
+    from lz4_tpu_torch import frame, parallel
+    from lz4_tpu_torch.ops import decode, encode
+
+    mesh = parallel.make_mesh([dev, dev])
+    settings = frame.EncoderSettings(chain_blocks=False)
+    warm = data[:4 * BLOCK]
+    _require(frame.decompress(frame.compress(warm, settings, mesh=mesh), mesh=mesh) == warm,
+             "mesh warm-up round trip")
+    counts = _dense_counts()
+    idle = (encode.encode_blocks, decode.decode_blocks)
+    for fn in counts + idle:
+        fn.launches = 0
+    times, blob, launches = [], None, None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        b = frame.compress(data, settings, mesh=mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = frame.decompress(b, mesh=mesh)
+        times.append((t1 - t0, time.perf_counter() - t1))
+        if launches is None:
+            launches = {fn.__name__: fn.launches for fn in counts + idle}
+        _require(back == data, "mesh round trip is not exact")
+        _require(blob is None or b == blob, "mesh compress is not deterministic")
+        blob = b
+    for fn in counts:
+        _require(launches[fn.__name__] > 0, f"mesh path never launched {fn.__name__}")
+    for fn in idle:
+        _require(launches[fn.__name__] == 0, f"mesh path launched {fn.__name__}")
+    head = data[:1 << 20]
+    cpu_mesh = parallel.make_mesh(["cpu", "cpu"])
+    _require(frame.compress(head, settings, mesh=mesh)
+             == frame.compress(head, settings, mesh=cpu_mesh),
+             "the card's mesh frame differs from the CPU mesh's")
+    c_s = sorted(t[0] for t in times)[1]
+    d_s = sorted(t[1] for t in times)[1]
+    return launches, {
+        "bytes": len(data), "frame_bytes": len(blob), "mesh": [str(d) for d in mesh.devices],
+        "compress_s": [t[0] for t in times], "decompress_s": [t[1] for t in times],
+        "compress_GBps_median": len(data) / c_s / 1e9,
+        "decompress_GBps_median": len(data) / d_s / 1e9,
+    }
+
+
+def _peak_bytes(fn) -> int:
+    """The device memory ``fn()`` takes above what was allocated before."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def dense_group_times(data: bytes, dev, launches: dict, worst: dict) -> list:
+    """X1, X2 and X3 timed on one row group of the mesh path's shapes (CUDA
+    events, a warm-up first), with each group's peak device memory beside
+    its estimate and each one's byte bound: the rows read once and the
+    output written once over 3.35 TB/s."""
+    import torch
+    from lz4_tpu_torch import parallel
+    from lz4_tpu_torch.constants import compress_bound
+    from lz4_tpu_torch.ops import chain
+    from lz4_tpu_torch.ops.common import align1024
+    from lz4_tpu_torch.parallel import blocks as pb
+
+    enc_rows = pb.group_rows(pb._encode_row_bytes(BLOCK, 1))
+    bufs, lens = pb.split_blocks(data[:enc_rows * BLOCK], BLOCK)
+    bufs, lens = bufs.to(dev), lens.to(dev)
+    x1_ms = _cuda_ms(lambda: pb.batched_encode(bufs, lens, BLOCK, 1), 3)
+    x1_peak = _peak_bytes(lambda: pb.batched_encode(bufs, lens, BLOCK, 1))
+    cap = pb.comp_capacity(BLOCK)
+    dec_rows = pb.group_rows(pb._decode_row_bytes(cap, BLOCK))
+    blocks = parallel.encode_blocks(data[:dec_rows * BLOCK], BLOCK,
+                                    mesh=parallel.make_mesh([dev]))
+    comps = torch.zeros((len(blocks), cap), dtype=torch.uint8)
+    for i, b in enumerate(blocks):
+        comps[i, :len(b)] = torch.frombuffer(bytearray(b), dtype=torch.uint8)
+    comps = comps.to(dev)
+    clens = torch.tensor([len(b) for b in blocks], dtype=torch.int32, device=dev)
+    x2_ms = _cuda_ms(lambda: pb.batched_decode(comps, clens, BLOCK), 3)
+    x2_peak = _peak_bytes(lambda: pb.batched_decode(comps, clens, BLOCK))
+    # X3's work does not depend on its data: the same gathers for any nxt
+    shapes = {"X1": (enc_rows, BLOCK + 1024, BLOCK // 4 + 4),
+              "X2": (dec_rows, cap, cap // 3 + 2)}
+    x3 = {}
+    for owner, (rows, m, steps) in shapes.items():
+        nxt = (torch.arange(m, dtype=torch.int32, device=dev) + 1).clamp(max=m - 1)
+        nxt = nxt.expand(rows, m).contiguous()
+        out_w = 1 << max(1, (steps - 1).bit_length())
+        x3[owner] = (_cuda_ms(lambda: chain.materialize_chain(nxt, steps), 3),
+                     4 * rows * (m + out_w))
+    ocap = align1024(compress_bound(BLOCK))
+    entry = {"route": "torch", "bound_by": "bytes", "library_ms": None}
+    return [
+        {"name": "X1 encode_block_fixed", **entry,
+         "source": "lz4_tpu_torch/ops/encode_dense.py",
+         "replaces": "lz4_tpu/ops/encode_jax.py:307", "rows_per_group": enc_rows,
+         "ms": x1_ms, "bound_ms": enc_rows * (BLOCK + 1024 + ocap) / HBM_BYTES_PER_S * 1e3,
+         "launches": launches["encode_block_fixed"], "max_abs_err": worst["X1"],
+         "peak_bytes_per_row": x1_peak / enc_rows,
+         "estimate_bytes_per_row": pb._encode_row_bytes(BLOCK, 1)},
+        {"name": "X2 decode_block_fixed", **entry,
+         "source": "lz4_tpu_torch/ops/decode_dense.py",
+         "replaces": "lz4_tpu/ops/decode_jax.py:195", "rows_per_group": dec_rows,
+         "ms": x2_ms,
+         "bound_ms": (int(clens.sum()) + dec_rows * BLOCK) / HBM_BYTES_PER_S * 1e3,
+         "launches": launches["decode_block_fixed"], "max_abs_err": worst["X2"],
+         "peak_bytes_per_row": x2_peak / dec_rows,
+         "estimate_bytes_per_row": pb._decode_row_bytes(cap, BLOCK)},
+        *({"name": f"X3 materialize_chain (in {owner})", **entry,
+           "source": "lz4_tpu_torch/ops/chain.py",
+           "replaces": "lz4_tpu/ops/chain.py:29", "rows_per_group": shapes[owner][0],
+           "ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "launches": launches["materialize_chain"],
+           "max_abs_err": max(worst.values())}
+          for owner, (ms, nbytes) in x3.items()),
+    ]
+
+
+MULTIHOST_WORKER = r"""
+import os, sys
+sys.path.insert(0, os.getcwd())
+from lz4_tpu_torch.frame import EncoderSettings
+from lz4_tpu_torch.parallel import multihost
+import torch.distributed as dist
+assert multihost.init_from_env()
+import random
+data = random.Random(77).randbytes(9_000) * 40  # tests/test_multihost.py's payload
+out = os.environ["LZ4TPU_SMOKE_OUT"] + f".{dist.get_rank()}"
+blob = multihost.compress_distributed(data, block_size=65536, level=0)
+assert multihost.decompress_distributed(blob) == data
+chained = multihost.compress_distributed(
+    data, settings=EncoderSettings(chain_blocks=True, block_size=65536))
+with open(out, "wb") as f:
+    f.write(blob)
+with open(out + ".chained", "wb") as f:
+    f.write(chained)
+dist.destroy_process_group()
+"""
+
+
+def multihost_pair(dev) -> dict:
+    """`multihost.compress_distributed` and `decompress_distributed` in two
+    processes on the card (gloo on localhost; NCCL refuses two ranks on
+    one card), on the 360 KB payload of tests/test_multihost.py: both
+    processes' frames, independent and chained, equal this process's
+    single-process frames on ``dev``, and the distributed decode returns
+    the payload.  Each process has a time limit and is stopped on the way
+    out."""
+    import socket
+    import tempfile
+    from lz4_tpu_torch import frame
+
+    data = random.Random(77).randbytes(9_000) * 40
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "frame")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MULTIHOST_WORKER],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, LZ4TPU_COORDINATOR=f"127.0.0.1:{port}",
+                     LZ4TPU_NUM_PROCESSES="2", LZ4TPU_PROCESS_ID=str(rank),
+                     LZ4TPU_SMOKE_OUT=out),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=180)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, p in enumerate(procs):
+            _require(p.returncode == 0,
+                     f"multihost process {rank} failed:\n{logs[rank][-2000:]}")
+        blobs = [open(f"{out}.{r}", "rb").read() for r in range(2)]
+        chained = [open(f"{out}.{r}.chained", "rb").read() for r in range(2)]
+    seconds = time.perf_counter() - t0
+    single = frame.compress(data, frame.EncoderSettings(
+        chain_blocks=False, block_size=BLOCK), device=dev)
+    single_chained = frame.compress(data, frame.EncoderSettings(
+        chain_blocks=True, block_size=BLOCK), device=dev)
+    _require(blobs[0] == blobs[1] == single,
+             "the distributed frame differs from the single-process frame")
+    _require(chained[0] == chained[1] == single_chained,
+             "the distributed chained frame differs from the single-process frame")
+    _require(frame.decompress(chained[0], device=dev) == data, "chained round trip")
+    return {"processes": 2, "backend": "gloo", "bytes": len(data),
+            "frame_bytes": len(single), "chained_frame_bytes": len(single_chained),
+            "s": seconds}
+
+
+def phase_dense(data: bytes, rng, dev):
+    """The dense codecs X1-X3 and their callers on the card: X1/X2 held to
+    their CPU run (`hold_dense_rows`), the mesh path (`dense_mesh_path`),
+    each timed on a row group (`dense_group_times`), unbounded
+    `block.decode`s (`unbounded_decodes`) and two processes over gloo
+    (`multihost_pair`).  Returns the `dense` line's object."""
+    t0 = time.perf_counter()
+    worst = hold_dense_rows(data, rng, dev)
+    launches, e2e = dense_mesh_path(data, dev)
+    entries = dense_group_times(data, dev, launches, worst)
+    unbounded = unbounded_decodes(rng, dev)
+    pair = multihost_pair(dev)
+    seconds = time.perf_counter() - t0
+    print(f"[dense] X1/X2 equal to their CPU run, mesh round trip exact "
+          f"({e2e['compress_GBps_median']:.4f} / {e2e['decompress_GBps_median']:.4f} "
+          f"GB/s), unbounded decodes and two processes exact, in {seconds:.1f} s")
+    return {"mesh_e2e": e2e, "mesh_launches": launches, "x": entries,
+            "unbounded_decode": unbounded, "multihost": pair, "seconds": seconds}
+
+
 def _nvidia_smi(query: str, *fmt: str) -> str:
     """The first card's `nvidia-smi --query-gpu` fields, as CSV."""
     res = subprocess.run(
@@ -3081,6 +3415,7 @@ def main(argv=None) -> int:
                       "big_blocks_launches": big_launches}))
     cs_launches, cs_e2e = phase_checksum_paths(data, dev)
     st_launches, st_rates, st_kernels = phase_streaming(data, rng, dev)
+    dense = phase_dense(data16, rng, dev)
     for k in xxh_kernels:
         k["launches"] = cs_launches[k.pop("path")]["xxh32_windows"]
     kernels += xxh_kernels
@@ -3108,6 +3443,7 @@ def main(argv=None) -> int:
     print(json.dumps({"e2e_checksums": cs_e2e, "checksum_launches": cs_launches,
                       "host_xxh32_4MiB_s": host_xxh32_s}))
     print(json.dumps({"e2e_streaming": st_rates, "streaming_launches": st_launches}))
+    print(json.dumps({"dense": dense}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@ Layer map:
   dictionaries), each with its FAST (levels 0-2), HC (3-9) and OPT (10-12)
   arms, the chained decoder, and kernel E (xxHash32 of byte windows, and
   its streaming form)
-- `lz4_tpu_torch.parallel`  — batched encode/decode, chained encode
+- `lz4_tpu_torch.ops`       — also the dense codecs X1-X3 (the JAX
+  package's XLA encoder, decoder and chain), as PyTorch tensor ops
+- `lz4_tpu_torch.parallel`  — batched encode/decode, chained encode, the
+  dense codecs' batches and meshes (`mesh=`), multi-process frames
+  (`parallel.multihost`, torch.distributed over gloo)
 - `lz4_tpu_torch.block`     — one-block codec, buffer targets, partial
   decode, incremental encoders and decoders
 - `lz4_tpu_torch.pickler`   — self-contained compressed blobs

@@ -5,8 +5,10 @@ kernels as a batch of one, its width rounded up to a power of two.  A
 block of at most 64 KB with no dictionary encodes on kernel B, anything
 else on kernel D; decode takes kernel A, or C's batch form with a
 dictionary, and `partial_decode` kernel A's one-warp route with an output
-limit.  `encode_into` and `decode_into` copy the result once from the card
-into the caller's buffer.
+limit.  A decode with no output bound runs the dense decoder X2
+(`ops/decode_dense.py`), which sizes its output as it goes, as the JAX
+package's device route does.  `encode_into` and `decode_into` copy the
+result once from the card into the caller's buffer.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from . import LZ4Error
 from ..constants import _as_bytes, compress_bound
 from ..ops import decode as _decode
+from ..ops import decode_dense as _decode_dense
 from ..ops import decode_stream as _decode_stream
 from ..ops import encode as _encode
 from ..ops import encode_stream as _encode_stream
@@ -116,17 +119,16 @@ def decode(
 ) -> bytes:
     """Decompress one block on ``device`` (the plain versions when
     ``device="cpu"``) into at most ``target_length`` bytes, which it must
-    fill exactly, or at most ``capacity`` bytes.  Matches may reach the
-    last 64 KB of ``dictionary``."""
+    fill exactly, or at most ``capacity`` bytes.  With neither, the dense
+    decoder X2 tries outputs of 4, 32 and 255 times the block's length in
+    turn (`decode_dense.decode_block_bytes`).  Matches may reach the last
+    64 KB of ``dictionary``."""
     dev = resolve_device(device)
     data = _as_bytes(data)
     bound = target_length if target_length is not None else capacity
     if bound is None:
-        raise NotImplementedError(
-            "a decode without target_length or capacity sizes its output "
-            "as it goes, through the XLA kernel of the JAX package, which "
-            "is not ported yet (ROADMAP.md Queue 1, item 9)"
-        )
+        return _decode_dense.decode_block_bytes(data, dictionary=dictionary,
+                                                device=dev)
     out_cap = bucket(max(int(bound), 16))
     # a valid block for this bound cannot be longer (LZ4's length codings
     # have no redundant forms)

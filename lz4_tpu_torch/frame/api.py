@@ -16,9 +16,14 @@ whole frame (concatenated frames, skippable and legacy frames, a frame
 with a dictionary ID or a preset dictionary, a frame cut short) takes the
 port's `FrameReader`, which decodes each frame's blocks in one launch too,
 as the JAX package's host route takes its FrameReader; the two routes'
-exceptions are the JAX package's on each.  `compress_into`,
-`decompress_into`, `skippable_frame`, `LZ4FrameFile` and `open` are the
-JAX package's facades.
+exceptions are the JAX package's on each.  With ``mesh=`` (a
+`parallel.make_mesh` list of devices) the independent blocks of a payload
+of more than one block encode, and a single independent frame of only
+compressed blocks decodes, on the dense codecs X1 and X2 split over the
+mesh: the JAX package's mesh frames; anything else takes the route above
+on the mesh's first device.  `compress_into`, `decompress_into`,
+`skippable_frame`, `LZ4FrameFile` and `open` are the JAX package's
+facades.
 """
 
 from __future__ import annotations
@@ -110,6 +115,7 @@ def compress(
     settings: EncoderSettings | None = None,
     store_size: bool = False,
     device="cuda",
+    mesh=None,
 ) -> bytes:
     """Compress ``data`` into one LZ4 frame, every block encoded in one
     launch on ``device`` (the plain versions when ``device="cpu"``).
@@ -125,8 +131,14 @@ def compress(
     A declared ``content_length`` other than ``len(data)`` raises
     ValueError when the payload fits one block, as the JAX package's
     FrameWriter does at close; a larger payload is framed as declared, as
-    its threaded and device routes frame it."""
-    dev = resolve_device(device)
+    its threaded and device routes frame it.
+
+    With ``mesh``, an independent payload of more than one block is split
+    over the mesh's devices and encoded by X1 (`parallel.encode_blocks`):
+    the bytes of the JAX package's ``compress(..., mesh=...)``, which differ
+    from this function's without a mesh.  Any other payload takes the route
+    above on the mesh's first device."""
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     data = _as_bytes(data)
     settings = settings or EncoderSettings()
     if store_size and settings.content_length is None:
@@ -180,6 +192,7 @@ def compress(
             geometry=_independent_geometry(settings),
             device=dev,
             checksums=d.block_checksum,
+            mesh=mesh if len(data) > settings.block_size else None,
         )
     sums = None
     if d.block_checksum:
@@ -275,13 +288,13 @@ def _verify_blocks(frame, data: bytes, blocks) -> None:
             raise LZ4FormatError("block checksum mismatch")
 
 
-def _decode_frame(frame, data: bytes, scan: _Scan, chained_error):
+def _decode_frame(frame, data: bytes, scan: _Scan, chained_error, mesh=None):
     """One whole frame, uploaded as ``frame`` and its block checksums
     verified, on the one-shot route: an independent frame's compressed
-    blocks decoded in one batch on kernel A and its stored ones copied, a
-    chained frame in one call of the chained decoder (raising
-    ``chained_error`` on a malformed block), the content checksum verified
-    on the device.  Returns the content on the device."""
+    blocks decoded in one batch on kernel A (or split over ``mesh`` by X2)
+    and its stored ones copied, a chained frame in one call of the chained
+    decoder (raising ``chained_error`` on a malformed block), the content
+    checksum verified on the device.  Returns the content on the device."""
     d, blocks = scan.descriptor, scan.blocks
     if d.block_chaining:
         table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
@@ -291,7 +304,7 @@ def _decode_frame(frame, data: bytes, scan: _Scan, chained_error):
             raise chained_error(f"malformed chained block {bad} (err={err})")
         content = stream[:written]
     else:
-        content = decode_frame_blocks(frame, blocks, d.block_size)
+        content = decode_frame_blocks(frame, blocks, d.block_size, mesh=mesh)
     if d.content_checksum:
         (expected,) = struct.unpack_from("<I", data, scan.tail)
         if as_uint32(xxh32_windows(content, [0], [content.numel()]))[0] != expected:
@@ -304,14 +317,17 @@ def _decode_frame(frame, data: bytes, scan: _Scan, chained_error):
 
 
 def _decompress(data: bytes, settings, dev, min_independent: int,
-                chained_error) -> bytes:
+                chained_error, mesh=None) -> bytes:
     """The JAX package's host route, on ``dev``.  It scans a first LZ4
     frame without a dictionary ID, when no preset dictionary is given, and
     raises a block checksum mismatch (the short message) or a length over
     the limit found there before any block decodes.  It decodes that frame
     on the one-shot route when it is the whole stream and not cut short (a
     chained frame with a block, an independent one with at least
-    ``min_independent``), and anything else with `FrameReader`."""
+    ``min_independent``), and anything else with `FrameReader`.  With
+    ``mesh``, a whole independent frame of only compressed blocks decodes
+    by X2 over the mesh whatever its number of blocks, as the JAX
+    package's mesh route does."""
     if not data:
         return b""
     scan = None
@@ -322,7 +338,10 @@ def _decompress(data: bytes, settings, dev, min_independent: int,
             pass
     if scan is not None and scan.descriptor.dictionary_id is None:
         d = scan.descriptor
-        least = 1 if d.block_chaining else min_independent
+        if mesh is not None and (d.block_chaining
+                                 or any(st for _, _, st in scan.blocks)):
+            mesh = None
+        least = 1 if d.block_chaining else 0 if mesh is not None else min_independent
         whole = (scan.fault is None and scan.end == len(data)
                  and len(scan.blocks) >= least)
         frame = upload(data, dev) if whole or d.block_checksum else None
@@ -331,7 +350,7 @@ def _decompress(data: bytes, settings, dev, min_independent: int,
         if scan.fault is not None and scan.fault.over_limit:
             raise scan.fault
         if whole:
-            content = _decode_frame(frame, data, scan, chained_error)
+            content = _decode_frame(frame, data, scan, chained_error, mesh)
             return content.cpu().numpy().tobytes()
     reader = FrameReader(io.BytesIO(data), dictionary=settings.dictionary,
                          device=dev, extra_memory=settings.extra_memory)
@@ -342,6 +361,7 @@ def decompress(
     data,
     settings: DecoderSettings | None = None,
     device="cuda",
+    mesh=None,
 ) -> bytes:
     """Decompress the LZ4 frames of ``data`` on ``device`` (the plain
     versions when ``device="cpu"``).
@@ -357,10 +377,15 @@ def decompress(
     bytes) is decoded frame by frame by `FrameReader`, each frame's blocks
     in one launch, and raises in the order a sequential reader gives: a
     block checksum mismatch, then a malformed block before the fault
-    (LZ4Error), then the fault itself."""
-    dev = resolve_device(device)
+    (LZ4Error), then the fault itself.
+
+    With ``mesh``, a single whole independent frame of only compressed
+    blocks decodes by X2 split over the mesh's devices
+    (`parallel.decode_blocks`); any other stream takes the route above on
+    the mesh's first device."""
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     return _decompress(_as_bytes(data), settings or DecoderSettings(), dev, 2,
-                       LZ4FormatError)
+                       LZ4FormatError, mesh)
 
 
 def decompress_into(

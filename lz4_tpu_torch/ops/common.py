@@ -1,14 +1,24 @@
 """Shared helpers for the port's kernel wrappers.
 
 `round_up`, `align1024`, `bucket` and `LEVEL_ATTEMPTS` are the port's own
-copies of `lz4_tpu/ops/common.py`; `resolve_device` is the port's device
-rule for every public entry point; `read32`, `run_length` and `emit` are
-the plain encoders' primitives.
+copies of `lz4_tpu/ops/common.py`, and `ceil_log2`, `shift_left`,
+`word_le`, `gather`, `reverse_cummin`, `next_not_equal` and
+`exclusive_cumsum` its dense helpers, each working row by row on a leading
+batch dimension ([B, N]) for the dense tensor-op codecs (`chain.py`,
+`decode_dense.py`, `encode_dense.py`); `resolve_device` is the port's
+device rule for every public entry point; `read32`, `run_length` and
+`emit` are the plain encoders' primitives.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def ceil_log2(n: int) -> int:
+    return max(1, math.ceil(math.log2(max(2, n))))
 
 
 def round_up(x: int, m: int) -> int:
@@ -30,6 +40,51 @@ LEVEL_ATTEMPTS = {
     0: 0, 1: 0, 2: 0,
     3: 4, 4: 8, 5: 16, 6: 32, 7: 64, 8: 128, 9: 256,
 }
+
+
+def shift_left(b: torch.Tensor, k: int) -> torch.Tensor:
+    """b[..., i + k] with zero fill past the end of each row."""
+    if k == 0:
+        return b
+    return torch.cat([b[..., k:], b.new_zeros(b.shape[:-1] + (k,))], dim=-1)
+
+
+def word_le(b: torch.Tensor) -> torch.Tensor:
+    """w[..., i] = the 4-byte little-endian word starting at i, as int32
+    (zero fill past the end; bytes at i + 3 >= 128 wrap it negative, as in
+    the JAX package: only equality and grouping read it)."""
+    return (
+        b
+        | (shift_left(b, 1) << 8)
+        | (shift_left(b, 2) << 16)
+        | (shift_left(b, 3) << 24)
+    )
+
+
+def gather(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr[b, idx[b, j]] with each index clamped to its row's length (JAX
+    indexing clamps; torch would raise or assert)."""
+    n = arr.shape[-1]
+    if idx.shape[:-1] != arr.shape[:-1]:
+        idx = idx.expand(arr.shape[:-1] + idx.shape[-1:])
+    return torch.gather(arr, -1, idx.clamp(0, n - 1).long())
+
+
+def reverse_cummin(x: torch.Tensor) -> torch.Tensor:
+    """Reverse cumulative minimum along the last axis."""
+    return torch.cummin(x.flip(-1), dim=-1).values.flip(-1)
+
+
+def next_not_equal(flag_neq: torch.Tensor, idx: torch.Tensor,
+                   sentinel: int) -> torch.Tensor:
+    """For each i, the smallest j >= i with flag_neq[..., j] True (else
+    sentinel): one reverse cumulative minimum over masked indices."""
+    return reverse_cummin(torch.where(flag_neq, idx, sentinel))
+
+
+def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum along the last axis, in int32 as JAX's."""
+    return torch.cumsum(x, dim=-1, dtype=torch.int32) - x
 
 
 def read32(s, p: int) -> int:

@@ -17,6 +17,7 @@ from lz4_tpu import frame as jframe
 from lz4_tpu.block import api as jblock
 from lz4_tpu.frame import api as jframe_api
 from lz4_tpu.frame.writer import FrameWriter
+from lz4_tpu.ops import decode_jax
 from lz4_tpu.ops import decode_pallas_stream as JDS
 from lz4_tpu.parallel.blocks import comp_capacity
 from lz4_tpu_torch import block as tblock
@@ -270,7 +271,6 @@ def test_block_api_errors_match():
         assert type(ours.value).__name__ == type(theirs.value).__name__
     with pytest.raises(ValueError, match="geometry"):
         tblock.encode(b"abc", geometry="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblock.decode(comp, device="cpu")
+    assert tblock.decode(comp, device="cpu") == decode_jax.decode_block_bytes(comp)
     assert tblock.encode(b"abc", level=9, device="cpu") == \
         jblock.encode(b"abc", level=9, backend="host")

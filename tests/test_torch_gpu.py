@@ -651,3 +651,23 @@ def test_streaming_round_trip_on_the_card(chain, cuda):
     assert frame.decompress(two, device=cuda) == data + data
     r = frame.FrameReader(io.BytesIO(two), device=cuda)
     assert r.read(12345) + r.read() == data + data
+
+
+def test_dense_codecs_match_their_cpu_run(cuda):
+    rng = np.random.default_rng(15)
+    data = chip_smoke.make_corpus(4 << 20, 15)
+    assert chip_smoke.hold_dense_rows(data, rng, cuda) == {"X1": 0, "X2": 0}
+    got = chip_smoke.unbounded_decodes(rng, cuda)
+    assert [g["caps_tried"] for g in got] == [1, 2, 3]
+
+
+def test_mesh_frame_on_the_card(cuda):
+    from lz4_tpu_torch import parallel
+
+    data = chip_smoke.make_corpus(2 << 20, 16)
+    mesh = parallel.make_mesh([cuda, cuda])
+    settings = frame.EncoderSettings(chain_blocks=False, block_checksum=True,
+                                     content_checksum=True)
+    blob = frame.compress(data, settings, mesh=mesh)
+    assert frame.decompress(blob, mesh=mesh) == data
+    assert blob == frame.compress(data, settings, mesh=parallel.make_mesh(["cpu", "cpu"]))

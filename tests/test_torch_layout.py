@@ -34,6 +34,8 @@ def test_import_without_jax_or_the_jax_package():
         "import lz4_tpu_torch.block, lz4_tpu_torch.block.incremental\n"
         "import lz4_tpu_torch.frame.aio, lz4_tpu_torch.legacy\n"
         "import lz4_tpu_torch.pickler, lz4_tpu_torch.cli\n"
+        "import lz4_tpu_torch.ops.chain, lz4_tpu_torch.ops.decode_dense\n"
+        "import lz4_tpu_torch.ops.encode_dense, lz4_tpu_torch.parallel.multihost\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'lz4_tpu' or m.startswith('lz4_tpu.')]\n"
         "assert not bad, bad\n"
@@ -76,7 +78,10 @@ ENTRY_POINTS = (
     "encode_blocks_chained_device", "block.encode", "block.decode",
     "frame.FrameReader", "frame.FrameWriter", "frame.open",
     "frame.decompress.two_frames", "block.partial_decode", "block.decode_into",
-    "pickle", "legacy.wrap", "cli",
+    "pickle", "legacy.wrap", "cli", "block.decode.unbounded", "make_mesh",
+    "make_mesh.cuda", "multihost.compress_distributed",
+    "multihost.decompress_distributed", "encode_chunked", "decode_chunked",
+    "warmup_device",
 )
 
 
@@ -85,6 +90,7 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name, monkeypatch, tmp_
     import io
 
     from lz4_tpu_torch import cli, legacy
+    from lz4_tpu_torch.parallel import multihost
 
     data = b"abc" * 1000
     settings = frame.EncoderSettings(chain_blocks=False)
@@ -123,6 +129,14 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name, monkeypatch, tmp_
         "legacy.wrap": lambda: legacy.wrap(data),
         "cli": lambda: cli.main(["compress", str(tmp_path / "in.txt"),
                                  str(tmp_path / "in.lz4")]),
+        "block.decode.unbounded": lambda: block.decode(b"\x00"),
+        "make_mesh": lambda: parallel.make_mesh(),
+        "make_mesh.cuda": lambda: parallel.make_mesh(["cuda:0", "cuda:0"]),
+        "multihost.compress_distributed": lambda: multihost.compress_distributed(data),
+        "multihost.decompress_distributed": lambda: multihost.decompress_distributed(blob),
+        "encode_chunked": lambda: blocks.encode_chunked(comps, lens, 16),
+        "decode_chunked": lambda: blocks.decode_chunked(comps, lens, 16),
+        "warmup_device": lambda: parallel.warmup_device(),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -182,13 +196,6 @@ def test_cpu_tensors_run_the_plain_streaming_versions_and_count_no_launch():
     assert decode_stream.decode_chain.launches == c0
     assert decode_stream.chain_kernel_launches == k0
     assert decode_stream.decode_blocks_stream.launches == s0
-
-
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parallel.encode_blocks(b"x", 65536, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parallel.decode_blocks([b"\x00"], 65536, mesh=object(), device="cpu")
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
