@@ -154,9 +154,34 @@ Phases, each fatal on failure:
    unbounded `block.decode`s needing the first, second and third output
    cap; `compress_distributed`/`decompress_distributed` in two processes on
    the card over gloo, their frames equal to the single-process frames.
+18. canonical chained FAST frames (`phase_canonical_chained`, kernel F):
+   F against its serial plain version (bytes, lengths) and its warp model
+   (each block's probe steps and sequences) on edge frames of 10-, 4,096-
+   and 65,536-byte blocks (blocks under 13 bytes, a random block stored
+   raw, a run block, a last block of 7 and 12 bytes, an exact multiple),
+   one launch a frame, and `frame.compress` on the card equal to the CPU
+   route's frame; then `frame.compress/decompress` with
+   `EncoderSettings(geometry="canonical", content_checksum=True)` over a
+   16 MiB payload of 64 KB blocks, counts set to 0 just before and read
+   just after (F once a compress, kernels D and B never), exact and
+   deterministic over three runs after a warm-up, every block equal to
+   `continue_blocks_plain` over the frame (timed in a worker) and to the
+   warp model, the first 1 MiB's to `continue_blocks_plain` on that 1 MiB
+   alone; F timed (CUDA
+   events) beside its bound (the frame's probe steps and sequences at 32
+   cycles each, or its bytes);
+19. `hash5_rows` (`phase_hash5`, the byU32 hash D and F call) against its
+   plain version on the vectors of `experiments/tests/test_canon_hash32.py`
+   and 2^20 more, timed by CUDA events around launches queued behind a
+   device sleep (`_queued_ms`);
+20. the micro-benchmarks (`phase_ubench`, `csrc/ubench.cu`): each of the
+   22 loops' cycles per iteration as the slope of its clock64() span
+   between 200,000 and 1,000,000 iterations, its accumulators at 200,000
+   held to the plain version (in the worker pool); a `ubench` line.
 
-Prints a `kernels` JSON line, the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
+Prints a `kernels` JSON line, a `canonical_chained` and a `ubench` line,
+the card's name and power limit, and as the last line {"ok": true,
+"device": {...}}.  Exits non-zero, printing no
 result, without a CUDA card or without the package beside it.  The data is
 made with numpy from --seed; no PyTorch call computes LZ4, so there is no
 library time to compare with (library_ms is null).
@@ -317,6 +342,8 @@ def phase_build():
         print(f"[build] encode_opt.cu: dynamic shared memory {smem} bytes per "
               f"CTA ({name}; opt_matches 0)")
     print("[build] encode_hc_passes.cu: dynamic shared memory 0 bytes per CTA")
+    print("[build] encode_continue.cu: 16,384 bytes of static shared memory per CTA "
+          "(the carried byU32 table); ubench.cu: 32,768 bytes static")
 
 
 def sample_rows(data: bytes, rng):
@@ -3306,6 +3333,256 @@ def phase_dense(data: bytes, rng, dev):
             "unbounded_decode": unbounded, "multihost": pair, "seconds": seconds}
 
 
+CONTINUE = dict(geometry="canonical", content_checksum=True)  # kernel F's path
+
+
+def continue_edge_frames(seed: int):
+    """Kernel F's edge frames, by block size: [(block_size, [payloads])].
+    Blocks of 10 bytes (every block under 13 bytes: literals, the table
+    untouched); of 4,096 bytes with a block of random bytes (stored raw,
+    its inserts carried), a run, records and a last block of 7 bytes; of
+    64 KB with a noise block, 64 KB of zeros, a last block of 12 bytes, and
+    an exact multiple of the block size."""
+    corpus = make_corpus(1 << 20, seed + 7)
+    q = len(corpus) // 4
+    text, records, runs = corpus[:q], corpus[q:2 * q], corpus[2 * q:3 * q]
+    rng = np.random.default_rng(seed + 7)
+    noise = rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()
+    return [
+        (10, [text[:1000] + runs[:503]]),
+        (4096, [text[:5 * 4096] + noise[:4096] + runs[:8192] + records[:4096] + text[:7]]),
+        (BLOCK, [text[:2 * BLOCK] + noise + bytes(BLOCK) + records[:BLOCK] + runs[:12],
+                 corpus[:4 * BLOCK]]),
+    ]
+
+
+def _continue_warp(payload: bytes, block_size: int):
+    """The warp model of kernel F over one frame, in a worker: (blocks,
+    each block's [probe_steps, sequences], seconds)."""
+    from lz4_tpu_torch.ops import encode_continue
+
+    t0 = time.perf_counter()
+    steps = []
+    blocks = encode_continue.continue_blocks_warp(payload, block_size, steps=steps)
+    return blocks, [[c["probe_steps"], c["sequences"]] for c in steps], \
+        time.perf_counter() - t0
+
+
+def _continue_rows(out, clens) -> list:
+    out, clens = out.cpu(), clens.cpu()
+    return [out[k, :int(clens[k])].numpy().tobytes() for k in range(clens.numel())]
+
+
+def hold_continue_edges(dev, seed: int, pool) -> int:
+    """Kernel F against its serial plain version (bytes, lengths) and its
+    warp model (each block's probe steps and sequences) on the edge frames,
+    one launch a frame, and `frame.compress` on the card against the CPU
+    route's frame.  Returns the max_abs_err."""
+    import torch
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.ops import encode_continue
+
+    worst = 0
+    for bs, payloads in continue_edge_frames(seed):
+        for p in payloads:
+            serial = _submit_timed(pool, encode_continue.continue_blocks_plain, p, bs)
+            warp = pool.submit(_continue_warp, p, bs)
+            steps = torch.zeros((-(-len(p) // bs), 2), dtype=torch.int32, device=dev)
+            rows = _continue_rows(*encode_continue.encode_continue(
+                torch.frombuffer(bytearray(p), dtype=torch.uint8).to(dev), bs, steps=steps))
+            blocks, counts, _ = warp.result()
+            worst = max(worst, int(rows != serial.result()[0]), int(rows != blocks),
+                        _max_abs_err([steps], [torch.tensor(counts, dtype=torch.int32)]))
+            if bs != BLOCK:  # a frame's block size
+                continue
+            settings = frame.EncoderSettings(**CONTINUE)
+            card = frame.compress(p, settings, device=dev)
+            worst = max(worst, int(card != frame.compress(p, settings, device="cpu")))
+            _require(frame.decompress(card, device=dev) == p,
+                     "a canonical chained edge frame does not round-trip")
+    _require(worst == 0, f"kernel F != its plain versions on the edge frames ({worst})")
+    return worst
+
+
+def phase_canonical_chained(dev, seed: int, pool) -> tuple:
+    """Canonical chained FAST frames (kernel F): the edge frames
+    (`hold_continue_edges`), then a 16 MiB frame of 64 KB blocks with a
+    content checksum through `frame.compress/decompress`, counts set to 0
+    just before and read just after (F once a compress, kernels D and B
+    never, E and the chained decoder at least once), exact and
+    deterministic over three runs after a warm-up; every block equal to
+    `continue_blocks_plain` over the whole frame (in a worker, timed: the
+    entry's plain_ms) and to the warp model's, each block's steps to the
+    warp model's, and every block of the first 1 MiB to
+    `continue_blocks_plain` on that 1 MiB alone (block k reads nothing past
+    its own end); F timed by CUDA events, its bound the larger of the bytes
+    over 3.35 TB/s and the frame's probe steps and sequences (the kernel's
+    own counts, held to the warp model's) at 32 cycles each.  Returns (the
+    `kernels` entry, the `canonical_chained` line)."""
+    import torch
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.ops import (
+        decode_stream, encode, encode_continue, encode_stream, xxh32,
+    )
+
+    t0 = time.perf_counter()
+    edge_err = hold_continue_edges(dev, seed, pool)
+    data = make_corpus(16 << 20, seed)
+    plain_f = _submit_timed(pool, encode_continue.continue_blocks_plain, data, BLOCK)
+    warp_f = pool.submit(_continue_warp, data, BLOCK)
+    prefix_f = _submit_timed(pool, encode_continue.continue_blocks_plain, data[:1 << 20], BLOCK)
+    settings = frame.EncoderSettings(**CONTINUE)
+    launches, e2e = _round_trips(
+        data, settings, dev,
+        [encode_continue.encode_continue, decode_stream.decode_chain, xxh32.xxh32_windows],
+        idle=(encode_stream.encode_blocks_stream, encode.encode_blocks))
+    _require(launches["encode_continue"] == 1,
+             f"a compress launched kernel F {launches['encode_continue']} times, not once")
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    nb = -(-len(data) // BLOCK)
+    steps = torch.zeros((nb, 2), dtype=torch.int32, device=dev)
+
+    def run():
+        return encode_continue.encode_continue(payload, BLOCK, steps=steps)
+
+    out, clens = run()
+    ms = _cuda_ms(run, 1)
+    rows = _continue_rows(out, clens)
+    plain, plain_s = plain_f.result()
+    wblocks, wsteps, _ = warp_f.result()
+    prefix = prefix_f.result()[0]
+    err = max(edge_err, int(rows != plain), int(wblocks != plain),
+              int(rows[:len(prefix)] != prefix),
+              _max_abs_err([steps], [torch.tensor(wsteps, dtype=torch.int32)]))
+    _require(err == 0, "kernel F's blocks != continue_blocks_plain's (the frame, its first MiB)")
+    clock = float(_nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    total = steps.sum(dim=0).tolist()
+    step_ms = (total[0] + total[1]) * L1_CYCLES / clock * 1e3
+    # the payload read once, each block's bytes, length and two counts written once
+    moved = len(data) + int(clens.sum()) + 12 * nb
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    entry = {"name": "encode_continue", "route": "cuda",
+             "source": "lz4_tpu_torch/ops/csrc/encode_continue.cu",
+             "replaces": "lz4_tpu/frame/api.py:313", "shape": f"1 frame x {nb} x 64KiB",
+             "launches": launches["encode_continue"], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_s * 1e3,
+             "bound_ms": max(byte_ms, step_ms),
+             "bound_by": "bytes" if byte_ms >= step_ms else "operations",
+             "byte_bound_ms": byte_ms, "step_bound_ms": step_ms,
+             "probe_steps": total[0], "sequences": total[1], "library_ms": None}
+    line = {**e2e, "launches": launches, "F_ms": ms, "F_bound_ms": entry["bound_ms"],
+            "seconds": time.perf_counter() - t0}
+    print(f"[continue] 16 MiB canonical chained frame: round trip exact, deterministic, "
+          f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s compress, "
+          f"{e2e['decompress_GBps_median']:.4f} GB/s decompress; F {ms:.3f} ms "
+          f"({total[0]} probe steps, {total[1]} sequences; bound {entry['bound_ms']:.3f} ms); "
+          f"every block, the first 1 MiB alone and the edge frames equal to the plain "
+          f"versions (the serial one {plain_s:.1f} s over the frame), "
+          f"in {line['seconds']:.1f} s")
+    return entry, line
+
+
+HASH5_EDGES = [0, 1, 0xFF, 0x100, 0xFFFF, 0x10000, 0xFFFFFFFF, 0x100000000, 0xFFFFFFFFFF,
+               0x1122334455, 0xDEADBEEF01]
+
+
+def hash5_vectors(seed: int) -> np.ndarray:
+    """The 40-bit values of `experiments/tests/test_canon_hash32.py`: its 11
+    edges, 20,000 values from default_rng(20260820), every low byte with 16
+    tails from default_rng(7), the Pallas test's 4,096 values; then 2^20
+    more from ``seed``."""
+    parts = [np.array(HASH5_EDGES, np.uint64),
+             np.random.default_rng(20260820).integers(0, 1 << 40, 20000, dtype=np.uint64)]
+    tails = np.random.default_rng(7)
+    parts += [(tails.integers(0, 1 << 32, 16, dtype=np.uint64) << np.uint64(8)) | np.uint64(b0)
+              for b0 in range(256)]
+    parts.append(np.random.default_rng(20260820).integers(0, 1 << 40, 4096, dtype=np.uint64))
+    parts.append(np.random.default_rng(seed).integers(0, 1 << 40, 1 << 20, dtype=np.uint64))
+    return np.concatenate(parts)
+
+
+def _queued_ms(fn, iters: int) -> float:
+    """The device time per call of a short kernel's wrapper that does not
+    synchronise: CUDA events around ``iters`` calls queued behind a 25 ms
+    device sleep, so that the card runs them back to back while the host is
+    still queueing (no profiler: CUPTI drops such short launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # cycles
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def phase_hash5(dev, seed: int) -> dict:
+    """`hash5_rows` (the byU32 hash kernels D and F call) against its plain
+    version on `hash5_vectors`, its launches counted from 0 over that
+    call, timed by `_queued_ms`.  Returns the `kernels` entry."""
+    import torch
+    from lz4_tpu_torch.ops import encode_continue
+
+    values = torch.from_numpy(hash5_vectors(seed))
+    values_d = values.to(dev)
+    encode_continue.hash5_rows.launches = 0
+    got = encode_continue.hash5_rows(values_d)
+    launches = encode_continue.hash5_rows.launches
+    t0 = time.perf_counter()
+    want = encode_continue.hash5_rows_plain(values)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _max_abs_err([got], [want])
+    _require(err == 0 and launches == 1, f"hash5_rows != its plain version ({err})")
+    ms = _queued_ms(lambda: encode_continue.hash5_rows(values_d), 20)
+    n = values.numel()
+    print(f"[hash5] hash5_rows over {n} values equal to its plain version: "
+          f"{ms:.4f} ms of device time")
+    return {"name": "hash5_rows", "route": "cuda",
+            "source": "lz4_tpu_torch/ops/csrc/encode_continue.cu",
+            "replaces": "experiments/tests/test_canon_hash32.py:90", "shape": f"{n} values",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 12 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def _ubench_plain(name: str, n: int, seed: int):
+    from lz4_tpu_torch.ops import ubench
+
+    return ubench.plain(name, n, seed)
+
+
+def phase_ubench(dev, seed: int, pool) -> dict:
+    """Every micro-benchmark of `csrc/ubench.cu`: cycles per iteration as
+    the slope of its loop's clock64() span between N1 and N2 iterations,
+    its accumulators at N1 held to the plain version (in the pool).
+    Returns the `ubench` line."""
+    from lz4_tpu_torch.ops import ubench
+
+    t0 = time.perf_counter()
+    futures = {name: pool.submit(_ubench_plain, name, ubench.N1, seed)
+               for name in ubench.BENCHES}
+    got = {name: ubench.slope(name, seed, dev) for name in ubench.BENCHES}
+    for name, f in futures.items():
+        _require(got[name].pop("acc") == f.result(),
+                 f"ubench {name}: the kernel's accumulators != the plain version's")
+    line = {"N1": ubench.N1, "N2": ubench.N2,
+            "sm_clock_max_MHz": float(_nvidia_smi("clocks.max.sm", "nounits")),
+            "cycles_per_iter": {k: v["cycles_per_iter"] for k, v in got.items()},
+            "spans": {k: [v["cycles_n1"], v["cycles_n2"]] for k, v in got.items()},
+            "ubench_py_line": {k: v[1] for k, v in ubench.BENCHES.items()},
+            "launches": dict(ubench.kernel_launches), "acc_equal": True,
+            "seconds": time.perf_counter() - t0}
+    print(f"[ubench] {len(got)} kernels, accumulators equal to the plain versions, "
+          f"in {line['seconds']:.1f} s: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in line["cycles_per_iter"].items()))
+    return line
+
+
 def _nvidia_smi(query: str, *fmt: str) -> str:
     """The first card's `nvidia-smi --query-gpu` fields, as CSV."""
     res = subprocess.run(
@@ -3416,6 +3693,10 @@ def main(argv=None) -> int:
     cs_launches, cs_e2e = phase_checksum_paths(data, dev)
     st_launches, st_rates, st_kernels = phase_streaming(data, rng, dev)
     dense = phase_dense(data16, rng, dev)
+    with plain_pool() as pool:
+        continue_entry, continue_line = phase_canonical_chained(dev, args.seed, pool)
+        hash5_entry = phase_hash5(dev, args.seed)
+        ubench_line = phase_ubench(dev, args.seed, pool)
     for k in xxh_kernels:
         k["launches"] = cs_launches[k.pop("path")]["xxh32_windows"]
     kernels += xxh_kernels
@@ -3437,13 +3718,15 @@ def main(argv=None) -> int:
             k["max_abs_err"] = max(k["max_abs_err"], dec_err, *fast_err_a.values())
         else:
             k["max_abs_err"] = max(k["max_abs_err"], fast_err_d, stream_err)
-    kernels = fast_kernels + kernels + st_kernels
+    kernels = fast_kernels + kernels + st_kernels + [continue_entry, hash5_entry]
     print(json.dumps({"cli_default": profile_path(data, dev, _cli_default())}))
     print(json.dumps({"e2e_hc": hc_e2e, "hc_launches": hc_launches}))
     print(json.dumps({"e2e_checksums": cs_e2e, "checksum_launches": cs_launches,
                       "host_xxh32_4MiB_s": host_xxh32_s}))
     print(json.dumps({"e2e_streaming": st_rates, "streaming_launches": st_launches}))
     print(json.dumps({"dense": dense}))
+    print(json.dumps({"canonical_chained": continue_line}))
+    print(json.dumps({"ubench": ubench_line}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,8 @@ from ..ops.common import resolve_device
 from ..ops.decode_stream import decode_chain
 from ..ops.xxh32 import as_uint32, xxh32_windows
 from ..parallel.blocks import (
-    decode_frame_blocks, encode_blocks, encode_blocks_chained_device, upload,
+    decode_frame_blocks, encode_blocks, encode_blocks_chained_device,
+    encode_blocks_continue_device, upload,
 )
 from .descriptor import DecoderSettings, EncoderSettings
 from .header import LZ4FormatError, build_header, parse_header
@@ -124,9 +125,11 @@ def compress(
     encoder's bytes (each block with the 64 KB of plaintext before it as
     its dictionary).  At levels 0-2 independent blocks take the canonical
     schedule unless ``geometry="dense"``, and a canonical chained frame of
-    more than one block needs upstream's sequential continue schedule, a
-    host path: it raises ValueError, as a device request does in the JAX
-    package.  Levels 3-12 take the HC and OPT arms whatever the geometry.
+    more than one block takes upstream's continue schedule
+    (LZ4_compress_fast_continue, the bytes of liblz4's linked blocks and of
+    the JAX package's host route) on kernel F, one warp for the frame;
+    with ``mesh`` it raises ValueError, as the JAX package's device routes
+    do.  Levels 3-12 take the HC and OPT arms whatever the geometry.
 
     A declared ``content_length`` other than ``len(data)`` raises
     ValueError when the payload fits one block, as the JAX package's
@@ -165,21 +168,22 @@ def compress(
             bs_opt <<= 2
         if bs_opt < settings.block_size:
             settings = dataclasses.replace(settings, block_size=bs_opt)
-    if (
-        settings.chain_blocks
-        and settings.geometry == "canonical"
-        and settings.compression_level < 3
-    ):
-        # (HC/OPT chains meet the canonical request with their per-block
-        # window engines, as every chained frame here does)
+    # (HC/OPT chains meet the canonical request with their per-block window
+    # engines, as every chained frame here does)
+    continued = (settings.chain_blocks and settings.geometry == "canonical"
+                 and settings.compression_level < 3)
+    if continued and mesh is not None:
         raise ValueError(
-            "canonical chained (continue-schedule) frames are a "
-            "sequential host path, which the port does not run (ROADMAP.md "
-            "Queue 3); use geometry='auto' or 'dense' on a device"
+            "canonical chained (continue-schedule) frames run one sequential "
+            "schedule on one device; use geometry='auto'/'dense' with a mesh, "
+            "or drop the mesh"
         )
     d = settings.to_descriptor()
     payload = upload(data, dev)
-    if settings.chain_blocks:
+    if continued:
+        blocks = encode_blocks_continue_device(
+            payload, settings.block_size, device=dev, checksums=d.block_checksum)
+    elif settings.chain_blocks:
         blocks = encode_blocks_chained_device(
             payload, settings.block_size, settings.compression_level,
             device=dev, checksums=d.block_checksum,

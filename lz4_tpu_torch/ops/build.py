@@ -27,7 +27,7 @@ _FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("decode", "encode_stream", "decode_stream", "xxh32", "encode_opt",
-                  "encode_hc_passes")
+                  "encode_hc_passes", "encode_continue", "ubench")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -85,7 +85,6 @@ __global__ void __launch_bounds__(32) encode_windows(
   const int row = blockIdx.x;
   const int n = lens[row];
   const bool u16 = n < kCanon64K;
-  // 32-bit words of the table this row uses
   // 32-bit words of the table this row uses (table: 0 canonical, 1 dense
   // with 16-bit entries, 2 dense with 32-bit entries)
   const int nwords = table == 1   ? (1 << kDenseHashLog) / 2
@@ -98,14 +97,15 @@ __global__ void __launch_bounds__(32) encode_windows(
 
   const uint8_t* s = base + starts[row];
   WarpSink o{out + row * out_stride, 0, static_cast<int>(out_stride)};
+  ScanSteps steps;  // kernel F's bound; not kept here
   if (table == 1)
     dense_scan(s, src_offs[row], n, accel, o, reinterpret_cast<uint16_t*>(smem));
   else if (table == 2)
     dense_scan(s, src_offs[row], n, accel, o, words);
   else if (u16)
-    canon_scan(s, n, accel, o, reinterpret_cast<uint16_t*>(smem));
+    canon_scan(s, 0, n, 0, accel, o, reinterpret_cast<uint16_t*>(smem), steps);
   else
-    canon_scan(s, n, accel, o, words);
+    canon_scan(s, 0, n, 0, accel, o, words, steps);
   if (threadIdx.x == 0) {
     clens[row] = o.op;
     errs[row] = o.op > ocap ? 1 : 0;

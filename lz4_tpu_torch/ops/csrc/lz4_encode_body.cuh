@@ -46,6 +46,12 @@ __device__ __forceinline__ int hash4(uint32_t w) {
   return static_cast<int>((w * 2654435761u) >> (32 - kHashLog));
 }
 
+// upstream LZ4_hash5, the byU32 table's hash: the 5 low bytes of v (CUDA's
+// native 64-bit multiply; the TPU kernel split it into 32-bit pieces).
+__device__ __forceinline__ int canon_hash5(uint64_t v) {
+  return static_cast<int>(((v << 24) * 889523592379ULL) >> (64 - kCanonHashLog32));
+}
+
 // Output cursor of one row: bytes past the row's width are counted but not
 // written (the overflow flag reports them).
 struct Sink {
@@ -112,7 +118,9 @@ __device__ inline void emit(Sink& o, const uint8_t* s, int anchor, int ll, int o
 //   highest lane of each bucket writing, and the lanes after it never
 //   happened.  The serial walk's end rules hold per lane: the canonical
 //   scan stops when the next probe would pass mf1 (checked before the
-//   probe), the dense one while p < mf_limit;
+//   probe), the dense one while p < mf_limit; a canonical search that ends
+//   so makes the writes of the lanes before the end (kernel F's next block
+//   reads the table);
 // - a match length compares 32 words (128 bytes) a step;
 // - literal runs and length-extension bytes are written 32 bytes a step,
 //   lane 0 writing the token and offset;
@@ -272,37 +280,57 @@ __device__ __forceinline__ int warp_scan(int v) {
   return v;
 }
 
-// Upstream one-shot schedule over s[0, n) (no dictionary).  T = uint16_t is
-// byU16 (n < kCanon64K): 2^13 positions, the 4-byte hash.  T = uint32_t is
-// byU32: 2^12 positions, the 5-byte hash (CUDA's native 64-bit multiply),
-// and candidates farther than 65,535 bytes skipped.  Insert byte 0, probe
-// from byte 1 with the step lagging the skip ramp by one; after a match,
-// refill at ip - 2, then a zero-literal immediate retry without
-// back-extension.  Called by every lane of one warp.
+// The warp's dependent steps of one canonical scan: probe steps (a serial
+// probe, or a step of 32) and match sequences.  Kernel F reports them as its
+// step bound; kernel D discards them.
+struct ScanSteps {
+  int probe_steps = 0;
+  int sequences = 0;
+};
+
+// Upstream's schedule over the block s[start, n) of a buffer whose bytes
+// before `start` matches may reach, positions absolute, the table carried
+// in (the caller zeroes it before a buffer's first block).  T = uint16_t is
+// byU16 (one-shot rows of n < kCanon64K, start 0): 2^13 positions, the
+// 4-byte hash.  T = uint32_t is byU32: 2^12 positions, the 5-byte hash
+// (`canon_hash5`), and candidates farther than 65,535 bytes skipped.  Kernel
+// D's one-shot rows (LZ4_compress_default) are start = floor = 0 with a
+// zeroed table; kernel F's blocks (LZ4_compress_fast_continue over one
+// buffer) carry the table from block to block, back-extend no lower than
+// `floor` (the block's 64 KB window) and reject a stale entry of an older
+// block by its distance alone.  A block of fewer than 13 bytes is all
+// literals and leaves the table as it was; a longer one inserts its first
+// byte and probes from the next with the step lagging the skip ramp by
+// one; after a match, refill at ip - 2, then a zero-literal immediate retry
+// without back-extension.  Called by every lane of one warp.
 template <typename T>
-__device__ void canon_scan(const uint8_t* s, int n, int accel, WarpSink& o, T* tab) {
+__device__ void canon_scan(const uint8_t* s, int start, int n, int floor, int accel,
+                           WarpSink& o, T* tab, ScanSteps& st) {
   constexpr bool kU16 = sizeof(T) == 2;
   auto hash = [s](int p) {
     if constexpr (sizeof(T) == 2) {
       return hash4<kCanonHashLog16>(ld32(s, p));
     } else {
-      return static_cast<int>(((ld64(s, p) << 24) * 889523592379ULL) >>
-                              (64 - kCanonHashLog32));
+      return canon_hash5(ld64(s, p));
     }
   };
   const int lane = lane_id();
   const int ramp = accel << kSkipTrigger;
-  int anchor = 0;
-  if (n >= kMfLimit + 1) {
+  int anchor = start;
+  if (n - start >= kMfLimit + 1) {
     const int mf1 = n - kMfLimit + 1;
     const int match_limit = n - kLastLiterals;
-    int start = 1;
+    // the first byte's insert (every lane alike; with a zeroed table at
+    // start 0 it writes the 0 already there)
+    tab[hash(start)] = static_cast<T>(start);
+    int first = start + 1;
     for (;;) {
-      // the search from `start`: probe i at p_i, p_0 = start, p_{i+1} =
+      // the search from `first`: probe i at p_i, p_0 = first, p_{i+1} =
       // p_i + (i ? (ramp + i - 1) >> 6 : 1), made while p_{i+1} <= mf1
       int ip = 0, match = 0;
-      int p = start, j = 0;
+      int p = first, j = 0;
       for (; j < kSerialProbes; ++j) {  // every lane alike
+        ++st.probe_steps;
         const int step = j ? (ramp + j - 1) >> kSkipTrigger : 1;
         if (p + step > mf1) goto last_literals;
         const int h = hash(p);
@@ -317,6 +345,7 @@ __device__ void canon_scan(const uint8_t* s, int n, int accel, WarpSink& o, T* t
         p += step;
       }
       for (; j >= kSerialProbes; j += 32) {
+        ++st.probe_steps;
         const int i = j + lane;
         const int step = i ? (ramp + i - 1) >> kSkipTrigger : 1;
         const int reach = warp_scan(step);
@@ -329,25 +358,29 @@ __device__ void canon_scan(const uint8_t* s, int n, int accel, WarpSink& o, T* t
                          ld32(s, cand) == ld32(s, pos);
         const unsigned hits = __ballot_sync(kFull, hit);
         const unsigned ends = __ballot_sync(kFull, !valid);
-        const int first = hits ? __ffs(static_cast<int>(hits)) - 1 : 32;
+        const int first_hit = hits ? __ffs(static_cast<int>(hits)) - 1 : 32;
         const int stop = ends ? __ffs(static_cast<int>(ends)) - 1 : 32;
-        if (first < stop) {
-          commit(tab, h, peers, first, pos);
-          ip = __shfl_sync(kFull, pos, first);
-          match = __shfl_sync(kFull, cand, first);
+        if (first_hit < stop) {
+          commit(tab, h, peers, first_hit, pos);
+          ip = __shfl_sync(kFull, pos, first_hit);
+          match = __shfl_sync(kFull, cand, first_hit);
           break;
         }
-        if (stop < 32) goto last_literals;
+        if (stop < 32) {  // the probes before it were made: the next block reads them
+          if (stop > 0) commit(tab, h, peers, stop - 1, pos);
+          goto last_literals;
+        }
         commit(tab, h, peers, 31, pos);
         p = __shfl_sync(kFull, p + reach, 31);
       }
-      while (ip > anchor && match > 0 && s[ip - 1] == s[match - 1]) {
+      while (ip > anchor && match > floor && s[ip - 1] == s[match - 1]) {
         --ip;
         --match;
       }
       for (;;) {
         const int ml = kMinMatch + warp_run(s, match + kMinMatch, ip + kMinMatch, match_limit);
         warp_emit(o, s, anchor, ip - anchor, ip - match, ml);
+        ++st.sequences;
         ip += ml;
         anchor = ip;
         if (ip >= mf1) goto last_literals;
@@ -361,7 +394,7 @@ __device__ void canon_scan(const uint8_t* s, int n, int accel, WarpSink& o, T* t
         if (ld32(s, m2) != ld32(s, ip)) break;
         match = m2;
       }
-      start = ip + 1;
+      first = ip + 1;
     }
   }
 last_literals:

@@ -41,26 +41,27 @@ def _encode_canonical(s: bytes, accel: int) -> bytearray:
     """Upstream one-shot schedule: byU16 (13-bit table, 4-byte hash) below
     65,547 bytes, byU32 (12-bit table, 5-byte hash, candidates farther than
     65,535 bytes skipped) at and above."""
-    n = len(s)
+    tab, h = _canon_hash(s, len(s))
+    return canonical_block(s, 0, len(s), 0, tab, h, len(s) < CANON_64K, accel)
+
+
+def canonical_block(s: bytes, start: int, n: int, floor: int, tab, h,
+                    u16: bool, accel: int) -> bytearray:
+    """Upstream's schedule over the block s[start:n] of a buffer whose bytes
+    before ``start`` matches may reach, positions absolute, with the table
+    ``tab`` and hash ``h`` carried in (`_canon_hash`): the one-shot rows
+    are start = floor = 0 with a fresh table, the continue schedule's
+    blocks carry the byU32 table (`encode_continue`).  A block of fewer than
+    13 bytes is all literals and leaves the table as it was; a longer one
+    inserts its first byte and probes from the next; back-extension stops
+    at ``floor``."""
     out = bytearray()
-    anchor = 0
-    if n >= MF_LIMIT + 1:
-        u16 = n < CANON_64K
-        if u16:
-            tab = [0] * (1 << 13)
-
-            def h(p):
-                return ((read32(s, p) * 2654435761) & 0xFFFFFFFF) >> 19
-        else:
-            tab = [0] * (1 << 12)
-
-            def h(p):
-                v = int.from_bytes(s[p:p + 8], "little") << 24
-                return ((v * 889523592379) & 0xFFFFFFFFFFFFFFFF) >> 52
-
+    anchor = start
+    if n - start >= MF_LIMIT + 1:
         mf1 = n - MF_LIMIT + 1
         match_limit = n - LAST_LITERALS
-        ip = 1
+        tab[h(start)] = start
+        ip = start + 1
         fh = h(ip)
         while True:
             fwd, step, ramp = ip, 1, accel << SKIP_TRIGGER
@@ -80,7 +81,7 @@ def _encode_canonical(s: bytes, accel: int) -> bytearray:
                     continue
                 if read32(s, match) == read32(s, ip):
                     break
-            while ip > anchor and match > 0 and s[ip - 1] == s[match - 1]:
+            while ip > anchor and match > floor and s[ip - 1] == s[match - 1]:
                 ip -= 1
                 match -= 1
             while True:
@@ -152,15 +153,19 @@ def _encode_dense(s: bytes, accel: int, src_off: int = 0) -> bytearray:
     return out
 
 
+def hash5(v: int) -> int:
+    """Upstream LZ4_hash5, the byU32 table's hash of the 5 low bytes of
+    ``v`` (`csrc/lz4_encode_body.cuh` `canon_hash5`)."""
+    return (((v << 24) * 889523592379) & 0xFFFFFFFFFFFFFFFF) >> 52
+
+
 def _canon_hash(s: bytes, n: int):
     """The canonical schedule's table and hash: byU16 below 65,547 bytes,
     byU32 at and above."""
     if n < CANON_64K:
         return [0] * (1 << 13), lambda p: (
             ((read32(s, p) * 2654435761) & 0xFFFFFFFF) >> 19)
-    return [0] * (1 << 12), lambda p: (
-        (((int.from_bytes(s[p:p + 8], "little") << 24) * 889523592379)
-         & 0xFFFFFFFFFFFFFFFF) >> 52)
+    return [0] * (1 << 12), lambda p: hash5(int.from_bytes(s[p:p + 8], "little"))
 
 
 def _probe_step(tab, hash_of, positions, valid, accept):
@@ -198,15 +203,25 @@ def _encode_canonical_warp(s: bytes, accel: int, steps=None) -> bytearray:
     makes its first SERIAL_PROBES probes one at a time, then WARP a step
     (`_probe_step`); the bytes are the same.
     ``steps``, a dict, counts the warp's probe steps and sequences."""
+    tab, h = _canon_hash(s, len(s))
+    return canonical_block_warp(s, 0, len(s), 0, tab, h, len(s) < CANON_64K,
+                                accel, WARP, steps)
+
+
+def canonical_block_warp(s: bytes, start: int, n: int, floor: int, tab, h,
+                         u16: bool, accel: int, lanes: int = WARP,
+                         steps=None) -> bytearray:
+    """`canonical_block` as the warp computes it (`canon_scan` in
+    `csrc/lz4_encode_body.cuh`): each search makes its first SERIAL_PROBES
+    probes one at a time, then ``lanes`` a step (`_probe_step`; one lane is
+    the serial walk); the bytes and the table are the same.  ``steps``, a
+    dict, counts the warp's probe steps and sequences."""
     steps = {} if steps is None else steps
     steps.setdefault("probe_steps", 0)
     steps.setdefault("sequences", 0)
-    n = len(s)
     out = bytearray()
-    anchor = 0
-    if n >= MF_LIMIT + 1:
-        u16 = n < CANON_64K
-        tab, h = _canon_hash(s, n)
+    anchor = start
+    if n - start >= MF_LIMIT + 1:
         mf1 = n - MF_LIMIT + 1
         match_limit = n - LAST_LITERALS
         ramp = accel << SKIP_TRIGGER
@@ -215,30 +230,32 @@ def _encode_canonical_warp(s: bytes, accel: int, steps=None) -> bytearray:
             m = c[1]
             return (u16 or m + MAX_DISTANCE >= p) and read32(s, m) == read32(s, p)
 
-        start = 1
+        tab[h(start)] = start
+        first = start + 1
         while True:
-            p, j = start, 0
+            p, j = first, 0
             while True:
-                width = 1 if j < SERIAL_PROBES else WARP
+                width = 1 if j < SERIAL_PROBES else lanes
                 positions, valid = [], []
                 for k in range(width):
                     i = j + k
                     positions.append(p)
                     p += (ramp + i - 1) >> SKIP_TRIGGER if i else 1
                     valid.append(p <= mf1)
-                first, cand, stop, commit = _probe_step(
+                first_hit, cand, stop, commit = _probe_step(
                     tab, h, positions, valid, accept)
                 steps["probe_steps"] += 1
-                if first < stop:
-                    commit(first, lambda q: q)
-                    ip, match = positions[first], cand[1]
+                if first_hit < stop:
+                    commit(first_hit, lambda q: q)
+                    ip, match = positions[first_hit], cand[1]
                     break
-                if stop < width:
+                if stop < width:  # the probes before it were made: the
+                    commit(stop - 1, lambda q: q)  # next block reads them
                     emit(out, s, anchor, n - anchor, 0, 0)
                     return out
                 commit(width - 1, lambda q: q)
                 j += width
-            while ip > anchor and match > 0 and s[ip - 1] == s[match - 1]:
+            while ip > anchor and match > floor and s[ip - 1] == s[match - 1]:
                 ip -= 1
                 match -= 1
             while True:
@@ -261,7 +278,7 @@ def _encode_canonical_warp(s: bytes, accel: int, steps=None) -> bytearray:
                 if read32(s, m2) != read32(s, ip):
                     break
                 match = m2
-            start = ip + 1
+            first = ip + 1
     emit(out, s, anchor, n - anchor, 0, 0)
     return out
 

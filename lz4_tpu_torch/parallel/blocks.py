@@ -37,6 +37,7 @@ from ..ops import decode as _decode
 from ..ops import decode_dense as _decode_dense
 from ..ops import decode_stream as _decode_stream
 from ..ops import encode as _encode
+from ..ops import encode_continue as _encode_continue
 from ..ops import encode_dense as _encode_dense
 from ..ops import encode_stream as _encode_stream
 from ..ops import xxh32 as _xxh32
@@ -51,6 +52,7 @@ __all__ = [
     "pack_blocks",
     "encode_blocks_device",
     "encode_blocks_chained_device",
+    "encode_blocks_continue_device",
     "decode_blocks_device",
     "encode_blocks",
     "decode_blocks",
@@ -205,6 +207,27 @@ def encode_blocks_chained_device(data, block_size: int, level: int = 0,
         return blocks
     return blocks, block_checksums(out, out_lens, payload, block_starts,
                                    ends - block_starts)
+
+
+def encode_blocks_continue_device(data, block_size: int, device="cuda",
+                                  checksums: bool = False):
+    """Encode the blocks of a canonical chained frame in one launch of
+    kernel F on ``device`` (the plain version when ``device="cpu"``):
+    LZ4_compress_fast_continue over the payload (bytes, or a 1-D uint8
+    tensor, at most `encode_continue.MAX_FRAME` bytes), one table carried
+    from block to block.  Returns each block's compressed payload, in frame
+    order (the caller stores a block whose payload is not smaller), and with
+    ``checksums=True`` the list of payloads and each block's checksum
+    (`block_checksums`)."""
+    payload = upload(data, resolve_device(device))
+    n = payload.numel()
+    out, out_lens = _encode_continue.encode_continue(payload, block_size)
+    blocks = pack_blocks(out, out_lens)
+    if not checksums:
+        return blocks
+    starts = torch.arange(len(blocks), dtype=torch.int64) * block_size
+    return blocks, block_checksums(out, out_lens, payload, starts,
+                                   (n - starts).clamp(max=block_size))
 
 
 def decode_blocks_device(comps, clens, out_cap: int, dicts=None,

@@ -671,3 +671,56 @@ def test_mesh_frame_on_the_card(cuda):
     blob = frame.compress(data, settings, mesh=mesh)
     assert frame.decompress(blob, mesh=mesh) == data
     assert blob == frame.compress(data, settings, mesh=parallel.make_mesh(["cpu", "cpu"]))
+
+
+def test_continue_kernel_matches_plain_on_the_edge_frames(cuda):
+    from lz4_tpu_torch.ops import encode_continue
+
+    for bs, payloads in chip_smoke.continue_edge_frames(3):
+        for p in payloads:
+            payload = torch.frombuffer(bytearray(p), dtype=torch.uint8)
+            nb = -(-len(p) // bs)
+            steps = torch.zeros((nb, 2), dtype=torch.int32, device=cuda)
+            before = encode_continue.encode_continue.launches
+            got = encode_continue.encode_continue(payload.to(cuda), bs, steps=steps)
+            torch.cuda.synchronize()
+            assert encode_continue.encode_continue.launches == before + 1
+            want_steps = torch.zeros((nb, 2), dtype=torch.int32)
+            _equal(got, encode_continue.encode_continue_plain(payload, bs, steps=want_steps))
+            assert torch.equal(steps.cpu(), want_steps)
+
+
+def test_continue_kernel_on_a_4mib_frame(cuda):
+    from lz4_tpu_torch.ops import encode_continue
+
+    data = chip_smoke.make_corpus(4 << 20, 4)
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    got = encode_continue.encode_continue(payload.to(cuda), BLOCK)
+    _equal(got, encode_continue.encode_continue_plain(payload, BLOCK))
+    settings = frame.EncoderSettings(geometry="canonical", block_checksum=True,
+                                     content_checksum=True)
+    blob = frame.compress(data, settings, device=cuda)
+    assert frame.decompress(blob, device=cuda) == data
+    out, clens = (t.cpu() for t in got)
+    for k, (off, n, stored) in enumerate(_scan_single_frame(blob)[1]):
+        assert stored or blob[off:off + n] == out[k, :int(clens[k])].numpy().tobytes()
+
+
+def test_hash5_rows_matches_plain(cuda):
+    from lz4_tpu_torch.ops import encode_continue
+
+    values = torch.from_numpy(chip_smoke.hash5_vectors(5))
+    before = encode_continue.hash5_rows.launches
+    got = encode_continue.hash5_rows(values.to(cuda))
+    torch.cuda.synchronize()
+    assert encode_continue.hash5_rows.launches == before + 1
+    assert torch.equal(got.cpu(), encode_continue.hash5_rows_plain(values))
+
+
+@pytest.mark.parametrize("name", ["xxh32_stripe", "merged_seq", "probe_step"])
+def test_ubench_kernel_matches_plain(name, cuda):
+    from lz4_tpu_torch.ops import ubench
+
+    for n in (0, 1, 1000):
+        acc, cycles = ubench.run(name, n, 4321, cuda)
+        assert acc == ubench.plain(name, n, 4321) and cycles >= 0

@@ -36,6 +36,7 @@ def test_import_without_jax_or_the_jax_package():
         "import lz4_tpu_torch.pickler, lz4_tpu_torch.cli\n"
         "import lz4_tpu_torch.ops.chain, lz4_tpu_torch.ops.decode_dense\n"
         "import lz4_tpu_torch.ops.encode_dense, lz4_tpu_torch.parallel.multihost\n"
+        "import lz4_tpu_torch.ops.encode_continue, lz4_tpu_torch.ops.ubench\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'lz4_tpu' or m.startswith('lz4_tpu.')]\n"
         "assert not bad, bad\n"
@@ -81,7 +82,7 @@ ENTRY_POINTS = (
     "pickle", "legacy.wrap", "cli", "block.decode.unbounded", "make_mesh",
     "make_mesh.cuda", "multihost.compress_distributed",
     "multihost.decompress_distributed", "encode_chunked", "decode_chunked",
-    "warmup_device",
+    "warmup_device", "frame.compress.canonical_chained", "encode_blocks_continue_device",
 )
 
 
@@ -137,6 +138,10 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name, monkeypatch, tmp_
         "encode_chunked": lambda: blocks.encode_chunked(comps, lens, 16),
         "decode_chunked": lambda: blocks.decode_chunked(comps, lens, 16),
         "warmup_device": lambda: parallel.warmup_device(),
+        "frame.compress.canonical_chained": lambda: frame.compress(
+            data * 30, frame.EncoderSettings(geometry="canonical")),
+        "encode_blocks_continue_device": lambda: blocks.encode_blocks_continue_device(
+            data * 30, 65536),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -266,7 +271,9 @@ def _c_signatures():
 
 BINDINGS = {"decode": ("lz4t_decode_warp",), "decode_stream": (),
             "encode_stream": (), "encode_opt": (), "encode_hc_passes": (),
-            "xxh32": ("lz4t_xxh32", "lz4t_xxh32_stripes")}
+            "xxh32": ("lz4t_xxh32", "lz4t_xxh32_stripes"),
+            "encode_continue": ("lz4t_encode_continue", "lz4t_hash5_rows"),
+            "ubench": ("lz4t_ubench",)}
 
 
 @pytest.mark.parametrize("module", sorted(BINDINGS))
