@@ -156,20 +156,33 @@ Phases, each fatal on failure:
    the card over gloo, their frames equal to the single-process frames.
 18. canonical chained FAST frames (`phase_canonical_chained`, kernel F):
    F against its serial plain version (bytes, lengths) and its warp model
-   (each block's probe steps and sequences) on edge frames of 10-, 4,096-
-   and 65,536-byte blocks (blocks under 13 bytes, a random block stored
-   raw, a run block, a last block of 7 and 12 bytes, an exact multiple),
-   one launch a frame, and `frame.compress` on the card equal to the CPU
-   route's frame; then `frame.compress/decompress` with
+   (each block's probe steps and sequences) on edge frames of 10-, 4,096-,
+   65,536- and 262,144-byte blocks (blocks under 13 bytes, a random block
+   stored raw, a run block, a last block of 5, 7 and 12 bytes, an exact
+   multiple; windows staged in shared memory and read from the payload),
+   one launch a frame, F's rounds (at the default `max_rounds`, at 0, the
+   serial tail alone, and at 1) against their CPU model
+   (`continue_blocks_rounds`: bytes, rounds, blocks walked per round,
+   where the tail began, each block's walks) on the edge frames and 1 MiB
+   of the mix, and `frame.compress` on the card equal to the CPU route's
+   frame; then `frame.compress/decompress` with
    `EncoderSettings(geometry="canonical", content_checksum=True)` over a
    16 MiB payload of 64 KB blocks, counts set to 0 just before and read
    just after (F once a compress, kernels D and B never), exact and
-   deterministic over three runs after a warm-up, every block equal to
-   `continue_blocks_plain` over the frame (timed in a worker) and to the
-   warp model, the first 1 MiB's to `continue_blocks_plain` on that 1 MiB
-   alone; F timed (CUDA
-   events) beside its bound (the frame's probe steps and sequences at 32
-   cycles each, or its bytes);
+   deterministic over three runs after a warm-up, every block at the
+   default `max_rounds`, at 0 and at 1 equal to `continue_blocks_plain`
+   over the frame (timed in a worker) and to the warp model, the first
+   1 MiB's to `continue_blocks_plain` on that 1 MiB alone; the rounds and
+   the re-walks by quarter of the mix; F timed (CUDA events) at the
+   default and at `max_rounds=0`, beside its bound (the slowest block's
+   probe steps and sequences at 32 cycles each, or its bytes) and the
+   serial schedule's (every block's steps), and at the caps of
+   `CONTINUE_SWEEP`; the same timings and bounds on the frames of
+   `CONTINUE_FRAMES` (16 MiB of the mix's noise in 64 KB blocks, the mix
+   in 256 KB and 4 MB blocks, the walks that read the payload), with no
+   cap too, every block equal to the serial plain version; F on payloads
+   that start 1 and 3 bytes into their tensor (1 MiB of the mix) and 1
+   byte (each frame of `CONTINUE_FRAMES`);
 19. `hash5_rows` (`phase_hash5`, the byU32 hash D and F call) against its
    plain version on the vectors of `experiments/tests/test_canon_hash32.py`
    and 2^20 more, timed by CUDA events around launches queued behind a
@@ -190,6 +203,7 @@ library time to compare with (library_ms is null).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import faulthandler
 import importlib
@@ -343,7 +357,8 @@ def phase_build():
               f"CTA ({name}; opt_matches 0)")
     print("[build] encode_hc_passes.cu: dynamic shared memory 0 bytes per CTA")
     print("[build] encode_continue.cu: 16,384 bytes of static shared memory per CTA "
-          "(the carried byU32 table); ubench.cu: 32,768 bytes static")
+          "(a block's byU32 table; continue_setup and continue_check 0); ubench.cu: "
+          "32,768 bytes static")
 
 
 def sample_rows(data: bytes, rng):
@@ -3342,7 +3357,9 @@ def continue_edge_frames(seed: int):
     untouched); of 4,096 bytes with a block of random bytes (stored raw,
     its inserts carried), a run, records and a last block of 7 bytes; of
     64 KB with a noise block, 64 KB of zeros, a last block of 12 bytes, and
-    an exact multiple of the block size."""
+    an exact multiple of the block size (these three sizes with the window
+    staged in shared memory); of 256 KB (the window read from the payload)
+    over the four quarters of the mix and a last block of 5 bytes."""
     corpus = make_corpus(1 << 20, seed + 7)
     q = len(corpus) // 4
     text, records, runs = corpus[:q], corpus[q:2 * q], corpus[2 * q:3 * q]
@@ -3353,6 +3370,7 @@ def continue_edge_frames(seed: int):
         (4096, [text[:5 * 4096] + noise[:4096] + runs[:8192] + records[:4096] + text[:7]]),
         (BLOCK, [text[:2 * BLOCK] + noise + bytes(BLOCK) + records[:BLOCK] + runs[:12],
                  corpus[:4 * BLOCK]]),
+        (4 * BLOCK, [corpus + runs[:5]]),
     ]
 
 
@@ -3373,52 +3391,208 @@ def _continue_rows(out, clens) -> list:
     return [out[k, :int(clens[k])].numpy().tobytes() for k in range(clens.numel())]
 
 
+# (max_rounds, blocks a window) of each run of `hold_continue_rounds`: the
+# default, the serial tail alone, one round, and windows of 5 blocks
+CONTINUE_RUNS = ((None, None), (0, None), (1, None), (None, 5))
+
+
+@contextlib.contextmanager
+def _continue_window(blocks):
+    """Kernel F and its model with windows of ``blocks`` blocks (None: as
+    they are), for the `with` block."""
+    from lz4_tpu_torch.ops import encode_continue
+
+    was = encode_continue.WINDOW_BLOCKS
+    encode_continue.WINDOW_BLOCKS = blocks or was
+    try:
+        yield
+    finally:
+        encode_continue.WINDOW_BLOCKS = was
+
+
+def _continue_rounds(payload: bytes, block_size: int, max_rounds, window):
+    """Kernel F's CPU model of its rounds over one frame, in a worker:
+    (blocks, stats)."""
+    from lz4_tpu_torch.ops import encode_continue
+
+    stats: dict = {}
+    with _continue_window(window):
+        blocks = encode_continue.continue_blocks_rounds(
+            payload, block_size, max_rounds=max_rounds, stats=stats)
+    return blocks, stats
+
+
+def _submit_continue_rounds(pool, payload: bytes, bs: int) -> list:
+    """The CPU model of kernel F's rounds on one frame for each run of
+    `CONTINUE_RUNS`, submitted to the worker pool."""
+    from lz4_tpu_torch.ops import encode_continue
+
+    return [(r, w, pool.submit(_continue_rounds, payload, bs,
+                               encode_continue.MAX_ROUNDS if r is None else r, w))
+            for r, w in CONTINUE_RUNS]
+
+
+def hold_continue_rounds(payload_d, bs: int, models: list, serial: list) -> int:
+    """Kernel F on one frame (on the card) at the default `max_rounds`, at 0
+    (the serial tail alone), at 1 and in windows of 5 blocks, each against
+    its model of rounds (``models``, `_submit_continue_rounds`: bytes; the
+    rounds, the blocks walked in each, where the tail began, each block's
+    walks) and against the serial plain version's blocks.  Returns the
+    max_abs_err."""
+    from lz4_tpu_torch.ops import encode_continue
+
+    worst = 0
+    for r, w, model in models:
+        stats: dict = {}
+        with _continue_window(w):
+            rows = _continue_rows(*encode_continue.encode_continue(
+                payload_d, bs, max_rounds=encode_continue.MAX_ROUNDS if r is None else r,
+                stats=stats))
+        blocks, want = model.result()
+        worst = max(worst, int(rows != serial), int(blocks != serial), int(stats != want))
+    return worst
+
+
 def hold_continue_edges(dev, seed: int, pool) -> int:
     """Kernel F against its serial plain version (bytes, lengths) and its
     warp model (each block's probe steps and sequences) on the edge frames,
-    one launch a frame, and `frame.compress` on the card against the CPU
-    route's frame.  Returns the max_abs_err."""
+    one launch a frame, its rounds against their model at the default
+    `max_rounds`, 0 and 1 (`hold_continue_rounds`), and `frame.compress` on
+    the card against the CPU route's frame; the plain versions all
+    submitted first.  Returns the max_abs_err."""
     import torch
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.ops import encode_continue
 
+    jobs = [(bs, p, _submit_timed(pool, encode_continue.continue_blocks_plain, p, bs),
+             pool.submit(_continue_warp, p, bs), _submit_continue_rounds(pool, p, bs))
+            for bs, payloads in continue_edge_frames(seed) for p in payloads]
     worst = 0
-    for bs, payloads in continue_edge_frames(seed):
-        for p in payloads:
-            serial = _submit_timed(pool, encode_continue.continue_blocks_plain, p, bs)
-            warp = pool.submit(_continue_warp, p, bs)
-            steps = torch.zeros((-(-len(p) // bs), 2), dtype=torch.int32, device=dev)
-            rows = _continue_rows(*encode_continue.encode_continue(
-                torch.frombuffer(bytearray(p), dtype=torch.uint8).to(dev), bs, steps=steps))
-            blocks, counts, _ = warp.result()
-            worst = max(worst, int(rows != serial.result()[0]), int(rows != blocks),
-                        _max_abs_err([steps], [torch.tensor(counts, dtype=torch.int32)]))
-            if bs != BLOCK:  # a frame's block size
-                continue
-            settings = frame.EncoderSettings(**CONTINUE)
-            card = frame.compress(p, settings, device=dev)
-            worst = max(worst, int(card != frame.compress(p, settings, device="cpu")))
-            _require(frame.decompress(card, device=dev) == p,
-                     "a canonical chained edge frame does not round-trip")
+    for bs, p, serial, warp, models in jobs:
+        payload_d = torch.frombuffer(bytearray(p), dtype=torch.uint8).to(dev)
+        steps = torch.zeros((-(-len(p) // bs), 2), dtype=torch.int32, device=dev)
+        rows = _continue_rows(*encode_continue.encode_continue(payload_d, bs, steps=steps))
+        blocks, counts, _ = warp.result()
+        serial = serial.result()[0]
+        worst = max(worst, int(rows != serial), int(rows != blocks),
+                    _max_abs_err([steps], [torch.tensor(counts, dtype=torch.int32)]),
+                    hold_continue_rounds(payload_d, bs, models, serial))
+        if bs != BLOCK:  # a frame's block size
+            continue
+        settings = frame.EncoderSettings(**CONTINUE)
+        card = frame.compress(p, settings, device=dev)
+        worst = max(worst, int(card != frame.compress(p, settings, device="cpu")))
+        _require(frame.decompress(card, device=dev) == p,
+                 "a canonical chained edge frame does not round-trip")
     _require(worst == 0, f"kernel F != its plain versions on the edge frames ({worst})")
     return worst
 
 
+# the frames on which phase 18 times kernel F beside its 16 MiB frame of
+# 64 KB blocks of the mix: (name, block size, data)
+CONTINUE_FRAMES = (("noise", BLOCK, "noise"), ("256KiB", 256 << 10, "mix"),
+                   ("4MiB", 4 << 20, "mix"))
+# the caps at which phase 18 times F on that frame, beside the default and 0
+CONTINUE_SWEEP = (16, 24, 64)
+
+
+def noise_corpus(total_bytes: int, seed: int) -> bytes:
+    """``total_bytes`` of the mix's noise quarter: 16 byte values, uniform."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 16, total_bytes) * 13).astype(np.uint8).tobytes()
+
+
+def _view(data: bytes, lead: int, dev):
+    """``data`` on the card as a view that starts ``lead`` bytes into its
+    tensor."""
+    import torch
+
+    return torch.frombuffer(bytearray(bytes(lead) + data), dtype=torch.uint8).to(dev)[lead:]
+
+
+def _continue_bound(steps, moved: int, clock: float) -> dict:
+    """Kernel F's bound on one frame: the larger of its bytes (``moved``)
+    over the card's memory rate and its slowest block's probe steps and
+    sequences (``steps``, the kernel's counts) at 32 cycles each, the serial
+    schedule's (every block's steps) beside it."""
+    per_block = steps.sum(dim=1)
+    total = steps.sum(dim=0).tolist()
+    step_ms = int(per_block.max()) * L1_CYCLES / clock * 1e3
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(byte_ms, step_ms),
+            "bound_by": "bytes" if byte_ms >= step_ms else "operations",
+            "byte_bound_ms": byte_ms, "step_bound_ms": step_ms,
+            "serial_step_bound_ms": (total[0] + total[1]) * L1_CYCLES / clock * 1e3,
+            "slowest_block_steps": int(per_block.max()), "probe_steps": total[0],
+            "sequences": total[1]}
+
+
+def time_continue_frame(data: bytes, bs: int, dev, plain_f, clock: float) -> dict:
+    """Kernel F on one frame of ``bs``-byte blocks: timed by CUDA events at
+    the default `max_rounds`, at 0 (the serial schedule) and with no cap,
+    the blocks at all three and on a view that starts 1 byte into its
+    tensor held to the serial plain version (``plain_f``, a `_submit_timed`
+    future); its rounds, re-walks by quarter and bound
+    (`_continue_bound`)."""
+    import torch
+    from lz4_tpu_torch.ops import encode_continue
+
+    view = _view(data, 1, dev)
+    payload = view.clone()
+    nb = -(-len(data) // bs)
+    steps = torch.zeros((nb, 2), dtype=torch.int32, device=dev)
+
+    def run(max_rounds=encode_continue.MAX_ROUNDS, src=payload, stats=None):
+        return encode_continue.encode_continue(src, bs, steps=steps, max_rounds=max_rounds,
+                                               stats=stats)
+
+    stats: dict = {}
+    out, clens = run(stats=stats)
+    rows = _continue_rows(out, clens)
+    ms = _cuda_ms(run, 1)
+    serial_ms = _cuda_ms(lambda: run(0), 1)
+    uncapped_ms = _cuda_ms(lambda: run(None), 1)
+    plain = plain_f.result()[0]
+    err = max(int(rows != plain), *(int(_continue_rows(*run(r)) != plain) for r in (0, None)),
+              int(_continue_rows(*run(src=view)) != plain))
+    bound = _continue_bound(steps, len(data) + int(clens.sum()) + 12 * nb, clock)
+    return {"block_size": bs, "ms": ms, "serial_schedule_ms": serial_ms,
+            "uncapped_ms": uncapped_ms, "max_abs_err": err,
+            "rounds": stats["rounds"], "walked": stats["walked"], "tail": stats["tail"],
+            "rewalks_max_walks_by_quarter": _by_quarter(stats["walks"]), **bound}
+
+
+def _by_quarter(walks: list) -> list:
+    """Per quarter of a frame of the mix: [its blocks' re-walks, the most
+    walks of one of its blocks]."""
+    q = len(walks) / 4
+    parts = [walks[round(i * q):round((i + 1) * q)] for i in range(4)]
+    return [[sum(w - 1 for w in part), max(part, default=0)] for part in parts]
+
+
 def phase_canonical_chained(dev, seed: int, pool) -> tuple:
     """Canonical chained FAST frames (kernel F): the edge frames
-    (`hold_continue_edges`), then a 16 MiB frame of 64 KB blocks with a
-    content checksum through `frame.compress/decompress`, counts set to 0
-    just before and read just after (F once a compress, kernels D and B
-    never, E and the chained decoder at least once), exact and
-    deterministic over three runs after a warm-up; every block equal to
-    `continue_blocks_plain` over the whole frame (in a worker, timed: the
+    (`hold_continue_edges`), its rounds against their model on 1 MiB of
+    the mix (`hold_continue_rounds`: every quarter in 16 blocks), then a
+    16 MiB frame of 64 KB blocks with a content checksum through
+    `frame.compress/decompress`, counts set to 0 just before and read just
+    after (F once a compress, kernels D and B never, E and the chained
+    decoder at least once), exact and deterministic over three runs after a
+    warm-up; every block, at the default `max_rounds`, at 0 and at 1, equal
+    to `continue_blocks_plain` over the whole frame (in a worker, timed: the
     entry's plain_ms) and to the warp model's, each block's steps to the
     warp model's, and every block of the first 1 MiB to
     `continue_blocks_plain` on that 1 MiB alone (block k reads nothing past
-    its own end); F timed by CUDA events, its bound the larger of the bytes
-    over 3.35 TB/s and the frame's probe steps and sequences (the kernel's
-    own counts, held to the warp model's) at 32 cycles each.  Returns (the
-    `kernels` entry, the `canonical_chained` line)."""
+    its own end); the rounds and the re-walks by quarter of the mix; F
+    timed by CUDA events at the default and at `max_rounds=0` (the serial
+    schedule), its bound the larger of the bytes over 3.35 TB/s and the
+    slowest block's probe steps and sequences (the kernel's own counts,
+    held to the warp model's) at 32 cycles each, the serial schedule's
+    bound (every block's steps) beside it; F at the caps of
+    `CONTINUE_SWEEP`, on 1 MiB of the mix at views 1 and 3 bytes into
+    their tensors, and on the frames of `CONTINUE_FRAMES`
+    (`time_continue_frame`).  Returns (the `kernels` entry, the
+    `canonical_chained` line)."""
     import torch
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.ops import (
@@ -3426,11 +3600,22 @@ def phase_canonical_chained(dev, seed: int, pool) -> tuple:
     )
 
     t0 = time.perf_counter()
-    edge_err = hold_continue_edges(dev, seed, pool)
     data = make_corpus(16 << 20, seed)
     plain_f = _submit_timed(pool, encode_continue.continue_blocks_plain, data, BLOCK)
     warp_f = pool.submit(_continue_warp, data, BLOCK)
     prefix_f = _submit_timed(pool, encode_continue.continue_blocks_plain, data[:1 << 20], BLOCK)
+    mix = make_corpus(1 << 20, seed + 1)
+    mix_f = (_submit_timed(pool, encode_continue.continue_blocks_plain, mix, BLOCK),
+             _submit_continue_rounds(pool, mix, BLOCK))
+    others = {"noise": noise_corpus(16 << 20, seed + 2), "mix": data}
+    others_f = [(name, bs, others[kind],
+                 _submit_timed(pool, encode_continue.continue_blocks_plain, others[kind], bs))
+                for name, bs, kind in CONTINUE_FRAMES]
+    edge_err = hold_continue_edges(dev, seed, pool)
+    mix_plain = mix_f[0].result()[0]
+    mix_err = max(hold_continue_rounds(_view(mix, 0, dev), BLOCK, mix_f[1], mix_plain),
+                  *(int(_continue_rows(*encode_continue.encode_continue(
+                      _view(mix, lead, dev), BLOCK)) != mix_plain) for lead in (1, 3)))
     settings = frame.EncoderSettings(**CONTINUE)
     launches, e2e = _round_trips(
         data, settings, dev,
@@ -3442,43 +3627,75 @@ def phase_canonical_chained(dev, seed: int, pool) -> tuple:
     nb = -(-len(data) // BLOCK)
     steps = torch.zeros((nb, 2), dtype=torch.int32, device=dev)
 
-    def run():
-        return encode_continue.encode_continue(payload, BLOCK, steps=steps)
+    def run(max_rounds=encode_continue.MAX_ROUNDS, stats=None):
+        return encode_continue.encode_continue(payload, BLOCK, steps=steps,
+                                               max_rounds=max_rounds, stats=stats)
 
-    out, clens = run()
-    ms = _cuda_ms(run, 1)
+    stats: dict = {}
+    out, clens = run(stats=stats)
     rows = _continue_rows(out, clens)
+    ms = _cuda_ms(run, 1)
+    serial_ms = _cuda_ms(lambda: run(0), 1)
+    sweep = {r: _cuda_ms(lambda: run(r), 1) for r in CONTINUE_SWEEP}
+    sweep[encode_continue.MAX_ROUNDS] = ms
+    capped = [_continue_rows(*run(r)) for r in (0, 1, *CONTINUE_SWEEP)]
     plain, plain_s = plain_f.result()
     wblocks, wsteps, _ = warp_f.result()
     prefix = prefix_f.result()[0]
-    err = max(edge_err, int(rows != plain), int(wblocks != plain),
-              int(rows[:len(prefix)] != prefix),
-              _max_abs_err([steps], [torch.tensor(wsteps, dtype=torch.int32)]))
-    _require(err == 0, "kernel F's blocks != continue_blocks_plain's (the frame, its first MiB)")
     clock = float(_nvidia_smi("clocks.max.sm", "nounits")) * 1e6
-    total = steps.sum(dim=0).tolist()
-    step_ms = (total[0] + total[1]) * L1_CYCLES / clock * 1e3
+    frames = {name: time_continue_frame(payload_b, bs, dev, f, clock)
+              for name, bs, payload_b, f in others_f}
+    err = max(edge_err, mix_err, int(rows != plain), int(wblocks != plain),
+              *(int(c != plain) for c in capped), int(rows[:len(prefix)] != prefix),
+              _max_abs_err([steps], [torch.tensor(wsteps, dtype=torch.int32)]),
+              *(f["max_abs_err"] for f in frames.values()))
+    _require(err == 0, "kernel F's blocks != continue_blocks_plain's (the frame at max_rounds "
+                       "default, 0, 1 and the sweep's, its first MiB, 1 MiB of the mix on "
+                       "views at 0, 1 and 3 bytes, the edge frames, the noise, 256 KB and "
+                       "4 MB frames)")
     # the payload read once, each block's bytes, length and two counts written once
-    moved = len(data) + int(clens.sum()) + 12 * nb
-    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound = _continue_bound(steps, len(data) + int(clens.sum()) + 12 * nb, clock)
+    slowest, total = bound["slowest_block_steps"], [bound["probe_steps"], bound["sequences"]]
+    serial_step_ms = bound["serial_step_bound_ms"]
+    quarters = _by_quarter(stats["walks"])
     entry = {"name": "encode_continue", "route": "cuda",
              "source": "lz4_tpu_torch/ops/csrc/encode_continue.cu",
              "replaces": "lz4_tpu/frame/api.py:313", "shape": f"1 frame x {nb} x 64KiB",
              "launches": launches["encode_continue"], "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_s * 1e3,
-             "bound_ms": max(byte_ms, step_ms),
-             "bound_by": "bytes" if byte_ms >= step_ms else "operations",
-             "byte_bound_ms": byte_ms, "step_bound_ms": step_ms,
-             "probe_steps": total[0], "sequences": total[1], "library_ms": None}
-    line = {**e2e, "launches": launches, "F_ms": ms, "F_bound_ms": entry["bound_ms"],
+             "plain_ms": plain_s * 1e3, **bound, "serial_schedule_ms": serial_ms,
+             "rounds": stats["rounds"], "walked": stats["walked"], "tail": stats["tail"],
+             "rewalks_max_walks_by_quarter": quarters, "max_rounds_ms": sweep,
+             "frames": frames, "library_ms": None}
+    line = {**e2e, "launches": launches, "F_ms": ms, "F_serial_ms": serial_ms,
+            "F_bound_ms": entry["bound_ms"], "F_serial_bound_ms": serial_step_ms,
+            "rounds": stats["rounds"], "tail": stats["tail"],
+            "rewalks_max_walks_by_quarter": quarters, "F_max_rounds_ms": sweep,
+            "F_frames": {k: {x: f[x] for x in ("ms", "serial_schedule_ms", "uncapped_ms",
+                                               "rounds", "tail", "bound_ms",
+                                               "serial_step_bound_ms")}
+                         for k, f in frames.items()},
             "seconds": time.perf_counter() - t0}
     print(f"[continue] 16 MiB canonical chained frame: round trip exact, deterministic, "
           f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s compress, "
-          f"{e2e['decompress_GBps_median']:.4f} GB/s decompress; F {ms:.3f} ms "
-          f"({total[0]} probe steps, {total[1]} sequences; bound {entry['bound_ms']:.3f} ms); "
-          f"every block, the first 1 MiB alone and the edge frames equal to the plain "
-          f"versions (the serial one {plain_s:.1f} s over the frame), "
+          f"{e2e['decompress_GBps_median']:.4f} GB/s decompress; F {ms:.3f} ms in "
+          f"{stats['rounds']} rounds (blocks walked per round {stats['walked']}, serial tail "
+          f"from block {stats['tail']}; re-walks and most walks of a block by quarter "
+          f"(text, records, runs, noise) {quarters}), {serial_ms:.3f} ms at max_rounds=0; "
+          f"bound {entry['bound_ms']:.3f} ms (the slowest block's {slowest} steps; the "
+          f"serial schedule's {total[0]} probe steps and {total[1]} sequences: "
+          f"{serial_step_ms:.3f} ms); every block at max_rounds {encode_continue.MAX_ROUNDS}, "
+          f"0 and 1, the first 1 MiB alone, and at those and in windows of 5 blocks 1 MiB "
+          f"of the mix and the edge frames, equal to the plain versions (the serial one "
+          f"{plain_s:.1f} s over the frame), "
           f"in {line['seconds']:.1f} s")
+    print(f"[continue] F at max_rounds {sorted(sweep)}: "
+          f"{[round(sweep[r], 3) for r in sorted(sweep)]} ms; "
+          + "; ".join(f"{k} ({f['block_size']} B blocks): {f['ms']:.3f} ms in {f['rounds']} "
+                      f"rounds (walked {f['walked']}, tail from {f['tail']}), "
+                      f"{f['serial_schedule_ms']:.3f} at max_rounds=0, "
+                      f"{f['uncapped_ms']:.3f} with no cap, bound "
+                      f"{f['bound_ms']:.3f} (serial {f['serial_step_bound_ms']:.3f})"
+                      for k, f in frames.items()))
     return entry, line
 
 

@@ -127,9 +127,11 @@ def compress(
     schedule unless ``geometry="dense"``, and a canonical chained frame of
     more than one block takes upstream's continue schedule
     (LZ4_compress_fast_continue, the bytes of liblz4's linked blocks and of
-    the JAX package's host route) on kernel F, one warp for the frame;
-    with ``mesh`` it raises ValueError, as the JAX package's device routes
-    do.  Levels 3-12 take the HC and OPT arms whatever the geometry.
+    the JAX package's host route) on kernel F: every block walked at once
+    from a guessed table, in rounds that re-walk only the blocks whose
+    table changed, and after `encode_continue.MAX_ROUNDS` rounds a serial
+    tail; with ``mesh`` it raises ValueError, as the JAX package's device
+    routes do.  Levels 3-12 take the HC and OPT arms whatever the geometry.
 
     A declared ``content_length`` other than ``len(data)`` raises
     ValueError when the payload fits one block, as the JAX package's

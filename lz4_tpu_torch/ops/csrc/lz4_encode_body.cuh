@@ -143,17 +143,22 @@ __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
 // s[p, p + 4) as a little-endian word from aligned words read through the
 // read-only path and funnel-shifted (the words holding bytes of the window
-// lie inside its tensor's allocation).
+// lie inside its tensor's allocation).  kGeneric reads them with generic
+// loads instead, for a window that may lie in shared memory (kernel F's
+// staged walks).
+template <bool kGeneric = false>
 __device__ __forceinline__ uint32_t ld32(const uint8_t* s, int p) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(s + p);
   const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~uintptr_t{3});
   const unsigned sh = static_cast<unsigned>(a & 3) * 8;
-  const uint32_t lo = __ldg(w);
-  return sh ? __funnelshift_r(lo, __ldg(w + 1), sh) : lo;
+  const uint32_t lo = kGeneric ? w[0] : __ldg(w);
+  return sh ? __funnelshift_r(lo, kGeneric ? w[1] : __ldg(w + 1), sh) : lo;
 }
 
+template <bool kGeneric = false>
 __device__ __forceinline__ uint64_t ld64(const uint8_t* s, int p) {
-  return static_cast<uint64_t>(ld32(s, p)) | (static_cast<uint64_t>(ld32(s, p + 4)) << 32);
+  return static_cast<uint64_t>(ld32<kGeneric>(s, p)) |
+         (static_cast<uint64_t>(ld32<kGeneric>(s, p + 4)) << 32);
 }
 
 // The warp's output cursor: Sink's rule (bytes past the width are counted,
@@ -213,11 +218,12 @@ __device__ inline void warp_emit(WarpSink& o, const uint8_t* s, int anchor, int 
 // compares the words at a + 4k and b + 4k while they fit before limit, the
 // first lane that differs giving the length; the last 0-3 bytes one at a
 // time.
+template <bool kGeneric = false>
 __device__ inline int warp_run(const uint8_t* s, int a, int b, int limit) {
   const int lane = lane_id();
   const int b0 = b;
   for (int k = 0; k < 2 && b + 4 <= limit; ++k) {
-    const uint32_t x = ld32(s, a) ^ ld32(s, b);
+    const uint32_t x = ld32<kGeneric>(s, a) ^ ld32<kGeneric>(s, b);
     if (x) return b - b0 + ((__ffs(static_cast<int>(x)) - 1) >> 3);
     a += 4;
     b += 4;
@@ -226,7 +232,8 @@ __device__ inline int warp_run(const uint8_t* s, int a, int b, int limit) {
     const int words = (limit - b) >> 2;
     if (words <= 0) break;
     const bool in = lane < words;
-    const uint32_t x = in ? ld32(s, a + 4 * lane) ^ ld32(s, b + 4 * lane) : 0;
+    const uint32_t x =
+        in ? ld32<kGeneric>(s, a + 4 * lane) ^ ld32<kGeneric>(s, b + 4 * lane) : 0;
     const unsigned diff = __ballot_sync(kFull, x != 0);
     if (diff) {
       const int k = __ffs(diff) - 1;
@@ -303,15 +310,15 @@ struct ScanSteps {
 // byte and probes from the next with the step lagging the skip ramp by
 // one; after a match, refill at ip - 2, then a zero-literal immediate retry
 // without back-extension.  Called by every lane of one warp.
-template <typename T>
+template <typename T, bool kGeneric = false>
 __device__ void canon_scan(const uint8_t* s, int start, int n, int floor, int accel,
                            WarpSink& o, T* tab, ScanSteps& st) {
   constexpr bool kU16 = sizeof(T) == 2;
   auto hash = [s](int p) {
     if constexpr (sizeof(T) == 2) {
-      return hash4<kCanonHashLog16>(ld32(s, p));
+      return hash4<kCanonHashLog16>(ld32<kGeneric>(s, p));
     } else {
-      return canon_hash5(ld64(s, p));
+      return canon_hash5(ld64<kGeneric>(s, p));
     }
   };
   const int lane = lane_id();
@@ -337,7 +344,7 @@ __device__ void canon_scan(const uint8_t* s, int start, int n, int floor, int ac
         const int c = static_cast<int>(tab[h]);
         __syncwarp();  // every lane has read before any writes
         tab[h] = static_cast<T>(p);
-        if ((kU16 || c + kMaxDistance >= p) && ld32(s, c) == ld32(s, p)) {
+        if ((kU16 || c + kMaxDistance >= p) && ld32<kGeneric>(s, c) == ld32<kGeneric>(s, p)) {
           ip = p;
           match = c;
           break;
@@ -355,7 +362,7 @@ __device__ void canon_scan(const uint8_t* s, int start, int n, int floor, int ac
         const unsigned peers = __match_any_sync(kFull, h);
         const int cand = step_candidate(valid ? static_cast<int>(tab[h]) : 0, peers, pos);
         const bool hit = valid && (kU16 || cand + kMaxDistance >= pos) &&
-                         ld32(s, cand) == ld32(s, pos);
+                         ld32<kGeneric>(s, cand) == ld32<kGeneric>(s, pos);
         const unsigned hits = __ballot_sync(kFull, hit);
         const unsigned ends = __ballot_sync(kFull, !valid);
         const int first_hit = hits ? __ffs(static_cast<int>(hits)) - 1 : 32;
@@ -378,7 +385,8 @@ __device__ void canon_scan(const uint8_t* s, int start, int n, int floor, int ac
         --match;
       }
       for (;;) {
-        const int ml = kMinMatch + warp_run(s, match + kMinMatch, ip + kMinMatch, match_limit);
+        const int ml =
+            kMinMatch + warp_run<kGeneric>(s, match + kMinMatch, ip + kMinMatch, match_limit);
         warp_emit(o, s, anchor, ip - anchor, ip - match, ml);
         ++st.sequences;
         ip += ml;
@@ -391,7 +399,7 @@ __device__ void canon_scan(const uint8_t* s, int start, int n, int floor, int ac
         tab[h1] = static_cast<T>(ip - 2);
         tab[h2] = static_cast<T>(ip);
         if (!kU16 && m2 + kMaxDistance < ip) break;
-        if (ld32(s, m2) != ld32(s, ip)) break;
+        if (ld32<kGeneric>(s, m2) != ld32<kGeneric>(s, ip)) break;
         match = m2;
       }
       first = ip + 1;

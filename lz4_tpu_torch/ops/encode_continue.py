@@ -9,10 +9,28 @@ a stale entry rejected by its distance alone, a block under 13 bytes all
 literals with the table left as it was.  Those are the blocks of the JAX
 package's canonical chained frames (`lz4_tpu/frame/api.py:313`
 `_host_chained_canonical_compress`, on `lz4tpu_encode_fast_continue`),
-which liblz4's frame API writes for linked blocks.  The kernel runs one
-warp for the frame with kernel D's warp scan; `continue_blocks_plain` is
-the serial schedule and `continue_blocks_warp` the warp's (32 probes a
-step), which give the same bytes.
+which liblz4's frame API writes for linked blocks; the kernel replaces
+that host route.
+
+A block's walk is serial, and it reads the table the block before left,
+but only that table's live entries (an entry more than 65,535 bytes behind
+the block's start is rejected at every position).  So the kernel walks
+every block at once from a guessed table, then checks each guess against
+the table its predecessor left, and re-walks, round after round, only the
+blocks whose table changed; after `MAX_ROUNDS` rounds the rest is walked
+serially.  What bounds it is the slowest walk of each round times the
+rounds the data takes to settle (the noise of the bench mix settles one
+block a round), not the frame's steps one after another.  It keeps two
+16 KB tables per block, in windows of `WINDOW_BLOCKS` blocks (256 MiB at
+most), and stages each walk's 64 KB window and block in shared memory
+where they fit (blocks up to ~147 KB; a longer block's walk reads the
+payload through the read-only path).  The payload may start at any byte
+of its allocation (a view of a tensor).
+
+Plain versions, all with the same bytes: `continue_blocks_plain` is the
+serial schedule, `continue_blocks_warp` the warp's search (32 probes a
+step, with each block's step counts) and `continue_blocks_rounds` the
+kernel's schedule of rounds (with its counts of rounds and walks).
 
 `hash5_rows` computes the hash kernels D and F call (`canon_hash5`) over a
 tensor of 40-bit values: the Hopper counterpart of the TPU's 32-bit split
@@ -29,8 +47,8 @@ import torch
 from ..constants import compress_bound
 from .build import check, load
 from .encode import (
-    CANON_64K, WARP, _canon_hash, canonical_block, canonical_block_warp, clip_acceleration,
-    pack_rows,
+    CANON_64K, MAX_DISTANCE, WARP, _canon_hash, canonical_block, canonical_block_warp,
+    clip_acceleration, pack_rows,
 )
 from .encode_stream import WINDOW
 
@@ -39,6 +57,12 @@ from .encode_stream import WINDOW
 # the JAX package's native engine.
 MAX_FRAME = (1 << 31) - (64 << 20)
 _TOO_LONG = "canonical chained encoding supports up to ~2 GiB per frame"
+
+TABLE_ENTRIES = 4096  # the byU32 table: 4,096 absolute u32 positions, 16 KB
+# Kernel F keeps two tables per block of a window (the one it started from,
+# the one it left): 256 MiB of tables at most, 8,192 blocks a window.
+WINDOW_BLOCKS = (256 << 20) // (2 * 4 * TABLE_ENTRIES)
+MAX_ROUNDS = 32  # kernel F's rounds of parallel walks before its serial tail
 
 _lib = None
 
@@ -50,6 +74,7 @@ def _kernel():
         lib.lz4t_encode_continue.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p,
         ]
         lib.lz4t_hash5_rows.argtypes = [
@@ -99,6 +124,84 @@ def continue_blocks_warp(data, block_size: int, acceleration: int = 1,
     return out
 
 
+def _live_equal(a, b, start: int) -> bool:
+    """Whether two byU32 tables give a block that starts at ``start`` the
+    same walk: equal wherever either entry is live there (an entry e with
+    e + 65,535 < start is rejected by its distance at every position of
+    the block, so any two such entries count as equal)."""
+    return all(x == y or (x + MAX_DISTANCE < start and y + MAX_DISTANCE < start)
+               for x, y in zip(a, b))
+
+
+def continue_blocks_rounds(data, block_size: int, acceleration: int = 1,
+                           max_rounds: int | None = None, stats=None) -> list:
+    """`continue_blocks_plain` by kernel F's schedule of rounds, block by
+    block with `encode.canonical_block`; the same bytes.
+
+    The blocks go in windows of `WINDOW_BLOCKS`, the first block of each
+    starting from the table the window before left (a zeroed one in the
+    first).  Round 1 walks every block of the window from a guessed table,
+    zeroed but for that first block's; after each round, a block whose
+    predecessor was walked compares the table it started from with the one
+    its predecessor now leaves (`_live_equal`), and where they differ takes
+    that table and is walked again in the next round.  A block is final
+    once no block up to it differs; when none differs, all are.  After
+    ``max_rounds`` rounds (None: no cap) the window's non-final suffix is
+    walked serially from its first block, on the table its predecessor
+    left: ``max_rounds=0`` is the serial schedule.  ``stats``, a dict, gets
+    "rounds" (the most rounds a window walked in), "walked" (the blocks
+    walked in each round, over the windows), "tail" (the first block the
+    serial tail walked, None if it walked none) and "walks" (each block's
+    walks)."""
+    s = bytes(data)
+    _check_frame(len(s), block_size)
+    accel = clip_acceleration(acceleration, "canonical")
+    _, h = _canon_hash(s, CANON_64K)
+    blocks = list(_blocks(len(s), block_size))
+    nb = len(blocks)
+    rows = [b""] * nb
+    walks = [0] * nb
+    walked: list = []
+    tail = None
+
+    def walk(k, tab):
+        a, b, floor = blocks[k]
+        rows[k] = bytes(canonical_block(s, a, b, floor, tab, h, False, accel))
+        walks[k] += 1
+        return tab
+
+    carry = [0] * TABLE_ENTRIES
+    for w0 in range(0, nb, WINDOW_BLOCKS):
+        ks = range(w0, min(nb, w0 + WINDOW_BLOCKS))
+        tin = {k: [0] * TABLE_ENTRIES for k in ks}
+        tin[w0] = carry
+        tout = {}
+        dirty = list(ks)
+        r = 0
+        while dirty and (max_rounds is None or r < max_rounds):
+            for k in dirty:
+                tout[k] = walk(k, list(tin[k]))
+            if r == len(walked):
+                walked.append(0)
+            walked[r] += len(dirty)
+            again = []
+            for k in dirty:
+                if k + 1 in tin and not _live_equal(tin[k + 1], tout[k], blocks[k + 1][0]):
+                    tin[k + 1] = list(tout[k])
+                    again.append(k + 1)
+            dirty = again
+            r += 1
+        if dirty:
+            tail = dirty[0] if tail is None else tail
+            tab = list(tin[dirty[0]])
+            for k in range(dirty[0], ks.stop):
+                tout[k] = walk(k, tab)
+        carry = tout[ks[-1]]
+    if stats is not None:
+        stats.update(rounds=len(walked), walked=walked, tail=tail, walks=walks)
+    return rows
+
+
 def _check_frame(n: int, block_size: int) -> None:
     if n > MAX_FRAME:
         raise ValueError(_TOO_LONG)
@@ -114,23 +217,39 @@ def _payload(payload_u8, block_size: int):
     return payload, -(-payload.numel() // block_size)
 
 
-def encode_continue_plain(payload_u8, block_size: int, acceleration: int = 1, steps=None):
+def _rounds(max_rounds, nb: int) -> int:
+    """The rounds kernel F launches: ``max_rounds`` (None: no cap), at most
+    the blocks of a window (each round makes at least one more final)."""
+    most = min(nb, WINDOW_BLOCKS)
+    if max_rounds is None:
+        return most
+    if max_rounds < 0:
+        raise ValueError("max_rounds must be at least 0")
+    return min(int(max_rounds), most)
+
+
+def encode_continue_plain(payload_u8, block_size: int, acceleration: int = 1, steps=None,
+                          max_rounds: int | None = MAX_ROUNDS, stats=None):
     """The plain PyTorch version of `encode_continue`: the same checks and
     outputs, the blocks through `continue_blocks_warp` on the host (the
-    bytes of `continue_blocks_plain`, at its speed, and the warp's
-    steps)."""
-    payload, _ = _payload(payload_u8, block_size)
+    bytes of `continue_blocks_plain`, at its speed, and the warp's steps);
+    ``stats`` from `continue_blocks_rounds`, run too when it is asked."""
+    payload, nb = _payload(payload_u8, block_size)
+    _rounds(max_rounds, nb)
+    data = payload.cpu().numpy().tobytes()
     counts: list = []
-    comps = continue_blocks_warp(payload.cpu().numpy().tobytes(), block_size, acceleration,
-                                 steps=counts)
+    comps = continue_blocks_warp(data, block_size, acceleration, steps=counts)
     out, clens, _ = pack_rows(comps, compress_bound(block_size), payload.device)
     if steps is not None:
         steps.copy_(torch.tensor([[c["probe_steps"], c["sequences"]] for c in counts],
                                  dtype=torch.int32).reshape(steps.shape))
+    if stats is not None:
+        continue_blocks_rounds(data, block_size, acceleration, max_rounds, stats)
     return out, clens
 
 
-def encode_continue(payload_u8, block_size: int, acceleration: int = 1, steps=None):
+def encode_continue(payload_u8, block_size: int, acceleration: int = 1, steps=None,
+                    max_rounds: int | None = MAX_ROUNDS, stats=None):
     """Encode one canonical chained FAST frame's blocks with kernel F.
 
     ``payload_u8`` (a 1-D uint8 tensor of at most `MAX_FRAME` bytes; longer
@@ -141,12 +260,17 @@ def encode_continue(payload_u8, block_size: int, acceleration: int = 1, steps=No
     OCAP = compress_bound(block_size), so that no block stops early.
     ``steps``, an int32 [NB, 2] tensor on the same device, gets each
     block's probe steps and sequences of the warp's scan.  A CPU tensor runs
-    the plain version; a CUDA tensor launches the kernel, one warp for the
-    frame (counted in `encode_continue.launches`)."""
+    the plain version; a CUDA tensor launches the kernel (counted in
+    `encode_continue.launches`): rounds of every block at once, then the
+    serial tail after ``max_rounds`` rounds (`continue_blocks_rounds`; 0:
+    the serial schedule, None: no cap).  ``stats``, a dict, gets what
+    `continue_blocks_rounds` puts there (the kernel's counts; reading them
+    synchronises)."""
     payload, nb = _payload(payload_u8, block_size)
     accel = clip_acceleration(acceleration, "canonical")
+    rounds = _rounds(max_rounds, nb)
     if payload.device.type != "cuda":
-        return encode_continue_plain(payload, block_size, accel, steps)
+        return encode_continue_plain(payload, block_size, accel, steps, max_rounds, stats)
     ocap = compress_bound(block_size)
     dev = payload.device
     out = torch.zeros((nb, ocap), dtype=torch.uint8, device=dev)
@@ -156,15 +280,27 @@ def encode_continue(payload_u8, block_size: int, acceleration: int = 1, steps=No
     if steps.shape != (nb, 2) or steps.dtype != torch.int32 or steps.device != dev:
         raise ValueError(f"steps must be an int32 [{nb}, 2] tensor on {dev}")
     if nb == 0:
+        if stats is not None:
+            stats.update(rounds=0, walked=[], tail=None, walks=[])
         return out, clens
     payload = payload.contiguous()
+    window = min(nb, WINDOW_BLOCKS)
+    tables = torch.empty((2, window, TABLE_ENTRIES), dtype=torch.int32, device=dev)
+    dirty = torch.empty((2, window), dtype=torch.int32, device=dev)
+    counts = torch.empty((rounds + 1 + nb,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _kernel().lz4t_encode_continue(
             payload.data_ptr(), payload.numel(), block_size, out.data_ptr(), ocap, accel,
-            clens.data_ptr(), steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            clens.data_ptr(), steps.data_ptr(), rounds, window, tables.data_ptr(),
+            dirty.data_ptr(), counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     check(rc, "encode_continue")
     encode_continue.launches += 1
+    if stats is not None:
+        c = counts.tolist()
+        walked = [w for w in c[:rounds] if w]
+        stats.update(rounds=len(walked), walked=walked,
+                     tail=c[rounds] - 1 if c[rounds] else None, walks=c[rounds + 1:])
     return out, clens
 
 

@@ -690,6 +690,49 @@ def test_continue_kernel_matches_plain_on_the_edge_frames(cuda):
             assert torch.equal(steps.cpu(), want_steps)
 
 
+@pytest.mark.parametrize("bs,cap,window", [
+    (BLOCK, None, None), (BLOCK, 32, None), (BLOCK, 1, None), (BLOCK, 0, None),
+    (16384, None, None), (4096, 2, None), (4 * BLOCK, 1, None), (BLOCK, 32, 5),
+    (4096, None, 7)])
+def test_continue_rounds_match_their_model(bs, cap, window, cuda, monkeypatch):
+    """Kernel F's rounds on 1 MiB of the mix (every quarter) as its CPU
+    model makes them, in windows of ``window`` blocks (None: as they are):
+    the bytes, the rounds, the blocks walked in each, where the serial
+    tail began and each block's walks."""
+    from lz4_tpu_torch.ops import encode_continue
+
+    if window:
+        monkeypatch.setattr(encode_continue, "WINDOW_BLOCKS", window)
+    data = chip_smoke.make_corpus(1 << 20, 6)
+    payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    got: dict = {}
+    want: dict = {}
+    rows = chip_smoke._continue_rows(*encode_continue.encode_continue(
+        payload.to(cuda), bs, max_rounds=cap, stats=got))
+    assert rows == encode_continue.continue_blocks_rounds(data, bs, max_rounds=cap, stats=want)
+    assert got == want
+    assert rows == encode_continue.continue_blocks_plain(data, bs)
+
+
+@pytest.mark.parametrize("bs", [BLOCK, 4 * BLOCK])
+@pytest.mark.parametrize("lead", [1, 3])
+def test_continue_kernel_on_an_unaligned_view(bs, lead, cuda):
+    """Kernel F on a payload that starts ``lead`` bytes into its tensor
+    (a view, as a slice on the card gives it): staged walks (64 KB blocks)
+    and walks from the payload (256 KB), through the wrapper and the
+    public blocks API, against the serial plain version."""
+    from lz4_tpu_torch.ops import encode_continue
+    from lz4_tpu_torch.parallel import blocks
+
+    data = chip_smoke.make_corpus(1 << 20, 8)
+    whole = torch.frombuffer(bytearray(bytes(lead) + data), dtype=torch.uint8).to(cuda)
+    view = whole[lead:]
+    assert view.data_ptr() % 4 == lead
+    want = encode_continue.continue_blocks_plain(data, bs)
+    assert chip_smoke._continue_rows(*encode_continue.encode_continue(view, bs)) == want
+    assert blocks.encode_blocks_continue_device(view, bs, device=cuda) == want
+
+
 def test_continue_kernel_on_a_4mib_frame(cuda):
     from lz4_tpu_torch.ops import encode_continue
 
