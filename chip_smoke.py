@@ -100,8 +100,11 @@ Phases, each fatal on failure:
    passes' whole output held to the serial arm's on all 256 rows, each
    pass timed (levels 9-11: CUDA events between the passes; level 12:
    profiler device time) and held to its plain version on the same four
-   rows, the HC passes' and the level 10-11 parse's dependent-step bounds
-   from the plain versions' counts; the device memory of one level 10
+   rows (the level 12 parse to its plain parse by rounds, which asserts
+   the serial loop's order), every pass's dependent-step bound from the
+   plain versions' counts (the OPT chain pass's 32-position steps, the
+   match pass's slowest search, the parse's steps beside one thread's
+   serial walk of the same row); the device memory of one level 10
    compress; the `lz4 -9` path (`_cli_hc`: 4 MiB independent
    blocks, a content checksum, level 9) over --mb MiB, counts set to 0
    just before and read just after, exact and deterministic over three
@@ -211,6 +214,7 @@ import json
 import os
 import random
 import struct
+import statistics
 import subprocess
 import sys
 import time
@@ -354,7 +358,9 @@ def phase_build():
               f"in device memory")
     for name, smem in encode_opt.shared_bytes().items():
         print(f"[build] encode_opt.cu: dynamic shared memory {smem} bytes per "
-              f"CTA ({name}; opt_matches 0)")
+              f"CTA ({name})")
+    _require(encode_opt.slice_positions() == encode_opt.SLICE,
+             "encode_opt.SLICE differs from the match kernel's slice")
     print("[build] encode_hc_passes.cu: dynamic shared memory 0 bytes per CTA")
     print("[build] encode_continue.cu: 16,384 bytes of static shared memory per CTA "
           "(a block's byU32 table; continue_setup and continue_check 0); ubench.cu: "
@@ -461,14 +467,18 @@ def phase_decode(streams, rng, dev):
     return worst
 
 
-def _round_trips(data: bytes, settings, dev, counts, kernels=(), idle=()):
+def _round_trips(data: bytes, settings, dev, counts, kernels=(), idle=(), frames=None):
     """Three timed compress + decompress runs of one path, the launch
     counts set to 0 just before the first and read just after it: each
     wrapper's in `counts` and in ``idle``, and kernel A's kernels named in
     ``kernels`` (`decode.kernel_launches`).  Each count of `counts` and
     ``kernels`` must be above 0, each of ``idle`` (a reference the path
     must not launch) 0; the host's stripe loop (`lz4_tpu_torch.xxh32.
-    host_stripes`) is idle on every path."""
+    host_stripes`) is idle on every path.  Each compress's device memory
+    at its peak above what was held before it is read outside the timed
+    span (`compress_peak_allocated_bytes`, the largest); ``frames``, if
+    given, gets the frame."""
+    import torch
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.ops import decode
 
@@ -480,11 +490,15 @@ def _round_trips(data: bytes, settings, dev, counts, kernels=(), idle=()):
         fn.launches = 0
     for k in decode.kernel_launches:
         decode.kernel_launches[k] = 0
-    times, blob, launches = [], None, None
+    times, blob, launches, peak = [], None, None, 0
     for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held_before = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         b = frame.compress(data, settings, device=dev)
         t1 = time.perf_counter()
+        peak = max(peak, torch.cuda.max_memory_allocated(dev) - held_before)
         back = frame.decompress(b, device=dev)
         times.append((t1 - t0, time.perf_counter() - t1))
         if launches is None:
@@ -499,13 +513,16 @@ def _round_trips(data: bytes, settings, dev, counts, kernels=(), idle=()):
     for name, n in unused.items():
         _require(n == 0, f"path launched {name}, which it must not run, {n} times")
     launches.update(unused)
-    c_s = sorted(t[0] for t in times)[1]
-    d_s = sorted(t[1] for t in times)[1]
+    if frames is not None:
+        frames.append(blob)
+    c_s = statistics.median(t[0] for t in times)
+    d_s = statistics.median(t[1] for t in times)
     return launches, {
         "bytes": len(data), "frame_bytes": len(blob),
         "compress_s": [t[0] for t in times], "decompress_s": [t[1] for t in times],
         "compress_GBps_median": len(data) / c_s / 1e9,
         "decompress_GBps_median": len(data) / d_s / 1e9,
+        "compress_peak_allocated_bytes": peak,
     }
 
 
@@ -1378,33 +1395,37 @@ def phase_fast_rows(data: bytes, dev, pool):
     return entries, summary
 
 
-def profile_path(data: bytes, dev, settings) -> dict:
+def profile_path(data: bytes, dev, settings, attempts: int = 3) -> dict:
     """Device time by name over one compress + decompress of a path
     (torch.profiler), and the device's busy share of the host's wall time.
     A report, not a check: a profiler that cannot trace the card yields
-    "not measured"."""
+    "not measured".  A trace with no device events (the profiler drops
+    them now and then) is taken again, up to ``attempts`` traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from lz4_tpu_torch import frame
 
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            frame.decompress(frame.compress(data, settings, device=dev), device=dev)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        device_us = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                device_us[e.key] = device_us.get(e.key, 0.0) + e.self_device_time_total
-    except Exception as e:  # the report must not end the run
-        return {"profile": f"not measured ({e!r})"}
-    busy = sum(device_us.values())
-    if not busy:
-        return {"profile": "not measured (no device events)"}
+    for attempt in range(1, attempts + 1):
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                frame.decompress(frame.compress(data, settings, device=dev), device=dev)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            device_us = {}
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    device_us[e.key] = device_us.get(e.key, 0.0) + e.self_device_time_total
+        except Exception as e:  # the report must not end the run
+            return {"profile": f"not measured ({e!r})"}
+        busy = sum(device_us.values())
+        if busy:
+            break
+    else:
+        return {"profile": f"not measured (no device events in {attempts} traces)"}
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     return {"profile": {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-                        "device_busy_share": busy / wall_us,
+                        "device_busy_share": busy / wall_us, "traces": attempt,
                         "device_ms_by_name": {k[:60]: v / 1e3 for k, v in top}}}
 
 
@@ -1496,11 +1517,15 @@ def hold_opt_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
     """The OPT passes at ``level`` (10-12) on the card over a batch of
     windows, each held to its plain version on the batch's rows ``picks``
     with the same inputs (the kernel's own output of the pass before), the
-    plain versions on ``pool`` (the level 10-11 parse with its counts).
-    Returns a function that waits for them and returns each pass's
-    max_abs_err, the plain versions' seconds for the picked rows, the
-    given-up entries of the match pass and the plain parse's per-row counts
-    (empty at level 12)."""
+    plain versions on ``pool`` (the level 10-11 parse with its counts; at
+    level 12 the serial plain parse, the CPU route, timed, and beside it
+    the parse by rounds with its counts as "opt_parse:rounds").  Returns a
+    function that waits for them and returns each pass's max_abs_err, the
+    plain versions' seconds for the picked rows, the given-up entries of
+    the match pass and the per-row counts of the plain match pass and parse
+    by rounds ({pass: [tally, ...]}: the match pass's dependent steps and
+    the parse's, `encode_opt.opt_matches_plain` and
+    `opt_parse_rounds_row`)."""
     import torch
     from lz4_tpu_torch.ops import encode_opt
     from lz4_tpu_torch.ops.encode_hc import level_arm
@@ -1525,22 +1550,28 @@ def hold_opt_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
         a, t, n = int(st[r]), int(toff[r]), int(ln[r])
         row = (base_h[a:a + n], [0], so[r:r + 1], ln[r:r + 1])
         pv, mt = prev[t:t + n].cpu(), matches[t:t + n].cpu()
+        args = tuple(x.numpy() if hasattr(x, "numpy") else x for x in row)
         jobs += [
             ("opt_chain", [pv], _submit_timed(
                 pool, encode_opt.opt_chain_plain, row[0], [0], ln[r:r + 1])),
-            ("opt_matches", [mt], _submit_timed(
-                pool, encode_opt.opt_matches_plain, *row, pv, depth)),
+            ("opt_matches", [mt], pool.submit(
+                _timed_counted_call, f"{encode_opt.__name__}.opt_matches_plain",
+                (*args, pv.numpy(), depth), {})),
+            (names[2], [o[r:r + 1] for o in outs], pool.submit(
+                _timed_counted_call, f"{encode_opt.__name__}.opt_parse_spec_plain",
+                (*args, pv.numpy(), mt.numpy(), bcap, depth, sufficient), {}))
+            if not full else
             (names[2], [o[r:r + 1] for o in outs], _submit_timed(
-                pool, encode_opt.opt_parse_plain, *row, pv, mt, bcap, depth, sufficient)
-             if full else pool.submit(
-                 _timed_counted_call, f"{encode_opt.__name__}.opt_parse_spec_plain",
-                 (*(x.numpy() if hasattr(x, "numpy") else x for x in row), pv.numpy(),
-                  mt.numpy(), bcap, depth, sufficient), {})),
+                pool, encode_opt.opt_parse_plain, *row, pv, mt, bcap, depth, sufficient)),
         ]
+        if full:  # the parse by rounds: its counts (it asserts every commit)
+            jobs.append(("opt_parse:rounds", [o[r:r + 1] for o in outs], pool.submit(
+                _timed_counted_call, f"{encode_opt.__name__}.opt_parse_rounds_plain",
+                (*args, pv.numpy(), mt.numpy(), bcap, depth, sufficient, True), {})))
 
     def finish():
         errs, seconds, counts = _finish_holds(jobs, names, picks)
-        return errs, seconds, given_up, counts.get(names[2], [])
+        return errs, seconds, given_up, counts
 
     return finish
 
@@ -1557,6 +1588,8 @@ def _finish_holds(jobs, names, picks):
     seconds = dict.fromkeys(names, 0.0)
     counts = {}
     for name, mine, fut in jobs:
+        errs.setdefault(name, 0)
+        seconds.setdefault(name, 0.0)
         out, sec = fut.result()
         if isinstance(out, tuple) and isinstance(out[-1], list):
             out, got = out
@@ -1896,16 +1929,17 @@ def hc_pass_entries(label: str, held: str, replaces: str, windows, got, pass_ms,
         "library_ms": None} for name in HC_PASSES]
 
 
-def settle_hc_entries(entries, finish, scale: dict, clock: float) -> dict:
+def settle_hc_entries(entries, finish, scale: dict, clock: float, longest: int) -> dict:
     """Fill the HC passes' entries from their plain versions on the picked
     rows: max_abs_err, the plain time scaled to the batch (times
     ``scale[pass]``), and the dependent-step bound, one L1 round trip
-    (L1_CYCLES at the card's top clock) a step: the episode pass's slowest
-    position (its chain steps), the parse's slowest row (its table reads
-    and the chain steps of its searches made on the spot).  Returns the
-    plain passes' counts."""
+    (L1_CYCLES at the card's top clock) a step: the chain pass's 32-position
+    steps over the longest row (``longest`` positions), the episode pass's
+    slowest position (its chain steps), the parse's slowest row (its table
+    reads and the chain steps of its searches made on the spot).  Returns
+    the plain passes' counts."""
     errs, seconds, given_up, counts = finish()
-    steps = {"opt_chain": 0,
+    steps = {"opt_chain": -(-longest // 32),
              "hc_episodes": max(c["most_steps"] for c in counts["hc_episodes"]),
              "hc_parse": max(c["read"] + c["spot_steps"] for c in counts["hc_parse"])}
     for e, name in zip(entries, HC_PASSES):
@@ -2154,6 +2188,7 @@ def phase_hc_times(data: bytes, dev):
                 "path": f"L12_{path}", "held": path, "max_abs_err": 0,
                 "ms": pass_ms[kernel], "plain_ms": None,
                 "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "byte_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3,
                 "library_ms": None})
         summary["L12"][path] = {"passes_call_ms": whole_ms, "pass_device_ms": pass_ms,
                                 "rows_equal_to_serial": nb, "max_abs_err": err}
@@ -2167,31 +2202,58 @@ def phase_hc_times(data: bytes, dev):
         for lv, path, ents, finish in finishes:
             if lv == "L9":
                 summary[lv][path].update(settle_hc_entries(
-                    ents, finish, dict.fromkeys(HC_PASSES, nb / len(picks)), clock))
+                    ents, finish, dict.fromkeys(HC_PASSES, nb / len(picks)), clock,
+                    int(windows[path][3].max())))
                 print(f"[hc times] level 9 {path}: each pass equal to its plain "
                       f"version on rows {picks}; step bounds " + ", ".join(
                           f"{e['name']} {e['step_bound_ms']:.3f} ms" for e in ents))
                 continue
-            errs, seconds, given_up, counts = finish()
-            summary[lv][path]["given_up"] = given_up
-            for e in ents:
-                name = e["name"].split(":")[0]
-                e["max_abs_err"] = errs[name]
-                e["plain_ms"] = seconds[name] * 1e3 / len(picks) * nb
-            if counts:  # the level 10-11 parse: its slowest held row's dependent steps
-                steps = max(c["steps"] for c in counts)
-                e = ents[-1]
-                e["step_bound_ms"] = steps * L1_CYCLES / clock * 1e3
-                # every lane of a round counted, those past its first match too
-                e["speculative_step_ms"] = (max(c["speculative_steps"] for c in counts)
-                                            * L1_CYCLES / clock * 1e3)
-                if e["step_bound_ms"] > e["bound_ms"]:
-                    e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
-                summary[lv][path]["parse_of_picked_rows"] = counts
+            summary[lv][path].update(settle_opt_entries(
+                ents, finish, nb / len(picks), clock, int(windows[path][3].max())))
             print(f"[hc times] level {lv[1:]} {path}: each pass equal to its plain "
-                  f"version on rows {picks}; {given_up} searches given up"
-                  + (f"; parse step bound {ents[-1]['step_bound_ms']:.3f} ms" if counts else ""))
+                  f"version on rows {picks}; {summary[lv][path]['given_up']} searches "
+                  "given up; step bounds " + ", ".join(
+                      f"{e['name']} {e['step_bound_ms']:.4f} ms" for e in ents)
+                  + f" (the serial walk's {ents[-1]['serial_step_ms']:.3f} ms)")
     return entries, summary
+
+
+def settle_opt_entries(entries, finish, scale: float, clock: float, longest: int) -> dict:
+    """Fill the OPT passes' entries from their plain versions on the held
+    rows (`hold_opt_passes`): max_abs_err, the plain time scaled to the
+    batch (times ``scale``; level 12's parse the serial plain parse's, the
+    parse by rounds' beside it as `rounds_model_ms`), and the
+    dependent-step bounds, one L1 round trip (L1_CYCLES at the card's top
+    clock) a step: the chain pass's 32-position steps over the longest row
+    (``longest`` positions), the match pass's slowest held search (its
+    chain steps plus its measures' word and byte compares, `most_steps`),
+    the parse's slowest held row (`opt_parse_rounds_row`'s `steps`), and
+    beside it the same row's dependent steps counted over every lane
+    (`speculative_steps`) and one thread's serial walk of it
+    (`serial_steps`).  A step bound above the bytes' is the bound
+    (`bound_by` "operations").  Returns the summary's counts."""
+    errs, seconds, given_up, counts = finish()
+    parse = entries[-1]["name"].split(":")[0]
+    model = parse + ":rounds" if parse + ":rounds" in counts else parse
+    step_ms = L1_CYCLES / clock * 1e3
+    steps = {"opt_chain": -(-longest // 32),
+             "opt_matches": max(c["most_steps"] for c in counts["opt_matches"]),
+             parse: max(c["steps"] for c in counts[model])}
+    for e in entries:
+        name = e["name"].split(":")[0]
+        e["max_abs_err"] = errs[name]
+        e["plain_ms"] = seconds[name] * 1e3 * scale
+        e["steps"] = steps[name]
+        e["step_bound_ms"] = steps[name] * step_ms
+        if e["step_bound_ms"] > e["bound_ms"]:
+            e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
+    e = entries[-1]
+    for key in ("speculative_steps", "serial_steps"):
+        e[key.replace("steps", "step_ms")] = max(c[key] for c in counts[model]) * step_ms
+    if model != parse:
+        e["rounds_model_ms"] = seconds[model] * 1e3 * scale
+    return {"given_up": given_up, "matches_of_picked_rows": counts["opt_matches"],
+            "parse_of_picked_rows": counts[model]}
 
 
 def _cli_hc(level: int = 9):
@@ -2253,10 +2315,11 @@ def phase_cli_hc(data: bytes, dev, pool):
     from lz4_tpu_torch.parallel.blocks import split_blocks
 
     settings = _cli_hc()
+    frames = []
     launches, e2e = _round_trips(data, settings, dev,
                                  _hc_counts(9) + [decode.decode_blocks, xxh32.xxh32_windows],
-                                 ROW_PASSES, idle=_hc_idle(9))
-    blob, peak = _compress_peak(data, settings, dev)
+                                 ROW_PASSES, idle=_hc_idle(9), frames=frames)
+    blob, peak = frames[0], e2e["compress_peak_allocated_bytes"]
     size = CLI_BLOCK
     bufs, lens = split_blocks(data, size)
     tables = sum(encode_hc_passes.table_bytes(int(n), int(n)) for n in lens)
@@ -2290,7 +2353,8 @@ def phase_cli_hc(data: bytes, dev, pool):
     held_bytes = 2 * cut
     summary.update(settle_hc_entries(entries, finish, {
         "opt_chain": len(data) / held_bytes, "hc_episodes": len(data) / held_bytes,
-        "hc_parse": len(data) / (held_bytes + int(lens[0]) + int(lens[nb - 1]))}, clock))
+        "hc_parse": len(data) / (held_bytes + int(lens[0]) + int(lens[nb - 1]))}, clock,
+        int(lens.max())))
     print(f"[lz4 -9] {len(data)} bytes -> {e2e['frame_bytes']} bytes (ratio "
           f"{len(data) / e2e['frame_bytes']:.4f}), round trip exact, deterministic, "
           f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
@@ -2313,9 +2377,12 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
     (timed once); the passes timed once on those rows (CUDA events between
     them); each pass run on 256 KB of the first row (text) and of the first
     records row, as rows of their own, and held there to its plain version
-    (the plain match pass over a 4 MiB row would take minutes): the parse's
-    step bound is that of the slower cut, a lower bound for the 4 MiB rows.  The
-    device memory one compress allocates at its peak, beside the OPT
+    (the plain match pass over a 4 MiB row would take minutes), and the
+    match pass (at level 10) on the whole 4 MiB text, records and runs rows
+    held on spans across its slice boundaries (`hold_match_spans`): the
+    chain pass's step bound is the 4 MiB rows', the match pass's and the
+    parse's those of the held positions, lower bounds for the 4 MiB rows.
+    The device memory a compress allocates at its peak, beside the OPT
     tables' bytes (`encode_opt.TABLE_BYTES` a block byte).  Returns the
     launches, the rates, the `kernels` entries and a summary."""
     import torch
@@ -2324,10 +2391,11 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
 
     label = f"lz4_{level}"
     settings = _cli_hc(level)
+    frames = []
     launches, e2e = _round_trips(data, settings, dev,
                                  _hc_counts(level) + [decode.decode_blocks, xxh32.xxh32_windows],
-                                 ROW_PASSES, idle=_hc_idle(level))
-    blob, peak = _compress_peak(data, settings, dev)
+                                 ROW_PASSES, idle=_hc_idle(level), frames=frames)
+    blob, peak = frames[0], e2e["compress_peak_allocated_bytes"]
     size = CLI_BLOCK
     bufs, lens = split_blocks(data, size)
     nb = bufs.shape[0]
@@ -2354,24 +2422,27 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
         "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "byte_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3,
         "library_ms": None} for name in SPEC_PASSES]
+    # at level 10 the match pass on whole 4 MiB rows (text, records, runs),
+    # held on spans of positions around slice boundaries and at the rows' ends
+    spans = (hold_match_spans(rows, [0, nb // 4, nb // 2], level, dev, pool) if level == 10
+             else lambda: {"rows": [], "positions": 0, "counts": []})
     # 256 KB of the first text row and the first records row as rows of their own
     cut = size // 16
     extra = [0, nb // 4]
-    errs, seconds, given_up, counts = hold_opt_passes(
+    finish = hold_opt_passes(
         rows[0], rows[1][extra], rows[2][extra], torch.tensor([cut, cut], dtype=torch.int32),
-        size, [0, 1], dev, pool, level=level)()
-    steps = max(c["steps"] for c in counts)
-    for e in entries:
-        name = e["name"].split(":")[0]
-        e["max_abs_err"] = errs[name]
-        e["plain_ms"] = seconds[name] * 1e3 * len(data) / (2 * cut)
-    e = entries[-1]
-    e["step_bound_ms"] = steps * L1_CYCLES / clock * 1e3
-    e["step_bound_of"] = "the held 256 KB cuts of the text and records rows"
-    e["speculative_step_ms"] = (max(c["speculative_steps"] for c in counts)
-                                * L1_CYCLES / clock * 1e3)
+        size, [0, 1], dev, pool, level=level)
+    held = settle_opt_entries(entries, finish, len(data) / (2 * cut), clock, int(lens.max()))
+    spans = spans()
+    e = entries[1]  # the match pass: its slowest held search, on the cuts or the spans
+    e["steps"] = max([e["steps"], *(c["most_steps"] for c in spans["counts"])])
+    e["step_bound_ms"] = e["steps"] * L1_CYCLES / clock * 1e3
     if e["step_bound_ms"] > e["bound_ms"]:
         e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
+    e["step_bound_of"] = "the held 256 KB cuts and spans of the 4 MiB rows"
+    e = entries[-1]
+    e["step_bound_of"] = "the held 256 KB cuts of the text and records rows"
+    given_up, counts = held["given_up"], held["parse_of_picked_rows"]
     tables = encode_opt.TABLE_BYTES * len(data)
     summary = {"pass_ms": pass_ms, "passes_ms": sum(pass_ms.values()),
                "serial_ms": serial_ms, "rows_equal_to_serial": nb,
@@ -2379,7 +2450,9 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
                "opt_table_bytes_per_payload_byte": tables / len(data),
                "compress_peak_allocated_bytes": peak,
                "compress_peak_per_payload_byte": peak / len(data),
-               "given_up_in_held_cuts": given_up, "parse_of_held_cuts": counts}
+               "given_up_in_held_cuts": given_up, "parse_of_held_cuts": counts,
+               "matches_of_held_cuts": held["matches_of_picked_rows"],
+               "matches_of_held_spans": spans}
     print(f"[lz4 -{level}] {len(data)} bytes -> {e2e['frame_bytes']} bytes (ratio "
           f"{len(data) / e2e['frame_bytes']:.4f}), round trip exact, deterministic, "
           f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
@@ -2387,10 +2460,71 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
           + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
           + f" ms, the serial OPT arm {serial_ms:.1f} ms on the same {nb} rows, "
           f"every block of the frame equal to its output; each pass equal to its "
-          f"plain version on 256 KB of the text and records rows (parse step bound "
-          f"{e['step_bound_ms']:.3f} ms); a compress allocates {peak} bytes at its "
-          f"peak, the OPT tables {tables}")
+          f"plain version on 256 KB of the text and records rows, the match pass "
+          f"on {spans['positions']} positions of the 4 MiB rows {spans['rows']} "
+          f"around slice boundaries (step bounds " + ", ".join(
+              f"{x['name']} {x['step_bound_ms']:.3f} ms" for x in entries)
+          + f"); a compress allocates {peak} bytes at its peak, the OPT tables {tables}")
     return launches, e2e, entries, summary
+
+
+def hold_match_spans(rows, picks, level: int, dev, pool):
+    """The match pass (`encode_opt.opt_matches` at ``level``'s depth) on
+    the whole rows ``picks`` of a batch of windows (``rows``: base, starts,
+    src_offs, lens), held to its plain version on spans of positions: 256
+    around the boundaries of slices 4 and 5 (the first whose staged deltas
+    start above the row's start), of the middle slice, and the row's last
+    1,024 positions (searches whose matches and patterns run to the row's
+    end); the chain pass held whole.  The plain
+    versions run on ``pool``.  Returns a function that waits for them and
+    returns the held rows and positions and the plain match pass's counts
+    per span."""
+    import torch
+    from lz4_tpu_torch.ops import encode_opt
+    from lz4_tpu_torch.ops.encode_hc import level_arm
+
+    depth = level_arm(level)[1]
+    base, st, so, ln = rows
+    st, so, ln = st[picks], so[picks], ln[picks]
+    base_d = base.to(dev)
+    prev = encode_opt.opt_chain(base_d, st, ln)
+    matches = encode_opt.opt_matches(base_d, st, so, ln, prev, depth)
+    torch.cuda.synchronize()
+    toff, _ = encode_opt.table_offsets(ln)
+    base_h = base.cpu()
+    jobs, held = [], 0
+    for j in range(len(picks)):
+        a, t, n = int(st[j]), int(toff[j]), int(ln[j])
+        row = base_h[a:a + n].numpy()
+        pv = prev[t:t + n].cpu()
+        mt = matches[t:t + n].cpu()
+        jobs.append(("opt_chain", pv, None, _submit_timed(
+            pool, encode_opt.opt_chain_plain, row, [0], ln[j:j + 1])))
+        middle = n // encode_opt.SLICE // 2 * encode_opt.SLICE
+        for p0, p1 in [(k - 128, k + 128) for k in (4 * encode_opt.SLICE, 5 * encode_opt.SLICE,
+                                                    middle)] + [(n - 1024, n)]:
+            held += p1 - p0
+            jobs.append(("opt_matches", mt, (p0, p1), pool.submit(
+                _timed_counted_call, f"{encode_opt.__name__}.opt_matches_plain",
+                (row, [0], so[j:j + 1].numpy(), ln[j:j + 1].numpy(), pv.numpy(), depth),
+                {"span": (p0, p1)})))
+
+    def finish():
+        counts = []
+        for name, mine, span, fut in jobs:
+            out, _ = fut.result()
+            if span is None:
+                _require(_max_abs_err([mine], [torch.from_numpy(out)]) == 0,
+                         f"opt_chain on a 4 MiB row: kernel != plain")
+                continue
+            out, got = out
+            p0, p1 = span
+            _require(_max_abs_err([mine[p0:p1]], [torch.from_numpy(out)[p0:p1]]) == 0,
+                     f"opt_matches on a 4 MiB row, positions [{p0}, {p1}): kernel != plain")
+            counts.append({"span": list(span), **got[0]})
+        return {"rows": list(picks), "positions": held, "counts": counts}
+
+    return finish
 
 
 XXH_LENGTHS = [0, 1, 3, 4, 15, 16, 17, 31, 32, 100, 1024, 4097, 65536]

@@ -33,45 +33,61 @@
 //    read.  Positions before the row's window are not in its table, so a
 //    chained window's first positions end their chains as its ring does.
 // 2. opt_matches_rows: every position's search, wider_match(p, p, 3,
-//    pattern analysis, chain swap) over the tables with the level's depth,
-//    one thread per position, 256 to a CTA and as many CTAs per SM as
-//    registers allow: the dependent reads of many positions are in flight
-//    at once.  Writes (length, offset), or (0, 0) when nothing is longer
-//    than 3 bytes, for every position of the row (zeros outside the
-//    searched span).  A search whose work passes its budget (BudgetChain:
-//    chain steps plus bytes measured) gives up and writes (-1 - the longest
-//    match it had found, 0): in a long repeat every position would measure
-//    the whole repeat at every step, work that the serial parse, which
-//    jumps over the repeat, never does.  Every search starts with a small
-//    budget; one that gives up with no match longer than `retry_longest`
-//    starts again with a large one (a longer match is a repeat the parse is
-//    likely to jump over).
-// 3. Level 12, opt_parse_rows: the price parse (lz4_hc_body.cuh opt_parse)
-//    with its searches read from the table, and a search that gave up made
-//    again in full on the spot (TableChain: any position's search needs
-//    only the tables), one thread per row, a CTA each: only the 64 KB
-//    price table is in shared memory, so three rows run per SM and 256
-//    rows in one wave.
-//    Levels 10-11, opt_parse_spec_rows: the same parse by one warp per row
-//    (lz4_hc_body.cuh opt_parse_rounds), three rows per SM.  A search whose
-//    minimum length is 3 or less reads the table (opt_find(p, m) equals
-//    opt_find(p, 3) there); the others run on the lanes, each lane one of
-//    the next <= 32 positions the parse does not skip, with the minimum
-//    length the state gives it, and the warp commits them in order up to
-//    the first that finds a match (a search that finds nothing changes no
-//    state).  So a row's searches take as many dependent rounds as its
-//    parse has matches, where the serial arm takes one per search.
-//
+//    pattern analysis, chain swap) over the tables with the level's depth.
+//    Writes (length, offset), or (0, 0) when nothing is longer than 3
+//    bytes, for every position of the row (zeros outside the searched
+//    span).  A search whose work passes its budget (BudgetChain: chain
+//    steps plus bytes measured) gives up and writes (-1 - the longest match
+//    it had found, 0): in a long repeat every position would measure the
+//    whole repeat at every step, work that the serial parse, which jumps
+//    over the repeat, never does.  Every search starts with a small budget;
+//    one that gives up with no match longer than `retry_longest` starts
+//    again with a large one (a longer match is a repeat the parse is likely
+//    to jump over).  One CTA of 1,024 threads per slice of kSlice (16,384)
+//    positions of a row, one CTA per SM: it stages in shared memory the u16
+//    chain deltas min(q - prev[q], 0xFFFF) of [slice start - 65,535, slice
+//    end) (2 x (65,535 + 16,384) bytes, within the card's 227 KB a block),
+//    each computed once from prev.  A search at p reaches no candidate below
+//    p - 65,535, so every chain step reads a staged delta, a dependent
+//    shared load (SliceChain, lz4_hc_body.cuh); the bytes it compares come
+//    from the row in device memory, which its neighbours' searches keep in
+//    L1 (staging them too, at 8,192 positions a slice, was slower: each
+//    read then tests which copy to read).  Each warp takes the slice's next
+//    32 positions from a shared counter, so the warps of a slice end
+//    together; a warp still waits for its longest lane, and a slice's
+//    slowest search holds its SM, which the larger slice amortises.
+// 3. The price parse (lz4_hc_body.cuh opt_parse_rounds) by one warp per
+//    row, three rows per SM, the 64 KB price table in shared memory (the
+//    one-thread walk it replaces at level 12 stays only in the serial arm).
+//    Levels 10-11, opt_parse_spec_rows: a search whose minimum length is 3
+//    or less reads the table (opt_find(p, m) equals opt_find(p, 3) there),
+//    the others run on the lanes; each round the lanes take the next <= 32
+//    positions the parse does not skip, each with the minimum length the
+//    state gives it, and the warp commits them in order up to the first
+//    that finds a match (a search that finds nothing changes no state).
+//    Level 12, opt_parse_rows (`full`): every search has minimum length 3,
+//    so no table entry depends on the state: a round reads the entries of
+//    the next 32 positions and commits their matches in order, each the
+//    first position past the last commit that the live price table does
+//    not skip (level 12's test) and whose entry, or its lane's search on
+//    the spot where the match pass gave up, has a match.  A committed
+//    match's price-table step (opt_add_warp: up to `sufficient` = 4,095
+//    lengths at level 12) and a window's seed are spread over the lanes.
+//    So a row takes one dependent step per commit (a few shared loads,
+//    ballots and shuffles: one warp, nothing to hide their latency), per
+//    32 positions read and per ceil((length - 3) / 32) lengths priced,
+//    where the serial walk took one per position visited, per length
+//    priced and per chain step of a search made on the spot.
+
 // What bounds them: not bytes (the windows, 12 bytes of table per window
-// byte and the output: ~0.1 ms per 16 MiB at 3.35 TB/s).  The chain pass is
-// bound by its 32-position steps (~4,000 per 128 KB window); the match pass
-// by the chain steps, about 5x the serial parse's at level 12 (it searches
-// positions the parse skips), now spread over every SM, with warps held by
-// their longest lane; the level 12 parse by its serial walk of the row;
-// the level 10-11 parse by its rounds, each as long as its longest lane's
-// search (up to the level's 96 or 512 chain steps).  The tables of a batch
-// take 12 bytes per window byte of device memory; the wrapper processes
-// rows in groups under a fixed cap.
+// byte and the output: ~0.1 ms per 16 MiB at 3.35 TB/s), but dependent
+// steps: the chain pass's 32-position steps (2,048 per 64 KB row, 4,096 per
+// 128 KB window); the match pass's slowest search (its chain steps and
+// bytes measured, at most first_budget + budget), with warps held by their
+// longest lane; the parse's commits and rounds, on the level 12 path the
+// noise rows' (one commit per ~1.7 positions).  The tables of a batch take
+// 12 bytes per window byte of device memory; the wrapper processes rows in
+// groups under a fixed cap.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -83,7 +99,10 @@ using namespace lz4t;
 
 namespace {
 
-constexpr int kMatchThreads = 256;
+constexpr int kMatchThreads = 1024;
+constexpr int kSlice = 16384;  // positions a CTA of the match pass searches
+// the staged deltas of the positions a slice's searches reach
+constexpr int kSliceDeltaBytes = ((kMaxDistance + kSlice) * 2 + 15) / 16 * 16;
 
 __global__ void __launch_bounds__(32) opt_chain_rows(
     const uint8_t* __restrict__ base, const long long* __restrict__ starts,
@@ -115,60 +134,80 @@ __global__ void __launch_bounds__(32) opt_chain_rows(
   }
 }
 
-__global__ void __launch_bounds__(kMatchThreads) opt_matches_rows(
+__global__ void __launch_bounds__(kMatchThreads, 1) opt_matches_rows(
     const uint8_t* __restrict__ base, const long long* __restrict__ starts,
     const int* __restrict__ src_offs, const int* __restrict__ lens,
     const long long* __restrict__ toff, const int* __restrict__ prev,
     int2* __restrict__ matches, int depth, int first_budget, int budget, int retry_longest) {
-  const int row = blockIdx.y;
-  const int p = blockIdx.x * kMatchThreads + threadIdx.x;
-  const int n = lens[row];
-  if (p >= n) return;
-  const int src_off = src_offs[row];
-  int2 m = make_int2(0, 0);
-  if (n - src_off >= kMfLimit + 1 && p >= src_off && p <= n - kMfLimit) {
-    BudgetChain c{base + starts[row], prev + toff[row], n - kLastLiterals, depth, first_budget};
-    int ms = p, mp = -1;
-    int len = wider_match(c, p, p, kMinMatch - 1, ms, mp, true, true);
-    if (len < 0 && -1 - len <= retry_longest && budget > first_budget) {
-      c.budget = budget;  // no long repeat measured: search again with the large budget
-      ms = p;
-      mp = -1;
-      len = wider_match(c, p, p, kMinMatch - 1, ms, mp, true, true);
-    }
-    if (len < 0)
-      m = make_int2(len, 0);  // gave up: the parse searches here itself
-    else if (len > kMinMatch - 1)
-      m = make_int2(len, p - mp);
-  }
-  matches[toff[row] + p] = m;
-}
-
-__global__ void __launch_bounds__(1) opt_parse_rows(
-    const uint8_t* __restrict__ base, const long long* __restrict__ starts,
-    const int* __restrict__ src_offs, const int* __restrict__ lens,
-    const long long* __restrict__ toff, const int* __restrict__ prev,
-    const int2* __restrict__ matches, uint8_t* __restrict__ out, long long out_stride,
-    int ocap, int depth, int sufficient, int* __restrict__ clens, int* __restrict__ errs) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int row = blockIdx.x;
-  const uint8_t* s = base + starts[row];
+  __shared__ int next;  // the slice's next position to hand a warp
+  const int row = blockIdx.y;
   const int n = lens[row];
-  const int2* t = matches + toff[row];
-  TableChain c{s, prev + toff[row], n - kLastLiterals, depth, 0};
-  auto find = [t, &c](int p, int min_len, int& off) {
-    const int2 m = t[p];
-    if (m.x < 0) return opt_find(c, p, min_len, off);
-    off = m.y;
-    return m.x;
-  };
-  Sink o{out + row * out_stride, 0, static_cast<int>(out_stride)};
-  opt_parse(s, src_offs[row], n, sufficient, true, o, reinterpret_cast<OptCell*>(smem), find);
-  clens[row] = o.op;
-  errs[row] = o.op > ocap ? 1 : 0;
+  const int p0 = blockIdx.x * kSlice;
+  if (p0 >= n) return;
+  const int p1 = min(n, p0 + kSlice);
+  const int src_off = src_offs[row];
+  int2* out = matches + toff[row];
+  // the slice's searched positions [a, b)
+  const int a = max(p0, src_off);
+  const int b = n - src_off >= kMfLimit + 1 ? min(p1, n - kMfLimit + 1) : a;
+  if (a >= b) {  // a prefix or the row's tail: nothing searched
+    for (int p = p0 + threadIdx.x; p < p1; p += kMatchThreads) out[p] = make_int2(0, 0);
+    return;
+  }
+  const uint8_t* s = base + starts[row];
+  const int* pv = prev + toff[row];
+  const int lo = max(0, a - kMaxDistance);  // the lowest position a search reaches
+  uint16_t* delta = reinterpret_cast<uint16_t*>(smem);
+  // four loads in flight a thread: the staging waits on device memory
+  for (int q0 = lo + threadIdx.x; q0 < b; q0 += 4 * kMatchThreads) {
+    int pq[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int q = q0 + k * kMatchThreads;
+      pq[k] = q < b ? __ldg(pv + q) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int q = q0 + k * kMatchThreads;
+      const int d = q - pq[k];
+      if (q < b) delta[q - lo] = static_cast<uint16_t>(d > 0xFFFF ? 0xFFFF : d);
+    }
+  }
+  if (threadIdx.x == 0) next = p0;
+  __syncthreads();
+  SliceChain c{s, pv, delta, lo, n - kLastLiterals, depth, 0};
+  const int lane = lane_id();
+  for (;;) {
+    int w0 = 0;
+    if (lane == 0) w0 = atomicAdd(&next, 32);
+    w0 = __shfl_sync(kFull, w0, 0);
+    if (w0 >= p1) break;
+    const int p = w0 + lane;
+    if (p >= p1) continue;
+    int2 m = make_int2(0, 0);
+    if (p >= a && p < b) {
+      int len, mp;
+      c.budget = first_budget;
+      for (;;) {  // one call site: wider_match inlined over the staged tables
+        int ms = p;
+        mp = -1;
+        len = wider_match(c, p, p, kMinMatch - 1, ms, mp, true, true);
+        if (len >= 0 || -1 - len > retry_longest || c.budget >= budget) break;
+        c.budget = budget;  // no long repeat measured: search again with the large budget
+      }
+      if (len < 0)
+        m = make_int2(len, 0);  // gave up: the parse searches here itself
+      else if (len > kMinMatch - 1)
+        m = make_int2(len, p - mp);
+    }
+    out[p] = m;
+  }
 }
 
-__global__ void __launch_bounds__(32) opt_parse_spec_rows(
+// The parse by one warp per row (opt_parse_rounds): level 12 with `full`.
+template <bool full>
+__device__ __forceinline__ void parse_row(
     const uint8_t* __restrict__ base, const long long* __restrict__ starts,
     const int* __restrict__ src_offs, const int* __restrict__ lens,
     const long long* __restrict__ toff, const int* __restrict__ prev,
@@ -180,12 +219,33 @@ __global__ void __launch_bounds__(32) opt_parse_spec_rows(
   const int n = lens[row];
   TableChain c{s, prev + toff[row], n - kLastLiterals, depth, 0};
   WarpSink o{out + row * out_stride, 0, static_cast<int>(out_stride)};
-  opt_parse_rounds(s, src_offs[row], n, sufficient, matches + toff[row], c, o,
-                   reinterpret_cast<OptCell*>(smem), reinterpret_cast<int*>(smem + kOptCellsBytes));
+  opt_parse_rounds<full>(s, src_offs[row], n, sufficient, matches + toff[row], c, o,
+                         reinterpret_cast<OptCell*>(smem),
+                         reinterpret_cast<int*>(smem + kOptCellsBytes));
   if (threadIdx.x == 0) {
     clens[row] = o.op;
     errs[row] = o.op > ocap ? 1 : 0;
   }
+}
+
+__global__ void __launch_bounds__(32) opt_parse_rows(
+    const uint8_t* __restrict__ base, const long long* __restrict__ starts,
+    const int* __restrict__ src_offs, const int* __restrict__ lens,
+    const long long* __restrict__ toff, const int* __restrict__ prev,
+    const int2* __restrict__ matches, uint8_t* __restrict__ out, long long out_stride,
+    int ocap, int depth, int sufficient, int* __restrict__ clens, int* __restrict__ errs) {
+  parse_row<true>(base, starts, src_offs, lens, toff, prev, matches, out, out_stride, ocap, depth,
+                  sufficient, clens, errs);
+}
+
+__global__ void __launch_bounds__(32) opt_parse_spec_rows(
+    const uint8_t* __restrict__ base, const long long* __restrict__ starts,
+    const int* __restrict__ src_offs, const int* __restrict__ lens,
+    const long long* __restrict__ toff, const int* __restrict__ prev,
+    const int2* __restrict__ matches, uint8_t* __restrict__ out, long long out_stride,
+    int ocap, int depth, int sufficient, int* __restrict__ clens, int* __restrict__ errs) {
+  parse_row<false>(base, starts, src_offs, lens, toff, prev, matches, out, out_stride, ocap,
+                   depth, sufficient, clens, errs);
 }
 
 }  // namespace
@@ -198,10 +258,13 @@ __global__ void __launch_bounds__(32) opt_parse_spec_rows(
 
 extern "C" int lz4t_opt_chain_shared_bytes() { return kHcHeadInts * static_cast<int>(sizeof(int)); }
 
-extern "C" int lz4t_opt_parse_shared_bytes() { return kOptCellsBytes; }
+// The staged deltas of one slice of `lz4t_opt_slice()` positions.
+extern "C" int lz4t_opt_matches_shared_bytes() { return kSliceDeltaBytes; }
 
-// The price table and the lanes' positions (32 ints).
-extern "C" int lz4t_opt_parse_spec_shared_bytes() { return kOptCellsBytes + 32 * 4; }
+extern "C" int lz4t_opt_slice() { return kSlice; }
+
+// The price table and the lanes' positions (32 ints), at every level.
+extern "C" int lz4t_opt_parse_shared_bytes() { return kOptCellsBytes + 32 * 4; }
 
 extern "C" int lz4t_opt_chain(const void* base, const void* starts, const void* lens,
                               const void* toff, void* prev, int nrows, void* stream) {
@@ -216,14 +279,18 @@ extern "C" int lz4t_opt_chain(const void* base, const void* starts, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// `max_len` is the longest row: the grid is (ceil(max_len / 256), nrows),
-// nrows <= 65,535.
+// `max_len` is the longest row: the grid is (ceil(max_len / kSlice),
+// nrows), nrows <= 65,535.
 extern "C" int lz4t_opt_matches(const void* base, const void* starts, const void* src_offs,
                                 const void* lens, const void* toff, const void* prev,
                                 void* matches, int depth, int first_budget, int budget,
                                 int retry_longest, int nrows, int max_len, void* stream) {
-  const dim3 grid((max_len + kMatchThreads - 1) / kMatchThreads, nrows);
-  opt_matches_rows<<<grid, kMatchThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int smem = lz4t_opt_matches_shared_bytes();
+  cudaError_t e = cudaFuncSetAttribute(
+      opt_matches_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((max_len + kSlice - 1) / kSlice, nrows);
+  opt_matches_rows<<<grid, kMatchThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(base), static_cast<const long long*>(starts),
       static_cast<const int*>(src_offs), static_cast<const int*>(lens),
       static_cast<const long long*>(toff), static_cast<const int*>(prev),
@@ -231,6 +298,7 @@ extern "C" int lz4t_opt_matches(const void* base, const void* starts, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+// One warp per row: `depth` and `sufficient` are the level's (level 12).
 extern "C" int lz4t_opt_parse(const void* base, const void* starts, const void* src_offs,
                               const void* lens, const void* toff, const void* prev,
                               const void* matches, void* out, long long out_stride, int ocap,
@@ -240,7 +308,7 @@ extern "C" int lz4t_opt_parse(const void* base, const void* starts, const void* 
   cudaError_t e = cudaFuncSetAttribute(
       opt_parse_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  opt_parse_rows<<<nrows, 1, smem, static_cast<cudaStream_t>(stream)>>>(
+  opt_parse_rows<<<nrows, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(base), static_cast<const long long*>(starts),
       static_cast<const int*>(src_offs), static_cast<const int*>(lens),
       static_cast<const long long*>(toff), static_cast<const int*>(prev),
@@ -256,7 +324,7 @@ extern "C" int lz4t_opt_parse_spec(const void* base, const void* starts, const v
                                    const void* matches, void* out, long long out_stride,
                                    int ocap, int depth, int sufficient, void* clens, void* errs,
                                    int nrows, void* stream) {
-  const int smem = lz4t_opt_parse_spec_shared_bytes();
+  const int smem = lz4t_opt_parse_shared_bytes();
   cudaError_t e = cudaFuncSetAttribute(
       opt_parse_spec_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

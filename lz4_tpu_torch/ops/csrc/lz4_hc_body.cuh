@@ -26,8 +26,10 @@
 // The OPT parse (opt_parse) and one HC episode (hc_episode) take their
 // search as a callable: opt_scan and hc_scan hand them the ring's, the
 // passes a read of a table of searches made ahead.  opt_parse_rounds is
-// the OPT parse at levels 10-11 by one warp, its searches made up to 32 at
-// a time over TableChain.
+// the OPT parse at levels 10-12 by one warp, its searches made up to 32 at
+// a time over TableChain and its price-table steps spread over the lanes
+// (opt_seed_warp, opt_add_warp).  SliceChain is BudgetChain over a slice of
+// a row whose chain deltas are staged in shared memory (the match pass).
 
 #pragma once
 
@@ -125,6 +127,30 @@ struct TableChainT {
 };
 using TableChain = TableChainT<false>;
 using BudgetChain = TableChainT<true>;
+
+// BudgetChain over one slice of a row's positions, its chain deltas staged
+// in shared memory (encode_opt.cu opt_matches_rows): min(q - prev[q],
+// 0xFFFF) for q in [lo, the slice's end) at delta[q - lo].  A search at pos
+// in the slice reads its head prev[pos] from device memory and its chain
+// steps only at positions in [lowest = max(0, pos - 65,535), pos), lo <=
+// lowest: wider_match steps from a candidate it has checked against
+// `lowest`, or from one inside the current best, which ends at or before
+// pos.  So every step reads a staged delta.  The bytes are read from the
+// row in device memory (through L1).  The answers are BudgetChain's.
+struct SliceChain {
+  const uint8_t* s;
+  const int* prev;
+  const uint16_t* delta;
+  int lo;
+  int ihigh;
+  int attempts;
+  int budget;
+  static constexpr bool kBudgeted = true;
+
+  __device__ __forceinline__ void insert(int) {}
+  __device__ __forceinline__ int first(int, int pos) const { return __ldg(prev + pos); }
+  __device__ __forceinline__ int step(int q) const { return delta[q - lo]; }
+};
 
 // The ring's answers read from the same tables when positions past the
 // search may already be inserted: `frontier` is the ring's insert mark
@@ -553,9 +579,9 @@ __device__ __forceinline__ void opt_set(OptCell& cell, int price, int off, int m
   cell.litlen = litlen;
 }
 
-// The price table's steps, shared by the serial parse (opt_parse) and the
-// warp's (opt_parse_rounds).  Seed a window: leading literals, then the
-// first match at its start.
+// The price table's steps of the serial parse (opt_parse; the warp's are
+// opt_seed_warp and opt_add_warp below).  Seed a window: leading literals,
+// then the first match at its start.
 __device__ inline void opt_seed(OptCell* cells, int llen, int first_len, int first_off) {
   for (int r = 0; r < kMinMatch; ++r) opt_set(cells[r], lit_price(llen + r), 0, 1, llen + r);
   for (int m = kMinMatch; m <= first_len; ++m)
@@ -590,6 +616,52 @@ __device__ inline int opt_add(OptCell* cells, int cur, int new_len, int new_off,
   }
   for (int a = 1; a <= kOptTrailing; ++a)
     opt_set(cells[last + a], cells[last].price + lit_price(a), 0, 1, a);
+  return last;
+}
+
+// The same two steps by one warp (opt_parse_rounds), every lane calling
+// with the same arguments.  Each match length m writes only cells[m] (the
+// seed) or cells[cur + m] (opt_add) and reads nothing another length writes,
+// so lane l takes m = 4 + l, 4 + l + 32, ...; the literal extensions (cells
+// cur + 1..3) and the seed's leading literals take lanes 1-3 and 0-3.  In
+// opt_add only m == new_len can move `last`, against the `last` from before
+// the loop: its lane hands the new one to the warp, and the trailing
+// literals, which read cells[last], follow a __syncwarp.  The seed's
+// trailing literals price cells[first_len], which the seed sets to
+// seq_price(llen, first_len).  The caller orders these writes before any
+// lane's reads with a __syncwarp.
+__device__ inline void opt_seed_warp(OptCell* cells, int llen, int first_len, int first_off) {
+  const int lane = lane_id();
+  if (lane < kMinMatch) opt_set(cells[lane], lit_price(llen + lane), 0, 1, llen + lane);
+  for (int m = kMinMatch + lane; m <= first_len; m += 32)
+    opt_set(cells[m], seq_price(llen, m), first_off, m, llen);
+  if (lane >= 1 && lane <= kOptTrailing)
+    opt_set(cells[first_len + lane], seq_price(llen, first_len) + lit_price(lane), 0, 1, lane);
+}
+
+__device__ inline int opt_add_warp(OptCell* cells, int cur, int new_len, int new_off, int last) {
+  const int lane = lane_id();
+  const OptCell at = cells[cur];
+  if (lane >= 1 && lane < kMinMatch) {  // the literal extension to cur + lane
+    const int price = at.price - lit_price(at.litlen) + lit_price(at.litlen + lane);
+    if (price < cells[cur + lane].price) opt_set(cells[cur + lane], price, 0, 1, at.litlen + lane);
+  }
+  const bool lit = at.mlen == 1;
+  const int ll = lit ? at.litlen : 0;
+  const int base = lit ? (cur > ll ? cells[cur - ll].price : 0) : at.price;
+  int moved = last;
+  for (int m = kMinMatch + lane; m <= new_len; m += 32) {
+    const int p = cur + m;
+    const int price = base + seq_price(ll, m);
+    if (p > last + kOptTrailing || price <= cells[p].price) {
+      if (m == new_len && last < p) moved = p;
+      opt_set(cells[p], price, new_off, m, ll);
+    }
+  }
+  last = __shfl_sync(kFull, moved, (new_len - kMinMatch) & 31);
+  __syncwarp();  // every length's cells before cells[last] is read
+  if (lane >= 1 && lane <= kOptTrailing)
+    opt_set(cells[last + lane], cells[last].price + lit_price(lane), 0, 1, lane);
   return last;
 }
 
@@ -689,31 +761,41 @@ __device__ void opt_parse(const uint8_t* s, int src_off, int n, int sufficient, 
   emit(o, s, anchor, n - anchor, 0, 0);
 }
 
-// The OPT arm's parse at levels 10-11 (opt_parse with `full` false) by one
-// warp, its searches made up to 32 at a time.  `t` is the row's table of
-// every position's min-length-3 search (encode_opt.cu opt_matches_rows: (0,
-// 0) for none, a length below 0 where it gave up); `c` makes a search on
-// the spot.  Two facts make the rounds exact:
+// The OPT arm's parse (opt_parse) by one warp, its searches made up to 32
+// at a time: levels 10-11 with `full` false, level 12 with `full` true.
+// `t` is the row's table of every position's min-length-3 search
+// (encode_opt.cu opt_matches_rows: (0, 0) for none, a length below 0 where
+// it gave up); `c` makes a search on the spot.  Two facts make the rounds
+// exact:
 // 1. opt_find(p, m) equals opt_find(p, 3) for m <= 3: the quick reject's two
 //    bytes lie inside the 4-byte compare, every measured match and pattern
 //    length is at least 4, so the chain swap and pattern step act alike.
 //    So a search with a minimum length of 3 or less reads the table (one
-//    that gave up there is made on the spot).
+//    that gave up there is made on the spot).  At level 12 every search
+//    has minimum length 3, so every lane reads the table.
 // 2. A search that finds nothing changes nothing: the parse goes on to the
 //    next position before it writes a cell or `last`.  From a given state
-//    every later position's skip test and minimum length (last - cur) stay
-//    as the state gives them up to the first search that finds a match.
-// So each round the lanes take the next <= 32 positions the state does not
-// skip, each searches (or reads the table) with the state's last - cur, and
-// the warp commits them in order up to the first that finds a match, which
-// it applies; the next round starts after it.  Where the window starts,
-// the lanes read 32 table entries and take the first nonzero one.  Every
-// lane keeps the same scalar state (positions, last, anchor, the output
-// cursor); lane 0 alone writes the cells, and a __syncwarp orders its
-// writes before the other lanes' reads and their reads before its next
-// writes.  `lane_pos` (32 ints of shared memory) hands each lane its
+//    every later position's skip test (level 12's with its extra clause)
+//    and minimum length (last - cur, or 3) stay as the state gives them up
+//    to the first search that finds a match.
+// So at levels 10-11 each round the lanes take the next <= 32 positions the
+// state does not skip, each searches (or reads the table) with the state's
+// minimum length, the lanes' searches on the spot running side by side,
+// and the warp commits them in order up to the first that finds a match,
+// which it applies (opt_add_warp); the next round starts after it.  At level
+// 12 no search depends on the state, so a round reads the table entries of
+// the next 32 positions and commits their matches in order: after each
+// commit the lanes past it test their positions against the new cells, and
+// a lane whose position is open and whose entry gave up searches on the
+// spot (side by side with the others).  Where the window starts, the lanes
+// read 32 table entries and take the first nonzero one.
+// Every lane keeps the same scalar state (positions, last, anchor, the
+// output cursor).  Every lane writes cells in opt_seed_warp and
+// opt_add_warp; lane 0 alone reverses the path; a __syncwarp orders each
+// phase's writes before the next phase's reads and its reads before the
+// next writes.  `lane_pos` (32 ints of shared memory) hands each lane its
 // position.
-template <class C>
+template <bool full, class C>
 __device__ void opt_parse_rounds(const uint8_t* s, int src_off, int n, int sufficient,
                                  const int2* t, C& c, WarpSink& o, OptCell* cells,
                                  int* lane_pos) {
@@ -748,56 +830,85 @@ __device__ void opt_parse_rounds(const uint8_t* s, int src_off, int n, int suffi
         anchor = ip;
         continue;
       }
-      if (lane == 0) opt_seed(cells, llen, first_len, first_off);
+      opt_seed_warp(cells, llen, first_len, first_off);
       int last = first_len, cur = 1, best_mlen = 0, best_off = 0;
       bool early = false;
+      // the serial loop's skip test at window position q
+      auto open_at = [cells](int q) {
+        return cells[q + 1].price > cells[q].price ||
+               (full && cells[q + kMinMatch].price >= cells[q].price + 3);
+      };
       for (;;) {  // one round
-        const int end = min(last, mflimit - ip + 1);
+        int end = min(last, mflimit - ip + 1);
         if (cur >= end) break;
-        __syncwarp();  // lane 0's cells before the reads
-        int got = 0;   // positions not skipped, the first 32 in lane_pos
-        for (int c0 = cur; c0 < end && got < 32; c0 += 32) {
-          const int q = c0 + lane;
-          const bool open = q < end && cells[q + 1].price > cells[q].price;
-          const unsigned ball = __ballot_sync(kFull, open);
-          const int rank = got + __popc(ball & ((1u << lane) - 1u));
-          if (open && rank < 32) lane_pos[rank] = q;
-          got += __popc(ball);
-        }
-        __syncwarp();  // lane_pos before the reads; the cells' reads before lane 0's writes
-        const int mine = lane < got ? lane_pos[lane] : -1;
-        const int next = got >= 32 ? lane_pos[31] + 1 : end;
-        int len = 0, off = 0;
-        if (mine >= 0) {
-          const int m = last - mine;
-          const int2 e = m < kMinMatch ? t[ip + mine] : make_int2(-1, 0);
-          if (e.x >= 0) {
-            len = e.x;
-            off = e.y;
-          } else {
-            len = opt_find(c, ip + mine, m, off);
+        __syncwarp();  // the cells before the reads
+        int mine, next;  // this lane's position; where the round's positions end
+        int2 e = make_int2(0, 0);
+        if (full) {  // the next 32 positions, each lane's table entry read once
+          mine = cur + lane;
+          next = cur + 32;
+          if (ip + mine <= mflimit) e = t[ip + mine];
+        } else {
+          int got = 0;  // positions not skipped, the first 32 in lane_pos
+          for (int c0 = cur; c0 < end && got < 32; c0 += 32) {
+            const int q = c0 + lane;
+            const bool open = q < end && open_at(q);
+            const unsigned ball = __ballot_sync(kFull, open);
+            const int rank = got + __popc(ball & ((1u << lane) - 1u));
+            if (open && rank < 32) lane_pos[rank] = q;
+            got += __popc(ball);
           }
+          __syncwarp();  // lane_pos before the reads; the cells' reads before the writes
+          mine = lane < got ? lane_pos[lane] : -1;
+          next = got >= 32 ? lane_pos[31] + 1 : end;
         }
-        const unsigned found = __ballot_sync(kFull, len != 0);
-        if (found == 0) {
-          cur = next;
-          continue;
+        for (;;) {  // the round's commits, in position order
+          int len = 0, off = 0;
+          if (full) {
+            // an entry does not depend on the state: after a commit the
+            // lanes past it test their positions again against the new cells
+            if (mine >= cur && mine < end && open_at(mine)) {
+              if (e.x < 0) e.x = opt_find(c, ip + mine, kMinMatch - 1, e.y);  // gave up
+              len = e.x;
+              off = e.y;
+            }
+          } else if (mine >= 0) {
+            const int m = last - mine;
+            const int2 te = m < kMinMatch ? t[ip + mine] : make_int2(-1, 0);
+            if (te.x >= 0) {
+              len = te.x;
+              off = te.y;
+            } else {
+              len = opt_find(c, ip + mine, m, off);
+            }
+          }
+          const unsigned found = __ballot_sync(kFull, len != 0);
+          if (found == 0) {
+            cur = next;
+            break;
+          }
+          const int k = __ffs(static_cast<int>(found)) - 1;
+          cur = __shfl_sync(kFull, mine, k);
+          const int new_len = __shfl_sync(kFull, len, k);
+          const int new_off = __shfl_sync(kFull, off, k);
+          if (new_len > sufficient || new_len + cur >= kOptNum) {
+            best_mlen = new_len;
+            best_off = new_off;
+            last = cur + 1;
+            early = true;
+            break;
+          }
+          last = opt_add_warp(cells, cur, new_len, new_off, last);
+          ++cur;
+          end = min(last, mflimit - ip + 1);
+          // levels 10-11: the new state changed the minimum lengths of the
+          // lanes past the commit, so their searches are made again
+          if (!full || cur >= end) break;
+          __syncwarp();  // the cells before the reads
         }
-        const int k = __ffs(static_cast<int>(found)) - 1;
-        cur = __shfl_sync(kFull, mine, k);
-        const int new_len = __shfl_sync(kFull, len, k);
-        const int new_off = __shfl_sync(kFull, off, k);
-        if (new_len > sufficient || new_len + cur >= kOptNum) {
-          best_mlen = new_len;
-          best_off = new_off;
-          last = cur + 1;
-          early = true;
-          break;
-        }
-        if (lane == 0) last = opt_add(cells, cur, new_len, new_off, last);
-        last = __shfl_sync(kFull, last, 0);
-        ++cur;
+        if (early) break;
       }
+      __syncwarp();  // every lane's cells before lane 0 walks the path
       if (lane == 0) {
         if (!early) {
           best_mlen = cells[last].mlen;
@@ -808,7 +919,7 @@ __device__ void opt_parse_rounds(const uint8_t* s, int src_off, int n, int suffi
       }
       __syncwarp();
       opt_emit(s, cells, last, ip, anchor, o);  // every lane alike
-      __syncwarp();  // the cells' reads before lane 0 seeds the next window
+      __syncwarp();  // the cells' reads before the next window's seed
     }
   }
   warp_emit(o, s, anchor, n - anchor, 0, 0);

@@ -62,6 +62,20 @@ def _count_back_pattern(s, p: int, pattern: int, floor: int = 0) -> int:
     return start - p
 
 
+def measure_steps(run: int, room: int, word_ends: bool = False) -> int:
+    """The loop iterations in which the kernels' measures (`run_length`,
+    ``word_ends``, and `count_pattern`/`count_back_pattern` in
+    `csrc/lz4_hc_body.cuh`) find ``run`` equal bytes within ``room``: a
+    4-byte word a step while a whole word fits, then a byte a step, the
+    compare that ends the measure included.  `run_length` ends at the first
+    word that differs; the pattern counts go on byte by byte inside it."""
+    words = max(room, 0) // 4
+    k = min(run // 4, words)
+    if word_ends and k < words:
+        return k + 1
+    return k + (k < words) + run - 4 * k + (run < room)
+
+
 class ChainFinder:
     """Hash-chain match finder: the head table (2^15 most recent positions)
     and the u16 delta ring indexed pos & 0xFFFF at every window size."""
@@ -71,6 +85,9 @@ class ChainFinder:
     steps = 0  # chain steps of every search so far
     swap_reads = 0  # chain steps read by the chain swap's scans
     pattern_bytes = 0  # bytes the pattern runs measured, forward and back
+    work = 0  # the last search's work: chain steps plus bytes measured
+    dependent = 0  # the last search's dependent steps, if count_dependent
+    count_dependent = False  # count them (`measure_steps`, a call a measure)
 
     def __init__(self, s, match_limit: int, max_attempts: int):
         self.s = s
@@ -102,7 +119,10 @@ class ChainFinder:
         found or, when a measure passed the budget, that measure + 4 if
         longer (a long repeat).  Each measure is cut one byte past the
         budget's room, so a search that stays inside it measures what an
-        unbounded one does."""
+        unbounded one does.  ``self.work`` is set to the search's work and,
+        with ``self.count_dependent``, ``self.dependent`` to its dependent
+        steps: one per chain step plus each measure's `measure_steps` (the
+        chain swap's scans left out)."""
         s, delta, mask, budget = self.s, self.delta, self.mask, self.budget
         ihigh = self.match_limit
         pos = ip
@@ -114,7 +134,8 @@ class ChainFinder:
         repeat_tested = repeat_confirmed = False
         src_pat_len = 0
         m_start, m_pos = ip, -1
-        work = 0
+        work = dep = 0
+        tally = self.count_dependent
 
         self.insert_upto(pos)
         cand = self.head[_hash(pattern)]
@@ -127,8 +148,10 @@ class ChainFinder:
 
         while cand >= lowest and attempts > 0:
             if work > budget:
+                self.work, self.dependent = work, dep
                 return -1 - longest, ip, -1
             work += 1
+            dep += 1
             self.steps += 1
             match_len = 0
             attempts -= 1
@@ -142,9 +165,12 @@ class ChainFinder:
                     while back > floor and s[ip + back - 1] == s[cand + back - 1]:
                         back -= 1
                 room = budget - work
-                run = run_length(s, cand + MIN_MATCH, ip + MIN_MATCH,
-                                 min(ihigh, ip + MIN_MATCH + room + 1))
+                limit = min(ihigh, ip + MIN_MATCH + room + 1)
+                run = run_length(s, cand + MIN_MATCH, ip + MIN_MATCH, limit)
+                if tally:
+                    dep += measure_steps(run, limit - ip - MIN_MATCH, True)
                 if run > room:
+                    self.work, self.dependent = work + run, dep
                     return -1 - max(longest, run + 4), ip, -1
                 work += run
                 match_len = MIN_MATCH - back + run
@@ -188,24 +214,36 @@ class ChainFinder:
                     )
                     if repeat_confirmed:
                         room = budget - work
-                        run = _count_pattern(s, ip + 4, min(ihigh, ip + 5 + room), pattern)
+                        end = min(ihigh, ip + 5 + room)
+                        run = _count_pattern(s, ip + 4, end, pattern)
                         self.pattern_bytes += run
+                        if tally:
+                            dep += measure_steps(run, end - ip - 4)
                         if run > room:
+                            self.work, self.dependent = work + run, dep
                             return -1 - max(longest, run + 4), ip, -1
                         work += run
                         src_pat_len = run + 4
                 if repeat_confirmed and cand2 >= lowest and read32(s, cand2) == pattern:
                     room = budget - work
-                    run = _count_pattern(s, cand2 + 4, min(ihigh, cand2 + 5 + room), pattern)
+                    end = min(ihigh, cand2 + 5 + room)
+                    run = _count_pattern(s, cand2 + 4, end, pattern)
                     self.pattern_bytes += run
+                    if tally:
+                        dep += measure_steps(run, end - cand2 - 4)
                     if run > room:
+                        self.work, self.dependent = work + run, dep
                         return -1 - max(longest, run + 4), ip, -1
                     work += run
                     fwd = run + 4
                     room = budget - work
-                    run = _count_back_pattern(s, cand2, pattern, max(0, cand2 - room - 1))
+                    floor = max(0, cand2 - room - 1)
+                    run = _count_back_pattern(s, cand2, pattern, floor)
                     self.pattern_bytes += run
+                    if tally:
+                        dep += measure_steps(run, cand2 - floor)
                     if run > room:
+                        self.work, self.dependent = work + run, dep
                         return -1 - max(longest, run + 4), ip, -1
                     work += run
                     backp = min(run, cand2 - lowest)
@@ -232,6 +270,7 @@ class ChainFinder:
             if d > cand:
                 break
             cand -= d
+        self.work, self.dependent = work, dep
         return longest, m_start, m_pos
 
 

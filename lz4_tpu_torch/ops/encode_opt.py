@@ -9,13 +9,16 @@ arm (`lz4_tpu/ops/encode_pallas_stream.py`), with the bytes of
 search position, so the search at p with a given minimum length is a
 function of the row, p and that length.  The passes build the chain of
 every position of a row (`opt_chain`) and make every position's
-min-length-3 search at once with the level's depth (`opt_matches`).  At
-level 12 every search of the parse is that search, and `opt_parse` reads
-each from the table.  At levels 10-11 the parse asks for a match longer
-than a length its price table sets: `opt_parse_spec` reads the searches
-whose minimum length is 3 or less from the table (they give what the
-min-length-3 search gives) and makes the others on the spot, up to 32 at a
-time, one warp per row (`opt_parse_rounds_row` says why that is exact).
+min-length-3 search at once with the level's depth (`opt_matches`, one CTA
+per slice of `SLICE` positions, the chain deltas its searches read staged
+in shared memory).  Both parses run one warp per row, up to 32 searches a
+round (`opt_parse_rounds_row` says why that is exact), their price-table
+steps spread over the lanes (`opt_add_warp`, `opt_seed_warp`).  At level
+12 every search of the parse is the min-length-3 search, and `opt_parse`
+reads each from the table.  At levels 10-11 the parse asks for a match
+longer than a length its price table sets: `opt_parse_spec` reads the
+searches whose minimum length is 3 or less from the table (they give what
+the min-length-3 search gives) and makes the others on the spot.
 
 Rows are kernel D's windows (`encode_stream.encode_windows`): row r is
 base_u8[starts[r] : starts[r] + lens[r]], its first src_offs[r] bytes a
@@ -38,8 +41,8 @@ from .build import check, load
 from .common import align1024, emit, read32
 from .encode import _outputs, pack_rows
 from .encode_hc import (
-    OPT_NUM, TRAILING, ChainFinder, _hash, level_arm, opt_add, opt_encode, opt_parse_row,
-    opt_seed,
+    OPT_NUM, TRAILING, ChainFinder, _hash, _lit_price, _seq_price, _trailing, level_arm,
+    opt_encode, opt_parse_row,
 )
 
 HC_EMPTY = -65536  # prev of a position with no earlier one of its hash
@@ -56,6 +59,11 @@ FIRST_BUDGET = 1024
 MATCH_BUDGET = 65536
 RETRY_LONGEST = 256
 MAX_GROUP_ROWS = 65535  # the match pass's grid holds one row per y index
+# The match pass's slices (`csrc/encode_opt.cu` kSlice): a CTA searches
+# positions [k * SLICE, (k + 1) * SLICE) of a row and stages in shared
+# memory the chain deltas of every position its searches reach, from 65,535
+# below its first.
+SLICE = 16384
 
 _lib = None
 
@@ -71,19 +79,25 @@ def _kernel():
         lib.lz4t_opt_parse_spec.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, p, p, i, p]
         for fn in (lib.lz4t_opt_chain, lib.lz4t_opt_matches, lib.lz4t_opt_parse,
                    lib.lz4t_opt_parse_spec, lib.lz4t_opt_chain_shared_bytes,
-                   lib.lz4t_opt_parse_shared_bytes, lib.lz4t_opt_parse_spec_shared_bytes):
+                   lib.lz4t_opt_matches_shared_bytes, lib.lz4t_opt_parse_shared_bytes,
+                   lib.lz4t_opt_slice):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def shared_bytes() -> dict:
-    """Dynamic shared memory of one CTA of the chain and parse passes (the
-    match pass takes none)."""
+    """Dynamic shared memory of one CTA of each pass (both parses take
+    the same: "opt_parse")."""
     lib = _kernel()
     return {"opt_chain": lib.lz4t_opt_chain_shared_bytes(),
-            "opt_parse": lib.lz4t_opt_parse_shared_bytes(),
-            "opt_parse_spec": lib.lz4t_opt_parse_spec_shared_bytes()}
+            "opt_matches": lib.lz4t_opt_matches_shared_bytes(),
+            "opt_parse": lib.lz4t_opt_parse_shared_bytes()}
+
+
+def slice_positions() -> int:
+    """The built kernel's kSlice, which `SLICE` restates."""
+    return _kernel().lz4t_opt_slice()
 
 
 def table_offsets(lens) -> tuple[torch.Tensor, int]:
@@ -203,31 +217,59 @@ class TableFinder(ChainFinder):
 
 def opt_matches_plain(base_u8, starts, src_offs, lens, prev, depth: int = 16384,
                       budget: int = MATCH_BUDGET, first_budget: int = FIRST_BUDGET,
-                      retry_longest: int = RETRY_LONGEST):
+                      retry_longest: int = RETRY_LONGEST, counts: list | None = None,
+                      span: tuple[int, int] | None = None):
     """The plain PyTorch version of `opt_matches`: a `TableFinder`
     search per position, made again with ``budget`` where the first gave up
-    with no match longer than ``retry_longest``."""
+    with no match longer than ``retry_longest``.
+
+    ``span`` (p0, p1), if given, searches only the positions of each row
+    in [p0, p1) and leaves the others (0, 0).  ``counts``, if given, gets
+    one tally per row: the searches made, those made again with the large
+    budget, those given up, their chain steps, their work (chain steps plus
+    bytes measured, what the budgets count), `most_work`, the most work of
+    one position (its first search and its second, if made), and
+    `most_steps`, the most dependent steps of one position (chain steps
+    plus the measures' word and byte compares, `ChainFinder.dependent`):
+    the slowest search, the match pass's step bound."""
     base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
     prev = _table(prev, total, 1, "prev", base.device).cpu().tolist()
     raw = base.cpu().numpy()
     out = torch.zeros((total, 2), dtype=torch.int32)
+    p0, p1 = span if span is not None else (0, 1 << 62)
     for a, off, n, at in zip(st.tolist(), so.tolist(), ln.tolist(), toff.tolist()):
-        if n - off < MF_LIMIT + 1:
-            continue
-        s = raw[a:a + n].tobytes()
-        finder = TableFinder(s, n - LAST_LITERALS, depth, prev[at:at + n])
-        found = []
-        for p in range(off, n - MF_LIMIT + 1):
-            finder.budget = min(first_budget, budget)
-            ml, _, mp = finder.wider_match(p, p, MIN_MATCH - 1, True, True)
-            if ml < 0 and budget > first_budget and -1 - ml <= retry_longest:
-                finder.budget = budget
+        tally = dict.fromkeys(("searches", "retries", "given_up", "steps", "work", "most_work",
+                               "most_steps"), 0)
+        lo, hi = max(off, p0), min(n - MF_LIMIT + 1, p1)
+        if n - off >= MF_LIMIT + 1 and lo < hi:
+            s = raw[a:a + n].tobytes()
+            finder = TableFinder(s, n - LAST_LITERALS, depth, prev[at:at + n])
+            finder.count_dependent = counts is not None
+            found = []
+            for p in range(lo, hi):
+                finder.budget = min(first_budget, budget)
+                steps = finder.steps
                 ml, _, mp = finder.wider_match(p, p, MIN_MATCH - 1, True, True)
-            if ml < 0:
-                found.append((ml, 0))
-            else:
-                found.append((ml, p - mp) if ml > MIN_MATCH - 1 and mp >= 0 else (0, 0))
-        out[at + off:at + n - MF_LIMIT + 1] = torch.tensor(found, dtype=torch.int32)
+                work, dep = finder.work, finder.dependent
+                tally["searches"] += 1
+                if ml < 0 and budget > first_budget and -1 - ml <= retry_longest:
+                    finder.budget = budget
+                    ml, _, mp = finder.wider_match(p, p, MIN_MATCH - 1, True, True)
+                    work += finder.work
+                    dep += finder.dependent
+                    tally["retries"] += 1
+                tally["steps"] += finder.steps - steps
+                tally["work"] += work
+                tally["most_work"] = max(tally["most_work"], work)
+                tally["most_steps"] = max(tally["most_steps"], dep)
+                if ml < 0:
+                    tally["given_up"] += 1
+                    found.append((ml, 0))
+                else:
+                    found.append((ml, p - mp) if ml > MIN_MATCH - 1 and mp >= 0 else (0, 0))
+            out[at + lo:at + hi] = torch.tensor(found, dtype=torch.int32)
+        if counts is not None:
+            counts.append(tally)
     return out.to(base.device)
 
 
@@ -276,9 +318,10 @@ def opt_matches(base_u8, starts, src_offs, lens, prev, depth: int = 16384,
 
 def opt_parse_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
                     depth: int = 16384, sufficient: int = 4095):
-    """The plain PyTorch version of `opt_parse`: `encode_hc.opt_parse_row`
-    with each search read from the table, or made by a `TableFinder` where
-    the match pass gave up."""
+    """The plain PyTorch version of `opt_parse`, the CPU route:
+    `encode_hc.opt_parse_row` with each search read from the table, or made
+    by a `TableFinder` where the match pass gave up.  The kernel's rounds
+    give the same bytes: `opt_parse_rounds_plain` with ``full``."""
     base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
     prev = _table(prev, total, 1, "prev", base.device).cpu()
     table = _table(matches, total, 2, "matches", base.device).cpu()
@@ -301,10 +344,11 @@ def opt_parse_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
 
 def opt_parse(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
               depth: int = 16384, sufficient: int = 4095):
-    """The level 12 price parse of each row's block with its searches read
-    from ``matches`` (`opt_matches`' table of the same rows), a search that
+    """The level 12 price parse of each row's block by one warp, its
+    searches read 32 at a time from ``matches`` (`opt_matches`' table of
+    the same rows; `opt_parse_rounds_row` with ``full``), a search that
     gave up there made in full (``depth`` steps) over ``prev``
-    (`opt_chain`'s table).
+    (`opt_chain`'s table) by its lane.
 
     Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) as
     `encode_stream.encode_windows` does, OCAP = align1024(compress_bound(
@@ -335,12 +379,70 @@ def opt_parse(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
     return out, clens, errs
 
 
-# ---- pass 3 at levels 10-11: the price parse by rounds --------------------
+# ---- the price parse by rounds, as the kernels run it ---------------------
+
+def _lanes_steps(count: int, lanes: int) -> int:
+    """Dependent steps of ``count`` independent table writes on ``lanes``."""
+    return -(-count // lanes)
+
+
+def opt_seed_warp(o: list, llen: int, first_len: int, first_off: int, lanes: int = 32) -> int:
+    """`encode_hc.opt_seed` as the warp runs it (`lz4_hc_body.cuh`
+    opt_seed_warp): every cell written from the table as it stood before
+    the step, each cell once (lane l takes the lengths 4 + l, 4 + l +
+    lanes, ...; the trailing literals price cells[first_len] as the seed
+    sets it).  Returns the dependent steps, ceil((first_len - 3) /
+    ``lanes``)."""
+    writes = {r: [_lit_price(llen + r), 0, 1, llen + r] for r in range(MIN_MATCH)}
+    for m in range(MIN_MATCH, first_len + 1):
+        writes[m] = [_seq_price(llen, m), first_off, m, llen]
+    for a in range(1, TRAILING + 1):
+        writes[first_len + a] = [_seq_price(llen, first_len) + _lit_price(a), 0, 1, a]
+    for p, cell in writes.items():
+        o[p] = cell
+    return _lanes_steps(first_len - MIN_MATCH + 1, lanes)
+
+
+def opt_add_warp(o: list, cur: int, new_len: int, new_off: int, last: int,
+                 lanes: int = 32) -> tuple[int, int]:
+    """`encode_hc.opt_add` as the warp runs it (`lz4_hc_body.cuh`
+    opt_add_warp): the literal extensions and every match length priced
+    from the table as it stood before the step, each cell written at most
+    once (lane l takes the lengths 4 + l, 4 + l + ``lanes``, ...); the lane
+    of new_len moves ``last``; then, after the lanes' writes, the trailing
+    literals.  Returns (the new last, the dependent steps, ceil((new_len -
+    3) / ``lanes``))."""
+    base_p, _, mlen, base_ll = o[cur]
+    writes = {}
+    for ext in range(1, MIN_MATCH):
+        price = base_p - _lit_price(base_ll) + _lit_price(base_ll + ext)
+        if price < o[cur + ext][0]:
+            writes[cur + ext] = [price, 0, 1, base_ll + ext]
+    if mlen == 1:
+        ll = base_ll
+        base = o[cur - ll][0] if cur > ll else 0
+    else:
+        ll, base = 0, base_p
+    moved = last
+    for m in range(MIN_MATCH, new_len + 1):
+        p = cur + m
+        price = base + _seq_price(ll, m)
+        if p > last + TRAILING or price <= o[p][0]:
+            if m == new_len and last < p:
+                moved = p
+            writes[p] = [price, new_off, m, ll]
+    for p, cell in writes.items():
+        o[p] = cell
+    _trailing(o, moved)
+    return moved, _lanes_steps(new_len - MIN_MATCH + 1, lanes)
+
 
 def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: int,
-                         lanes: int = 32, tally: dict | None = None) -> bytearray:
-    """The level 10-11 parse of s[src_off:] (`encode_hc.opt_parse_row` with
-    ``full`` False) as `opt_parse_spec` runs it, ``lanes`` searches a round.
+                         lanes: int = 32, tally: dict | None = None,
+                         full: bool = False) -> bytearray:
+    """The OPT parse of s[src_off:] (`encode_hc.opt_parse_row`) as
+    `opt_parse` (``full``, level 12) and `opt_parse_spec` (levels 10-11)
+    run it, ``lanes`` searches a round.
 
     ``t`` is the row's `opt_matches` table as (length, offset) pairs;
     ``search(p, m)`` makes the search at p for a match longer than m on the
@@ -348,31 +450,62 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
     two reasons.  A search whose minimum length m is 3 or less gives what
     the min-length-3 search gives (the quick reject reads two bytes inside
     the 4-byte compare, and every length the search measures is at least
-    4), so it reads ``t`` unless the entry gave up.  A search that finds
-    nothing changes nothing (the parse moves on before it writes a price
-    or ``last``), so from one state every position up to the first match
-    is skipped or searched with the minimum length that state gives.  A
-    round therefore takes the next ``lanes`` positions the state does not
-    skip, makes all their searches with last - cur, and commits them in
-    order up to the first that finds a match, which it applies.  Where a
-    window starts, it reads ``lanes`` table entries and takes the first
-    that is not (0, 0).  Each round asserts that the committed lanes are
-    the positions, and their minimum lengths those, of the serial loop
-    walked over the live state.
+    4), so it reads ``t`` unless the entry gave up; with ``full`` every
+    search has m = 3.  A search that finds nothing changes nothing (the
+    parse moves on before it writes a price or ``last``), so from one state
+    every position up to the first match is skipped (with ``full``, by
+    level 12's test: o[cur + 1] no dearer than o[cur] and o[cur + 4] below
+    it + 3) or searched with the minimum length that state gives.  At
+    levels 10-11 a round therefore takes the next ``lanes`` positions the
+    state does not skip, makes all their searches, and commits them in
+    order up to the first that finds a match, which it applies
+    (`opt_add_warp`); each round asserts that the committed lanes are the
+    positions, and their minimum lengths those, of the serial loop walked
+    over the live state.  With ``full`` no search depends on the state, so
+    a round reads the entries of the next ``lanes`` positions and commits
+    their matches in order, each the first position past the last commit
+    that the live state does not skip and whose entry (or search on the
+    spot, where it gave up) has a match: the serial loop's next search,
+    which each commit asserts by walking level 12's skip test from the last
+    commit to it over the live cells.
+    Where a window starts, it reads ``lanes`` table entries and takes the
+    first that is not (0, 0).
 
-    ``tally``, if given, adds: windows, rounds, rounds in which a lane
+    ``tally``, if given, adds: windows, rounds (with ``full``, reads of
+    ``lanes`` entries), rounds (with ``full``, commit steps) in which a lane
     searched on the spot, table reads, searches made on the spot and their
-    chain steps, and `steps`, the dependent steps the parse needs: one per
-    window-start read and per round, a round's being the longest chain walk
-    among the lanes it commits (at least one), plus the chain steps of a
-    window start's search made on the spot.  `speculative_steps` counts a
-    round as its longest lane's walk, the lanes past its first match
-    included, as the warp runs it."""
+    chain steps, `table_steps` (ceil((length - 3) / ``lanes``) per window
+    seed and per match priced), and `steps`, the dependent steps the parse
+    needs: one per window-start read and per round, a round's (with
+    ``full``, each commit step's, and one per round) being the longest
+    chain walk among the lanes it commits up to (at least one), plus the
+    chain steps of a window start's search made on the spot, plus
+    `table_steps`.  `speculative_steps` counts each as its longest lane's
+    walk, the lanes past the commit included, as the warp runs it.
+    `serial_steps` is what one thread's walk of the same parse takes:
+    `visited` (positions the serial loop looks at), `priced` (match lengths
+    its seeds and steps write) and the chain steps of the searches it makes
+    on the spot."""
     n = len(s)
     out = bytearray()
     anchor = ip = src_off
     tl = dict.fromkeys(("windows", "rounds", "search_rounds", "table_reads", "searches",
-                        "search_steps", "steps", "speculative_steps"), 0)
+                        "search_steps", "table_steps", "steps", "speculative_steps",
+                        "visited", "priced", "serial_steps"), 0)
+
+    def is_open(q):
+        return o[q + 1][0] > o[q][0] or (full and o[q + MIN_MATCH][0] >= o[q][0] + 3)
+
+    def min_len(q):
+        return MIN_MATCH - 1 if full else last - q
+
+    def priced(count, steps):
+        tl["priced"] += count
+        tl["serial_steps"] += count
+        tl["table_steps"] += steps
+        tl["steps"] += steps
+        tl["speculative_steps"] += steps
+
     if n - src_off >= MF_LIMIT + 1:
         mf_limit = n - MF_LIMIT
         o = [[0, 0, 0, 0] for _ in range(OPT_NUM + TRAILING)]
@@ -389,6 +522,7 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
             tl["steps"] += 1
             tl["speculative_steps"] += 1
             k = next((j for j, e in enumerate(seen) if e[0] != 0), None)
+            tl["visited"] += len(seen) if k is None else k + 1
             if k is None:
                 ip += lanes
                 continue
@@ -398,6 +532,7 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
                 first_len, first_off, steps = on_the_spot(ip, MIN_MATCH - 1)
                 tl["steps"] += steps
                 tl["speculative_steps"] += steps
+                tl["serial_steps"] += steps
             if first_len == 0:
                 ip += 1
                 continue
@@ -408,7 +543,8 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
                 ip += first_len
                 anchor = ip
                 continue
-            opt_seed(o, llen, first_len, first_off)
+            priced(first_len - MIN_MATCH + 1,
+                   opt_seed_warp(o, llen, first_len, first_off, lanes))
             last = first_len
             early = False
             cur = 1
@@ -416,10 +552,64 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
                 end = min(last, mf_limit - ip + 1)
                 if cur >= end:
                     break
+                if full:  # the next `lanes` positions' entries, their matches in order
+                    base = cur
+                    ents = [list(t[ip + q]) if ip + q <= mf_limit else [0, 0]
+                            for q in range(base, base + lanes)]
+                    tl["rounds"] += 1
+                    tl["table_reads"] += lanes
+                    tl["steps"] += 1
+                    tl["speculative_steps"] += 1
+                    while True:  # one commit: the live state's first open lane with a match
+                        live = [cur <= base + j < end and is_open(base + j) for j in range(lanes)]
+                        walks, searched = {}, tl["searches"]
+                        for j in range(lanes):
+                            if live[j] and ents[j][0] < 0:  # gave up in the match pass
+                                ln, off, steps = on_the_spot(ip + base + j, MIN_MATCH - 1)
+                                ents[j] = [ln, off]
+                                walks[j] = steps
+                        tl["search_rounds"] += tl["searches"] > searched
+                        k = next((j for j in range(lanes) if live[j] and ents[j][0] != 0), None)
+                        q = cur  # the serial loop over the live cells, up to the commit
+                        while q < (base + k if k is not None else min(end, base + lanes)):
+                            assert ((o[q + 1][0] <= o[q][0] and o[q + MIN_MATCH][0] < o[q][0] + 3)
+                                    or ents[q - base][0] == 0), (
+                                f"commit at {ip + cur}: the serial loop takes {ip + q}, "
+                                "which the round passed over")
+                            q += 1
+                        assert k is None or (q == base + k < end and not (
+                            o[q + 1][0] <= o[q][0] and o[q + MIN_MATCH][0] < o[q][0] + 3)), (
+                            f"commit at {ip + cur}: the round takes {ip + q}, which the serial "
+                            "loop skips")
+                        committed = [w for j, w in walks.items() if k is None or j <= k]
+                        tl["steps"] += max([1, *committed])
+                        tl["speculative_steps"] += max([1, *walks.values()])
+                        tl["serial_steps"] += sum(committed)
+                        tl["visited"] += (base + k + 1 if k is not None
+                                          else max(cur, min(end, base + lanes))) - cur
+                        if k is None:
+                            cur = base + lanes
+                            break
+                        cur = base + k
+                        new_len, new_off = ents[k]
+                        if new_len > sufficient or new_len + cur >= OPT_NUM:
+                            best_mlen, best_off = new_len, new_off
+                            last = cur + 1
+                            early = True
+                            break
+                        last, steps = opt_add_warp(o, cur, new_len, new_off, last, lanes)
+                        priced(new_len - MIN_MATCH + 1, steps)
+                        cur += 1
+                        end = min(last, mf_limit - ip + 1)
+                        if cur >= end:
+                            break
+                    if early:
+                        break
+                    continue
                 picked, q = [], cur  # (position, minimum length) of each lane
                 while q < end and len(picked) < lanes:
-                    if o[q + 1][0] > o[q][0]:
-                        picked.append((q, last - q))
+                    if is_open(q):
+                        picked.append((q, min_len(q)))
                     q += 1
                 nxt = picked[-1][0] + 1 if len(picked) == lanes else end
                 found, walks, searched = [], [], tl["searches"]
@@ -436,19 +626,22 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
                 tl["rounds"] += 1
                 tl["search_rounds"] += tl["searches"] > searched
                 k = next((j for j, f in enumerate(found) if f[0] != 0), None)
-                tl["steps"] += max([1, *walks[:len(walks) if k is None else k + 1]])
+                committed = walks[:len(walks) if k is None else k + 1]
+                tl["steps"] += max([1, *committed])
                 tl["speculative_steps"] += max([1, *walks])
+                tl["serial_steps"] += sum(committed)
+                tl["visited"] += (picked[k][0] + 1 if k is not None else nxt) - cur
                 q = cur  # the serial loop over the live state, up to the commit
-                for c, m in picked[:len(picked) if k is None else k + 1]:
+                for c, m in picked[:len(committed)]:
                     while q < c:
-                        assert q < last and ip + q <= mf_limit and o[q + 1][0] <= o[q][0], (
+                        assert q < last and ip + q <= mf_limit and not is_open(q), (
                             f"round at {ip + cur}: the serial loop searches {ip + q}, "
                             "which no lane took")
                         q += 1
-                    assert o[q + 1][0] > o[q][0] and last - q == m, (
+                    assert is_open(q) and min_len(q) == m, (
                         f"round at {ip + cur}: the lane at {ip + c} searched with minimum "
                         f"length {m}, the serial loop would not search there or with "
-                        f"{last - q}")
+                        f"{min_len(q)}")
                     q += 1
                 if k is None:
                     cur = nxt
@@ -460,12 +653,14 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
                     last = cur + 1
                     early = True
                     break
-                last = opt_add(o, cur, new_len, new_off, last)
+                last, steps = opt_add_warp(o, cur, new_len, new_off, last, lanes)
+                priced(new_len - MIN_MATCH + 1, steps)
                 cur += 1
             if not early:
                 best_mlen, best_off = o[last][2], o[last][1]
                 cur = last - best_mlen
             ip, anchor = opt_encode(out, s, o, cur, best_mlen, best_off, last, ip, anchor)
+    tl["serial_steps"] += tl["visited"]
     emit(out, s, anchor, n - anchor, 0, 0)
     if tally is not None:
         for key, v in tl.items():
@@ -473,12 +668,13 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
     return out
 
 
-def opt_parse_spec_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
-                         depth: int = 96, sufficient: int = 64, lanes: int = 32,
-                         counts: list | None = None):
-    """The plain PyTorch version of `opt_parse_spec`: `opt_parse_rounds_row`
-    with ``lanes`` searches a round, each made by a `TableFinder`.
-    ``counts``, if given, gets one tally per row (`opt_parse_rounds_row`)."""
+def opt_parse_rounds_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
+                           depth: int, sufficient: int, full: bool, lanes: int = 32,
+                           counts: list | None = None):
+    """The parse as the kernels run it: `opt_parse_rounds_row` over each
+    row with ``lanes`` searches a round (``full``: level 12's `opt_parse`,
+    else `opt_parse_spec`), each search on the spot made by a
+    `TableFinder`; ``counts``, if given, gets one tally per row."""
     if lanes < 1:
         raise ValueError("lanes must be at least 1")
     base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
@@ -498,10 +694,20 @@ def opt_parse_spec_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: i
 
         tally = {} if counts is not None else None
         comps.append(opt_parse_rounds_row(s, off, table[at:at + n].tolist(), search,
-                                          sufficient, lanes, tally))
+                                          sufficient, lanes, tally, full))
         if counts is not None:
             counts.append(tally)
     return pack_rows(comps, align1024(compress_bound(bcap)), base.device)
+
+
+def opt_parse_spec_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
+                         depth: int = 96, sufficient: int = 64, lanes: int = 32,
+                         counts: list | None = None):
+    """The plain PyTorch version of `opt_parse_spec`: `opt_parse_rounds_row`
+    with ``lanes`` searches a round, each made by a `TableFinder`.
+    ``counts``, if given, gets one tally per row (`opt_parse_rounds_row`)."""
+    return opt_parse_rounds_plain(base_u8, starts, src_offs, lens, prev, matches, bcap, depth,
+                                  sufficient, False, lanes, counts)
 
 
 def opt_parse_spec(base_u8, starts, src_offs, lens, prev, matches, bcap: int,

@@ -31,6 +31,14 @@ SETTINGS = ((1024, 1024), (65536, 65536), (1024, 65536))
 UNBOUNDED = (1 << 30, 1 << 30)
 
 
+def _counts(*passes):
+    """A reader of the launch counts of level 12's passes (`encode_opt`'s
+    wrappers), keyed by kernel name, for `chip_smoke._device_ms_by`."""
+    from lz4_tpu_torch.ops import encode_opt
+
+    return lambda: {f"{name}_rows": getattr(encode_opt, name).launches for name in passes}
+
+
 def _windows(data: bytes, chained: bool):
     import torch
 
@@ -61,7 +69,7 @@ def _budgets(base, st, so, ln, dev, settings) -> dict:
         torch.cuda.synchronize()
         cs._require(cs._max_abs_err(got, serial) == 0,
                     f"budgets {first}/{budget}: the passes' output != the serial arm's")
-        ms = cs._device_ms_by(run, ("opt_matches_rows", "opt_parse_rows"), 2)
+        ms, _ = cs._device_ms_by(run, _counts("opt_matches", "opt_parse"), 2)
         out["settings"].append({
             "first_budget": first, "budget": budget,
             "given_up": int((matches[:, 0] < 0).sum()),
@@ -85,7 +93,7 @@ def _parse_by_quarter(base, st, so, ln, dev) -> dict:
         matches = encode_opt.opt_matches(base, *r, prev)
         times[name] = cs._device_ms_by(
             lambda: encode_opt.opt_parse(base, *r, prev, matches, BLOCK),
-            ("opt_parse_rows",), 3)["opt_parse_rows"]
+            _counts("opt_parse"), 3)[0]["opt_parse_rows"]
     return times
 
 

@@ -342,6 +342,168 @@ def test_opt_passes_equal_the_serial_arm(budget, cuda):
     _equal(got, encode_stream.encode_windows(base_d, st, so, ln, BLOCK, 12))
 
 
+def test_opt_parse_runs_the_rounds_of_its_plain_model(cuda):
+    """The level 12 parse kernel (one warp per row) against the plain
+    parse by rounds at 32 lanes (`opt_parse_rounds_plain` with ``full``,
+    which asserts every commit against the serial loop), with the default budgets
+    and with a tiny one that leaves most searches to the parse's lanes."""
+    base, st, so, ln = _opt_rows()
+    base_d = base.to(cuda)
+    prev = encode_opt.opt_chain(base_d, st, ln)
+    prev_h = prev.cpu()
+    for budget in (encode_opt.MATCH_BUDGET, 24):
+        matches = encode_opt.opt_matches(base_d, st, so, ln, prev, budget=budget,
+                                         first_budget=budget)
+        got = encode_opt.opt_parse(base_d, st, so, ln, prev, matches, BLOCK)
+        counts = []
+        _equal(got, encode_opt.opt_parse_rounds_plain(base, st, so, ln, prev_h, matches.cpu(),
+                                                      BLOCK, 16384, 4095, True, 32, counts))
+        assert all(c["steps"] <= c["serial_steps"] for c in counts if c["windows"])
+    assert sum(c["searches"] for c in counts) > 0  # lanes searched on the spot
+
+
+def _slice_rows():
+    """Rows past one match-pass slice's reach (`encode_opt.SLICE` positions
+    and 65,535 back): 150 KB of the mix across its text and records
+    quarters; 124 KB: 30 KB of text, a 24 KB cut of it twice (matches of
+    up to 48 KB across slice boundaries when the budget allows), 10 KB of
+    one byte, 10 KB of a 3-byte pattern and 26 KB of text; and a chained
+    window (a 64 KB block and its 64 KB prefix)."""
+    data = chip_smoke.make_corpus(1 << 20, 18)
+    q = len(data) // 4
+    text = data[20000:120000]
+    rows = [data[q - 75000:q + 75000],
+            text[:30000] + text[40000:64000] * 2 + b"\x00" * 10000
+            + (b"abc" * 4000)[:10000] + text[64000:90000]]
+    base = data + b"".join(rows)
+    st, offs, wl = chip_smoke.chained_windows(len(data), BLOCK)
+    starts, src_offs, lens = [int(st[5])], [int(offs[5])], [int(wl[5])]
+    at = len(data)
+    for r in rows:
+        starts.append(at)
+        src_offs.append(0)
+        lens.append(len(r))
+        at += len(r)
+    return torch.frombuffer(bytearray(base), dtype=torch.uint8), starts, src_offs, lens
+
+
+def _slice_spans(n, width=48):
+    """Positions around every slice boundary of a row of ``n`` positions,
+    and its last 256."""
+    cuts = range(encode_opt.SLICE, n, encode_opt.SLICE)
+    return [(k - width, k + width) for k in cuts] + [(n - 256, n)]
+
+
+def _hold_matches_on_spans(base, st, so, ln, prev, matches, depth, budget, first_budget):
+    """The kernel's match table against the plain version on `_slice_spans`
+    of each row (the plain search of every position would take minutes)."""
+    toff, _ = encode_opt.table_offsets(ln)
+    prev_h, matches_h = prev.cpu(), matches.cpu()
+    held = 0
+    for r in range(len(st)):
+        t, n = int(toff[r]), ln[r]
+        row = (base[st[r]:st[r] + n], [0], so[r:r + 1], [n])
+        for p0, p1 in _slice_spans(n):
+            p0 = max(p0, so[r])
+            want = encode_opt.opt_matches_plain(*row, prev_h[t:t + n], depth, budget,
+                                                first_budget, span=(p0, p1))
+            assert torch.equal(matches_h[t + p0:t + p1], want[p0:p1]), (r, p0, p1)
+            held += max(0, p1 - p0)
+    return held
+
+
+@pytest.mark.parametrize("level,budget", [(12, encode_opt.MATCH_BUDGET), (12, 0),
+                                          (12, 1 << 30), (10, encode_opt.MATCH_BUDGET),
+                                          (11, encode_opt.MATCH_BUDGET)])
+def test_opt_matches_across_slices_match_plain(level, budget, cuda):
+    """The match pass (one CTA per slice, its tables staged) against its
+    plain version around every slice boundary of rows longer than a
+    slice's reach, and the level's passes equal to the serial OPT arm: at
+    levels 10-12's depths, with level 12's budgets, with every search given
+    up (budget 0) and unbounded (matches longer than a slice)."""
+    base, st, so, ln = _slice_rows()
+    base_d = base.to(cuda)
+    _, depth, sufficient, full = encode_opt.level_arm(level)
+    first = min(budget, encode_opt.FIRST_BUDGET) if budget == encode_opt.MATCH_BUDGET else budget
+    prev = encode_opt.opt_chain(base_d, st, ln)
+    matches = encode_opt.opt_matches(base_d, st, so, ln, prev, depth, budget, first)
+    assert _hold_matches_on_spans(base, st, so, ln, prev, matches, depth, budget, first) > 2000
+    parse = encode_opt.opt_parse if full else encode_opt.opt_parse_spec
+    got = parse(base_d, st, so, ln, prev, matches, 4 * BLOCK, depth, sufficient)
+    _equal(got, encode_stream.encode_windows_opt_serial(base_d, st, so, ln, 4 * BLOCK, level))
+    if budget == 1 << 30:  # a match longer than a slice, found whole
+        assert int(matches[:, 0].max()) > encode_opt.SLICE
+
+
+@pytest.mark.parametrize("level", [10, 11])
+def test_opt_matches_on_a_4_mib_row_match_plain(level, cuda):
+    """`lz4 -10` / `-11`'s rows: the match pass on a 4 MiB row of the mix
+    (text, records and runs), held to its plain version around slice
+    boundaries near its start (slices 4 and 5: the first whose staged
+    deltas start above the row's), in its middle and at its end; the row's
+    passes equal the serial OPT arm's."""
+    data = chip_smoke.make_corpus(8 << 20, 19)
+    n = 4 << 20
+    base = torch.frombuffer(bytearray(data[n // 4:n // 4 + n]), dtype=torch.uint8)
+    _, depth, sufficient, _ = encode_opt.level_arm(level)
+    base_d = base.to(cuda)
+    prev = encode_opt.opt_chain(base_d, [0], [n])
+    matches = encode_opt.opt_matches(base_d, [0], [0], [n], prev, depth)
+    _equal([prev], [encode_opt.opt_chain_plain(base, [0], [n])])
+    prev_h, matches_h = prev.cpu(), matches.cpu()
+    for k in (4, 5, 128, 192, n // encode_opt.SLICE):
+        p0, p1 = k * encode_opt.SLICE - 64, min(n, k * encode_opt.SLICE + 64)
+        want = encode_opt.opt_matches_plain(base, [0], [0], [n], prev_h, depth, span=(p0, p1))
+        assert torch.equal(matches_h[p0:p1], want[p0:p1]), k
+    got = encode_opt.opt_parse_spec(base_d, [0], [0], [n], prev, matches, n, depth, sufficient)
+    _equal(got, encode_stream.encode_windows_opt_serial(base_d, [0], [0], [n], n, level))
+
+
+@pytest.mark.parametrize("chain", [False, True])
+def test_opt_passes_equal_the_serial_arm_on_the_l12_paths(chain, cuda):
+    """All 256 rows of a level 12 path (16 MiB of the mix, 64 KB
+    independent rows or chained windows): the passes, run by
+    `encode_windows` without the serial OPT arm (its count unchanged, one
+    launch of each pass), equal the serial arm's output."""
+    data = chip_smoke.make_corpus(16 << 20, 20)
+    nb = len(data) // BLOCK
+    base = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+    if chain:
+        st, so, ln = chip_smoke.chained_windows(len(data), BLOCK)
+    else:
+        st = torch.arange(nb, dtype=torch.int64) * BLOCK
+        so = torch.zeros(nb, dtype=torch.int32)
+        ln = torch.full((nb,), BLOCK, dtype=torch.int32)
+    before, idle = _launches(12), _idle(12)
+    got = encode_stream.encode_windows(base, st, so, ln, BLOCK, 12)
+    torch.cuda.synchronize()
+    assert _launches(12) == [b + 1 for b in before]
+    assert _idle(12) == idle
+    _equal(got, encode_stream.encode_windows_opt_serial(base, st, so, ln, BLOCK, 12))
+
+
+@pytest.mark.parametrize("chain", [False, True])
+def test_opt_l12_paths_leave_the_serial_arm_alone(chain, cuda):
+    """A level 12 frame runs the three passes and never the serial OPT arm
+    (its count unchanged), with the plain route's bytes."""
+    data = chip_smoke.make_corpus(1 << 18, 21)
+    settings = frame.EncoderSettings(compression_level=12, chain_blocks=chain)
+    before, idle = _launches(12), _idle(12)
+    blob = frame.compress(data, settings)
+    assert _idle(12) == idle
+    assert all(n > b for n, b in zip(_launches(12), before))
+    assert frame.decompress(blob) == data
+    assert blob == frame.compress(data, settings, device="cpu")
+
+
+def test_opt_slice_is_the_kernels(cuda):
+    """`encode_opt.SLICE` is the built kernel's, and a slice's staged
+    deltas fit one CTA's shared memory (227 KB)."""
+    assert encode_opt.slice_positions() == encode_opt.SLICE
+    smem = encode_opt.shared_bytes()["opt_matches"]
+    assert 2 * (65535 + encode_opt.SLICE) <= smem <= 232448
+
+
 @pytest.mark.parametrize("level", [10, 11])
 def test_opt_spec_passes_match_plain(level, cuda):
     """Each level 10-11 pass against its plain version on the kernel's own
