@@ -102,9 +102,16 @@ Phases, each fatal on failure:
    profiler device time) and held to its plain version on the same four
    rows (the level 12 parse to its plain parse by rounds, which asserts
    the serial loop's order), every pass's dependent-step bound from the
-   plain versions' counts (the OPT chain pass's 32-position steps, the
+   plain versions' counts (the chain pass's segment model, beside the
+   one-warp schedule's 32-position steps as `serial_step_ms`, the
    match pass's slowest search, the parse's steps beside one thread's
-   serial walk of the same row); the device memory of one level 10
+   serial walk of the same row); the chain pass's sort formulation
+   (`chain_by_sort`, its `library_ms`) timed on every HC/OPT path and held
+   equal to the kernel's prev on the level 9 rows, and the chain pass held
+   to its plain version at its segment edges (`hold_chain_edges`: rows
+   across the boundaries, windows 1-3 bytes past a 16-byte boundary and
+   in a view 1 byte in, a 4 MiB row of zeros, a chained 64 KB + 4 MiB
+   window); the device memory of one level 10
    compress; the `lz4 -9` path (`_cli_hc`: 4 MiB independent
    blocks, a content checksum, level 9) over --mb MiB, counts set to 0
    just before and read just after, exact and deterministic over three
@@ -199,8 +206,10 @@ Prints a `kernels` JSON line, a `canonical_chained` and a `ubench` line,
 the card's name and power limit, and as the last line {"ok": true,
 "device": {...}}.  Exits non-zero, printing no
 result, without a CUDA card or without the package beside it.  The data is
-made with numpy from --seed; no PyTorch call computes LZ4, so there is no
-library time to compare with (library_ms is null).
+made with numpy from --seed.  No PyTorch call computes LZ4 or xxHash32, so
+library_ms is null for every kernel but the chain pass (`opt_chain`):
+its function is a stable sort of each row's positions by hash, which one
+`torch.sort` computes (`chain_by_sort`).
 """
 
 from __future__ import annotations
@@ -361,6 +370,10 @@ def phase_build():
               f"CTA ({name})")
     _require(encode_opt.slice_positions() == encode_opt.SLICE,
              "encode_opt.SLICE differs from the match kernel's slice")
+    _require(encode_opt.chain_segment() == encode_opt.CHAIN_SEGMENT,
+             "encode_opt.CHAIN_SEGMENT differs from the chain kernel's segment")
+    print(f"[build] encode_opt.cu: the chain walk's segments of {encode_opt.CHAIN_SEGMENT} "
+          f"positions, {encode_opt.chain_ctas_per_sm()} CTAs an SM")
     print("[build] encode_hc_passes.cu: dynamic shared memory 0 bytes per CTA")
     print("[build] encode_continue.cu: 16,384 bytes of static shared memory per CTA "
           "(a block's byU32 table; continue_setup and continue_check 0); ubench.cu: "
@@ -1865,8 +1878,133 @@ def phase_hc_paths(data: bytes, dev):
     return launches, e2e
 
 
-OPT_KERNELS = {"opt_chain": "opt_chain_rows", "opt_matches": "opt_matches_rows",
-               "opt_parse": "opt_parse_rows"}
+OPT_KERNELS = {"opt_chain_walk": "opt_chain", "opt_chain_join": "opt_chain",
+               "opt_matches_rows": "opt_matches", "opt_parse_rows": "opt_parse"}
+
+
+def chain_by_sort(base_d, starts, lens):
+    """`encode_opt.opt_chain`'s function as PyTorch calls on the card: the
+    hashes by tensor ops, one stable `torch.sort` of the keys row * 2^15 +
+    hash of the whole batch, and the predecessor scatter (prev[p] = the
+    position sorted just before p where its key is p's).  The chain pass's
+    library yardstick (`library_ms`); the port never calls it."""
+    import torch
+    from lz4_tpu_torch.ops import encode_opt
+
+    dev = base_d.device
+    ln = torch.as_tensor(lens, dtype=torch.int64).cpu()
+    ins = (ln - 3).clamp(min=0)
+    total, inserted = int(ln.sum()), int(ins.sum())
+    toff = (torch.cumsum(ln, 0) - ln).to(dev)
+    ioff = (torch.cumsum(ins, 0) - ins).to(dev)
+    st = torch.as_tensor(starts, dtype=torch.int64).to(dev)
+    rows = torch.repeat_interleave(torch.arange(len(ln), device=dev), ins.to(dev),
+                                   output_size=inserted)
+    pos = torch.arange(inserted, device=dev) - ioff[rows]
+    at = st[rows] + pos
+    w = (base_d[at].long() | base_d[at + 1].long() << 8 | base_d[at + 2].long() << 16
+         | base_d[at + 3].long() << 24)
+    keys = rows * encode_opt.CHAIN_HASHES + (((w * 2654435761) & 0xFFFFFFFF) >> 17)
+    keys, order = torch.sort(keys, stable=True)
+    same = keys[1:] == keys[:-1]
+    prev = torch.full((total,), encode_opt.HC_EMPTY, dtype=torch.int32, device=dev)
+    later, earlier = order[1:][same], order[:-1][same]
+    prev[toff[rows[later]] + pos[later]] = pos[earlier].int()
+    return prev
+
+
+def chain_library_ms(base_d, starts, lens, hold: bool = False) -> float:
+    """The chain pass's `library_ms`: `chain_by_sort` on the rows, timed by
+    CUDA events over two calls; with ``hold``, its prev held equal to
+    `encode_opt.opt_chain`'s first."""
+    import torch
+    from lz4_tpu_torch.ops import encode_opt
+
+    if hold:
+        got = encode_opt.opt_chain(base_d, starts, lens)
+        _require(torch.equal(got, chain_by_sort(base_d, starts, lens)),
+                 "opt_chain != the sort formulation")
+        del got
+    return _cuda_ms(lambda: chain_by_sort(base_d, starts, lens), 2)
+
+
+def settle_chain_entry(e, longest: int, clock: float) -> None:
+    """The chain pass's step counts in its `kernels` entry: `steps`, the
+    segment model's dependent steps on the longest row (its longest
+    segment's walk and the join's carry, one step a segment,
+    `encode_opt.chain_steps`), and `step_bound_ms`, one L1 round trip
+    each; `serial_step_ms`, the one-warp schedule's ceil(longest / 32)
+    steps the kernel no longer takes.  The bound is the larger of the
+    bytes' and the steps'."""
+    from lz4_tpu_torch.ops import encode_opt
+
+    step_ms = L1_CYCLES / clock * 1e3
+    e["steps"] = sum(encode_opt.chain_steps(longest))
+    e["step_bound_ms"] = e["steps"] * step_ms
+    e["serial_step_ms"] = -(-longest // 32) * step_ms
+    e["segment"] = encode_opt.CHAIN_SEGMENT
+    if e["step_bound_ms"] > e["bound_ms"]:
+        e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
+
+
+def chain_edge_windows(segment: int, seed: int) -> list:
+    """Windows at the chain pass's segment edges, as (what, payload, view,
+    starts, lens): the kernel runs on the payload on the card from byte
+    ``view`` (a tensor at an odd address when not 0).  Rows back to back
+    from byte 3: 40 KB of each quarter of the mix, 70 KB of zeros and of
+    noise, 140 KB of noise with one 40-byte snippet across every multiple
+    of 32 positions (every segment boundary), rows of 0-7 bytes, and rows
+    whose n - 3 lies just before, at and after the end of the first
+    segment and at the end of the second; 100 KB windows of the mix that
+    start 1, 2 and 3 bytes past a 16-byte boundary, in the payload and in
+    a view of it 1 byte in; a 4 MiB row of zeros; a chained window, a
+    64 KB prefix and a 4 MiB block of the mix."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    mix = make_corpus(8 << 20, seed)
+    q = len(mix) // 4
+    noise = rng.integers(0, 256, 140000, dtype=np.uint8).tobytes()
+    snippet = rng.integers(0, 256, 40, dtype=np.uint8).tobytes()
+    straddled = bytearray(noise)
+    for b in range(32, len(straddled) - 20, 32):
+        straddled[b - 20:b + 20] = snippet
+    rows = ([mix[k * q + 1000:k * q + 41000] for k in range(4)]
+            + [b"\x00" * 70000, noise[:70000], bytes(straddled)]
+            + [mix[100:100 + n] for n in range(8)]
+            + [mix[300000:300000 + n]
+               for n in (segment + 2, segment + 3, segment + 4, 2 * segment + 3)])
+    blob = b"\x07" * 3 + b"".join(rows)
+    starts = (3 + np.cumsum([0] + [len(r) for r in rows[:-1]])).tolist()
+
+    def payload(b):
+        return torch.frombuffer(bytearray(b), dtype=torch.uint8)
+
+    odd = [16 * 1000 + 1, 16 * 20000 + 2, 16 * 40000 + 3]
+    return [
+        ("edge rows", payload(blob), 0, starts, [len(r) for r in rows]),
+        ("windows 1, 2, 3 mod 16", payload(mix), 0, odd, [100000] * 3),
+        ("the same in a view 1 byte in", payload(mix), 1, odd, [100000] * 3),
+        ("a 4 MiB row of zeros", torch.zeros(4 << 20, dtype=torch.uint8), 0, [0], [4 << 20]),
+        ("a chained window of 64 KB and a 4 MiB block", payload(mix), 0, [q - 65536],
+         [65536 + (4 << 20)]),
+    ]
+
+
+def hold_chain_edges(dev, seed: int) -> int:
+    """`encode_opt.opt_chain` on the card held to its plain version on
+    `chain_edge_windows` at the built segment size, one wrapper call each.
+    Returns the number of positions held."""
+    import torch
+    from lz4_tpu_torch.ops import encode_opt
+
+    held = 0
+    for what, payload, view, starts, lens in chain_edge_windows(encode_opt.CHAIN_SEGMENT, seed):
+        got = encode_opt.opt_chain(payload.to(dev)[view:], starts, lens)
+        want = encode_opt.opt_chain_plain(payload[view:], starts, lens)
+        _require(_max_abs_err([got], [want]) == 0, f"opt_chain on {what}: kernel != plain")
+        held += int(sum(lens))
+    return held
 
 
 def hc_pass_ms(base_d, starts, src_offs, lens, bcap: int, level: int = 9,
@@ -1933,18 +2071,21 @@ def settle_hc_entries(entries, finish, scale: dict, clock: float, longest: int) 
     """Fill the HC passes' entries from their plain versions on the picked
     rows: max_abs_err, the plain time scaled to the batch (times
     ``scale[pass]``), and the dependent-step bound, one L1 round trip
-    (L1_CYCLES at the card's top clock) a step: the chain pass's 32-position
-    steps over the longest row (``longest`` positions), the episode pass's
-    slowest position (its chain steps), the parse's slowest row (its table
-    reads and the chain steps of its searches made on the spot).  Returns
-    the plain passes' counts."""
+    (L1_CYCLES at the card's top clock) a step: the chain pass's segment
+    model over the longest row (``longest`` positions,
+    `settle_chain_entry`), the episode pass's slowest position (its chain
+    steps), the parse's slowest row (its table reads and the chain steps
+    of its searches made on the spot).  Returns the plain passes'
+    counts."""
     errs, seconds, given_up, counts = finish()
-    steps = {"opt_chain": -(-longest // 32),
-             "hc_episodes": max(c["most_steps"] for c in counts["hc_episodes"]),
+    steps = {"hc_episodes": max(c["most_steps"] for c in counts["hc_episodes"]),
              "hc_parse": max(c["read"] + c["spot_steps"] for c in counts["hc_parse"])}
     for e, name in zip(entries, HC_PASSES):
         e["max_abs_err"] = errs[name]
         e["plain_ms"] = seconds[name] * 1e3 * scale[name]
+        if name == "opt_chain":
+            settle_chain_entry(e, longest, clock)
+            continue
         step_ms = steps[name] * L1_CYCLES / clock * 1e3
         e["step_bound_ms"] = step_ms
         if step_ms > e["bound_ms"]:
@@ -2014,7 +2155,7 @@ def _opt_moved(windows, got) -> dict:
             "opt_parse_spec": block + 8 * block + clen + 32 * nb}
 
 
-def phase_hc_times(data: bytes, dev):
+def phase_hc_times(data: bytes, dev, seed: int = 0):
     """Kernel D's serial HC and OPT arms, the HC passes and the OPT passes
     at their paths' shapes: 256 rows of 64 KB (kernel B's rows, the
     independent path) and 256 chained windows.  The serial HC arm at level
@@ -2036,6 +2177,11 @@ def phase_hc_times(data: bytes, dev):
     from lz4_tpu_torch.ops import encode_hc_passes, encode_opt, encode_stream
     from lz4_tpu_torch.parallel.blocks import split_blocks
 
+    t0 = time.perf_counter()
+    held = hold_chain_edges(dev, seed)
+    print(f"[hc times] opt_chain equal to its plain version at its segment edges "
+          f"({encode_opt.CHAIN_SEGMENT} positions a segment): {held} positions in "
+          f"{time.perf_counter() - t0:.1f} s")
     bufs, lens = split_blocks(data, BLOCK)
     nb = bufs.shape[0]
     payload_h = torch.frombuffer(bytearray(data), dtype=torch.uint8)
@@ -2117,6 +2263,7 @@ def phase_hc_times(data: bytes, dev):
         whole_ms = _cuda_ms(run, 2)
         pass_ms, _ = hc_pass_ms(base_d, wst, wso, wln, BLOCK)
         hc = hc_pass_entries(f"L9_{path}", path, replaces[path], rows, got, pass_ms, clock)
+        hc[0]["library_ms"] = chain_library_ms(base_d, wst, wln, hold=path == "independent")
         entries += hc
         summary["L9"][path] = {
             "passes_call_ms": whole_ms, "pass_ms": pass_ms,
@@ -2153,6 +2300,7 @@ def phase_hc_times(data: bytes, dev):
             "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "byte_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3,
             "library_ms": None} for name in SPEC_PASSES]
+        ents[0]["library_ms"] = chain_library_ms(base_d, wst, wln)
         entries += ents
         serial_ms = next(e for e in entries if e["name"] == f"encode_windows_opt:{path}")
         summary[f"L{level}"][path] = {
@@ -2175,22 +2323,28 @@ def phase_hc_times(data: bytes, dev):
         err = _max_abs_err(got, serial_out[(12, path)])
         _require(err == 0, f"level 12 {path}: the passes' output != the serial arm's")
         whole_ms = _cuda_ms(run, 2)
-        pass_ms, _ = _device_ms_by(run, lambda: {
+        kernel_ms, _ = _device_ms_by(run, lambda: {
             kernel: getattr(encode_opt, name).launches
-            for name, kernel in OPT_KERNELS.items()}, 2)
+            for kernel, name in OPT_KERNELS.items()}, 2)
+        pass_ms = {name: sum(ms for kernel, ms in kernel_ms.items()
+                             if OPT_KERNELS[kernel] == name) for name in OPT_PASSES}
         moved = _opt_moved(windows[path], got)
-        for name, kernel in OPT_KERNELS.items():
+        for name in OPT_PASSES:
             entries.append({
                 "name": f"{name}:{path}", "route": "cuda",
                 "source": "lz4_tpu_torch/ops/csrc/encode_opt.cu",
                 "replaces": (f"{replaces[path]} (OPT arm at level 12; "
                              "lz4_tpu/ops/encode_pallas5.py:1172 opt_body)"),
                 "path": f"L12_{path}", "held": path, "max_abs_err": 0,
-                "ms": pass_ms[kernel], "plain_ms": None,
+                "ms": pass_ms[name], "plain_ms": None,
                 "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                 "byte_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3,
                 "library_ms": None})
+        entries[-3]["library_ms"] = chain_library_ms(base_d, wst, wln)
         summary["L12"][path] = {"passes_call_ms": whole_ms, "pass_device_ms": pass_ms,
+                                "chain_kernel_device_ms": {
+                                    k: kernel_ms[k] for k in ("opt_chain_walk",
+                                                              "opt_chain_join")},
                                 "rows_equal_to_serial": nb, "max_abs_err": err}
         held.append(("L12", path, windows[path], entries[-3:], hold_opt_passes))
         print(f"[hc times] level 12 {path}: passes {whole_ms:.3f} ms per call "
@@ -2224,8 +2378,9 @@ def settle_opt_entries(entries, finish, scale: float, clock: float, longest: int
     batch (times ``scale``; level 12's parse the serial plain parse's, the
     parse by rounds' beside it as `rounds_model_ms`), and the
     dependent-step bounds, one L1 round trip (L1_CYCLES at the card's top
-    clock) a step: the chain pass's 32-position steps over the longest row
-    (``longest`` positions), the match pass's slowest held search (its
+    clock) a step: the chain pass's segment model over the longest row
+    (``longest`` positions, `settle_chain_entry`), the match pass's slowest
+    held search (its
     chain steps plus its measures' word and byte compares, `most_steps`),
     the parse's slowest held row (`opt_parse_rounds_row`'s `steps`), and
     beside it the same row's dependent steps counted over every lane
@@ -2236,13 +2391,15 @@ def settle_opt_entries(entries, finish, scale: float, clock: float, longest: int
     parse = entries[-1]["name"].split(":")[0]
     model = parse + ":rounds" if parse + ":rounds" in counts else parse
     step_ms = L1_CYCLES / clock * 1e3
-    steps = {"opt_chain": -(-longest // 32),
-             "opt_matches": max(c["most_steps"] for c in counts["opt_matches"]),
+    steps = {"opt_matches": max(c["most_steps"] for c in counts["opt_matches"]),
              parse: max(c["steps"] for c in counts[model])}
     for e in entries:
         name = e["name"].split(":")[0]
         e["max_abs_err"] = errs[name]
         e["plain_ms"] = seconds[name] * 1e3 * scale
+        if name == "opt_chain":
+            settle_chain_entry(e, longest, clock)
+            continue
         e["steps"] = steps[name]
         e["step_bound_ms"] = steps[name] * step_ms
         if e["step_bound_ms"] > e["bound_ms"]:
@@ -2338,6 +2495,7 @@ def phase_cli_hc(data: bytes, dev, pool):
     _hold_cli_frame(blob, data, serial, lens, size, "lz4 -9")
     entries = hc_pass_entries("lz4_9", "independent", "lz4_tpu/ops/encode_pallas_stream.py:266",
                               rows, got, pass_ms, clock)
+    entries[0]["library_ms"] = chain_library_ms(base_d, rows[1], rows[3])
     # 256 KB of a row of runs and of noise as rows of their own, after the 16
     cut = size // 16
     held = (rows[0], torch.cat([rows[1], rows[1][[nb * 3 // 4 - 1, nb - 1]]]),
@@ -2422,6 +2580,7 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
         "bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "byte_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3,
         "library_ms": None} for name in SPEC_PASSES]
+    entries[0]["library_ms"] = chain_library_ms(base_d, rows[1], rows[3])
     # at level 10 the match pass on whole 4 MiB rows (text, records, runs),
     # held on spans of positions around slice boundaries and at the rows' ends
     spans = (hold_match_spans(rows, [0, nb // 4, nb // 2], level, dev, pool) if level == 10
@@ -4010,7 +4169,7 @@ def main(argv=None) -> int:
         xxh_kernels, host_xxh32_s = phase_xxh32(
             data, rng, dev, xxh_windows, xxh_futures)
     hc_launches, hc_e2e = phase_hc_paths(data16, dev)
-    hc_kernels, hc_times = phase_hc_times(data16, dev)
+    hc_kernels, hc_times = phase_hc_times(data16, dev, args.seed)
     cli_opt = {}
     with plain_pool() as pool:
         cli_hc_launches, cli_hc_e2e, cli_hc_kernels, cli_hc = phase_cli_hc(data, dev, pool)

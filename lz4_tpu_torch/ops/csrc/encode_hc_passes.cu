@@ -10,7 +10,7 @@
 //
 // Rows are the windows of kernel D (encode_stream.cu): row r is
 // base[starts[r], starts[r] + lens[r]), its first src_offs[r] bytes a prefix
-// that matches may reach.  `prev` (encode_opt.cu's opt_chain_rows, the
+// that matches may reach.  `prev` (encode_opt.cu's chain pass, the
 // first pass) holds every window position back to back from toff[r]; the
 // episode tables hold the block positions only, row r's position p at
 // soff[r] + p - src_offs[r]: `first` an int4 each (the episode's first two

@@ -22,16 +22,49 @@
 // another on one thread per row (one CTA per SM for its 192 KB of shared
 // memory: 132 threads for the card), each chain step a dependent read with
 // no other warp to hide it.  Here:
-// 1. opt_chain_rows: prev[p], the previous position of p's hash in the
-//    row (kHcEmpty when none), for every p below n - 3.  One warp per row
-//    walks it 32 positions at a time, the row's head table (128 KB) in
-//    shared memory: lanes of one hash find their predecessor among the
-//    lower lanes (__match_any_sync), the lowest of them in the head table,
-//    and the highest writes the head back.  The exact prev, not the clamped
-//    delta, because the head read at p needs the position; the delta a
-//    chain step reads is min(q - prev[q], 0xFFFF), computed where it is
-//    read.  Positions before the row's window are not in its table, so a
-//    chained window's first positions end their chains as its ring does.
+// 1. The chain pass: prev[p], the previous position of p's hash in the
+//    row (kHcEmpty when none), for every p below n - 3.  It replaces the
+//    chain inserts of the TPU kernel's HC and OPT arms (`insert_upto`,
+//    lz4_tpu/ops/encode_pallas5.py:474-489; the nearest host text is
+//    lz4_tpu/block/hostref.py:472-500, `_ChainFinder.insert_upto`): the
+//    head read at p, then p made the head.  The exact prev, not the
+//    clamped delta, because the head read at p needs the position; the
+//    delta a chain step reads is min(q - prev[q], 0xFFFF), computed where
+//    it is read.  Positions before the row's window are not in its table,
+//    so a chained window's first positions end their chains as its ring
+//    does.  prev is a stable sort of the row's positions by hash: nothing
+//    in it is a chain of dependent steps, so bytes bound it, not steps
+//    (the window read once, prev written once: ~5 bytes a position).  The
+//    pass cuts every row into segments of kChainSegment positions, each
+//    its own CTA, and joins them exactly afterwards:
+//    a. opt_chain_walk, one CTA of 256 threads per (segment, row), two
+//       CTAs an SM: the CTA stages the segment's bytes (+3) in shared
+//       memory with 16-byte loads of the aligned chunks around them (a
+//       row may start at any byte); its eight warps hash every position
+//       and find, among the 32 positions of each step, the lanes of each
+//       hash (__match_any_sync), keeping for each position its hash and a
+//       code (the highest lower lane of its hash, or for the lowest lane
+//       of a hash its highest).  Then one warp walks the segment 32
+//       positions a step over a head table of segment-relative u16
+//       entries (64 KB): a lane with a lower lane of its hash takes that
+//       lane's position; the lowest lane of each hash reads the head and
+//       writes back the hash's highest position, so one thread touches
+//       each entry in a step and one __syncwarp orders the steps; its
+//       results stay in shared memory (a step waits only on its head
+//       load) and are written out coalesced after the walk.  A position
+//       with no earlier one of its hash in the segment gets kHcEmpty;
+//       where the row has more than one segment, its position is kept as
+//       its hash's first in the segment, and the final head table as each
+//       hash's last (two u16 tables, 128 KB a segment).
+//    b. opt_chain_join, one thread per (hash, row of more than one
+//       segment): the row's segments in order, the hash's last position in
+//       those before carried and written as prev of the hash's first
+//       position in each later segment that has it.  Segment j's
+//       positions all lie below segment k's for j < k, so that is the
+//       position the serial walk's head held.  Its table reads are
+//       coalesced over the hashes, eight segments' at once; a join that
+//       looked back from each first position instead read the tables at
+//       random: ~2 ms on 16 x 4 MiB rows of the mix on an H100.
 // 2. opt_matches_rows: every position's search, wider_match(p, p, 3,
 //    pattern analysis, chain swap) over the tables with the level's depth.
 //    Writes (length, offset), or (0, 0) when nothing is longer than 3
@@ -79,15 +112,19 @@
 //    where the serial walk took one per position visited, per length
 //    priced and per chain step of a search made on the spot.
 
-// What bounds them: not bytes (the windows, 12 bytes of table per window
-// byte and the output: ~0.1 ms per 16 MiB at 3.35 TB/s), but dependent
-// steps: the chain pass's 32-position steps (2,048 per 64 KB row, 4,096 per
-// 128 KB window); the match pass's slowest search (its chain steps and
-// bytes measured, at most first_budget + budget), with warps held by their
-// longest lane; the parse's commits and rounds, on the level 12 path the
-// noise rows' (one commit per ~1.7 positions).  The tables of a batch take
-// 12 bytes per window byte of device memory; the wrapper processes rows in
-// groups under a fixed cap.
+// What bounds the chain pass: bytes (the windows read once, prev written
+// once, ~0.025 ms per 16 MiB at 3.35 TB/s); its segments' tables add ~16
+// bytes a position of traffic, and a segment's walk kChainSegment / 32
+// dependent steps, two walks an SM.  What bounds the match
+// pass and the parses: not bytes (12 bytes of table per window byte and
+// the output: ~0.1 ms per 16 MiB), but dependent steps: the match pass's
+// slowest search (its chain steps and bytes measured, at most
+// first_budget + budget), with warps held by their longest lane; the
+// parse's commits and rounds, on the level 12 path the noise rows' (one
+// commit per ~1.7 positions).  The tables of a batch take 12 bytes per
+// window byte of device memory (the chain pass's scratch, 8 bytes a
+// position, is freed before the match pass allocates its table); the
+// wrapper processes rows in groups under a fixed cap.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -99,38 +136,199 @@ using namespace lz4t;
 
 namespace {
 
+#ifndef LZ4T_CHAIN_SEGMENT
+#define LZ4T_CHAIN_SEGMENT 16384
+#endif
+// positions a CTA of the chain pass walks (`encode_opt.CHAIN_SEGMENT`)
+constexpr int kChainSegment = LZ4T_CHAIN_SEGMENT;
 constexpr int kMatchThreads = 1024;
 constexpr int kSlice = 16384;  // positions a CTA of the match pass searches
 // the staged deltas of the positions a slice's searches reach
 constexpr int kSliceDeltaBytes = ((kMaxDistance + kSlice) * 2 + 15) / 16 * 16;
 
-__global__ void __launch_bounds__(32) opt_chain_rows(
+// ---- the chain pass ------------------------------------------------------
+
+// all the threads stage, hash and write the tables out; one warp walks
+constexpr int kChainThreads = 256;
+constexpr int kChainHashes = 1 << kHcHashLog;
+constexpr uint16_t kNoHead = 0xFFFF;  // no position of the hash in the segment yet
+constexpr int kChainHeadBytes = kChainHashes * static_cast<int>(sizeof(uint16_t));
+// A lane's code in its step: kLower | the highest lower lane of its hash
+// if it has one; else (the lowest lane of its hash: it reads and writes
+// the head) the highest lane of its hash.
+constexpr uint8_t kLower = 0x40;
+// the head table, then each position's hash (u16) and code (u8); the
+// segment's bytes are staged where the head table goes until the walk
+constexpr int kChainSharedBytes = kChainHeadBytes + 3 * kChainSegment;
+static_assert((kChainSegment & (kChainSegment - 1)) == 0 && kChainSegment >= 32 &&
+                  kChainSegment <= 32768,
+              "a segment is a power of two of 32 to 32,768 positions: a head entry is a "
+              "segment-relative u16 and 0xFFFF is none");
+// the staged bytes (a segment's positions and the 3 bytes after them, the
+// aligned 16-byte chunks that hold them, a zero chunk) fit the head table
+static_assert(((15 + kChainSegment + 3 + 15) / 16 + 1) * 16 <= kChainHeadBytes, "stage");
+
+// The hash of the segment's position i (relative) from the staged words
+// (byte i at `lead` + i), or -1 past the inserted positions.
+__device__ __forceinline__ int chain_key(const uint32_t* w, int lead, int i, int ins) {
+  if (i >= ins) return -1;
+  const int b = lead + i;
+  const uint32_t v = __funnelshift_r(w[b >> 2], w[(b >> 2) + 1], (b & 3) * 8);
+  return hash4<kHcHashLog>(v);
+}
+
+// One lane's step of the walk: its position i (-1: not inserted), its hash,
+// code and head read.  result() is what the walk leaves in place of its
+// hash: the segment-relative position of its predecessor (the highest
+// lower lane of its hash, else the head), or kFirst | its hash where the
+// segment has none.
+constexpr int kFirst = 0x8000;  // above every segment-relative position
+struct ChainStep {
+  int i, h, c, x;
+  __device__ __forceinline__ int result(int lane) const {
+    if (c & kLower) return i - lane + (c & 31);
+    return x != kNoHead ? x : kFirst | h;
+  }
+};
+
+__global__ void __launch_bounds__(kChainThreads, 2) opt_chain_walk(
     const uint8_t* __restrict__ base, const long long* __restrict__ starts,
     const int* __restrict__ lens, const long long* __restrict__ toff,
-    int* __restrict__ prev) {
+    const long long* __restrict__ segoff, uint16_t* __restrict__ last,
+    uint16_t* __restrict__ first, int* __restrict__ prev, int nrows) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* head = reinterpret_cast<int*>(smem);
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x;
-  for (int i = lane; i < kHcHeadInts; i += 32) head[i] = kHcEmpty;
-  __syncwarp();
-  const uint8_t* s = base + starts[row];
-  const int n = lens[row];
-  int* pv = prev + toff[row];
-  const int max_insert = n - kMinMatch + 1;  // read32 stays in the row
-  for (int p0 = 0; p0 < n; p0 += 32) {
-    const int p = p0 + lane;
-    const bool ins = p < max_insert;
-    // lanes past the inserted span take keys no hash has
-    const int h = ins ? hash4<kHcHashLog>(read32(s, p)) : -1 - lane;
-    const unsigned peers = __match_any_sync(0xffffffffu, h);
-    const unsigned lower = peers & ((1u << lane) - 1u);
-    int q = kHcEmpty;
-    if (ins) q = lower ? p0 + 31 - __clz(lower) : head[h];
-    __syncwarp();
-    if (ins && (peers >> lane) == 1u) head[h] = p;  // the group's last position
-    __syncwarp();
-    if (p < n) pv[p] = q;
+  uint16_t* head = reinterpret_cast<uint16_t*>(smem);
+  uint4* stage = reinterpret_cast<uint4*>(smem);  // until the walk
+  uint16_t* hs = reinterpret_cast<uint16_t*>(smem + kChainHeadBytes);
+  uint8_t* code = smem + kChainHeadBytes + 2 * kChainSegment;
+  const int k = blockIdx.x;
+  const int p0 = k * kChainSegment;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int row = blockIdx.y; row < nrows; row += gridDim.y) {
+    const int n = lens[row];
+    if (p0 >= n) continue;  // the same for every thread of the CTA
+    const int len = min(kChainSegment, n - p0);
+    const int ins = max(0, min(len, n - kMinMatch + 1 - p0));  // read32 stays in the row
+    const uintptr_t a = reinterpret_cast<uintptr_t>(base + starts[row] + p0);
+    const uint4* g = reinterpret_cast<const uint4*>(a & ~uintptr_t{15});
+    const int lead = static_cast<int>(a & 15);
+    const int chunks = ins ? (lead + ins + 3 + 15) >> 4 : 0;
+    __syncthreads();  // the row before is done with the shared tables
+    for (int c = threadIdx.x; c < chunks; c += kChainThreads) stage[c] = __ldg(g + c);
+    if (threadIdx.x == 0) stage[chunks] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    // every step's hashes and codes, a warp a step
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(stage);
+    for (int i0 = warp * 32; i0 < len; i0 += kChainThreads) {
+      const int i = i0 + lane;
+      const int h = chain_key(w, lead, i, ins);
+      // the lanes of this lane's hash (a lane past the inserted positions
+      // takes a key of its own)
+      const unsigned peers = __match_any_sync(kFull, h >= 0 ? h : -1 - lane);
+      const unsigned lower = peers & ((1u << lane) - 1u);
+      if (i < len) {
+        hs[i] = static_cast<uint16_t>(h);
+        code[i] = static_cast<uint8_t>(
+            h < 0 ? 0 : lower ? kLower | (31 - __clz(lower)) : 31 - __clz(peers));
+      }
+    }
+    __syncthreads();
+    uint4* h4 = reinterpret_cast<uint4*>(head);
+    for (int c = threadIdx.x; c < kChainHeadBytes / 16; c += kChainThreads)
+      h4[c] = make_uint4(~0u, ~0u, ~0u, ~0u);
+    __syncthreads();
+    // this segment's tables, where the row has more than one segment
+    const int segments = (n + kChainSegment - 1) / kChainSegment;
+    const long long t = segments > 1 ? (segoff[row] + k) * kChainHashes : -1;
+    if (warp == 0) {
+      // each step's result is stored a step late, so that no step waits on
+      // its head read; the walk stores nothing to device memory, whose
+      // stores a __syncwarp would wait for
+      ChainStep before{-1, -1, 0, kNoHead};
+      int h = lane < ins ? hs[lane] : -1;
+      int c = lane < ins ? code[lane] : 0;
+      int h1 = lane + 32 < ins ? hs[lane + 32] : -1;
+      int c1 = lane + 32 < ins ? code[lane + 32] : 0;
+      for (int i0 = 0; i0 < len; i0 += 32) {
+        const int i = i0 + lane;
+        int x = kNoHead;
+        if (h >= 0 && !(c & kLower)) {  // the lowest lane of its hash
+          x = head[h];
+          head[h] = static_cast<uint16_t>(i0 + c);  // the hash's highest lane
+        }
+        const int j = i + 64;  // the hash and code two steps on, read ahead
+        const int h2 = j < ins ? hs[j] : -1;
+        const int c2 = j < ins ? code[j] : 0;
+        if (before.i >= 0) hs[before.i] = static_cast<uint16_t>(before.result(lane));
+        __syncwarp();  // this step's head writes before the next step's reads
+        before = ChainStep{h >= 0 ? i : -1, h, c, x};
+        h = h1;
+        c = c1;
+        h1 = h2;
+        c1 = c2;
+      }
+      if (before.i >= 0) hs[before.i] = static_cast<uint16_t>(before.result(lane));
+    }
+    __syncthreads();
+    // every position's prev, and where the row has tables, each hash's
+    // first position in the segment (the join gives it the hash's last
+    // position in the segments before)
+    int* pv = prev + toff[row] + p0;
+    uint16_t* fst = t >= 0 && k > 0 ? first + t : nullptr;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < len; i += kChainThreads) {
+      int q = kHcEmpty;
+      if (i < ins) {
+        const int r = hs[i];
+        if (!(r & kFirst))
+          q = p0 + r;
+        else if (fst)
+          fst[r & (kFirst - 1)] = static_cast<uint16_t>(i);
+      }
+      pv[i] = q;
+    }
+    if (t >= 0) {  // each hash's last position in the segment, for the join
+      uint4* out = reinterpret_cast<uint4*>(last + t);
+      for (int c = threadIdx.x; c < kChainHeadBytes / 16; c += kChainThreads) out[c] = h4[c];
+    }
+  }
+}
+
+// One thread per (hash, row) of the rows with more than one segment: the
+// segments in order, the hash's last position in those before carried,
+// and written at the hash's first position in each later one that has it.
+__global__ void __launch_bounds__(kChainThreads) opt_chain_join(
+    const int* __restrict__ lens, const long long* __restrict__ toff,
+    const long long* __restrict__ segoff, const uint16_t* __restrict__ last,
+    const uint16_t* __restrict__ first, int* __restrict__ prev, int nrows) {
+  constexpr int kAhead = 8;  // segments whose tables are read at once
+  const int h = blockIdx.x * kChainThreads + threadIdx.x;
+  for (int row = blockIdx.y; row < nrows; row += gridDim.y) {
+    const int segments = (lens[row] + kChainSegment - 1) / kChainSegment;
+    if (segments < 2) continue;
+    const uint16_t* la = last + segoff[row] * kChainHashes + h;
+    const uint16_t* fi = first + segoff[row] * kChainHashes + h;
+    int* pv = prev + toff[row];
+    int carry = kHcEmpty;
+    for (int k0 = 0; k0 < segments; k0 += kAhead) {
+      int v[kAhead], f[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+        v[u] = k0 + u < segments
+                   ? __ldg(la + static_cast<long long>(k0 + u) * kChainHashes) : kNoHead;
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+        f[u] = v[u] != kNoHead && k0 + u > 0
+                   ? __ldg(fi + static_cast<long long>(k0 + u) * kChainHashes) : 0;
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        if (v[u] == kNoHead) continue;
+        const int p = (k0 + u) * kChainSegment;
+        if (carry != kHcEmpty) pv[p + f[u]] = carry;
+        carry = p + v[u];
+      }
+    }
   }
 }
 
@@ -256,7 +454,28 @@ __global__ void __launch_bounds__(32) opt_parse_spec_rows(
 // CUDA error (0 on success).  The caller has checked every window against
 // `base` and laid the tables out by `toff`.
 
-extern "C" int lz4t_opt_chain_shared_bytes() { return kHcHeadInts * static_cast<int>(sizeof(int)); }
+// The chain walk's head table and each position's hash and code.
+extern "C" int lz4t_opt_chain_shared_bytes() { return kChainSharedBytes; }
+
+extern "C" int lz4t_opt_chain_segment() { return kChainSegment; }
+
+static cudaError_t chain_walk_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(opt_chain_walk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kChainSharedBytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(opt_chain_walk, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// CTAs of the chain walk that an SM holds at once (-1 - the CUDA error).
+extern "C" int lz4t_opt_chain_ctas_per_sm() {
+  int ctas = 0;
+  cudaError_t e = chain_walk_attributes();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, opt_chain_walk, kChainThreads,
+                                                      kChainSharedBytes);
+  return e == cudaSuccess ? ctas : -1 - static_cast<int>(e);
+}
 
 // The staged deltas of one slice of `lz4t_opt_slice()` positions.
 extern "C" int lz4t_opt_matches_shared_bytes() { return kSliceDeltaBytes; }
@@ -266,16 +485,30 @@ extern "C" int lz4t_opt_slice() { return kSlice; }
 // The price table and the lanes' positions (32 ints), at every level.
 extern "C" int lz4t_opt_parse_shared_bytes() { return kOptCellsBytes + 32 * 4; }
 
+// `segoff[r]` is the first of row r's segment tables in `last` and
+// `first` (u16, kChainHashes a table, one for each of its segments where
+// it has more than one); `max_len` is the longest row.  Enqueues the walk,
+// then the join.
 extern "C" int lz4t_opt_chain(const void* base, const void* starts, const void* lens,
-                              const void* toff, void* prev, int nrows, void* stream) {
-  const int smem = lz4t_opt_chain_shared_bytes();
-  cudaError_t e = cudaFuncSetAttribute(
-      opt_chain_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                              const void* toff, const void* segoff, void* last, void* first,
+                              void* prev, int nrows, int max_len, void* stream) {
+  cudaError_t e = chain_walk_attributes();
   if (e != cudaSuccess) return static_cast<int>(e);
-  opt_chain_rows<<<nrows, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int segments = (max_len + kChainSegment - 1) / kChainSegment;
+  const int ys = nrows < 65535 ? nrows : 65535;
+  if (segments == 0 || nrows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  opt_chain_walk<<<dim3(segments, ys), kChainThreads, kChainSharedBytes, s>>>(
       static_cast<const uint8_t*>(base), static_cast<const long long*>(starts),
       static_cast<const int*>(lens), static_cast<const long long*>(toff),
-      static_cast<int*>(prev));
+      static_cast<const long long*>(segoff), static_cast<uint16_t*>(last),
+      static_cast<uint16_t*>(first), static_cast<int*>(prev), nrows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || segments == 1) return static_cast<int>(e);
+  opt_chain_join<<<dim3(kChainHashes / kChainThreads, ys), kChainThreads, 0, s>>>(
+      static_cast<const int*>(lens), static_cast<const long long*>(toff),
+      static_cast<const long long*>(segoff), static_cast<const uint16_t*>(last),
+      static_cast<const uint16_t*>(first), static_cast<int*>(prev), nrows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -64,7 +64,7 @@ from .encode import _outputs, pack_rows
 from .encode_hc import _hash, hc_episode, hc_parse_row, level_arm
 from .encode_opt import (
     FIRST_BUDGET, MATCH_BUDGET, MAX_GROUP_ROWS, RETRY_LONGEST, TableFinder, _rows, _stream,
-    _table, opt_chain,
+    _table, chain_scratch_bytes, opt_chain,
 )
 
 # Searches kept per episode.  Text rows run episodes of up to ~17 searches
@@ -423,8 +423,11 @@ def hc_parse(base_u8, starts, src_offs, lens, prev, tables, bcap: int, depth: in
 
 def table_bytes(n: int, block: int) -> int:
     """Device bytes of one row's tables: prev and the deltas of its n window
-    positions and the episode tables of its block positions."""
-    return 6 * n + 4 * (HEAD_INTS + SLOT_INTS * (SLOTS - 2)) * block
+    positions and the episode tables of its block positions, or prev and
+    the chain pass's scratch (`encode_opt.chain_scratch_bytes`, freed
+    before the episode tables are made) where that were more."""
+    return max(6 * n + 4 * (HEAD_INTS + SLOT_INTS * (SLOTS - 2)) * block,
+               4 * n + chain_scratch_bytes(n))
 
 
 def group_budget(dev) -> int:

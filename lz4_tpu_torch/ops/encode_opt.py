@@ -8,7 +8,9 @@ arm (`lz4_tpu/ops/encode_pallas_stream.py`), with the bytes of
 `encode_hc.encode_opt`.  The arm inserts into its chain only up to the
 search position, so the search at p with a given minimum length is a
 function of the row, p and that length.  The passes build the chain of
-every position of a row (`opt_chain`) and make every position's
+every position of a row (`opt_chain`: segments of `CHAIN_SEGMENT`
+positions walked at once, then joined; `opt_chain_segments_plain` is its
+model) and make every position's
 min-length-3 search at once with the level's depth (`opt_matches`, one CTA
 per slice of `SLICE` positions, the chain deltas its searches read staged
 in shared memory).  Both parses run one warp per row, up to 32 searches a
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..constants import LAST_LITERALS, MF_LIMIT, MIN_MATCH, compress_bound
@@ -64,6 +67,13 @@ MAX_GROUP_ROWS = 65535  # the match pass's grid holds one row per y index
 # memory the chain deltas of every position its searches reach, from 65,535
 # below its first.
 SLICE = 16384
+# The chain pass's segments (`csrc/encode_opt.cu` kChainSegment): a CTA
+# walks positions [k * CHAIN_SEGMENT, (k + 1) * CHAIN_SEGMENT) of a row, and
+# each segment of a row that has more than one leaves each hash's last and
+# first position in it (two u16 tables of CHAIN_HASHES entries) for the
+# join.
+CHAIN_SEGMENT = 16384
+CHAIN_HASHES = 1 << 15
 
 _lib = None
 
@@ -73,14 +83,15 @@ def _kernel():
     if _lib is None:
         lib = load("encode_opt")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lz4t_opt_chain.argtypes = [p, p, p, p, p, i, p]
+        lib.lz4t_opt_chain.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
         lib.lz4t_opt_matches.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.lz4t_opt_parse.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, p, p, i, p]
         lib.lz4t_opt_parse_spec.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, p, p, i, p]
         for fn in (lib.lz4t_opt_chain, lib.lz4t_opt_matches, lib.lz4t_opt_parse,
                    lib.lz4t_opt_parse_spec, lib.lz4t_opt_chain_shared_bytes,
                    lib.lz4t_opt_matches_shared_bytes, lib.lz4t_opt_parse_shared_bytes,
-                   lib.lz4t_opt_slice):
+                   lib.lz4t_opt_slice, lib.lz4t_opt_chain_segment,
+                   lib.lz4t_opt_chain_ctas_per_sm):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -98,6 +109,36 @@ def shared_bytes() -> dict:
 def slice_positions() -> int:
     """The built kernel's kSlice, which `SLICE` restates."""
     return _kernel().lz4t_opt_slice()
+
+
+def chain_segment() -> int:
+    """The built kernel's kChainSegment, which `CHAIN_SEGMENT` restates."""
+    return _kernel().lz4t_opt_chain_segment()
+
+
+def chain_ctas_per_sm() -> int:
+    """CTAs of the chain walk that one SM of the card holds at once."""
+    return _kernel().lz4t_opt_chain_ctas_per_sm()
+
+
+def _segments(n, segment: int):
+    """A row's segments, where it has more than one: it then has tables."""
+    k = -(-n // segment)
+    return k * (k > 1)
+
+
+def chain_tables(lens, segment: int = CHAIN_SEGMENT) -> tuple[torch.Tensor, int]:
+    """Where each row's segment tables start in the chain pass's scratch
+    (int64 [B]: row r has a pair for each of its ceil(lens[r] / segment)
+    segments where that is more than one), and the number of pairs."""
+    tables = _segments(torch.as_tensor(lens, dtype=torch.int64).cpu(), segment)
+    return torch.cumsum(tables, 0) - tables, int(tables.sum())
+
+
+def chain_scratch_bytes(n: int) -> int:
+    """Device bytes of the chain pass's scratch for a row of ``n``
+    positions: its segments' pairs of tables, 2 bytes a hash each."""
+    return _segments(n, CHAIN_SEGMENT) * 4 * CHAIN_HASHES
 
 
 def table_offsets(lens) -> tuple[torch.Tensor, int]:
@@ -171,13 +212,74 @@ def opt_chain_plain(base_u8, starts, lens) -> torch.Tensor:
     return prev.to(base.device)
 
 
+def chain_steps(n: int, segment: int = CHAIN_SEGMENT) -> tuple[int, int]:
+    """The chain pass's dependent steps on a row of ``n`` positions: its
+    longest segment's walk steps (32 positions a step) and its segment
+    count (the join's carry, one step a segment)."""
+    return -(-min(n, segment) // 32), -(-n // segment)
+
+
+def opt_chain_segments_plain(base_u8, starts, lens, segment: int = CHAIN_SEGMENT,
+                             counts: list | None = None) -> torch.Tensor:
+    """`opt_chain` by the kernels' schedule, a model for the tests and the
+    step count (no path runs it): each row cut into segments of
+    ``segment`` positions (a power of two, 32 to 65,536), each walked
+    alone (a stable sort by hash inside the segment); a position whose
+    hash has no earlier one in its segment takes the last position of that
+    hash in the row's earlier segments, which the join carries from
+    segment to segment.
+
+    ``counts``, if given, gets one tally per row: its `segments`, its
+    longest segment's `walk_steps`, `steps` (the two added: the design's
+    dependent steps) and the positions `joined`, those the join writes
+    (first of their hash in their segment, the hash in an earlier one)."""
+    if segment & (segment - 1) or not 32 <= segment <= 65536:
+        raise ValueError("segment must be a power of two from 32 to 65,536")
+    base, st, _, ln, toff, total = _rows(base_u8, starts, None, lens)
+    raw = base.cpu().numpy()
+    prev = np.full(total, HC_EMPTY, dtype=np.int64)
+    for a, n, at in zip(st.tolist(), ln.tolist(), toff.tolist()):
+        walk, segments = chain_steps(n, segment)
+        tally = {"segments": segments, "walk_steps": walk, "steps": walk + segments,
+                 "joined": 0}
+        m = n - MIN_MATCH + 1
+        # each hash's last position in the segments walked so far: what the
+        # join carries
+        latest = np.full(CHAIN_HASHES, HC_EMPTY, dtype=np.int64)
+        if m > 0:
+            w = raw[a:a + n].astype(np.uint32)
+            h = (((w[:-3] | w[1:-2] << 8 | w[2:-1] << 16 | w[3:] << 24)
+                  * np.uint32(2654435761)) >> np.uint32(32 - 15)).astype(np.int64)
+        for k in range(segments):
+            lo, hi = k * segment, min((k + 1) * segment, m)
+            if hi <= lo:
+                break
+            hs = h[lo:hi]
+            order = np.argsort(hs, kind="stable")
+            same = hs[order[1:]] == hs[order[:-1]]
+            seg = np.full(hi - lo, -1, dtype=np.int64)
+            seg[order[1:][same]] = order[:-1][same]
+            first = np.flatnonzero(seg < 0)
+            seg[first] = latest[hs[first]] - lo  # the join
+            prev[at + lo:at + hi] = seg + lo
+            tally["joined"] += int((latest[hs[first]] != HC_EMPTY).sum())
+            ends = np.append(order[:-1][~same], order[-1])  # each hash's last
+            latest[hs[ends]] = ends + lo
+        if counts is not None:
+            counts.append(tally)
+    return torch.from_numpy(prev.astype(np.int32)).to(base.device)
+
+
 def opt_chain(base_u8, starts, lens) -> torch.Tensor:
     """The chain of every position of each row: prev int32 [sum(lens)],
     row r's entry p (at `table_offsets` r + p) the previous position of p's
     hash in the row, HC_EMPTY when there is none or p >= lens[r] - 3.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    once (counted here)."""
+    A CPU tensor runs the plain version; a CUDA tensor enqueues the
+    kernels (`opt_chain_walk` over every segment of every row, then
+    `opt_chain_join` over every hash of every row of more than one
+    segment; counted once here), their scratch (`chain_tables`) freed
+    before this returns."""
     base, st, _, ln, toff, total = _rows(base_u8, starts, None, lens)
     if base.device.type != "cuda":
         return opt_chain_plain(base, st, ln)
@@ -186,11 +288,14 @@ def opt_chain(base_u8, starts, lens) -> torch.Tensor:
     if st.numel() == 0:
         return prev
     base = base.contiguous()
-    st_d, ln_d, toff_d = st.to(dev), ln.to(dev), toff.to(dev)
+    segoff, tables = chain_tables(ln)
+    last, first = torch.empty((2, max(tables, 1), CHAIN_HASHES), dtype=torch.int16, device=dev)
+    st_d, ln_d, toff_d, segoff_d = st.to(dev), ln.to(dev), toff.to(dev), segoff.to(dev)
     with torch.cuda.device(dev):
         rc = _kernel().lz4t_opt_chain(
             base.data_ptr(), st_d.data_ptr(), ln_d.data_ptr(), toff_d.data_ptr(),
-            prev.data_ptr(), st.numel(), _stream(dev))
+            segoff_d.data_ptr(), last.data_ptr(), first.data_ptr(), prev.data_ptr(),
+            st.numel(), int(ln.max()), _stream(dev))
     check(rc, "opt_chain")
     opt_chain.launches += 1
     return prev
@@ -753,11 +858,15 @@ def opt_parse_spec(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
 def row_groups(lens) -> list[tuple[int, int]]:
     """Consecutive [first, end) row ranges whose tables fit
     `GROUP_TABLE_BYTES` (a row larger than that makes a group of its own)
-    and whose rows fit one match-pass launch."""
+    and whose rows fit one match-pass launch.  A row's tables are the
+    larger of its TABLE_BYTES a position and prev beside the chain pass's
+    scratch (`chain_scratch_bytes`: 8 bytes a position for rows of whole
+    segments, up to 16 for a row just over one segment)."""
     cap = GROUP_TABLE_BYTES
     groups, first, size = [], 0, 0
     for r, n in enumerate(torch.as_tensor(lens).tolist()):
-        need = n * TABLE_BYTES
+        # the chain pass's scratch beside prev, freed before the match table
+        need = max(n * TABLE_BYTES, 4 * n + chain_scratch_bytes(n))
         if r > first and (size + need > cap or r - first == MAX_GROUP_ROWS):
             groups.append((first, r))
             first, size = r, 0

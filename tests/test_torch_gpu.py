@@ -504,6 +504,44 @@ def test_opt_slice_is_the_kernels(cuda):
     assert 2 * (65535 + encode_opt.SLICE) <= smem <= 232448
 
 
+@pytest.mark.parametrize("case", range(5))
+def test_opt_chain_matches_plain_at_the_segment_edges(case, cuda):
+    """The chain pass (`opt_chain_walk` over segments of `CHAIN_SEGMENT`
+    positions, then `opt_chain_join`) against its plain version on
+    `chip_smoke.chain_edge_windows`: rows across and at the segment
+    boundaries, windows starting 1, 2 and 3 mod 16 (and in a tensor at an
+    odd address), a 4 MiB row of zeros, a chained window of 64 KB and a
+    4 MiB block; one wrapper call each."""
+    what, payload, view, st, ln = chip_smoke.chain_edge_windows(encode_opt.CHAIN_SEGMENT,
+                                                                21)[case]
+    before = encode_opt.opt_chain.launches
+    got = encode_opt.opt_chain(payload.to(cuda)[view:], st, ln)
+    torch.cuda.synchronize()
+    assert encode_opt.opt_chain.launches == before + 1, what
+    _equal([got], [encode_opt.opt_chain_plain(payload[view:], st, ln)])
+
+
+def test_opt_chain_equals_the_sort_formulation(cuda):
+    """The chain pass equals the library yardstick of `chip_smoke.py`
+    (`chain_by_sort`: one stable torch.sort of row * 2^15 + hash) on
+    256 chained windows of the mix."""
+    data = chip_smoke.make_corpus(16 << 20, 22)
+    st, _, wl = chip_smoke.chained_windows(len(data), BLOCK)
+    base_d = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+    _equal([encode_opt.opt_chain(base_d, st, wl)], [chip_smoke.chain_by_sort(base_d, st, wl)])
+
+
+def test_chain_segment_is_the_kernels(cuda):
+    """`encode_opt.CHAIN_SEGMENT` is the built kernel's, and the walk's
+    shared memory (the u16 head table, each position's u16 hash and u8
+    code) lets two CTAs share an SM (228 KB, 1 KB of it reserved a CTA)."""
+    assert encode_opt.chain_segment() == encode_opt.CHAIN_SEGMENT
+    smem = encode_opt.shared_bytes()["opt_chain"]
+    assert smem == 2 * encode_opt.CHAIN_HASHES + 3 * encode_opt.CHAIN_SEGMENT
+    assert 2 * (smem + 1024) <= 233472
+    assert encode_opt.chain_ctas_per_sm() == 2
+
+
 @pytest.mark.parametrize("level", [10, 11])
 def test_opt_spec_passes_match_plain(level, cuda):
     """Each level 10-11 pass against its plain version on the kernel's own
