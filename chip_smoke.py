@@ -13,8 +13,9 @@ Phases, each fatal on failure:
    equal bytes, lengths and flags;
 3. kernel A (decode) against its plain version on phase 2's output,
    sequence-writer streams (overlapping matches, dictionary reach, long
-   length extensions) with known output, and rows with flipped bits:
-   equal lengths, flags and bytes;
+   length extensions) with known output, and rows with flipped bits, on
+   the route `decode.route` gives and on the one-warp route: equal
+   lengths, flags and bytes;
 4. kernel D (FAST encode at any size, with dictionaries) against its plain
    version: dense 64 KB rows with dictionaries of 0, 100, 4,000 and 65,536
    bytes, canonical rows of 65,546, 65,547, 1 MiB and 4 MiB (the byU16 and
@@ -51,16 +52,30 @@ Phases, each fatal on failure:
    corrupt kinds (a flipped token, a cut row, an offset past the output
    start, trailing bytes, length runs that end at the row's end) and
    dictionary rows, each of its passes against its plain version and the
-   whole against its one-warp route's lens and errs;
+   whole against its one-warp route's lens and errs; the one-warp route's
+   edge rows (`hold_warp_edges`: offsets 1-40 and matches from the
+   dictionary into the output, limits inside literal runs and matches and
+   on sequence ends, compress_bound rows, literal runs longer than the
+   ring, out_cap 16/1,000/65,535, rows of 0 and 1 byte, the corrupt kinds,
+   rows of up to 1 MiB, rows 1-15 bytes into their chunks), max_abs_err 0
+   over the whole output;
 10. the FAST row sizes (`phase_fast_rows`): kernels D and A over the --mb
    payload as 64 KB, 1 MiB and 4 MiB rows, timed (CUDA events; A's passes
    by the profiler's device time; A's one-warp route beside it, its whole
-   output equal), one row per quarter of each timed launch held to the
+   output equal; both routes at 1-1,024 of the 64 KB rows held equal and
+   timed per call beside the route rule, `route_counts`; the rule's
+   batches above 64 KB, 128 rows of 128 KB and 256 of 256 KB, on both
+   routes held equal, to the raw rows and on two rows each to the plain
+   version, the rule's route required to be the one-warp route,
+   `hold_route_rule_rows`), one row per
+   quarter of each timed launch held to the
    serial and batched plain scans and the serial plain decode (in the
    worker pool), and A's passes held to their plain versions on those
    rows; bounds: bytes moved over 3.35 TB/s, and D's dependent steps
    (probe steps and sequences of the slowest picked row, one L1 round
-   trip each);
+   trip each; `decode_rows`: the slowest picked row's steps in the plain
+   model of its schedule (window steps, and sequences and length-extension
+   bytes parsed one at a time) at 32 cycles each, `warp_step_bound`);
 11. times of kernel D on the chained path's rows and of the chained
    decoder (its passes from the profiler's device time, on the 16 MiB frame
    of phase 5, the --mb MiB frame of phase 7 and a 16 MiB L9 frame), their
@@ -149,8 +164,10 @@ Phases, each fatal on failure:
    the one-shot frame; a three-frame stream with a skippable frame; a
    16 MiB legacy frame (8 MiB blocks, A's passes); a ChainDecoder over a
    chained frame's blocks (C's batch form); `partial_decode`, pickle and
-   legacy round trips; the streaming form, the limited route and C's
-   batch form timed at their paths' shapes.
+   legacy round trips; one `block.decode` and one `partial_decode` alone,
+   each required to launch the route the rule gives (a `routes` line);
+   the streaming form, the limited route and C's batch form (on each of
+   A's routes) timed at their paths' shapes, with step bounds.
 17. the dense codecs X1-X3 (`phase_dense`; PyTorch tensor ops, not
    hand-written kernels, so they print a `dense` line of their own): X1 at
    levels 0, 3, 9 and 12 on four 64 KB rows of the mix and X2 on its output
@@ -352,8 +369,14 @@ def phase_build():
         for line in log.splitlines():
             if ("ptxas" in line or "spill" in line) and "Compile" not in line:
                 print(f"[build] {name}.cu: {line.strip()}")
-    print("[build] decode.cu, decode_stream.cu: dynamic shared memory 0 "
-          "bytes per CTA (decode.cu's rows_spans: 49,152 bytes static)")
+    from lz4_tpu_torch.ops import decode
+
+    _require(decode.shared_out() == decode.SHARED_OUT,
+             "decode.SHARED_OUT differs from the one-warp route's")
+    print(f"[build] decode.cu: decode_rows (the one-warp route) dynamic shared memory "
+          f"{decode.warp_shared_bytes(BLOCK)} bytes per CTA at out_cap 64 KB, "
+          f"{decode.warp_shared_bytes(1 << 20)} above {decode.SHARED_OUT} (output in "
+          f"place); the passes 0 (rows_spans: 49,152 bytes static); decode_stream.cu: 0")
     for geometry, longest, what in (("canonical", 1 << 22, "canonical"),
                                     ("dense", 1 << 16, "dense, windows <= 64 KB"),
                                     ("dense", 1 << 17, "dense, longer windows")):
@@ -443,13 +466,15 @@ def phase_decode(streams, rng, dev):
     comps, clens = _stage(rows, cap)
     for out_cap in (BLOCK, 4096):
         got = decode.decode_blocks(comps.to(dev), clens.to(dev), out_cap)
+        warp, _ = decode._decode("warp", comps.to(dev), clens.to(dev), out_cap)
         torch.cuda.synchronize()
         want = decode.decode_blocks_plain(comps, clens, out_cap)
-        err = _max_abs_err(got, want)
+        err = max(_max_abs_err(got, want), _max_abs_err(warp, want))
         _require(err == 0, f"decode out_cap={out_cap}: kernel != plain")
         worst = max(worst, err)
-        print(f"[decode] out_cap={out_cap}: {len(rows)} rows equal "
-              f"({int((want[2] != 0).sum())} flagged), flips {len(flipped)}")
+        print(f"[decode] out_cap={out_cap}: {len(rows)} rows equal on the route rule's "
+              f"route and the one-warp route ({int((want[2] != 0).sum())} flagged), flips "
+              f"{len(flipped)}")
     # sequence-writer streams with right-aligned dictionaries
     windows, synth, expect = [], [], []
     for k in range(32):
@@ -465,10 +490,12 @@ def phase_decode(streams, rng, dev):
     for i, w in enumerate(windows):
         if w:
             dicts[i, 65536 - len(w):] = torch.frombuffer(bytearray(w), dtype=torch.uint8)
-    got = decode.decode_blocks(comps.to(dev), clens.to(dev), BLOCK, dicts.to(dev), dlens.to(dev))
+    args = comps.to(dev), clens.to(dev), BLOCK, dicts.to(dev), dlens.to(dev)
+    got = decode.decode_blocks(*args)
+    warp = decode._launch_warp(*args)
     torch.cuda.synchronize()
     want = decode.decode_blocks_plain(comps, clens, BLOCK, dicts, dlens)
-    err = _max_abs_err(got, want)
+    err = max(_max_abs_err(got, want), _max_abs_err(warp, want))
     _require(err == 0, "decode with dictionaries: kernel != plain")
     worst = max(worst, err)
     out, lens, errs = (t.cpu() for t in got)
@@ -476,7 +503,7 @@ def phase_decode(streams, rng, dev):
         _require(int(errs[i]) == 0 and out[i, :int(lens[i])].numpy().tobytes() == o,
                  f"sequence-writer row {i} did not decode to its expected bytes")
     print(f"[decode] {len(synth)} sequence-writer rows with dictionaries equal "
-          f"and exact")
+          f"and exact (the route rule's route and the one-warp route)")
     return worst
 
 
@@ -1009,9 +1036,136 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def _call_ms(fn, iters: int) -> float:
+    """The median host time of one call of ``fn`` and a synchronize: what
+    a caller waits for one call, host work included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# the row counts at which both of kernel A's routes are timed and held
+ROUTE_COUNTS = (1, 4, 16, 64, 256, 1024)
+
+
+def route_counts(comps, clens, raw, dev) -> dict:
+    """Both of kernel A's routes on 1-1,024 of a batch's 64 KB rows (spread
+    evenly): each held equal to the other and to the raw rows, timed per
+    wrapper call (`_call_ms`, median of 5), beside the route
+    `decode.route` gives."""
+    import torch
+    from lz4_tpu_torch.ops import decode
+
+    nb = comps.shape[0]
+    out = {}
+    for n in ROUTE_COUNTS:
+        if n > nb:
+            break
+        picks = torch.tensor([k * nb // n for k in range(n)])
+        c, cl = comps[picks.to(dev)], clens[picks.to(dev)]
+        warp = decode._decode("warp", c, cl, BLOCK)[0]
+        rows = decode._decode("rows", c, cl, BLOCK)[0]
+        _require(_max_abs_err(warp, rows) == 0, f"A's routes differ on {n} rows")
+        _require(torch.equal(warp[0].cpu(), raw[picks]) and not bool(warp[2].any()),
+                 f"A's one-warp route on {n} rows: the round trip is not exact")
+        out[n] = {"warp_ms": _call_ms(lambda: decode._decode("warp", c, cl, BLOCK), 5),
+                  "rows_ms": _call_ms(lambda: decode._decode("rows", c, cl, BLOCK), 5),
+                  "rule": decode.route(n, BLOCK)}
+    print("[routes] A's routes equal at " + ", ".join(
+        f"{n} rows (warp {v['warp_ms']:.3f} ms, passes {v['rows_ms']:.3f}; rule {v['rule']})"
+        for n, v in out.items()))
+    return out
+
+
+def hold_route_rule_rows(data: bytes, dev, timed: bool = True) -> dict:
+    """The route rule's batches above 64 KB (`decode.WARP_ROUTE_ROWS`: the
+    fewest rows that take the one-warp route at 128 KB and at 256 KB), cut
+    from ``data`` (repeated where it is shorter) and encoded by kernel D:
+    the rule must give the one-warp route and `decode_blocks` must launch
+    it; both routes' whole outputs held equal, to the raw rows, and on two
+    rows to the plain version (max_abs_err 0); each route timed per
+    wrapper call (`_call_ms`, median of 5) when ``timed``."""
+    import torch
+    from lz4_tpu_torch.ops import decode, encode_stream
+    from lz4_tpu_torch.parallel.blocks import comp_capacity, split_blocks
+
+    out = {}
+    for cap, n in decode.WARP_ROUTE_ROWS:
+        if cap <= decode.WARP_ROUTE_MAX:
+            continue
+        src = (data * -(-n * cap // len(data)))[:n * cap]
+        bufs, lens = split_blocks(src, cap)
+        enc, clens, _ = encode_stream.encode_blocks_stream(bufs.to(dev), lens.to(dev), cap)
+        comps = torch.zeros((n, comp_capacity(cap)), dtype=torch.uint8, device=dev)
+        comps[:, :enc.shape[1]] = enc
+        _require(decode.route(n, cap) == "warp", f"the rule at {n} x {cap}: not the one-warp route")
+        before = dict(decode.kernel_launches)
+        got = decode.decode_blocks(comps, clens, cap)
+        ran = {k: decode.kernel_launches[k] - before[k] for k in ("decode_rows", "rows_gather")}
+        _require(ran == {"decode_rows": 1, "rows_gather": 0},
+                 f"decode_blocks at {n} x {cap} launched {ran}, not the one-warp route")
+        rows = decode._decode("rows", comps, clens, cap)[0]
+        picks = [n // 3, n - 1]
+        want = decode.decode_blocks_plain(comps[picks].cpu(), clens[picks].cpu(), cap)
+        err = max(_max_abs_err(got, rows), _max_abs_err([t[picks] for t in got], want))
+        _require(err == 0, f"A's routes at {n} x {cap}: kernel != passes or plain")
+        _require(torch.equal(got[0].cpu(), bufs[:, :cap]) and not bool(got[2].any()),
+                 f"A's one-warp route at {n} x {cap}: the round trip is not exact")
+        key = f"{n} x {cap // 1024} KB"
+        out[key] = {"rule": "warp", "max_abs_err": err}
+        if timed:
+            out[key].update(
+                warp_ms=_call_ms(lambda: decode._decode("warp", comps, clens, cap), 5),
+                rows_ms=_call_ms(lambda: decode._decode("rows", comps, clens, cap), 5))
+    print("[routes] the rule's one-warp batches above 64 KB equal to the passes and the "
+          "plain version: " + ", ".join(
+              k + (f" (warp {v['warp_ms']:.3f} ms, passes {v['rows_ms']:.3f})" if timed else "")
+              for k, v in out.items()))
+    return out
+
+
+def warp_step_bound(rows, clock: float, limit: int = -1, window: bytes = b"") -> dict:
+    """The one-warp route's step bound on compressed rows (bytes) of out_cap
+    64 KB, from the plain model of its schedule (`decode.decode_rows_model`,
+    each row with ``window`` as its dictionary): the slowest row's
+    dependent steps (`decode.schedule_steps`: the window steps, and the
+    sequences and length-extension bytes parsed one at a time) at one
+    shared-memory round trip each, `step_bound_ms`; beside it one step per
+    sequence and extension byte, `serial_step_ms`."""
+    from lz4_tpu_torch.ops import decode
+
+    tallies = []
+    for r in rows:
+        decode.decode_rows_model(r, BLOCK, window, limit, counts=tallies)
+    steps = max(decode.schedule_steps(t) for t in tallies)
+    serial = max(t["sequences"] + t["extension_bytes"] for t in tallies)
+    step_ms = L1_CYCLES / clock * 1e3
+    return {"steps": steps, "step_bound_ms": steps * step_ms,
+            "serial_steps": serial, "serial_step_ms": serial * step_ms}
+
+
+def _step_bound(entry: dict, steps: dict) -> dict:
+    """``entry`` with `warp_step_bound`'s counts, its bytes bound kept as
+    `byte_bound_ms` and the larger of the two as its bound."""
+    entry.update(steps, byte_bound_ms=entry["bound_ms"], bound_by="bytes")
+    if steps["step_bound_ms"] > entry["bound_ms"]:
+        entry.update(bound_ms=steps["step_bound_ms"], bound_by="operations")
+    return entry
+
+
 FAST_SHAPES = (("64KiB", 1 << 16), ("1MiB", 1 << 20), ("4MiB", 4 << 20))
 ROW_PASSES = ("rows_nn", "rows_spans", "rows_hops", "rows_table", "rows_literals",
               "rows_jump", "rows_gather")
+# the kernels of each of kernel A's routes (`decode.route`)
+ROUTE_KERNELS = {"warp": ("decode_rows",), "rows": ROW_PASSES}
 # one dependent step of the FAST scan's warp: at least one L1 round trip
 # (an estimate, in cycles)
 L1_CYCLES = 32
@@ -1205,6 +1359,7 @@ def phase_fast_edges(data: bytes, rng, dev, pool):
         worst_a[k] = max(worst_a.get(k, 0), e)
     print(f"[fast edges] A with dictionaries {dls.tolist()}: each pass equal to its plain "
           f"version and to the one-warp route, errs={new[2].tolist()}")
+    worst_a["one-warp edges"] = hold_warp_edges(dev, 17)
     return worst_d, worst_a
 
 
@@ -1336,6 +1491,9 @@ def phase_fast_rows(data: bytes, dev, pool):
                  f"A at {label}: the round trip is not exact")
         comps_h, clens_h = comps[picks].cpu(), clens[picks].cpu()
         dec_plain_f = _submit_timed(pool, decode.decode_blocks_plain, comps_h, clens_h, size)
+        if size == BLOCK:
+            summary["routes"] = route_counts(comps, clens, bufs[:, :size], dev)
+            summary["routes_above_64KiB"] = hold_route_rule_rows(data, dev)
         pass_err, pass_s = hold_rows_passes(comps_h, clens_h, size, dev)
         out_h = out.cpu()
         serial, serial_s = serial_f.result()
@@ -1375,15 +1533,20 @@ def phase_fast_rows(data: bytes, dev, pool):
              "bound_ms": max(byte_ms, step_ms),
              "bound_by": "bytes" if byte_ms >= step_ms else "operations",
              "byte_bound_ms": byte_ms, "step_bound_ms": step_ms, "library_ms": None},
-            {"name": "decode_blocks" if is64 else f"decode_blocks:{label}",
+            {"name": "decode_rows" if is64 else f"decode_blocks:{label}",
              "route": "cuda", "source": "lz4_tpu_torch/ops/csrc/decode.cu",
              "replaces": "lz4_tpu/ops/decode_pallas6.py:643",
              "shape": f"{nb} x {label}", "max_abs_err": max(err_a, *pass_err.values()),
              "ms": dec_ms, "route_ms": routes_ms, "pass_ms": pass_ms,
+             "rule": decode.route(nb, size),
              "plain_ms": seconds * 1e3 / len(picks) * nb,
              "bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
              "library_ms": None},
         ]
+        if is64:  # the one-warp route: its schedule's step bound, the slowest picked row's
+            _step_bound(entries[-1], warp_step_bound(
+                [comps_h[i, :int(clens_h[i])].numpy().tobytes() for i in range(len(picks))],
+                clock))
         if size == 4 << 20:
             bounds = row_pass_bounds(comps, clens, size, clock)
             for name in ROW_PASSES:
@@ -3044,6 +3207,189 @@ def hold_limited_decode(data: bytes, rng, dev):
     return err
 
 
+def offset_stream(rng, window: bytes, limit: int, offsets=range(1, 41)):
+    """A valid LZ4 block and the bytes it decodes to, its matches at each
+    of ``offsets`` in turn (1-31 overlap their own output) and, where the
+    right-aligned `window` allows, one match in four starting in the window
+    and running on into the output, another anywhere in the window."""
+    comp, hist = bytearray(), bytearray(window)
+    k = 0
+    while True:
+        ll = int(rng.choice([0, 1, 3, 15, 16, 40]))
+        ml = int(rng.choice([4, 5, 17, 19, 33, 64, 300]))
+        if not hist:
+            ll = max(ll, 1)  # something to match against
+        at = len(hist) - len(window) + ll  # the match's output position
+        off = offsets[k % len(offsets)]
+        if window and k % 4 == 3:  # from the window on into the output
+            off = at + 1 + int(rng.integers(0, min(len(window), 64)))
+            ml = max(ml, off - at + 8)
+        elif window and k % 4 == 1:  # anywhere in the window
+            off = at + 1 + int(rng.integers(0, len(window)))
+        off = min(off, len(hist) + ll, 65535)
+        if at + ml + 300 > limit:
+            break
+        k += 1
+        comp.append((min(ll, 15) << 4) | min(ml - 4, 15))
+        if ll >= 15:
+            _vle(comp, ll - 15)
+        lits = rng.integers(0, 256, ll, dtype=np.uint8).tobytes()
+        comp += lits + off.to_bytes(2, "little")
+        if ml >= 19:
+            _vle(comp, ml - 19)
+        hist += lits
+        for _ in range(ml):
+            hist.append(hist[-off])
+    ll = int(rng.integers(0, 20))
+    lits = rng.integers(0, 256, ll, dtype=np.uint8).tobytes()
+    comp.append(min(ll, 15) << 4)
+    if ll >= 15:
+        _vle(comp, ll - 15)
+    comp += lits
+    hist += lits
+    return bytes(comp), bytes(hist[len(window):])
+
+
+def sequence_edges(comp: bytes) -> list:
+    """Each sequence's output position after its literal run and after its
+    match, for a valid block: the limits that fall on those edges."""
+    edges, ip, op = [], 0, 0
+    while ip < len(comp):
+        token = comp[ip]
+        ip += 1
+        ll = token >> 4
+        if ll == 15:
+            while True:
+                ip += 1
+                ll += comp[ip - 1]
+                if comp[ip - 1] != 255:
+                    break
+        ip += ll
+        op += ll
+        if ip >= len(comp):
+            edges.append((op, op))
+            break
+        ip += 2
+        ml = (token & 15) + 4
+        if token & 15 == 15:
+            while True:
+                ip += 1
+                ml += comp[ip - 1]
+                if comp[ip - 1] != 255:
+                    break
+        edges.append((op, op + ml))
+        op += ml
+    return edges
+
+
+def warp_edge_batches(seed: int, encode_row) -> list:
+    """The one-warp route's edge rows, as batches of (name, rows, out_cap,
+    windows or None, limits or None): offset streams (offsets 1-40, matches
+    from the dictionary into the output) at dictionary lengths 0, 1, 100
+    and 65,536; limits inside a literal run, inside a match, on a sequence
+    end, at 0 and past the end; a row at compress_bound(64 KB) (random
+    bytes: one literal run longer than the ring holds), a 64 KB row of
+    zeros, literal runs longer than the ring followed by matches; rows of
+    the mix at out_cap 16, 1,000 and 65,535, and at 4,096 with limits
+    above it and up to it; rows of 0 and 1 byte and every
+    corrupt kind; rows of up to 1 MiB of output (one of 900,000 bytes with
+    runs of 300,000 random bytes) on the route's output-in-place form.  ``encode_row(raw)`` compresses one row
+    (the card's encoder in `chip_smoke.py`, the plain one in the tests)."""
+    rng = np.random.default_rng(seed)
+    mix = make_corpus(4 * BLOCK, seed)
+    windows, rows, outs = [], [], []
+    for wlen in (0, 1, 100, 65536):
+        window = rng.integers(0, 256, wlen, dtype=np.uint8).tobytes()
+        c, o = offset_stream(rng, window, BLOCK)
+        windows.append(window)
+        rows.append(c)
+        outs.append(o)
+    batches = [("offsets", rows, BLOCK, windows, None)]
+    lrows, lwins, lims = [], [], []
+    for c, w, o in zip(rows, windows, outs):
+        edges = sequence_edges(c)
+        lit = next(a for a, b in edges if a >= 2)  # a run long enough to cut
+        match = next(b for a, b in edges if b - a >= 2 and a > 0)
+        for lim in (0, lit - 1, match - 1, edges[len(edges) // 2][1], len(o), BLOCK):
+            lrows.append(c)
+            lwins.append(w)
+            lims.append(lim)
+    batches.append(("limits", lrows, BLOCK, lwins, lims))
+    noise = encode_row(rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes())
+    zeros = encode_row(bytes(BLOCK))
+    texts = [encode_row(mix[k * BLOCK:(k + 1) * BLOCK]) for k in range(4)]
+    # literal runs longer than the ring, each then a match: the parse goes
+    # past ring stages it never reads
+    run = rng.integers(0, 256, 20000, dtype=np.uint8).tobytes()
+    long_runs = encode_row(run + run[:5000] + run[7:30007] + run[:9000])
+    batches.append(("bounds", [noise, zeros, long_runs] + texts, BLOCK, None, None))
+    for cap in (16, 1000, 65535):
+        cut = [encode_row(mix[k * BLOCK:k * BLOCK + cap]) for k in range(4)]
+        batches.append((f"out_cap {cap}", cut + corrupt_rows(cut[0]), cap, None, None))
+    batches.append(("limits past out_cap", texts[:2] + [noise, long_runs], 4096, None,
+                    [5000, 65536, 4096, 100]))
+    batches.append(("short and corrupt", [b"", b"\x00", b"\x10a", b"\x10"]
+                    + corrupt_rows(texts[0]) + corrupt_rows(noise), BLOCK, None, None))
+    big_run = rng.integers(0, 256, 300000, dtype=np.uint8).tobytes()
+    big = texts[:2] + corrupt_rows(texts[1])[:3] + [
+        encode_row(big_run + mix[:200000] + big_run[:100000] + big_run)]
+    batches.append(("1 MiB out_cap", big, 1 << 20, None, None))
+    batches.append(("1 MiB out_cap, limits", big, 1 << 20, None,
+                    [1000, 70000, 200, 1 << 20, 5, 650000]))
+    return batches
+
+
+def hold_warp_edges(dev, seed: int) -> int:
+    """Kernel A's one-warp route against its plain version on
+    `warp_edge_batches`, max_abs_err over the whole output tensor, lens and
+    errs: each batch's rows 1-15 bytes into their 16-byte chunks (rows of a
+    width that is not a multiple of 16, in a view 1-15 bytes into its
+    tensor).  Returns the largest difference (0)."""
+    import torch
+    from lz4_tpu_torch import block
+    from lz4_tpu_torch.ops import decode
+
+    worst, n = 0, 0
+    batches = warp_edge_batches(seed, lambda raw: block.encode(raw, device=dev))
+    for k, (name, rows, out_cap, windows, limits) in enumerate(batches):
+        lead = 1 + k % 15
+        width = max(len(r) for r in rows) + 21 + (k % 2)
+        width += (width % 16 == 0)
+        flat = torch.zeros(lead + len(rows) * width, dtype=torch.uint8)
+        for i, r in enumerate(rows):
+            if r:
+                at = lead + i * width
+                flat[at:at + len(r)] = torch.frombuffer(bytearray(r), dtype=torch.uint8)
+        comps = flat[lead:].view(len(rows), width)
+        clens = torch.tensor([len(r) for r in rows], dtype=torch.int32)
+        dicts = dls = None
+        if windows is not None:
+            dflat = torch.zeros(lead + len(rows) * 65536, dtype=torch.uint8)
+            dicts = dflat[lead:].view(len(rows), 65536)
+            for i, w in enumerate(windows):
+                if w:
+                    dicts[i, 65536 - len(w):] = torch.frombuffer(bytearray(w), dtype=torch.uint8)
+            dls = torch.tensor([len(w) for w in windows], dtype=torch.int32)
+        lim = None if limits is None else torch.tensor(limits, dtype=torch.int32)
+        want = decode.decode_blocks_plain(comps, clens, out_cap, dicts, dls, limits=lim)
+        cflat = flat.to(dev)
+        args = (cflat[lead:].view(len(rows), width), clens.to(dev), out_cap,
+                None if dicts is None else dflat.to(dev)[lead:].view(len(rows), 65536),
+                None if dls is None else dls.to(dev),
+                None if lim is None else lim.to(dev))
+        got = decode._launch_warp(*args)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        _require(err == 0, f"one-warp route, edge batch {name!r}: kernel != plain")
+        worst = max(worst, err)
+        n += len(rows)
+    print(f"[edges] one-warp route: {n} edge rows in {len(batches)} batches equal to the "
+          f"plain version over the whole output (offsets 1-40 and dictionary reach, limits "
+          f"on the edges, compress_bound, out_cap 16/1,000/65,535, 0 and 1 byte, the "
+          f"corrupt kinds, 1 MiB out_cap), rows 1-15 bytes into their chunks")
+    return worst
+
+
 def _stream_file(data: bytes, settings, dev, size: int = STREAM_WRITE):
     """`LZ4FrameFile` writes of ``size`` bytes, then reads of as many:
     (frame, write seconds, read seconds)."""
@@ -3208,8 +3554,9 @@ def phase_streaming(data: bytes, rng, dev):
         return b"".join(dec.inject_block(chained[o:o + n]) if st
                         else dec.decode_block(chained[o:o + n]) for o, n, st in blocks)
 
+    one_row = ROUTE_KERNELS[decode.route(1, BLOCK)]  # a lone 64 KB row's route
     got, launches["chain_decoder"] = _counted(
-        [decode_stream.decode_blocks_stream], ("decode_rows",), idle, chain_decode)
+        [decode_stream.decode_blocks_stream], one_row, idle, chain_decode)
     _require(got == data[:2 << 20], "ChainDecoder did not decode exactly")
 
     # one block's partial decode, pickles and wraps
@@ -3229,6 +3576,24 @@ def phase_streaming(data: bytes, rng, dev):
         [encode_stream.encode_blocks_stream, decode.decode_blocks],
         ("decode_rows", "decode_rows_limit"), idle, host_apis)
     _require(got == data[:4 << 20], "legacy stream round trip")
+    # one block's decode and one partial decode, each alone: the route the
+    # rule gives a lone row, and the one-warp route for a limit
+    got, launches["block_decode"] = _counted(
+        [decode.decode_blocks], one_row, idle,
+        lambda: block.decode(comp64, target_length=BLOCK, device=dev))
+    _require(got == data[:BLOCK], "block.decode")
+    got, launches["partial_decode"] = _counted(
+        [decode.decode_blocks], ("decode_rows", "decode_rows_limit"), idle,
+        lambda: block.partial_decode(comp64, 4097, device=dev))
+    _require(got == data[:4097], "partial_decode")
+    paths = {p: {"rule": "warp" if p == "partial_decode" else decode.route(1, BLOCK),
+                 "launches": {k: launches[p].get(k, 0) for k in ("decode_rows", *ROW_PASSES)}}
+             for p in ("chain_decoder", "block_decode", "partial_decode")}
+    for p, v in paths.items():
+        ran = "warp" if v["launches"]["decode_rows"] else "rows"
+        _require(ran == v["rule"] and (v["launches"]["rows_gather"] > 0) == (ran == "rows"),
+                 f"{p} launched the {ran} route, not the rule's {v['rule']}")
+    print(json.dumps({"routes": {"paths": paths}}))
     print(f"[stream] ChainDecoder over {len(blocks)} blocks exact, launches "
           f"{launches['chain_decoder']}; partial_decode, pickle, legacy wrap and "
           f"stream exact, launches {launches['host_apis']}")
@@ -3265,24 +3630,34 @@ def phase_streaming(data: bytes, rng, dev):
     decode.decode_blocks_plain(comps, clens, BLOCK, limits=lim)
     limit_plain_ms = (time.perf_counter() - t0) * 1e3
     limit_bytes = _limited_bytes(comp64, limit) + limit
+    limit_steps = warp_step_bound([comp64], clock, limit)
     d_comp = block.encode(data[BLOCK:2 * BLOCK], dictionary=data[:BLOCK], device=dev)
     dcomps, dclens = _stage([d_comp], comp_capacity(BLOCK))
     dicts = torch.frombuffer(bytearray(data[:BLOCK]), dtype=torch.uint8).reshape(1, BLOCK)
     dlens = torch.tensor([BLOCK], dtype=torch.int32)
     args_d = [t.to(dev) for t in (dcomps, dclens)]
     dict_d = [t.to(dev) for t in (dicts, dlens)]
-    dict_fn = lambda: decode_stream.decode_blocks_stream(  # noqa: E731
-        args_d[0], args_d[1], BLOCK, dict_d[0], dict_d[1])
-    dict_ms, dict_seen = _device_ms(dict_fn, "decode_rows", rows_a, 20)
-    dict_call_ms = _cuda_ms(dict_fn, 20)
     t0 = time.perf_counter()
     want = decode_stream.decode_blocks_stream(dcomps, dclens, BLOCK, dicts, dlens)
     dict_plain_ms = (time.perf_counter() - t0) * 1e3
-    got = decode_stream.decode_blocks_stream(args_d[0], args_d[1], BLOCK, dict_d[0], dict_d[1])
-    dict_err = _max_abs_err(got, want)
-    _require(dict_err == 0 and want[0][0].numpy().tobytes() == data[BLOCK:2 * BLOCK],
-             "decode_blocks_stream with a dictionary: kernel != plain")
+    _require(want[0][0].numpy().tobytes() == data[BLOCK:2 * BLOCK],
+             "decode_blocks_stream's plain version with a dictionary")
     dict_bytes = len(d_comp) + 2 * BLOCK
+    dict_steps = warp_step_bound([d_comp], clock, window=data[:BLOCK])
+    dict_byte_ms = dict_bytes / HBM_BYTES_PER_S * 1e3
+    dict_routes = {}
+    for name, kernels in ROUTE_KERNELS.items():  # C's batch form on each route
+        def route_fn(name=name):
+            return decode._decode(name, args_d[0], args_d[1], BLOCK, dict_d[0], dict_d[1])[0]
+
+        ms, seen = _device_ms_by(
+            route_fn, lambda k=kernels: {p: decode.kernel_launches[p] for p in k}, 20)
+        got = route_fn()
+        dict_routes[name] = {"ms": sum(ms.values()), "kernel_ms": ms, "seen": seen,
+                             "call_ms": _call_ms(route_fn, 20),
+                             "max_abs_err": _max_abs_err(got, want)}
+        _require(dict_routes[name]["max_abs_err"] == 0,
+                 f"decode_blocks_stream with a dictionary on the {name} route: kernel != plain")
     entries = [
         {"name": "xxh32_stripes", "route": "cuda",
          "source": "lz4_tpu_torch/ops/csrc/xxh32.cu",
@@ -3294,29 +3669,42 @@ def phase_streaming(data: bytes, rng, dev):
          "byte_bound_ms": byte_ms, "chain_bound_ms": chain_ms, "library_ms": None,
          "launches_chained_both": launches["stream_chained_both"]["xxh32_stripes"],
          "call_ms": stripes_call_ms, "profiled_launches": stripes_seen},
-        {"name": "decode_blocks:limit", "route": "cuda",
-         "source": "lz4_tpu_torch/ops/csrc/decode.cu",
-         "replaces": "lz4_tpu/ops/decode_pallas6.py:643",
-         "launches": launches["host_apis"]["decode_rows_limit"],
-         "max_abs_err": limit_err, "ms": limit_ms, "plain_ms": limit_plain_ms,
-         "bound_ms": limit_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None, "call_ms": limit_call_ms, "profiled_launches": limit_seen},
-        {"name": "decode_blocks_stream", "route": "cuda",
-         "source": "lz4_tpu_torch/ops/csrc/decode.cu",
-         "replaces": "lz4_tpu/ops/decode_pallas_stream.py:636",
-         "launches": launches["chain_decoder"]["decode_blocks_stream"],
-         "max_abs_err": dict_err, "ms": dict_ms, "plain_ms": dict_plain_ms,
-         "bound_ms": dict_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None, "call_ms": dict_call_ms, "profiled_launches": dict_seen},
+        _step_bound(
+            {"name": "decode_blocks:limit", "route": "cuda",
+             "source": "lz4_tpu_torch/ops/csrc/decode.cu",
+             "replaces": "lz4_tpu/ops/decode_pallas6.py:643",
+             "launches": launches["host_apis"]["decode_rows_limit"],
+             "max_abs_err": limit_err, "ms": limit_ms, "plain_ms": limit_plain_ms,
+             "bound_ms": limit_bytes / HBM_BYTES_PER_S * 1e3, "rule": "warp",
+             "paths": {"partial_decode": paths["partial_decode"]},
+             "library_ms": None, "call_ms": limit_call_ms, "profiled_launches": limit_seen},
+            limit_steps),
+    ] + [
+        # the one-warp route's bound counts its schedule's steps; the passes
+        # parse every position at once, their bound is the bytes'
+        (_step_bound if name == "warp" else lambda e, _: e)(
+            {"name": f"decode_blocks_stream:{name}", "route": "cuda",
+             "source": "lz4_tpu_torch/ops/csrc/decode.cu",
+             "replaces": "lz4_tpu/ops/decode_pallas_stream.py:636",
+             "launches": launches["chain_decoder"].get(
+                 "decode_rows" if name == "warp" else "rows_gather", 0),
+             "rule": decode.route(1, BLOCK), "paths": {
+                 p: paths[p] for p in ("chain_decoder", "block_decode")},
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["kernel_ms"],
+             "plain_ms": dict_plain_ms, "bound_ms": dict_byte_ms, "bound_by": "bytes",
+             "library_ms": None, "call_ms": r["call_ms"], "profiled_launches": r["seen"]},
+            dict_steps)
+        for name, r in dict_routes.items()
     ]
     print(f"[stream] device time per launch (profiled launches of 20; CUDA events "
           f"per wrapper call): xxh32_stripes {stripes_ms:.4f} ms per 1 MiB update "
           f"({stripes_seen}; {stripes_call_ms:.4f}; plain {stripes_plain_ms:.1f} ms, "
           f"chain bound {chain_ms:.4f}); decode_rows with a limit {limit_ms:.4f} ms "
           f"per 64 KB row to {limit} bytes ({limit_seen}; {limit_call_ms:.4f}; plain "
-          f"{limit_plain_ms:.1f}); with a 64 KB dictionary {dict_ms:.4f} ms "
-          f"({dict_seen}; {dict_call_ms:.4f}; plain {dict_plain_ms:.1f}); phase "
-          f"{time.perf_counter() - t_phase:.1f} s")
+          f"{limit_plain_ms:.1f}); with a 64 KB dictionary " + ", ".join(
+              f"the {k} route {r['ms']:.4f} ms ({r['call_ms']:.4f} per call)"
+              for k, r in dict_routes.items())
+          + f" (plain {dict_plain_ms:.1f}); phase {time.perf_counter() - t_phase:.1f} s")
     return launches, rates, entries
 
 
@@ -4217,14 +4605,12 @@ def main(argv=None) -> int:
         key = name
         if name.startswith("rows_"):  # each pass's own launches (rows_jump: rounds)
             counts = cs_launches["cli_default"]
-        elif name == "decode_blocks" and not label:
-            key = "decode_rows"  # the one-warp kernel
         elif name == "decode_blocks":  # the passes: calls, each kernel's own beside
             k["kernel_launches"] = {p: counts[p] for p in ROW_PASSES}
         k["launches"] = counts[key]
         if name == "encode_blocks":
             k["max_abs_err"] = max(k["max_abs_err"], enc_err, fast_err_d)
-        elif name == "decode_blocks" or name.startswith("rows_"):
+        elif name in ("decode_rows", "decode_blocks") or name.startswith("rows_"):
             k["max_abs_err"] = max(k["max_abs_err"], dec_err, *fast_err_a.values())
         else:
             k["max_abs_err"] = max(k["max_abs_err"], fast_err_d, stream_err)

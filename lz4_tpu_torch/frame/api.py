@@ -136,7 +136,9 @@ def compress(
     A declared ``content_length`` other than ``len(data)`` raises
     ValueError when the payload fits one block, as the JAX package's
     FrameWriter does at close; a larger payload is framed as declared, as
-    its threaded and device routes frame it.
+    the JAX package's device route (``backend="tpu"``) frames it on a TPU,
+    independent and chained.  A length outside [0, 2^64) raises
+    struct.error at every size, as the JAX package's header packing does.
 
     With ``mesh``, an independent payload of more than one block is split
     over the mesh's devices and encoded by X1 (`parallel.encode_blocks`):
@@ -149,6 +151,10 @@ def compress(
     if store_size and settings.content_length is None:
         settings = dataclasses.replace(settings, content_length=len(data))
     declared = settings.content_length
+    if declared is not None:
+        # the header's u64 field first: a length outside [0, 2^64) raises
+        # struct.error at every size, as the JAX package's header packing does
+        struct.pack("<Q", declared)
     if (declared is not None and declared != len(data)
             and len(data) <= settings.block_size):
         raise ValueError(

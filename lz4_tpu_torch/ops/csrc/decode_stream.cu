@@ -18,7 +18,7 @@
 //   1. parse  (`chain_parse`, one warp per block, all blocks at once): a
 //      block's compressed bytes staged in shared memory when every block
 //      fits compress_bound(64 KB) (larger blocks are read through L1), one
-//      lane walks the tokens with `decode_block`'s structural checks and
+//      lane walks the tokens with `decode_rows`' structural checks and
 //      writes a sequence table (literal source, literal length, output
 //      position, offset, match length), the block's decoded size and its
 //      structural error;
@@ -100,8 +100,8 @@ __global__ void __launch_bounds__(32) chain_parse(
   const int cap = most < block_size ? static_cast<int>(most) : block_size;
   int* row = seqs + kRow * sbase[k];
   int ip = 0, op = 0, e = 0, n = 0;
-  // decode_block's walk and checks, without the copies; its window check
-  // needs the block's start and is place's
+  // decode_rows' walk and checks (decode.cu), without the copies; its
+  // window check needs the block's start and is place's
   for (;;) {
     if (ip >= len) {
       e = 1;

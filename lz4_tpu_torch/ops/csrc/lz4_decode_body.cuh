@@ -1,16 +1,8 @@
-// Kernel A's LZ4 block decoder (decode.cu): one warp decodes one block.
-// The chained decoder's parse (decode_stream.cu) shares its length reader,
-// and both parallel decoders (decode.cu's rows, decode_stream.cu's chained
-// frames) share the steps of their literal and resolve passes
-// (`place_sequence`, `jump_entry`).
-//
-// Every lane runs the same parse (the reads are broadcasts), and the warp
-// copies each literal run and each match together: byte i of a match at
-// offset `off` is byte (i mod off) of the `off` bytes before it, so even an
-// overlapping match copies in parallel from bytes already in place.  Every
-// read stays below clen and every write inside [0, out_cap) of the block,
-// so a corrupt stream gives an error code, never a stray write; a failing
-// sequence copies nothing.
+// Shared steps of kernel A (decode.cu) and the chained decoder
+// (decode_stream.cu): the length reader of the chained decoder's parse
+// (`read_vle`; kernel A's one-warp route reads its lengths from a staged
+// ring, `decode.cu` `Ring`), and the steps of both parallel decoders'
+// literal and resolve passes (`place_sequence`, `jump_entry`).
 
 #pragma once
 
@@ -30,105 +22,6 @@ __device__ __forceinline__ long long read_vle(const uint8_t* src, int& q, int cl
     v += b;
   }
   return v;
-}
-
-// Decodes src[0, clen) into dst[0, out_cap).  Matches may reach `dlen`
-// bytes before dst; byte s < 0 of that window is dict_end[s] (dict_end ==
-// dst when the window lies right before dst in memory).  Called by every
-// lane of a CTA of one warp.  Returns 0, 1 (malformed) or 2 (trailing
-// garbage) and sets *produced to the bytes written (up to the failing
-// sequence on error).
-//
-// limit >= 0 is a partial decode (upstream's LZ4_decompress_safe_partial):
-// the block stops cleanly at the first literal or match byte that brings
-// the output to `limit`, and nothing after that point is parsed.  Before
-// it every check holds, the literal run's input check and the match's
-// offset checks included, and a match length whose extension runs out of
-// input is malformed; the match's capacity check does not apply to the
-// match that reaches the limit.  A block that ends first returns what it
-// produced.
-__device__ inline int decode_block(const uint8_t* __restrict__ src, int clen,
-                                   uint8_t* dst, int out_cap,
-                                   const uint8_t* dict_end, int dlen,
-                                   int* produced, int limit = -1) {
-  const int lane = threadIdx.x;
-  const int width = blockDim.x;
-  int ip = 0, op = 0, err = 0;
-  bool stopped = false;  // reached `limit`
-  for (;;) {
-    if (ip >= clen) {
-      err = 1;
-      break;
-    }
-    const int token = src[ip];
-    int q = ip + 1;
-    long long ll = token >> 4;
-    if (ll == 15) ll += read_vle(src, q, clen);
-    if (q + ll > clen) {
-      err = 1;
-      break;
-    }
-    if (limit >= 0 && op + ll >= limit) {  // the run reaches the limit
-      for (int i = lane; i < limit - op; i += width) dst[op + i] = src[q + i];
-      op = limit;
-      stopped = true;
-      break;
-    }
-    if (op + ll > out_cap) {
-      err = 1;
-      break;
-    }
-    const int lit_at = q;
-    const int nlit = (int)ll;
-    q += nlit;
-    if (q >= clen) {  // the last sequence: literals only
-      for (int i = lane; i < nlit; i += width) dst[op + i] = src[lit_at + i];
-      op += nlit;
-      ip = q;
-      break;
-    }
-    if (q + 2 > clen) {
-      err = 1;
-      break;
-    }
-    const int off = src[q] | (src[q + 1] << 8);
-    q += 2;
-    long long ml = (token & 15) + kDecMinMatch;
-    if ((token & 15) == 15) {
-      const int q0 = q;
-      ml += read_vle(src, q, clen);
-      // an extension that runs out of input: no byte, or a last byte of 255
-      if (limit >= 0 && (q == q0 || src[q - 1] == 255)) {
-        err = 1;
-        break;
-      }
-    }
-    const bool last = limit >= 0 && op + ll + ml >= limit;
-    if (off == 0 || off > op + ll + dlen || (!last && op + ll + ml > out_cap)) {
-      err = 1;
-      break;
-    }
-    for (int i = lane; i < nlit; i += width) dst[op + i] = src[lit_at + i];
-    op += nlit;
-    __syncwarp();  // the match may read the literals just written
-    const int m = last ? limit - op : (int)ml;
-    const int base = op - off;  // >= -dlen: may start in the window
-    for (int i = lane; i < m; i += width) {
-      const int s = base + (i < off ? i : i % off);
-      dst[op + i] = s >= 0 ? dst[s] : dict_end[s];
-    }
-    __syncwarp();  // the next sequence may read this match
-    op += m;
-    ip = q;
-    if (last) {
-      stopped = true;
-      break;
-    }
-  }
-  __syncwarp();  // the caller may read the last literals
-  if (err == 0 && !stopped && ip != clen) err = 2;
-  *produced = op;
-  return err;
 }
 
 // The literal and resolve passes of both parallel decoders.  Each keeps an

@@ -2,14 +2,17 @@
 versions.
 
 The port of `lz4_tpu/ops/decode_pallas6.py` (`pallas_decode6`, wrapper
-`decode_blocks_pallas6`), with the same outputs.  On the card rows larger
-than 64 KB decode through a parallel parse: every position parsed
-speculatively, the true sequences the orbit of position 0, then the
-literal copies and the match bytes resolved by pointer jumping (the passes
-of `rows_passes`), on groups of rows whose scratch fits
-`GROUP_SCRATCH_BYTES` (`row_groups`); rows of at most 64 KB take the
-one-warp route, faster there, and so do rows with an output limit (a
-partial decode, `block.partial_decode`), at any size.
+`decode_blocks_pallas6`), with the same outputs, on two routes that
+`route` picks by the batch's rows and out_cap.  The one-warp route
+(`decode_rows`: a parse warp and a copy warp per row, the output in shared
+memory up to 64 KB; its schedule's plain model `decode_rows_model`) takes
+every batch of rows of at most 64 KB, large batches of rows up to 256 KB,
+and rows with an output limit (a partial decode, `block.partial_decode`)
+at any size.  Any other batch decodes through a parallel parse: every
+position parsed speculatively, the true sequences the orbit of position
+0, then the literal copies and the match bytes resolved by pointer
+jumping (the passes of `rows_passes`), on groups of rows whose scratch
+fits `GROUP_SCRATCH_BYTES` (`row_groups`).
 Beside it: `decode_blocks_plain`, the serial reference (one scalar parse
 per row, `_decode_row`); one plain version per pass (`rows_nn_plain`,
 `rows_spans_plain`, `rows_hops_plain`, `rows_table_plain`,
@@ -43,10 +46,37 @@ END = (1 << 31) - 1
 SEQ_COLUMNS = 5
 # the most a row of L compressed bytes decodes to is 255 L
 MAX_EXPANSION = 255
-# rows of at most this out_cap decode on the one-warp route, larger ones
-# on the parallel passes (a fixed size rule: each the faster route at its
-# sizes on the H100, PERF.md §6)
+# batches of rows of at most this out_cap take the one-warp route whatever
+# their number (rows with limits take it at any size)
 WARP_ROUTE_MAX = 65536
+# `route`'s rule: (out_cap, the fewest rows) at and above which a batch of
+# rows of at most that out_cap takes the one-warp route; anything else
+# takes the passes, which spread each row over the card.  From
+# `decodebench.py --routes` on the H100 (ms per wrapper call, the one-warp
+# route / the passes; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6):
+#   64 KB: 1 row 0.94 / 1.05, 4 rows 1.03 / 1.47, 16 rows 0.97 / 1.28,
+#          256 rows 1.00 / 2.43, 1,024 rows 2.33 / 6.71
+#   128 KB: 1 row 2.07 / 1.13, 16 rows 2.18 / 1.42, 64 rows 2.18 / 2.27,
+#           128 rows 2.19 / 2.92, 512 rows 2.63 / 5.74
+#   256 KB: 16 rows 4.23 / 2.42, 128 rows 4.78 / 3.92, 256 rows 4.84 / 5.88
+#   1 MiB: 1 row 16.04 / 1.53, 64 rows 18.77 / 6.94
+# The one-warp route's time is its slowest row's, which grows with out_cap;
+# the passes' grows with the bytes of the whole batch.
+WARP_ROUTE_ROWS = ((WARP_ROUTE_MAX, 1), (131072, 128), (262144, 256))
+# the one-warp route's schedule (`csrc/decode.cu` `decode_rows`, its plain
+# model `decode_rows_model`): a ring of RING_STAGES stages of RING_STAGE
+# bytes of the compressed row (a 16-byte chunk a lane), a read keeping at
+# most RING_HOLD bytes behind it; the matches handed to the copy warp in
+# QUEUE_SLOTS batches of QUEUE_BATCH; the output in shared memory for
+# out_cap up to SHARED_OUT
+RING_STAGE = 512
+RING_STAGES = 16
+RING_HOLD = RING_STAGE * (RING_STAGES - 1)
+QUEUE_BATCH = 32
+QUEUE_SLOTS = 2
+# the longest match the copy warp lets one lane copy alone
+ALONE_MATCH = 64
+SHARED_OUT = 65536
 # bytes of scratch of the parallel passes per position (nn, exits, counts,
 # sums), segment (entry, seq_at, op_at), sequence-table row and index entry
 # of `rows_layout`: about 23 bytes per compressed byte and 4 per output byte
@@ -67,9 +97,11 @@ def _kernel():
         lib.lz4t_rows_literals.argtypes = [p, ll, i, i, i] + [p] * 11
         lib.lz4t_rows_resolve.argtypes = [p, p, p, i, p, p, p, i, i, i, p]
         lib.lz4t_decode_warp.argtypes = [p, ll, p, p, i, p, p, p, p, p, i, p]
+        lib.lz4t_decode_warp_shared.argtypes = [i]
         for fn in (lib.lz4t_rows_parse, lib.lz4t_rows_literals,
                    lib.lz4t_rows_resolve, lib.lz4t_decode_warp,
-                   lib.lz4t_rows_segment):
+                   lib.lz4t_rows_segment, lib.lz4t_decode_warp_shared,
+                   lib.lz4t_decode_warp_shared_out):
             fn.restype = ctypes.c_int
         if lib.lz4t_rows_segment() != SEG:
             raise RuntimeError("csrc/decode.cu's kSeg differs from SEG")
@@ -83,7 +115,9 @@ def _decode_row(src: bytes, clen: int, out_cap: int, window: bytes,
     (decoded bytes, err); on error the bytes stop where the failing
     sequence began.  ``limit`` >= 0 is a partial decode: the row stops
     cleanly at the first literal or match byte that brings the output to
-    ``limit`` (the checks of `lz4_decode_body.cuh` `decode_block`)."""
+    ``limit`` (the checks of `csrc/decode.cu` `decode_rows`); a limit
+    above out_cap stops nothing, and a sequence that would write past
+    out_cap is malformed, as without a limit."""
     dlen = len(window)
     buf = bytearray(window)
     cap = dlen + out_cap
@@ -106,7 +140,7 @@ def _decode_row(src: bytes, clen: int, out_cap: int, window: bytes,
         if q + ll > clen:
             err = 1
             break
-        if stop >= 0 and op + ll >= stop:  # the run reaches the limit
+        if 0 <= stop <= cap and op + ll >= stop:  # the run reaches the limit
             buf += src[q:q + stop - op]
             return bytes(buf[dlen:]), 0
         if op + ll > cap:
@@ -133,7 +167,7 @@ def _decode_row(src: bytes, clen: int, out_cap: int, window: bytes,
             if stop >= 0 and b == 255:  # the extension ran out of input
                 err = 1
                 break
-        last = stop >= 0 and op + ll + ml >= stop
+        last = 0 <= stop <= cap and op + ll + ml >= stop
         # buf holds the window first, so op already counts dlen
         if off == 0 or off > op + ll or (not last and op + ll + ml > cap):
             err = 1
@@ -152,6 +186,299 @@ def _decode_row(src: bytes, clen: int, out_cap: int, window: bytes,
     if err == 0 and ip != clen:
         err = 2
     return bytes(buf[dlen:]), err
+
+
+class _Ring:
+    """The kernel's ring (`csrc/decode.cu` `Ring`) over one row's clen
+    bytes starting ``lead`` bytes into a 16-byte chunk: which stages are
+    issued, held and landed, each read held to them."""
+
+    def __init__(self, row: bytes, lead: int, tally: dict):
+        self.row, self.lead, self.tally = row, lead, tally
+        chunks = -(-(lead + len(row)) // 16)  # 16-byte chunks, 32 a stage
+        self.stages = -(-chunks // 32)
+        self.issued = self.landed = self.refill_at = 0
+        self.skipped = []  # stage ranges never copied (the parse went past)
+
+    def stage(self, p: int) -> int:
+        return (p + self.lead) // RING_STAGE
+
+    def held_from(self) -> int:
+        return (self.issued - RING_STAGES) * RING_STAGE - self.lead
+
+    def need(self, keep: int, p1: int) -> None:
+        """Positions below p1 readable, those from ``keep`` kept."""
+        assert p1 - keep <= RING_HOLD
+        if keep >= self.refill_at:
+            lim = min(self.stages, self.stage(keep) + RING_STAGES)
+            if lim - RING_STAGES > self.landed:  # a slot to refill has a copy in flight
+                if self.issued < lim - RING_STAGES:
+                    self.skipped.append((self.issued, lim - RING_STAGES))
+                    self.tally["skipped"] += lim - RING_STAGES - self.issued
+                self.issued = max(self.issued, lim - RING_STAGES)
+                self.landed = self.issued
+                self.tally["waits"] += 1
+            # a slot is refilled only once the stage it held has landed
+            assert self.issued >= lim or lim - RING_STAGES <= self.landed
+            self.tally["stages"] += max(lim - self.issued, 0)
+            self.issued = max(self.issued, lim)
+            self.refill_at = (END if self.issued >= self.stages else
+                              (self.issued - RING_STAGES + 1) * RING_STAGE - self.lead)
+        if p1 > self.ready_end():  # wait for p1's stage, up to 8 later ones left in flight
+            pend = self.issued - self.stage(p1 - 1) - 1
+            self.landed = self.issued - next(n for n in (8, 4, 2, 1, 0) if pend >= n)
+            self.tally["waits"] += 1
+
+    def ready_end(self) -> int:
+        return END if self.landed >= self.stages else self.landed * RING_STAGE - self.lead
+
+    def at(self, p: int) -> int:
+        s = self.stage(p)
+        assert self.issued - RING_STAGES <= s < self.landed, (p, s, self.issued, self.landed)
+        assert not any(a <= s < b for a, b in self.skipped)
+        return self.row[p]
+
+
+def lane_index(lane: int, off: int) -> tuple[int, int]:
+    """A lane's first index into a match's pattern and its step, as the copy
+    warp takes them (`copy_match`): the lane and 32 at offsets of 32 and
+    more, else lane mod off and 32 mod off from its table of 31 rows made
+    once a CTA."""
+    if off >= 32:
+        return lane, 32
+    return lane % off, 32 % off
+
+
+def decode_rows_model(row: bytes, out_cap: int, window: bytes = b"",
+                      limit: int = -1, lead: int = 0, eager: bool = False,
+                      counts: list | None = None):
+    """The one-warp route's schedule on one row of len(row) compressed bytes
+    (`csrc/decode.cu` `decode_rows`), held at every step: the parse reads
+    only bytes its ring holds and has landed (`_Ring`; the row starting
+    ``lead`` bytes into a 16-byte chunk); takes the common sequences that
+    start in 32 bytes at once (`_window`) and any other one by the serial
+    parse, copying each literal run from the ring or, once the ring has let
+    it go, from the row; queues each match, handing them to the copy warp in
+    batches of QUEUE_BATCH, at most QUEUE_SLOTS batches ahead; the copy
+    warp copies the matches of a batch that read only bytes final before
+    it side by side, one lane each, then the rest in order, each by the
+    warp and each lane's advanced index (`lane_index`), every byte it reads
+    final, either as soon as a batch is handed over (``eager``) or as late
+    as the parse allows; the output exported up to ``produced``.  Returns
+    `_decode_row`'s (bytes, err); ``counts`` gets the row's tally:
+    sequences parsed, length-extension bytes read, window steps and the
+    sequences and extension bytes they took (`schedule_steps` counts the
+    dependent steps from these), stages issued and skipped
+    (never copied: the parse went past them), waits, batches, matches
+    copied by one lane, literal bytes from the ring and from the row."""
+    clen, dlen = len(row), len(window)
+    tally = dict.fromkeys(("sequences", "extension_bytes", "windows",
+                           "window_sequences", "window_extension_bytes", "stages",
+                           "skipped", "waits", "batches", "alone", "ring_literals",
+                           "row_literals"), 0)
+    ring = _Ring(row, lead, tally)
+    out = bytearray(window) + bytearray(b"\xab" * out_cap)  # unwritten: 0xab
+    final = bytearray(b"\x01" * dlen) + bytearray(out_cap)
+    pending, batch = [], []
+
+    def copy_one(d, off, m):
+        base = d - off
+        assert base >= 0 and all(final[base:base + min(off, m)])
+        j0, step = zip(*(lane_index(k, off) for k in range(32)))
+        assert list(j0) == [k % off for k in range(32)] and all(
+            x == (32 % off if off < 32 else 32) for x in step)
+        i = np.arange(m)
+        j = (np.asarray(j0)[i % 32] + (i // 32) * step[0]) % off
+        out[d:d + m] = bytes(np.frombuffer(bytes(out[base:base + off]), np.uint8)[j])
+
+    def copy(matches):
+        # copied by one lane, side by side: a match of at most ALONE_MATCH
+        # bytes that reads only bytes below the batch's first match or its
+        # own literal run; then the rest in order, each by the warp
+        first = matches[0][0] if matches else 0
+        alone = [m <= ALONE_MATCH and (d - off + min(off, m) <= first or off <= ll)
+                 for d, off, m, ll in matches]
+        tally["alone"] += sum(alone)
+        for (d, off, m, _), a in zip(matches, alone):
+            if a:
+                copy_one(d + dlen, off, m)
+        for (d, off, m, _), a in zip(matches, alone):
+            if a:
+                final[d + dlen:d + dlen + m] = b"\x01" * m
+        for (d, off, m, _), a in zip(matches, alone):
+            if not a:
+                copy_one(d + dlen, off, m)
+                final[d + dlen:d + dlen + m] = b"\x01" * m
+
+    def hand_over(done=False):
+        nonlocal batch
+        if len(pending) == QUEUE_SLOTS:  # the slot is reused: its batch copied first
+            copy(pending.pop(0))
+        pending.append(batch)
+        batch = []
+        tally["batches"] += 1
+        if eager or done:
+            while pending:
+                copy(pending.pop(0))
+
+    def literals(frm, n, op):
+        if n <= 0:
+            return
+        if frm >= ring.held_from():
+            a = frm
+            while a < frm + n:
+                b = min(frm + n, a + RING_HOLD)
+                ring.need(a, b)
+                ring.at(a), ring.at(b - 1)
+                a = b
+            tally["ring_literals"] += n
+        else:
+            tally["row_literals"] += n
+        out[dlen + op:dlen + op + n] = row[frm:frm + n]
+        final[dlen + op:dlen + op + n] = b"\x01" * n
+
+    def vle(hold, q):
+        v, b = 0, 255
+        while b == 255 and q < clen:
+            ring.need(max(hold, q + 1 - RING_HOLD), q + 1)
+            b = ring.at(q)
+            q += 1
+            v += b
+            tally["extension_bytes"] += 1
+        return v, q, b
+
+    def window(ip, op):
+        """The sequences the kernel's window step takes at ip: (taken
+        sequences as (literal run's position, its length, offset, match
+        length, extension bytes), the next ip)."""
+        ring.at(ip), ring.at(ip + 63)
+        w = row[ip:ip + 64]
+        nxt, cand = {}, {}
+        for lane in range(32):
+            lx, mc = int(w[lane] >> 4 == 15), w[lane] & 15
+            lext = w[lane + 1] if lx else 0
+            ll = (w[lane] >> 4) + lext
+            a = lane + 1 + lx + ll  # the offset's position
+            nxt[lane] = a + 2 + int(mc == 15)
+            plain = lext != 255 and nxt[lane] <= 64
+            ext = w[a + 2] if plain and mc == 15 else 0
+            plain = plain and ext != 255
+            cand[lane] = (ll, w[a] | (w[a + 1] << 8) if plain else 0,
+                          mc + MIN_MATCH + ext, plain, lx + int(mc == 15), lane + 1 + lx)
+        chain, p = [], 0
+        while p < 32 and cand[p][3]:
+            chain.append(p)
+            p = nxt[p]
+        assert len(chain) <= 16  # the kernel's four doubling rounds
+        taken = []
+        for p in chain:
+            ll, off, ml, _, ext, ls = cand[p]
+            c = ll + ml
+            if (off == 0 or off - ll - dlen > op or out_cap - op < c
+                    or (limit >= 0 and limit - op <= c)
+                    or len(taken) == QUEUE_BATCH - len(batch)):
+                return taken, ip + p
+            taken.append((ip + ls, ll, off, ml, ext))
+            op += c
+        return taken, ip + (nxt[chain[-1]] if chain else 0)
+
+    ip = op = err = 0
+    stopped = False
+    while True:
+        while ip < ring.refill_at and ip + 64 <= min(ring.ready_end(), clen):
+            taken, nip = window(ip, op)
+            if not taken:
+                break
+            tally["windows"] += 1
+            tally["window_sequences"] += len(taken)
+            for at, ll, off, ml, ext in taken:
+                tally["sequences"] += 1
+                tally["extension_bytes"] += ext
+                tally["window_extension_bytes"] += ext
+                out[dlen + op:dlen + op + ll] = row[at:at + ll]
+                final[dlen + op:dlen + op + ll] = b"\x01" * ll
+                op += ll
+                batch.append((op, off, ml, ll))
+                op += ml
+            if len(batch) == QUEUE_BATCH:
+                hand_over()
+            ip = nip
+        if ip >= clen:
+            err = 1
+            break
+        tally["sequences"] += 1
+        ring.need(ip, ip + 1)
+        token = ring.at(ip)
+        q = ip + 1
+        ll = token >> 4
+        if ll == 15:
+            v, q, _ = vle(ip, q)
+            ll += v
+        if q + ll > clen:
+            err = 1
+            break
+        if 0 <= limit <= out_cap and op + ll >= limit:  # the run reaches the limit
+            literals(q, limit - op, op)
+            op, stopped = limit, True
+            break
+        if op + ll > out_cap:
+            err = 1
+            break
+        lit_at = q
+        q += ll
+        if q >= clen:  # the last sequence: literals only
+            literals(lit_at, ll, op)
+            op += ll
+            ip = q
+            break
+        if q + 2 > clen:
+            err = 1
+            break
+        ring.need(max(ip, q + 2 - RING_HOLD), q + 2)
+        off = ring.at(q) | (ring.at(q + 1) << 8)
+        q += 2
+        ml = (token & 15) + MIN_MATCH
+        if token & 15 == 15:
+            q0 = q
+            v, q, b = vle(ip, q)
+            ml += v
+            if limit >= 0 and (q == q0 or b == 255):
+                err = 1
+                break
+        last = 0 <= limit <= out_cap and op + ll + ml >= limit
+        if off == 0 or off > op + ll + dlen or (not last and op + ll + ml > out_cap):
+            err = 1
+            break
+        literals(lit_at, ll, op)
+        op += ll
+        m = limit - op if last else ml
+        batch.append((op, off, m, ll))
+        if len(batch) == QUEUE_BATCH:
+            hand_over()
+        op += m
+        ip = q
+        if last:
+            stopped = True
+            break
+    if err == 0 and not stopped and ip != clen:
+        err = 2
+    hand_over(done=True)
+    assert all(final[dlen:dlen + op])
+    if counts is not None:
+        counts.append(tally)
+    return bytes(out[dlen:dlen + op]), err
+
+
+def schedule_steps(tally: dict) -> int:
+    """The one-warp route's dependent steps on a row, from its
+    `decode_rows_model` tally: its window steps (each takes the common
+    sequences that start in 32 bytes at once), and the other sequences'
+    tokens and length-extension bytes that its serial parse reads one at a
+    time.  At one shared-memory round trip each, the step bound of
+    `decode_rows`; the serial count of every sequence and extension byte
+    is ``tally["sequences"] + tally["extension_bytes"]``."""
+    return (tally["windows"] + tally["sequences"] - tally["window_sequences"]
+            + tally["extension_bytes"] - tally["window_extension_bytes"])
 
 
 def decode_blocks_plain(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
@@ -706,10 +1033,25 @@ def _launch_rows(comps, clens, out_cap, dicts, dls, keep=False):
     return got if keep else (out, lens, errs)
 
 
+def shared_out() -> int:
+    """The largest out_cap whose output the one-warp route keeps in shared
+    memory, as built (`csrc/decode.cu` kSharedOut; SHARED_OUT restates
+    it)."""
+    got = _kernel().lz4t_decode_warp_shared_out()
+    if got != SHARED_OUT:
+        raise RuntimeError("csrc/decode.cu's kSharedOut differs from SHARED_OUT")
+    return got
+
+
+def warp_shared_bytes(out_cap: int) -> int:
+    """The one-warp route's dynamic shared memory a CTA (one row)."""
+    return _kernel().lz4t_decode_warp_shared(out_cap)
+
+
 def _launch_warp(comps, clens, out_cap, dicts, dls, limits=None):
-    """One launch of the one-warp route: a warp per row walking the serial
-    parse (`decode_rows` in `csrc/decode.cu`), each row stopping at its
-    limit where ``limits`` gives one."""
+    """One launch of the one-warp route (`decode_rows` in `csrc/decode.cu`:
+    a parse warp and a copy warp per row), each row stopping at its limit
+    where ``limits`` gives one."""
     dev = comps.device
     comps = comps.contiguous()
     nb = comps.shape[0]
@@ -732,7 +1074,7 @@ def _launch_warp(comps, clens, out_cap, dicts, dls, limits=None):
             lens.data_ptr(), errs.data_ptr(), nb,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    check(rc, "decode (one warp per row)")
+    check(rc, "decode (one-warp route)")
     kernel_launches["decode_rows"] += 1
     kernel_launches["decode_rows_limit"] += limits is not None
     return out, lens, errs
@@ -741,12 +1083,22 @@ def _launch_warp(comps, clens, out_cap, dicts, dls, limits=None):
 ROUTES = {"warp": _launch_warp, "rows": _launch_rows}
 
 
-def _decode(route, comps_u8, comp_lens, out_cap: int, dicts_u8=None,
+def route(rows: int, out_cap: int) -> str:
+    """The route of a batch of ``rows`` rows of ``out_cap`` without limits:
+    "warp" (the one-warp route) or "rows" (the parallel passes), by
+    WARP_ROUTE_ROWS."""
+    for cap, fewest in WARP_ROUTE_ROWS:
+        if out_cap <= cap:
+            return "warp" if rows >= fewest else "rows"
+    return "rows"
+
+
+def _decode(route_name, comps_u8, comp_lens, out_cap: int, dicts_u8=None,
             dict_lens=None, mode: str = "full2", limits=None):
-    """`decode_blocks` on ``route``: "warp" (the one-warp route), "rows" (the
-    parallel passes) or None (by `WARP_ROUTE_MAX`; the one-warp route for
-    rows with limits, the only one that takes them).  Returns the outputs
-    and whether the card ran them (a CPU tensor runs the plain version)."""
+    """`decode_blocks` on ``route_name``: "warp" (the one-warp route), "rows"
+    (the parallel passes) or None (`route`; the one-warp route for rows
+    with limits, the only one that takes them).  Returns the outputs and
+    whether the card ran them (a CPU tensor runs the plain version)."""
     comps, clens, dicts, dls = _validate(
         comps_u8, comp_lens, out_cap, dicts_u8, dict_lens, mode
     )
@@ -755,12 +1107,12 @@ def _decode(route, comps_u8, comp_lens, out_cap: int, dicts_u8=None,
         return decode_blocks_plain(comps, clens, out_cap, dicts, dls, mode,
                                    lim), False
     if lim is not None:
-        if route == "rows":
+        if route_name == "rows":
             raise ValueError("the parallel passes take no output limit")
         return _launch_warp(comps, clens, out_cap, dicts, dls, lim), True
-    if route is None:
-        route = "warp" if out_cap <= WARP_ROUTE_MAX else "rows"
-    return ROUTES[route](comps, clens, out_cap, dicts, dls), True
+    if route_name is None:
+        route_name = route(comps.shape[0], out_cap)
+    return ROUTES[route_name](comps, clens, out_cap, dicts, dls), True
 
 
 def decode_blocks(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
@@ -777,11 +1129,10 @@ def decode_blocks(comps_u8, comp_lens, out_cap: int, dicts_u8=None,
     input's device: errs is 0 or 1 (malformed), each row on its own; on
     error lens counts the bytes before the failing sequence.  A CPU tensor
     runs the serial plain version.  A CUDA tensor launches the kernel,
-    counted here (each of its kernels in `kernel_launches`): rows of
-    ``out_cap`` <= 64 KB on the one-warp route (a warp per row walks the
-    serial parse: the faster route there, PERF.md §6), larger ones on the
-    parallel passes (every row at once, in groups of rows whose scratch
-    fits `GROUP_SCRATCH_BYTES`).
+    counted here (each of its kernels in `kernel_launches`), on the route
+    `route` gives: the one-warp route (`decode_rows`) or the parallel
+    passes (every row at once, in groups of rows whose scratch fits
+    `GROUP_SCRATCH_BYTES`).
 
     ``limits`` (int32 [B], -1 for none) makes each row a partial decode
     that stops at its limit (`_decode_row`); rows with limits always take

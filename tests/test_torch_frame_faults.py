@@ -8,10 +8,15 @@
   messages are equal.
 - A declared content length that a one-block payload does not have raises
   the JAX package's ValueError; above one block the frame is written as
-  declared, as the JAX package's threaded and device routes write it.
+  declared, as the JAX package's device route writes it on a TPU (its host
+  route raises on an independent payload of one to two blocks, its device
+  route on a chained one off a TPU), and both packages refuse that frame.
+- A declared content length outside [0, 2^64) raises the JAX package's
+  struct.error at every size.
 - An independent frame decodes as if a preset dictionary were absent.
 """
 
+import functools
 import struct
 
 import numpy as np
@@ -128,6 +133,60 @@ def test_a_false_content_length_above_one_block_is_framed_as_declared(chain):
     assert ours == theirs
     with pytest.raises(ValueError, match="content length mismatch"):
         tframe.decompress(ours, device="cpu")
+
+
+@pytest.fixture
+def on_a_tpu(monkeypatch):
+    """The JAX package's device route as it runs on a TPU: its Pallas
+    kernels in interpret mode, `_on_tpu` true."""
+    from jax.experimental import pallas as pl
+    from lz4_tpu.ops import encode_pallas5 as E5
+    from lz4_tpu.ops import encode_pallas_stream as ES
+    from lz4_tpu.parallel import blocks as PB
+
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setattr(PB, "_on_tpu", lambda: True)
+    for f in (E5.pallas_encode5, ES.pallas_encode_stream):
+        f.clear_cache()
+    yield
+    for f in (E5.pallas_encode5, ES.pallas_encode_stream):
+        f.clear_cache()
+
+
+@pytest.mark.parametrize("chain", [True, False])
+def test_a_false_content_length_of_one_to_two_blocks_is_framed_as_declared(chain, on_a_tpu):
+    data = (b"lorem ipsum dolor " * 12000)[:100000]
+    kw = dict(content_length=5, chain_blocks=chain)
+    ours = tframe.compress(data, tframe.EncoderSettings(**kw), device="cpu")
+    # the route the port ports, on its device: both frames as declared
+    theirs = jframe.compress(data, jframe.EncoderSettings(**kw), backend="tpu")
+    assert ours == theirs
+    # the JAX host route frames the chained payload alike and refuses the
+    # independent one (its threaded route takes only more than two blocks)
+    host = _outcome(lambda: jframe.compress(data, jframe.EncoderSettings(**kw),
+                                            backend="host"))
+    assert host == (("ok", ours) if chain else (
+        "ValueError", "content length mismatch: declared 5, wrote 100000"))
+    refused = [_outcome(lambda: tframe.decompress(ours, device="cpu")),
+               _outcome(lambda: jframe.decompress(ours))]
+    # the class only: the JAX package's chained decode names the block
+    # that overruns the declared length, the port the length
+    assert [r[0] for r in refused] == ["LZ4FormatError"] * 2, refused
+
+
+@pytest.mark.parametrize("chain", [True, False])
+@pytest.mark.parametrize("declared", [-1, 2 ** 64])
+@pytest.mark.parametrize("size", [0, 5, 100000])
+def test_a_content_length_outside_u64_raises_struct_error(size, declared, chain):
+    data = (b"lorem ipsum dolor " * 6000)[:size]
+    kw = dict(content_length=declared, chain_blocks=chain)
+    with pytest.raises(struct.error) as theirs:
+        jframe.compress(data, jframe.EncoderSettings(**kw), backend="host")
+    with pytest.raises(struct.error) as ours:
+        tframe.compress(data, tframe.EncoderSettings(**kw), device="cpu")
+    assert type(ours.value) is type(theirs.value)
+    assert str(ours.value) == str(theirs.value)
 
 
 @pytest.mark.parametrize("content_checksum", [False, True])

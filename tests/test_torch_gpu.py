@@ -836,6 +836,88 @@ def test_decode_limits_match_plain(cuda):
     assert decode.kernel_launches["decode_rows_limit"] == before + 1
 
 
+def test_decode_rows_edges_match_plain(cuda):
+    """The one-warp route on its edge rows (`chip_smoke.warp_edge_batches`:
+    offsets 1-40 and dictionary reach, limits on the edges, compress_bound,
+    out_cap 16/1,000/65,535, 0 and 1 byte, the corrupt kinds, 1 MiB
+    out_cap), rows 1-15 bytes into their chunks: the whole output equal to
+    the plain version."""
+    assert chip_smoke.hold_warp_edges(cuda, 17) == 0
+
+
+@pytest.mark.parametrize("rows", [1, 4, 16, 64, 256])
+@pytest.mark.parametrize("with_dict", [False, True])
+def test_decode_routes_agree_and_the_rule_picks_one(rows, with_dict, cuda):
+    """Both routes give the same output at the route rule's row counts (64
+    KB rows spread over the mix, with the 64 KB before each as its
+    dictionary), and `decode_blocks` launches the route `decode.route`
+    gives."""
+    data = chip_smoke.make_corpus(32 << 20, 21)
+    nb = len(data) // BLOCK
+    picks = [1 + k * (nb - 1) // rows for k in range(rows)]
+    view = torch.frombuffer(bytearray(data), dtype=torch.uint8).view(nb, BLOCK)
+    bufs = torch.zeros((rows, BLOCK + 1024), dtype=torch.uint8)
+    bufs[:, :BLOCK] = view[picks]
+    lens = torch.full((rows,), BLOCK, dtype=torch.int32)
+    dicts = dls = None
+    if with_dict:
+        dicts = view[[p - 1 for p in picks]].contiguous().to(cuda)
+        dls = torch.full((rows,), BLOCK, dtype=torch.int32, device=cuda)
+    out, clens, _ = encode_stream.encode_blocks_stream(
+        bufs.to(cuda), lens.to(cuda), BLOCK, dicts=dicts, dict_lens=dls)
+    comps = torch.zeros((rows, comp_capacity(BLOCK)), dtype=torch.uint8, device=cuda)
+    comps[:, :out.shape[1]] = out
+    warp, _ = decode._decode("warp", comps, clens, BLOCK, dicts, dls)
+    passes, _ = decode._decode("rows", comps, clens, BLOCK, dicts, dls)
+    torch.cuda.synchronize()
+    _equal(warp, passes)
+    assert torch.equal(warp[0].cpu(), bufs[:, :BLOCK]) and not bool(warp[2].any())
+    before = dict(decode.kernel_launches)
+    decode.decode_blocks(comps, clens, BLOCK, dicts, dls)
+    ran = {k: decode.kernel_launches[k] - before[k] for k in ("decode_rows", "rows_gather")}
+    want = decode.route(rows, BLOCK)
+    assert ran == {"decode_rows": int(want == "warp"), "rows_gather": int(want == "rows")}
+
+
+def test_decode_routes_agree_above_64kb_where_the_rule_picks_warp(cuda):
+    """The rule's one-warp batches above 64 KB (128 rows of 128 KB, 256 of
+    256 KB): `decode_blocks` launches the one-warp route, whose whole
+    output equals the passes', the raw rows and the plain version's."""
+    held = chip_smoke.hold_route_rule_rows(chip_smoke.make_corpus(32 << 20, 23), cuda,
+                                           timed=False)
+    assert sorted(held) == ["128 x 128 KB", "256 x 256 KB"]
+    assert all(v["max_abs_err"] == 0 for v in held.values())
+
+
+def test_decode_rows_on_each_card():
+    """The one-warp route at out_cap 64 KB (its shared memory above the
+    default 48 KB) on every card of the host in turn, in one process: each
+    launch sets its attributes on its own device."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    rng = np.random.default_rng(5)
+    rows = chip_smoke.sample_rows(chip_smoke.make_corpus(4 << 20, 5), rng)
+    bufs, lens = chip_smoke._stage(rows, BLOCK + 1024)
+    out, clens, _ = encode.encode_blocks_plain(bufs, lens, BLOCK)
+    comps = torch.zeros((len(rows), comp_capacity(BLOCK)), dtype=torch.uint8)
+    comps[:, :out.shape[1]] = out
+    want = decode.decode_blocks_plain(comps, clens, BLOCK)
+    for k in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", k)
+        got = decode._launch_warp(comps.to(dev), clens.to(dev), BLOCK, None, None)
+        torch.cuda.synchronize(dev)
+        _equal(got, want)
+
+
+def test_decode_rows_shared_memory_is_the_models(cuda):
+    """The built kernel's constants and shared memory: output in shared
+    memory up to SHARED_OUT."""
+    assert decode.shared_out() == decode.SHARED_OUT
+    head = decode.warp_shared_bytes(0)
+    assert decode.warp_shared_bytes(BLOCK) == head + BLOCK
+    assert decode.warp_shared_bytes(1 << 20) == head - 16
+
+
 @pytest.mark.parametrize("chain", [False, True])
 def test_streaming_round_trip_on_the_card(chain, cuda):
     import io
