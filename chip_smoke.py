@@ -1701,7 +1701,9 @@ def hold_opt_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
     the match pass and the per-row counts of the plain match pass and parse
     by rounds ({pass: [tally, ...]}: the match pass's dependent steps and
     the parse's, `encode_opt.opt_matches_plain` and
-    `opt_parse_rounds_row`)."""
+    `opt_parse_rounds_row`); at levels 10-11 the kernel's schedule too,
+    `encode_opt.opt_parse_segments_plain` ("opt_parse_spec:segments", its
+    bytes held to the kernel's as well)."""
     import torch
     from lz4_tpu_torch.ops import encode_opt
     from lz4_tpu_torch.ops.encode_hc import level_arm
@@ -1744,6 +1746,10 @@ def hold_opt_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
             jobs.append(("opt_parse:rounds", [o[r:r + 1] for o in outs], pool.submit(
                 _timed_counted_call, f"{encode_opt.__name__}.opt_parse_rounds_plain",
                 (*args, pv.numpy(), mt.numpy(), bcap, depth, sufficient, True), {})))
+        else:  # the kernel's schedule: its tallies (rounds, links, steps)
+            jobs.append(("opt_parse_spec:segments", [o[r:r + 1] for o in outs], pool.submit(
+                _timed_counted_call, f"{encode_opt.__name__}.opt_parse_segments_plain",
+                (*args, pv.numpy(), mt.numpy(), bcap, depth, sufficient), {})))
 
     def finish():
         errs, seconds, counts = _finish_holds(jobs, names, picks)
@@ -1782,7 +1788,7 @@ HC_PASSES = ("opt_chain", "hc_episodes", "hc_parse")
 
 
 def hold_hc_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
-                   level: int = 9, parse_picks=()):
+                   level: int = 9, parse_picks=(), model_picks=None):
     """The HC passes on the card over a batch of windows at ``level``, each
     held to its plain version on the batch's rows ``picks`` (the parse also
     on ``parse_picks``) with the same inputs (the kernel's own output of the
@@ -1790,7 +1796,10 @@ def hold_hc_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
     passes with their counts).  Returns a function that waits for them and
     returns each pass's max_abs_err, the plain versions' seconds for the
     picked rows, the searches given up by the episode pass and the plain
-    passes' per-row counts."""
+    passes' per-row counts; the parse's rows (or ``model_picks`` of them)
+    also through the kernel's schedule, `encode_hc_passes.
+    hc_parse_segments_plain` ("hc_parse:segments", its bytes held to the
+    kernel's as well)."""
     import torch
     from lz4_tpu_torch.ops import encode_hc_passes as hp
     from lz4_tpu_torch.ops import encode_opt
@@ -1824,15 +1833,81 @@ def hold_hc_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
                 ("hc_episodes", [f, m, dl], pool.submit(
                     _timed_counted_call, f"{hp.__name__}.hc_episodes_plain",
                     (*row, pv.numpy(), depth), {}))]
-        jobs += [
-            ("hc_parse", [o[r:r + 1] for o in outs], pool.submit(
-                _timed_counted_call, f"{hp.__name__}.hc_parse_plain",
-                (*row, pv.numpy(), (f.numpy(), m.numpy(), dl.numpy()), bcap, depth), {})),
-        ]
+        tables = (f.numpy(), m.numpy(), dl.numpy())
+        jobs.append(("hc_parse", [o[r:r + 1] for o in outs], pool.submit(
+            _timed_counted_call, f"{hp.__name__}.hc_parse_plain",
+            (*row, pv.numpy(), tables, bcap, depth), {})))
+        if model_picks is None or r in model_picks:
+            jobs.append(("hc_parse:segments", [o[r:r + 1] for o in outs], pool.submit(
+                _timed_counted_call, f"{hp.__name__}.hc_parse_segments_plain",
+                (*row, pv.numpy(), tables, bcap, depth), {})))
 
     def finish():
         errs, seconds, counts = _finish_holds(jobs, HC_PASSES, picks)
         return errs, seconds, given_up, counts
+
+    return finish
+
+
+REWALK = {"segment": 2048, "overlap": 4, "max_rounds": 2}  # an overlap too short to meet
+
+
+def hold_rewalks(base, starts, src_offs, lens, bcap: int, dev, pool):
+    """The parses by segments on the card with an overlap too short to meet
+    (`REWALK`: 4 positions past segments of 2,048): most links fail, so
+    segments are walked again, in a second round and then in the serial
+    tail.  Each parse (level 9's `hc_parse`, level 10's `opt_parse_spec`)
+    held to its plain version and to its model (`hc_parse_segments_plain`,
+    `opt_parse_segments_plain`) with the same arguments: the bytes, and the
+    launch's walks in each round and in the tail to the model's summed over
+    the rows.  Returns a function that waits for them and returns each
+    parse's max_abs_err and its schedule."""
+    import torch
+    from lz4_tpu_torch.ops import encode_hc_passes as hp
+    from lz4_tpu_torch.ops import encode_opt
+
+    st = torch.as_tensor(starts, dtype=torch.int64)
+    so = torch.as_tensor(src_offs, dtype=torch.int32)
+    ln = torch.as_tensor(lens, dtype=torch.int32)
+    base_d = base.to(dev)
+    rounds = REWALK["max_rounds"]
+    args = (base.cpu().numpy(), st.numpy(), so.numpy(), ln.numpy())
+    prev = encode_opt.opt_chain(base_d, st, ln)
+    tables = hp.hc_episodes(base_d, st, so, ln, prev, 256)
+    hc = hp.hc_parse(base_d, st, so, ln, prev, tables, bcap, 256, **REWALK)
+    hc_stats = encode_opt.segment_stats(hp.hc_parse.stats, rounds)
+    matches = encode_opt.opt_matches(base_d, st, so, ln, prev, 96)
+    opt = encode_opt.opt_parse_spec(base_d, st, so, ln, prev, matches, bcap, 96, 64, **REWALK)
+    opt_stats = encode_opt.segment_stats(encode_opt.opt_parse_spec.stats, rounds)
+    torch.cuda.synchronize()
+    pv, tb, mt = prev.cpu().numpy(), tuple(t.cpu().numpy() for t in tables), matches.cpu().numpy()
+    sizes = tuple(REWALK.values())
+    jobs = {
+        "hc_parse": (hc, hc_stats, submit_plain(pool, hp.hc_parse_plain, *args, pv, tb, bcap),
+                     pool.submit(_timed_counted_call, f"{hp.__name__}.hc_parse_segments_plain",
+                                 (*args, pv, tb, bcap, 256, *sizes), {})),
+        "opt_parse_spec": (opt, opt_stats, submit_plain(
+            pool, encode_opt.opt_parse_spec_plain, *args, pv, mt, bcap, 96, 64), pool.submit(
+                _timed_counted_call, f"{encode_opt.__name__}.opt_parse_segments_plain",
+                (*args, pv, mt, bcap, 96, 64, *sizes), {}))}
+
+    def finish():
+        out = {}
+        for name, (got, stats, plain, model) in jobs.items():
+            (mine, counts), _ = model.result()
+            err = max(_max_abs_err(got, plain_result(plain)),
+                      _max_abs_err(got, [torch.from_numpy(a) for a in mine]))
+            _require(err == 0, f"{name} with an overlap of 4: kernel != plain")
+            want = [sum(c["walks_per_round"][r] for c in counts if r < c["rounds"])
+                    for r in range(rounds)]
+            _require(stats["walks_per_round"] == want
+                     and stats["tail_walks"] == sum(c["tail_walks"] for c in counts),
+                     f"{name} with an overlap of 4: the schedule {stats} != its model's "
+                     f"{want}, tail {sum(c['tail_walks'] for c in counts)}")
+            _require(stats["walks_per_round"][1] + stats["tail_walks"] > 0,
+                     f"{name} with an overlap of 4: no segment walked again")
+            out[name] = {"max_abs_err": err, **stats}
+        return out
 
     return finish
 
@@ -1855,6 +1930,7 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
     passes = {level: hold_opt_passes(*windows, BLOCK, range(len(rows)), dev, pool, level)
               for level in (12, 10)}
     hc_passes = hold_hc_passes(*windows, BLOCK, range(len(rows)), dev, pool)
+    rewalks = hold_rewalks(*windows, BLOCK, dev, pool)
     worst = {}
     for level in levels:
         got = encode.encode_blocks(bufs.to(dev), lens.to(dev), BLOCK, level)
@@ -1883,6 +1959,12 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
     errs, _, given_up, _ = hc_passes()
     for name, err in errs.items():
         worst[name] = max(worst.get(name, 0), err)
+    for name, got in rewalks().items():
+        worst[name] = max(worst.get(name, 0), got["max_abs_err"])
+        print(f"[hc encode] {name} with an overlap of 4 positions (segments of "
+              f"{REWALK['segment']}): walks per round {got['walks_per_round']}, "
+              f"{got['tail_walks']} in the serial tail, each as its model's, the bytes "
+              f"equal to the plain version's on all {len(rows)} rows")
     print(f"[hc encode] level 9 passes {', '.join(HC_PASSES)}: each equal to "
           f"its plain version on all {len(rows)} rows ({given_up} searches "
           f"given up by the episode pass)")
@@ -2230,6 +2312,28 @@ def hc_pass_entries(label: str, held: str, replaces: str, windows, got, pass_ms,
         "library_ms": None} for name in HC_PASSES]
 
 
+def segment_step_bound(entry: dict, model: list, row_counts: list, clock: float) -> None:
+    """A parse by segments' dependent-step bound, one L1 round trip
+    (L1_CYCLES at the card's top clock) a step: its schedule's steps on
+    the held rows (``model``, `parse_segments.schedule`'s tallies: each
+    round's slowest walk and merge and the settling scan, the tail's walks
+    one after another) in `steps` and `step_bound_ms`, the bound where it
+    passes the bytes'; beside it the one-warp (OPT) or one-thread (HC)
+    walk of each whole held row, the design before (``row_counts``'
+    `steps`), as `serial_step_ms`, and the held rows' rounds and walks."""
+    step_ms = L1_CYCLES / clock * 1e3
+    entry["steps"] = max(c["steps"] for c in model)
+    entry["step_bound_ms"] = entry["steps"] * step_ms
+    entry["serial_step_ms"] = max(c["steps"] for c in row_counts) * step_ms
+    entry["model_rounds"] = max(c["rounds"] for c in model)
+    entry["model_rewalks"] = sum(c["rewalks"] + c["tail_walks"] for c in model)
+    entry["model_segments"] = sum(c["segments"] for c in model)
+    entry["step_bound_of"] = (f"the schedule of the {len(model)} held rows "
+                              f"({entry['model_segments']} segments)")
+    if entry["step_bound_ms"] > entry["bound_ms"]:
+        entry["bound_ms"], entry["bound_by"] = entry["step_bound_ms"], "operations"
+
+
 def settle_hc_entries(entries, finish, scale: dict, clock: float, longest: int) -> dict:
     """Fill the HC passes' entries from their plain versions on the picked
     rows: max_abs_err, the plain time scaled to the batch (times
@@ -2237,24 +2341,33 @@ def settle_hc_entries(entries, finish, scale: dict, clock: float, longest: int) 
     (L1_CYCLES at the card's top clock) a step: the chain pass's segment
     model over the longest row (``longest`` positions,
     `settle_chain_entry`), the episode pass's slowest position (its chain
-    steps), the parse's slowest row (its table reads and the chain steps
-    of its searches made on the spot).  Returns the plain passes'
-    counts."""
+    steps), the parse's schedule by segments on its held rows
+    (`segment_step_bound`: `hc_parse_segments_plain`'s tallies; a step
+    of a walk is a table read or a chain step of a search made on the
+    spot).  Returns the plain passes' counts."""
     errs, seconds, given_up, counts = finish()
-    steps = {"hc_episodes": max(c["most_steps"] for c in counts["hc_episodes"]),
-             "hc_parse": max(c["read"] + c["spot_steps"] for c in counts["hc_parse"])}
+    walk = [dict(c, steps=c["read"] + c["spot_steps"]) for c in counts["hc_parse"]]
     for e, name in zip(entries, HC_PASSES):
-        e["max_abs_err"] = errs[name]
+        e["max_abs_err"] = max(errs[name], errs.get(f"{name}:segments", 0))
         e["plain_ms"] = seconds[name] * 1e3 * scale[name]
         if name == "opt_chain":
             settle_chain_entry(e, longest, clock)
-            continue
-        step_ms = steps[name] * L1_CYCLES / clock * 1e3
-        e["step_bound_ms"] = step_ms
-        if step_ms > e["bound_ms"]:
-            e["bound_ms"], e["bound_by"] = step_ms, "operations"
+        elif name == "hc_parse":
+            segment_step_bound(e, counts["hc_parse:segments"], walk, clock)
+        else:
+            e["steps"] = max(c["most_steps"] for c in counts[name])
+            e["step_bound_ms"] = e["steps"] * L1_CYCLES / clock * 1e3
+            if e["step_bound_ms"] > e["bound_ms"]:
+                e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
     return {"given_up": given_up, "episodes_of_picked_rows": counts["hc_episodes"],
-            "parse_of_picked_rows": counts["hc_parse"]}
+            "parse_of_picked_rows": counts["hc_parse"],
+            "segments_of_picked_rows": _schedule_summary(counts["hc_parse:segments"])}
+
+
+def _schedule_summary(model: list) -> list:
+    """The segment models' tallies without their per-state lists."""
+    return [{k: v for k, v in c.items() if k not in ("linked_states", "walks", "walk_steps")}
+            | {"slowest_walk_steps": max(c["walk_steps"], default=0)} for c in model]
 
 
 def opt_memory(data: bytes, dev) -> dict:
@@ -2421,11 +2534,13 @@ def phase_hc_times(data: bytes, dev, seed: int = 0):
 
         got = run()
         torch.cuda.synchronize()
+        stats = _path_stats(encode_hc_passes.hc_parse, encode_opt.SEGMENT_ROUNDS)
         err = _max_abs_err(got, serial_out[(9, path)])
         _require(err == 0, f"level 9 {path}: the passes' output != the serial HC arm's")
         whole_ms = _cuda_ms(run, 2)
         pass_ms, _ = hc_pass_ms(base_d, wst, wso, wln, BLOCK)
         hc = hc_pass_entries(f"L9_{path}", path, replaces[path], rows, got, pass_ms, clock)
+        hc[2].update(stats)
         hc[0]["library_ms"] = chain_library_ms(base_d, wst, wln, hold=path == "independent")
         entries += hc
         summary["L9"][path] = {
@@ -2448,6 +2563,7 @@ def phase_hc_times(data: bytes, dev, seed: int = 0):
 
         got = run()
         torch.cuda.synchronize()
+        stats = _path_stats(encode_opt.opt_parse_spec, encode_opt.SEGMENT_ROUNDS)
         err = _max_abs_err(got, serial_out[(level, path)])
         _require(err == 0, f"level {level} {path}: the passes' output != the serial OPT arm's")
         whole_ms = _cuda_ms(run, 2)
@@ -2464,6 +2580,7 @@ def phase_hc_times(data: bytes, dev, seed: int = 0):
             "byte_bound_ms": moved[name] / HBM_BYTES_PER_S * 1e3,
             "library_ms": None} for name in SPEC_PASSES]
         ents[0]["library_ms"] = chain_library_ms(base_d, wst, wln)
+        ents[2].update(stats)
         entries += ents
         serial_ms = next(e for e in entries if e["name"] == f"encode_windows_opt:{path}")
         summary[f"L{level}"][path] = {
@@ -2531,7 +2648,7 @@ def phase_hc_times(data: bytes, dev, seed: int = 0):
                   f"version on rows {picks}; {summary[lv][path]['given_up']} searches "
                   "given up; step bounds " + ", ".join(
                       f"{e['name']} {e['step_bound_ms']:.4f} ms" for e in ents)
-                  + f" (the serial walk's {ents[-1]['serial_step_ms']:.3f} ms)")
+                  + f" (one walk of each whole row: {ents[-1]['serial_step_ms']:.3f} ms)")
     return entries, summary
 
 
@@ -2543,13 +2660,14 @@ def settle_opt_entries(entries, finish, scale: float, clock: float, longest: int
     dependent-step bounds, one L1 round trip (L1_CYCLES at the card's top
     clock) a step: the chain pass's segment model over the longest row
     (``longest`` positions, `settle_chain_entry`), the match pass's slowest
-    held search (its
-    chain steps plus its measures' word and byte compares, `most_steps`),
-    the parse's slowest held row (`opt_parse_rounds_row`'s `steps`), and
-    beside it the same row's dependent steps counted over every lane
-    (`speculative_steps`) and one thread's serial walk of it
-    (`serial_steps`).  A step bound above the bytes' is the bound
-    (`bound_by` "operations").  Returns the summary's counts."""
+    held search (its chain steps plus its measures' word and byte
+    compares, `most_steps`), level 12's parse's slowest held row
+    (`opt_parse_rounds_row`'s `steps`, one thread's serial walk of it
+    beside as `serial_step_ms`), the level 10-11 parse's schedule by
+    segments on the held rows (`segment_step_bound`: `opt_parse_segments_
+    plain`'s tallies, a walk's steps the parse by rounds' `steps`).  A step
+    bound above the bytes' is the bound (`bound_by` "operations").
+    Returns the summary's counts."""
     errs, seconds, given_up, counts = finish()
     parse = entries[-1]["name"].split(":")[0]
     model = parse + ":rounds" if parse + ":rounds" in counts else parse
@@ -2558,22 +2676,42 @@ def settle_opt_entries(entries, finish, scale: float, clock: float, longest: int
              parse: max(c["steps"] for c in counts[model])}
     for e in entries:
         name = e["name"].split(":")[0]
-        e["max_abs_err"] = errs[name]
+        e["max_abs_err"] = max(errs[name], errs.get(f"{name}:segments", 0))
         e["plain_ms"] = seconds[name] * 1e3 * scale
         if name == "opt_chain":
             settle_chain_entry(e, longest, clock)
+            continue
+        if name == "opt_parse_spec":
+            segment_step_bound(e, counts["opt_parse_spec:segments"], counts[model], clock)
             continue
         e["steps"] = steps[name]
         e["step_bound_ms"] = steps[name] * step_ms
         if e["step_bound_ms"] > e["bound_ms"]:
             e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
     e = entries[-1]
-    for key in ("speculative_steps", "serial_steps"):
-        e[key.replace("steps", "step_ms")] = max(c[key] for c in counts[model]) * step_ms
     if model != parse:
+        e["serial_step_ms"] = max(c["serial_steps"] for c in counts[model]) * step_ms
         e["rounds_model_ms"] = seconds[model] * 1e3 * scale
-    return {"given_up": given_up, "matches_of_picked_rows": counts["opt_matches"],
-            "parse_of_picked_rows": counts[model]}
+    summary = {"given_up": given_up, "matches_of_picked_rows": counts["opt_matches"],
+               "parse_of_picked_rows": counts[model]}
+    if "opt_parse_spec:segments" in counts:
+        summary["segments_of_picked_rows"] = _schedule_summary(
+            counts["opt_parse_spec:segments"])
+    return summary
+
+
+def _path_stats(parse, rounds: int) -> dict:
+    """The schedule of a parse by segments' last launch (``parse.stats``,
+    `encode_opt.segment_stats`): its rounds, each round's walks, the
+    tail's walks, the links kept; read after a path's run."""
+    from lz4_tpu_torch.ops import encode_opt
+
+    got = encode_opt.segment_stats(parse.stats, rounds)
+    _require(got["overflow"] == 0, f"{parse.__name__}: a walk overflowed its records")
+    _require(got["links_behind_frontier"] == 0,
+             f"{parse.__name__}: a link behind the frontier")
+    return {"rounds": got["rounds"], "walks_per_round": got["walks_per_round"][:got["rounds"]],
+            "tail_walks": got["tail_walks"], "links": got["links"]}
 
 
 def _cli_hc(level: int = 9):
@@ -2622,16 +2760,18 @@ def phase_cli_hc(data: bytes, dev, pool):
     exact and deterministic over three runs after a warm-up; the frame's
     blocks held byte for byte to the serial HC arm's output on the same
     rows (timed once); the passes timed on those rows (CUDA events between
-    them), the parse held to its plain version on the first row (text, the
-    most searches made on the spot) and the last (noise, the most
-    episodes): the step bound is the slower of the two; each pass on 256 KB
+    them), the parse's rounds and walks (`_path_stats`), the parse held to
+    its plain version on the first row (text, the most searches made on
+    the spot) and the last (noise, the most episodes); each pass on 256 KB
     of a row of runs and of noise, as rows of their own (the plain episode
-    pass over a 4 MiB row would take an hour).  The device memory one
+    pass over a 4 MiB row would take an hour); the parse's step bound its
+    schedule's on those cuts (16 segments each) and the text row
+    (`encode_hc_passes.hc_parse_segments_plain`, its bytes held too).  The device memory one
     compress allocates at its peak, beside the HC passes' tables
     (`encode_hc_passes.table_bytes`).  Returns the launches, the rates,
     the `kernels` entries and a summary."""
     import torch
-    from lz4_tpu_torch.ops import decode, encode_hc_passes, encode_stream, xxh32
+    from lz4_tpu_torch.ops import decode, encode_hc_passes, encode_opt, encode_stream, xxh32
     from lz4_tpu_torch.parallel.blocks import split_blocks
 
     settings = _cli_hc()
@@ -2640,6 +2780,7 @@ def phase_cli_hc(data: bytes, dev, pool):
                                  _hc_counts(9) + [decode.decode_blocks, xxh32.xxh32_windows],
                                  ROW_PASSES, idle=_hc_idle(9), frames=frames)
     blob, peak = frames[0], e2e["compress_peak_allocated_bytes"]
+    path_stats = _path_stats(encode_hc_passes.hc_parse, encode_opt.SEGMENT_ROUNDS)
     size = CLI_BLOCK
     bufs, lens = split_blocks(data, size)
     tables = sum(encode_hc_passes.table_bytes(int(n), int(n)) for n in lens)
@@ -2663,7 +2804,8 @@ def phase_cli_hc(data: bytes, dev, pool):
     cut = size // 16
     held = (rows[0], torch.cat([rows[1], rows[1][[nb * 3 // 4 - 1, nb - 1]]]),
             torch.cat([rows[2], rows[2][:2]]), torch.cat([lens, torch.tensor([cut, cut])]))
-    finish = hold_hc_passes(*held, size, [nb, nb + 1], dev, pool, parse_picks=[0, nb - 1])
+    finish = hold_hc_passes(*held, size, [nb, nb + 1], dev, pool, parse_picks=[0, nb - 1],
+                            model_picks=[nb, nb + 1, 0])
     summary = {"pass_ms": pass_ms, "passes_ms": sum(pass_ms.values()),
                "serial_ms": serial_ms, "rows_equal_to_serial": nb,
                "frame_equal_to_serial": True, "hc_table_bytes": tables,
@@ -2676,6 +2818,8 @@ def phase_cli_hc(data: bytes, dev, pool):
         "opt_chain": len(data) / held_bytes, "hc_episodes": len(data) / held_bytes,
         "hc_parse": len(data) / (held_bytes + int(lens[0]) + int(lens[nb - 1]))}, clock,
         int(lens.max())))
+    entries[2].update(path_stats)
+    summary["parse_schedule"] = path_stats
     print(f"[lz4 -9] {len(data)} bytes -> {e2e['frame_bytes']} bytes (ratio "
           f"{len(data) / e2e['frame_bytes']:.4f}), round trip exact, deterministic, "
           f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
@@ -2701,9 +2845,11 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
     (the plain match pass over a 4 MiB row would take minutes), and the
     match pass (at level 10) on the whole 4 MiB text, records and runs rows
     held on spans across its slice boundaries (`hold_match_spans`): the
-    chain pass's step bound is the 4 MiB rows', the match pass's and the
-    parse's those of the held positions, lower bounds for the 4 MiB rows.
-    The device memory a compress allocates at its peak, beside the OPT
+    chain pass's step bound is the 4 MiB rows', the match pass's that of
+    the held positions, the parse's the schedule's on the held cuts (16
+    segments each, also held to the parse's schedule model,
+    `encode_opt.opt_parse_segments_plain`), the launch's rounds and walks
+    (`_path_stats`) beside.  The device memory a compress allocates at its peak, beside the OPT
     tables' bytes (`encode_opt.TABLE_BYTES` a block byte).  Returns the
     launches, the rates, the `kernels` entries and a summary."""
     import torch
@@ -2717,6 +2863,7 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
                                  _hc_counts(level) + [decode.decode_blocks, xxh32.xxh32_windows],
                                  ROW_PASSES, idle=_hc_idle(level), frames=frames)
     blob, peak = frames[0], e2e["compress_peak_allocated_bytes"]
+    path_stats = _path_stats(encode_opt.opt_parse_spec, encode_opt.SEGMENT_ROUNDS)
     size = CLI_BLOCK
     bufs, lens = split_blocks(data, size)
     nb = bufs.shape[0]
@@ -2763,7 +2910,9 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
         e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
     e["step_bound_of"] = "the held 256 KB cuts and spans of the 4 MiB rows"
     e = entries[-1]
-    e["step_bound_of"] = "the held 256 KB cuts of the text and records rows"
+    e["step_bound_of"] = ("the schedule of the held 256 KB cuts of the text and records "
+                          f"rows ({e['model_segments']} segments)")
+    e.update(path_stats)
     given_up, counts = held["given_up"], held["parse_of_picked_rows"]
     tables = encode_opt.TABLE_BYTES * len(data)
     summary = {"pass_ms": pass_ms, "passes_ms": sum(pass_ms.values()),
@@ -2774,7 +2923,8 @@ def phase_cli_opt(data: bytes, dev, pool, level: int):
                "compress_peak_per_payload_byte": peak / len(data),
                "given_up_in_held_cuts": given_up, "parse_of_held_cuts": counts,
                "matches_of_held_cuts": held["matches_of_picked_rows"],
-               "matches_of_held_spans": spans}
+               "segments_of_held_cuts": held["segments_of_picked_rows"],
+               "matches_of_held_spans": spans, "parse_schedule": path_stats}
     print(f"[lz4 -{level}] {len(data)} bytes -> {e2e['frame_bytes']} bytes (ratio "
           f"{len(data) / e2e['frame_bytes']:.4f}), round trip exact, deterministic, "
           f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
@@ -4560,12 +4710,18 @@ def main(argv=None) -> int:
     hc_kernels, hc_times = phase_hc_times(data16, dev, args.seed)
     cli_opt = {}
     with plain_pool() as pool:
+        t0 = time.perf_counter()
         cli_hc_launches, cli_hc_e2e, cli_hc_kernels, cli_hc = phase_cli_hc(data, dev, pool)
+        cli_hc["phase_s"] = time.perf_counter() - t0
+        print(f"[lz4 -9] phase {cli_hc['phase_s']:.1f} s")
         for level in (10, 11):
+            t0 = time.perf_counter()
             got = phase_cli_opt(data, dev, pool, level)
             hc_launches[f"lz4_{level}"] = got[0]
             cli_hc_kernels += got[2]
-            cli_opt[f"lz4_{level}"] = {"e2e": got[1], **got[3]}
+            cli_opt[f"lz4_{level}"] = {"e2e": got[1], **got[3],
+                                       "phase_s": time.perf_counter() - t0}
+            print(f"[lz4 -{level}] phase {cli_opt[f'lz4_{level}']['phase_s']:.1f} s")
     hc_launches["lz4_9"] = cli_hc_launches
     for k in hc_kernels + cli_hc_kernels:  # the serial HC arm: 0 on the L9 paths
         fn = k["name"].split(":")[0]

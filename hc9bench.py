@@ -6,6 +6,7 @@ parse with every search made on the spot against the serial HC arm; with
 
     python3 hc9bench.py [--seed 1] [--opt]
     python3 hc9bench.py --host [--seed 0] [--rows 4] [--opt]
+    python3 hc9bench.py --parent DIR [--iters 2] [--memory FULL]
 
 Payloads as kernel D's windows: 16 MiB of the bench mix
 (`chip_smoke.make_corpus`, the seed chip_smoke.py's level 9 paths use) as
@@ -29,6 +30,31 @@ independent rows), each pass's time (CUDA events between the passes,
 after a warm-up call), the output equal to the serial OPT arm's (timed
 too), and the parse pass's time on each quarter of the rows.  One JSON
 line per level and payload, then the card's name and power limit.
+
+``--parent DIR`` on the card: the parses of this tree (the parse by
+segments, `encode_hc_passes.hc_parse` and `encode_opt.opt_parse_spec`)
+against those of the tree DIR (an unpacked commit whose parses are the
+one-thread and one-warp row kernels, e.g. `git archive HEAD~1 | tar -x -C
+build/parent`), built from its `csrc` with the port's flags, in turns
+(parent, this tree, this tree, parent), each a launch of its C entry point
+on the same tables already on the card (this tree's chain, episode and
+match passes, which the two trees share) timed with CUDA events
+(`--iters` launches a turn; one at level 11 on the 4 MiB rows, where the
+parent's parse takes ~35 s): levels 9, 10 and 11 on the 64 MiB of 16
+rows of 4 MiB (`lz4 -9`/`-10`/`-11`, seed 0), on the 16 MiB of 256
+rows of 64 KB (seed 1) and on 64 MiB of random bytes as 16 rows of 4 MiB
+(incompressible input: no match, every OPT walk free of its anchor).  Each output equal to the serial arm's
+(`encode_stream.encode_windows_hc_serial`, `encode_windows_opt_serial`,
+timed once).  This tree's launch counts (`encode_opt.segment_stats`: its
+rounds, walks a round, serial tail walks) beside.  One JSON line per
+payload and level, then the card's name and power limit.
+
+``--parent DIR --memory FULL`` also reads, for the whole tree FULL (an
+unpacked commit, e.g. the parent) and this one, each in a process of its
+own with that tree's `chip_smoke.py`, the device memory one compress of
+the 64 MiB payload allocates at its peak at `lz4 -9`, `-10` and `-11`
+(`chip_smoke._compress_peak`; the parent's `lz4 -11` compress takes ~40
+s).  One JSON line per tree.
 
 ``--host`` needs no card: one 64 KB row from each quarter of
 `chip_smoke.make_corpus(4 MiB, seed)` (text, records, runs, noise), parsed
@@ -66,8 +92,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 SLOTS = (1, 2, 4, 8, 10, 12)
 BIG_SLOTS = (8, 10, 12)
@@ -172,6 +200,146 @@ def _opt_report(cs, base, st, so, ln, block: int, level: int, dev) -> dict:
     return {"level": level, "pass_ms": ms, "passes_ms": sum(ms.values()),
             "serial_ms": cs._cuda_ms(serial, 1), "parse_ms_by_quarter": quarters,
             "compressed_bytes": int(want[1].sum())}
+
+
+def _parse_launcher(lib_path, level: int, rows, tables, bcap: int, dev, parent: bool):
+    """A function that enqueues one level 3-11 parse of a built library on
+    the rows (their tables already on the card: prev and `hc_episodes`' or
+    `opt_matches`' output), and the (out, clens, errs) it fills: the
+    parent's row kernel, or this tree's parse by segments."""
+    import ctypes
+
+    import torch
+    from lz4_tpu_torch.ops import encode_hc_passes as hp
+    from lz4_tpu_torch.ops import encode_opt
+    from lz4_tpu_torch.ops.encode import _outputs
+    from lz4_tpu_torch.ops.encode_hc import level_arm
+
+    arm, depth, sufficient, _ = level_arm(level)
+    base_d, st, so, ln = rows
+    prev, table = tables
+    lib = ctypes.CDLL(str(lib_path))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    toff, _ = encode_opt.table_offsets(ln)
+    soff, _ = hp.slot_offsets(so, ln)
+    nb = len(ln)
+    out, clens, errs = _outputs(nb, bcap, dev)
+    held = [t.to(dev) for t in (st, so, ln, toff, soff)]
+    head = [base_d.data_ptr(), *(t.data_ptr() for t in held[:4])]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = (out.data_ptr(), out.shape[1], out.shape[1], depth)
+    if arm == "hc":
+        first, more, deltas = table
+        fn = lib.lz4t_hc_parse
+        args = [*head, held[4].data_ptr(), prev.data_ptr(), first.data_ptr(), more.data_ptr(),
+                deltas.data_ptr(), 2 + more.shape[1], *outs, clens.data_ptr(),
+                errs.data_ptr(), nb]
+        kinds = [p] * 10 + [i, p, ll, i, i, p, p, i]
+    else:
+        fn = lib.lz4t_opt_parse_spec
+        args = [*head, prev.data_ptr(), table.data_ptr(), *outs, sufficient, clens.data_ptr(),
+                errs.data_ptr(), nb]
+        kinds = [p] * 8 + [ll, i, i, i, p, p, i]
+    if not parent:
+        segment, overlap = (hp.HC_SEGMENT, hp.HC_OVERLAP) if arm == "hc" else (
+            encode_opt.OPT_SEGMENT, encode_opt.OPT_OVERLAP)
+        segoff, seg_row = encode_opt.segment_rows(so, ln, segment)
+        size = ctypes.c_longlong()
+        scratch_of = getattr(lib, f"lz4t_{arm}_seg_scratch")
+        scratch_of.argtypes = [ll, i, i, i, p]
+        scratch_of(seg_row.numel(), nb, segment, overlap, ctypes.addressof(size))
+        stats = torch.empty(encode_opt.SEGMENT_ROUNDS + 4, dtype=torch.int32, device=dev)
+        held += [segoff.to(dev), seg_row.to(dev),
+                 torch.empty(size.value, dtype=torch.uint8, device=dev), stats]
+        args += [held[5].data_ptr(), held[6].data_ptr(), seg_row.numel(), segment, overlap,
+                 encode_opt.SEGMENT_ROUNDS, held[7].data_ptr(), stats.data_ptr()]
+        kinds += [p, p, i, i, i, i, p, p]
+    fn.argtypes = kinds + [p]
+    fn.restype = ctypes.c_int
+
+    def run(held=held):  # the arguments' tensors live as long as the launcher
+        rc = fn(*args, stream)
+        if rc:
+            raise RuntimeError(f"{lib_path.name}: CUDA error {rc}")
+
+    return run, (out, clens, errs), (held[-1] if not parent else None)
+
+
+def parent_turns(cs, parent, iters: int, dev) -> None:
+    """``--parent``: one JSON line per payload and level."""
+    import numpy as np
+    import torch
+    from chainbench import _build
+    from lz4_tpu_torch.ops import encode_hc_passes as hp
+    from lz4_tpu_torch.ops import encode_opt, encode_stream
+    from lz4_tpu_torch.ops.build import _library, build
+    from lz4_tpu_torch.ops.encode_hc import level_arm
+
+    build("encode_hc_passes", "encode_opt")
+    libs = {("new", m): _library(m) for m in ("encode_hc_passes", "encode_opt")}
+    built = _build({f"hc9_parent_{m}": (parent / "lz4_tpu_torch" / "ops" / "csrc" / f"{m}.cu", [])
+                    for m in ("encode_hc_passes", "encode_opt")})
+    libs.update({("parent", m): built[f"hc9_parent_{m}"]
+                 for m in ("encode_hc_passes", "encode_opt")})
+    noise = np.random.default_rng(2).integers(0, 256, 64 << 20, dtype=np.uint8).tobytes()
+    payloads = (("rows_4MiB", cs.make_corpus(64 << 20, 0), 4 << 20),
+                ("rows_64KB", cs.make_corpus(16 << 20, 1), 1 << 16),
+                ("random_4MiB", noise, 4 << 20))
+    for name, data, block in payloads:
+        rows = _windows(cs, data, block, False)
+        base_d = rows[0].to(dev)
+        rows = (base_d, *rows[1:])
+        for level in (9, 10, 11):
+            arm, depth, _, _ = level_arm(level)
+            prev = encode_opt.opt_chain(rows[0], rows[1], rows[3])
+            table = (hp.hc_episodes(*rows, prev, depth) if arm == "hc"
+                     else encode_opt.opt_matches(*rows, prev, depth))
+            module = "encode_hc_passes" if arm == "hc" else "encode_opt"
+            runs = {tree: _parse_launcher(libs[(tree, module)], level, rows, (prev, table),
+                                          block, dev, tree == "parent")
+                    for tree in ("parent", "new")}
+            n = 1 if level == 11 and block > 1 << 16 else iters
+            times = {"parent": [], "new": []}
+            for tree in ("parent", "new", "new", "parent"):
+                times[tree].append(cs._cuda_ms(runs[tree][0], n))
+            t0 = time.perf_counter()
+            serial = (encode_stream.encode_windows_hc_serial if arm == "hc"
+                      else encode_stream.encode_windows_opt_serial)(*rows, block, level)
+            torch.cuda.synchronize()
+            serial_s = time.perf_counter() - t0
+            for tree, (_, got, _) in runs.items():
+                cs._require(cs._max_abs_err(got, serial) == 0,
+                            f"{name} level {level}: the {tree} parse != the serial arm")
+            stats = encode_opt.segment_stats(runs["new"][2], encode_opt.SEGMENT_ROUNDS)
+            print(json.dumps({
+                "payload": name, "rows": len(rows[3]), "level": level, "iters": n,
+                "ms": times, "parent_over_new": min(times["parent"]) / min(times["new"]),
+                "equal_to_serial": True, "serial_s": serial_s,
+                "schedule": {k: stats[k] for k in ("walks_per_round", "rounds", "tail_walks",
+                                                   "links", "overflow")}}), flush=True)
+            del prev, table, runs
+
+
+def memory_of(tree: Path) -> dict:
+    """In this process, from ``tree``'s own `chip_smoke.py` and package:
+    one compress's device-memory peak at `lz4 -9`, `-10` and `-11` over
+    chip_smoke.py's 64 MiB payload (seed 0)."""
+    import os
+
+    import torch
+
+    os.chdir(tree)
+    sys.path.insert(0, str(tree))
+    for name in [m for m in sys.modules if m == "chip_smoke" or m.startswith("lz4_tpu_torch")]:
+        del sys.modules[name]
+    import chip_smoke as tree_cs
+
+    dev = torch.device("cuda", 0)
+    data = tree_cs.make_corpus(64 << 20, 0)
+    peaks = {f"lz4_{level}": tree_cs._compress_peak(data, tree_cs._cli_hc(level), dev)[1]
+             for level in (9, 10, 11)}
+    return {"tree": str(tree), "compress_peak_bytes": peaks,
+            "peak_per_payload_byte": {k: v / len(data) for k, v in peaks.items()}}
 
 
 def _hc_by_index(s: bytes) -> dict:
@@ -319,6 +487,12 @@ def main(argv=None) -> int:
                     help="--host: quarters of the corpus to parse, in order")
     ap.add_argument("--opt", action="store_true",
                     help="the level 10-11 passes (--host: their rounds and searches)")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="an unpacked tree whose parses to time against this tree's")
+    ap.add_argument("--iters", type=int, default=2, help="--parent: launches a turn")
+    ap.add_argument("--memory", type=Path, default=None,
+                    help="--parent: a whole tree whose compress peaks to read beside this one's")
+    ap.add_argument("--memory-of", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.host:
         search_split(0 if args.seed is None else args.seed, args.rows, args.opt)
@@ -331,7 +505,20 @@ def main(argv=None) -> int:
         return 2
     import chip_smoke as cs
 
+    if args.memory_of is not None:
+        print(json.dumps(memory_of(args.memory_of.resolve())))
+        return 0
     dev = torch.device("cuda", 0)
+    if args.parent is not None:
+        parent_turns(cs, args.parent.resolve(), args.iters, dev)
+        here = Path(__file__).resolve().parent
+        for tree in ([args.memory.resolve(), here] if args.memory is not None else []):
+            out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--memory-of",
+                                  str(tree)], capture_output=True, text=True)
+            cs._require(out.returncode == 0, f"memory of {tree}:\n{out.stderr[-2000:]}")
+            print(out.stdout.strip().splitlines()[-1], flush=True)
+        print(cs.card_line())
+        return 0
     mix = cs.make_corpus(16 << 20, 1 if args.seed is None else args.seed)
     if args.opt:
         for level, name, chained in ((10, "mix_independent", False),

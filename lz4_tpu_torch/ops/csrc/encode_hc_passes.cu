@@ -35,13 +35,19 @@
 //    (length -1 - L), and the episode stops there, as at level 12
 //    (encode_opt.cu): in a long repeat every position would measure the
 //    whole repeat at every step.
-// 3. hc_parse_rows: one thread per row runs the episodes from src_off; the
-//    j-th search of the episode at ip reads record j of ip where it holds
-//    the search's key and an answer and ip lies at or past the row's
-//    frontier (the highest position searched so far); any other search is
-//    made on the spot over the tables with the ring's answers at that
-//    frontier (FrontierChain), with no budget.  No shared memory: every
-//    row of a launch runs in one wave, each on its own warp.
+// 3. The parse: a thread runs the episodes; the j-th search of the
+//    episode at ip reads record j of ip where it holds the search's key
+//    and an answer and ip lies at or past the row's frontier (the highest
+//    position searched so far); any other search is made on the spot over
+//    the tables with the ring's answers at that frontier (FrontierChain),
+//    with no budget.  Every row is cut into segments of kHcSegment
+//    positions, each walked by its own thread from a guessed state (ip =
+//    anchor = frontier = the segment's start) and joined to the walk
+//    before where their states (ip and the frontier raised to it) meet
+//    (parse_segments.cuh: hc_seg_walks, seg_check, hc_seg_tail, the emit;
+//    one thread per row left 16 threads on the card for 16 rows of
+//    4 MiB).  No shared memory: 4,096 walks, one CTA each, run in one
+//    wave.
 //
 // The exactness guard.  A record answers the search at its key as the ring
 // does when exactly the positions below the search are inserted (the
@@ -62,9 +68,9 @@
 // `depth` steps (256 at level 9) and the bytes compared, two loads (prev
 // and the source) a step, the reads of many positions in flight at once;
 // it searches every position, where the parse starts an episode at few of
-// them (a 64 KB text row: ~1,600).  The parse pass by its walk of the row,
-// one thread's dependent steps: a table read (or a search on the spot)
-// after another, each read of `first` a line of 8 positions, prefetched
+// them (a 64 KB text row: ~1,600).  The parse pass by its slowest
+// segment's walk and the rounds its links take, one thread's dependent
+// steps: a table read (or a search on the spot) after another, each read of `first` a line of 8 positions, prefetched
 // kAhead positions on (text and noise rows read nearly every position's);
 // a longer episode than k searches, or a search given up, is made on the
 // spot, its chain steps read from `deltas` (half prev's bytes).
@@ -74,6 +80,7 @@
 
 #include "lz4_encode_body.cuh"
 #include "lz4_hc_body.cuh"
+#include "parse_segments.cuh"
 
 using namespace lz4t;
 
@@ -239,26 +246,98 @@ __global__ void __launch_bounds__(kEpisodeThreads, kEpisodeMinBlocks) hc_episode
   for (int j = search.j > 2 ? search.j : 2; j < k; ++j) mine[j - 2] = HcSlot{-1, 0, 0, 0, 0, 0};
 }
 
-__global__ void __launch_bounds__(1) hc_parse_rows(
-    const uint8_t* __restrict__ base, const long long* __restrict__ starts,
-    const int* __restrict__ src_offs, const int* __restrict__ lens,
-    const long long* __restrict__ toff, const long long* __restrict__ soff,
-    const int* __restrict__ prev, const int4* __restrict__ first,
-    const HcSlot* __restrict__ more, const uint16_t* __restrict__ deltas, int k,
-    uint8_t* __restrict__ out, long long out_stride, int ocap, int depth,
-    int* __restrict__ clens, int* __restrict__ errs) {
-  const int row = blockIdx.x;
-  const uint8_t* s = base + starts[row];
-  const int src_off = src_offs[row];
-  const int n = lens[row];
+// ---- the parse by segments (parse_segments.cuh) ----------------------
+
+struct HcTables {
+  const long long* toff;
+  const long long* soff;
+  const int* prev;
+  const int4* first;
+  const HcSlot* more;
+  const uint16_t* deltas;
+  int k, depth;
+};
+
+// Segment g's walk from `start` (ip, anchor, frontier) by one thread: the
+// episodes of the row's parse (ReplaySearch over the tables) from each
+// state, every state recorded with its frontier raised to ip.
+__device__ void hc_seg_walk(const SegPlan& p, int g, int4 start, int round, const HcTables& t) {
+  const SegBounds b = seg_bounds(p, g);
+  const int nmore = t.k > 2 ? t.k - 2 : 0;
   ReplaySearch search{
-      FrontierChain{s, prev + toff[row], deltas + toff[row], n - kLastLiterals, depth, src_off},
-      first + soff[row], more + soff[row] * (k > 2 ? k - 2 : 0), nullptr, make_int4(0, 0, 0, 0),
-      0, src_off, k > 2 ? k - 2 : 0, 0, depth > 128, n - src_off, -8};
-  Sink o{out + row * out_stride, 0, static_cast<int>(out_stride)};
-  hc_parse(s, src_off, n, o, search);
-  clens[row] = o.op;
-  errs[row] = o.op > ocap ? 1 : 0;
+      FrontierChain{b.s, t.prev + t.toff[b.row], t.deltas + t.toff[b.row], b.n - kLastLiterals,
+                    t.depth, start.z},
+      t.first + t.soff[b.row], t.more + t.soff[b.row] * nmore, nullptr, make_int4(0, 0, 0, 0), 0,
+      b.src_off, nmore, 0, t.depth > 128, b.n - b.src_off, -8};
+  SegOut<false> o = seg_out<false>(p, g, b);
+  int ip = start.x, anchor = start.y, key = 0;
+  while (ip <= b.mflimit) {
+    key = max(search.c.frontier, ip);
+    if (o.state(ip, anchor, key)) break;
+    search.begin(ip);
+    hc_episode(b.s, b.mflimit, ip, anchor, o, search);
+  }
+  seg_finish(p, g, b, start, o, ip, anchor, key, round);
+}
+
+// One round: a thread (a CTA) for each segment to walk (round 0: every
+// one, from its guess).
+__global__ void __launch_bounds__(1) hc_seg_walks(SegPlan p, HcTables t, int round) {
+  const int g = blockIdx.x;
+  if (round > 0 && !p.todo[g]) return;
+  atomicAdd(p.stats + round, 1);
+  hc_seg_walk(p, g, seg_start(p, g, seg_bounds(p, g), round == 0), round, t);
+}
+
+// The serial tail, a thread a row: its first segment not exact walked
+// from its predecessor's end and linked, until every one is (segment 0
+// first where no round walked it).
+__global__ void __launch_bounds__(1) hc_seg_tail(SegPlan p, HcTables t) {
+  const int row = blockIdx.x;
+  const int g0 = p.segoff[row], K = p.segoff[row + 1] - g0;
+  if (p.walked[g0] < 0) {
+    hc_seg_walk(p, g0, seg_start(p, g0, seg_bounds(p, g0), true), p.rounds, t);
+    atomicAdd(p.stats + p.rounds + kStatTail, 1);
+  }
+  for (int f; (f = seg_settle(p, row)) < K;) {
+    const int g = g0 + f;
+    hc_seg_walk(p, g, p.next[g], p.rounds, t);
+    atomicAdd(p.stats + p.rounds + kStatTail, 1);
+    p.links[g] = seg_link(p, g);
+    if (f + 1 < K) p.links[g + 1] = seg_link(p, g + 1);
+  }
+}
+
+// The records a walk keeps at levels 3-9 (encode_hc_passes.hc_segment_caps):
+// every episode's start is a state, one a position at most; its sequences
+// start before its stop, and up to 1,024 more in the episode that crosses
+// it.
+__host__ __device__ constexpr int hc_head_cap(int overlap) { return overlap + 2; }
+__host__ __device__ constexpr int hc_seq_cap(int segment, int overlap) {
+  return (segment + overlap) / 4 + 1026;
+}
+
+SegPlan hc_plan(const void* base, const void* starts, const void* src_offs, const void* lens,
+                const void* segoff, const void* seg_row, int nrows, int nseg, int segment,
+                int overlap, int rounds, void* scratch, void* stats) {
+  SegPlan p{};
+  p.base = static_cast<const uint8_t*>(base);
+  p.starts = static_cast<const long long*>(starts);
+  p.src_offs = static_cast<const int*>(src_offs);
+  p.lens = static_cast<const int*>(lens);
+  p.segoff = static_cast<const int*>(segoff);
+  p.seg_row = static_cast<const int*>(seg_row);
+  p.nrows = nrows;
+  p.nseg = nseg;
+  p.rounds = rounds;
+  p.segment = segment;
+  p.overlap = overlap;
+  p.head_cap = p.tail_cap = hc_head_cap(overlap);
+  p.seq_cap = hc_seq_cap(segment, overlap);
+  p.keyed = true;
+  p.stats = static_cast<int*>(stats);
+  seg_scratch(p, scratch, nseg, nrows);
+  return p;
 }
 
 }  // namespace
@@ -287,19 +366,47 @@ extern "C" int lz4t_hc_episodes(const void* base, const void* starts, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+// The parse by segments: rows cut into `segment` positions a segment
+// (segoff [nrows + 1], seg_row [nseg]), each walked on past its end by
+// `overlap`, `rounds` rounds of walks and checks, the serial tail, the
+// emit.  `scratch` holds the bytes lz4t_hc_seg_scratch gives;
+// `stats` int [rounds + 4]: each round's walks, the tail's, a record
+// overflow flag, the links made behind a frontier and the links kept.
+extern "C" int lz4t_hc_seg_scratch(long long nseg, int nrows, int segment, int overlap,
+                         void* bytes) {
+  SegPlan p{};
+  p.head_cap = p.tail_cap = hc_head_cap(overlap);
+  p.seq_cap = hc_seq_cap(segment, overlap);
+  *static_cast<long long*>(bytes) = static_cast<long long>(seg_scratch(p, nullptr, nseg, nrows));
+  return 0;
+}
+
+extern "C" int lz4t_hc_segment() { return kHcSegment; }
+extern "C" int lz4t_hc_overlap() { return kHcOverlap; }
+
 extern "C" int lz4t_hc_parse(const void* base, const void* starts, const void* src_offs,
                              const void* lens, const void* toff, const void* soff,
                              const void* prev, const void* first, const void* more,
                              const void* deltas, int k, void* out, long long out_stride,
                              int ocap, int depth, void* clens, void* errs, int nrows,
+                             const void* segoff, const void* seg_row, int nseg, int segment,
+                             int overlap, int rounds, void* scratch, void* stats,
                              void* stream) {
-  hc_parse_rows<<<nrows, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(base), static_cast<const long long*>(starts),
-      static_cast<const int*>(src_offs), static_cast<const int*>(lens),
-      static_cast<const long long*>(toff), static_cast<const long long*>(soff),
-      static_cast<const int*>(prev), static_cast<const int4*>(first),
-      static_cast<const HcSlot*>(more), static_cast<const uint16_t*>(deltas), k,
-      static_cast<uint8_t*>(out), out_stride, ocap, depth, static_cast<int*>(clens),
-      static_cast<int*>(errs));
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  const SegPlan p = hc_plan(base, starts, src_offs, lens, segoff, seg_row, nrows, nseg, segment,
+                            overlap, rounds, scratch, stats);
+  const HcTables t{static_cast<const long long*>(toff), static_cast<const long long*>(soff),
+                   static_cast<const int*>(prev), static_cast<const int4*>(first),
+                   static_cast<const HcSlot*>(more), static_cast<const uint16_t*>(deltas), k,
+                   depth};
+  cudaError_t e = seg_reset(p, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int r = 0; r < rounds; ++r) {
+    hc_seg_walks<<<nseg, 1, 0, st>>>(p, t, r);
+    seg_check<<<nrows, 128, 0, st>>>(p, r);
+  }
+  hc_seg_tail<<<nrows, 1, 0, st>>>(p, t);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(seg_emit(p, out, out_stride, ocap, clens, errs, st));
 }

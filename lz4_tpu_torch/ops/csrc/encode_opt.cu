@@ -89,17 +89,23 @@
 //    32 positions from a shared counter, so the warps of a slice end
 //    together; a warp still waits for its longest lane, and a slice's
 //    slowest search holds its SM, which the larger slice amortises.
-// 3. The price parse (lz4_hc_body.cuh opt_parse_rounds) by one warp per
-//    row, three rows per SM, the 64 KB price table in shared memory (the
-//    one-thread walk it replaces at level 12 stays only in the serial arm).
-//    Levels 10-11, opt_parse_spec_rows: a search whose minimum length is 3
-//    or less reads the table (opt_find(p, m) equals opt_find(p, 3) there),
-//    the others run on the lanes; each round the lanes take the next <= 32
-//    positions the parse does not skip, each with the minimum length the
-//    state gives it, and the warp commits them in order up to the first
-//    that finds a match (a search that finds nothing changes no state).
-//    Level 12, opt_parse_rows (`full`): every search has minimum length 3,
-//    so no table entry depends on the state: a round reads the entries of
+// 3. The price parse (lz4_hc_body.cuh opt_walk_rounds) by one warp, its
+//    searches made 32 at a time.  Levels 10-11 (opt_parse_spec): a search
+//    whose minimum length is 3 or less reads the table (opt_find(p, m)
+//    equals opt_find(p, 3) there), the others run on the lanes; each round
+//    the lanes take the next <= 32 positions the parse does not skip, each
+//    with the minimum length the state gives it, and the warp commits them
+//    in order up to the first that finds a match (a search that finds
+//    nothing changes no state).  Every row is cut into segments of
+//    kOptSegment positions, each walked by its own warp from a guessed
+//    state and joined to the walk before where their states meet
+//    (parse_segments.cuh; one warp per row left 116 of 132 SMs idle on 16
+//    rows of 4 MiB), the price tables in device memory so that the SM's
+//    registers alone bound its walks.  Level 12 (opt_parse_rows, one warp
+//    per row, three rows per SM, the 64 KB price table in shared memory;
+//    the one-thread walk it replaces stays only in the serial arm):
+//    every search has minimum length 3, so no table entry depends on the
+//    state: a round reads the entries of
 //    the next 32 positions and commits their matches in order, each the
 //    first position past the last commit that the live price table does
 //    not skip (level 12's test) and whose entry, or its lane's search on
@@ -121,7 +127,8 @@
 // slowest search (its chain steps and bytes measured, at most
 // first_budget + budget), with warps held by their longest lane; the
 // parse's commits and rounds, on the level 12 path the noise rows' (one
-// commit per ~1.7 positions).  The tables of a batch take 12 bytes per
+// commit per ~1.7 positions), at levels 10-11 those of the slowest
+// segment's walk and of the rounds its links take.  The tables of a batch take 12 bytes per
 // window byte of device memory (the chain pass's scratch, 8 bytes a
 // position, is freed before the match pass allocates its table); the
 // wrapper processes rows in groups under a fixed cap.
@@ -131,6 +138,7 @@
 
 #include "lz4_encode_body.cuh"
 #include "lz4_hc_body.cuh"
+#include "parse_segments.cuh"
 
 using namespace lz4t;
 
@@ -403,9 +411,8 @@ __global__ void __launch_bounds__(kMatchThreads, 1) opt_matches_rows(
   }
 }
 
-// The parse by one warp per row (opt_parse_rounds): level 12 with `full`.
-template <bool full>
-__device__ __forceinline__ void parse_row(
+// Level 12's parse by one warp per row (opt_parse_rounds with `full`).
+__global__ void __launch_bounds__(32) opt_parse_rows(
     const uint8_t* __restrict__ base, const long long* __restrict__ starts,
     const int* __restrict__ src_offs, const int* __restrict__ lens,
     const long long* __restrict__ toff, const int* __restrict__ prev,
@@ -417,7 +424,7 @@ __device__ __forceinline__ void parse_row(
   const int n = lens[row];
   TableChain c{s, prev + toff[row], n - kLastLiterals, depth, 0};
   WarpSink o{out + row * out_stride, 0, static_cast<int>(out_stride)};
-  opt_parse_rounds<full>(s, src_offs[row], n, sufficient, matches + toff[row], c, o,
+  opt_parse_rounds<true>(s, src_offs[row], n, sufficient, matches + toff[row], c, o,
                          reinterpret_cast<OptCell*>(smem),
                          reinterpret_cast<int*>(smem + kOptCellsBytes));
   if (threadIdx.x == 0) {
@@ -426,24 +433,111 @@ __device__ __forceinline__ void parse_row(
   }
 }
 
-__global__ void __launch_bounds__(32) opt_parse_rows(
-    const uint8_t* __restrict__ base, const long long* __restrict__ starts,
-    const int* __restrict__ src_offs, const int* __restrict__ lens,
-    const long long* __restrict__ toff, const int* __restrict__ prev,
-    const int2* __restrict__ matches, uint8_t* __restrict__ out, long long out_stride,
-    int ocap, int depth, int sufficient, int* __restrict__ clens, int* __restrict__ errs) {
-  parse_row<true>(base, starts, src_offs, lens, toff, prev, matches, out, out_stride, ocap, depth,
-                  sufficient, clens, errs);
+// ---- levels 10-11: the parse by segments (parse_segments.cuh) -----------
+
+// A segment walk's price table lies in device memory (read through L1),
+// one a segment: in shared memory (65.7 KB) three walks fit an SM, here
+// the SM's registers bound them (32 an SM, every segment of 16 rows of
+// 4 MiB at once).
+constexpr int kSegCells = kOptNum + kOptTrailing;
+
+// Segment g's walk from `start` by the warp: the parse by rounds
+// (opt_walk_rounds) over the row's tables, into g's records, its price
+// table `cells`.
+__device__ void opt_seg_walk(const SegPlan& p, int g, int4 start, int round,
+                             const long long* __restrict__ toff, const int* __restrict__ prev,
+                             const int2* __restrict__ matches, int depth, int sufficient,
+                             OptCell* cells, int* lane_pos) {
+  const SegBounds b = seg_bounds(p, g);
+  TableChain c{b.s, prev + toff[b.row], b.n - kLastLiterals, depth, 0};
+  SegOut<true> o = seg_out<true>(p, g, b);
+  int ip = start.x, anchor = start.y;
+  opt_walk_rounds<false>(b.s, ip, anchor, b.mflimit, sufficient, matches + toff[b.row], c, o,
+                         cells, lane_pos);
+  seg_finish(p, g, b, start, o, ip, anchor, 0, round);
 }
 
-__global__ void __launch_bounds__(32) opt_parse_spec_rows(
-    const uint8_t* __restrict__ base, const long long* __restrict__ starts,
-    const int* __restrict__ src_offs, const int* __restrict__ lens,
-    const long long* __restrict__ toff, const int* __restrict__ prev,
-    const int2* __restrict__ matches, uint8_t* __restrict__ out, long long out_stride,
-    int ocap, int depth, int sufficient, int* __restrict__ clens, int* __restrict__ errs) {
-  parse_row<false>(base, starts, src_offs, lens, toff, prev, matches, out, out_stride, ocap,
-                   depth, sufficient, clens, errs);
+// One round: a warp for each segment to walk (round 0: every one, from its
+// guess).
+__global__ void __launch_bounds__(32) opt_seg_walks(SegPlan p, const long long* __restrict__ toff,
+                                                    const int* __restrict__ prev,
+                                                    const int2* __restrict__ matches, int depth,
+                                                    int sufficient, OptCell* __restrict__ cells,
+                                                    int round) {
+  __shared__ int lane_pos[32];
+  const int g = blockIdx.x;
+  if (round > 0 && !p.todo[g]) return;
+  const int4 start = seg_start(p, g, seg_bounds(p, g), round == 0);
+  if (lane_id() == 0) atomicAdd(p.stats + round, 1);
+  opt_seg_walk(p, g, start, round, toff, prev, matches, depth, sufficient,
+               cells + static_cast<long long>(g) * kSegCells, lane_pos);
+}
+
+// The serial tail, a warp a row: its first segment not exact walked from
+// its predecessor's end and linked, until every one is (segment 0 first
+// where no round walked it).
+__global__ void __launch_bounds__(32) opt_seg_tail(SegPlan p, const long long* __restrict__ toff,
+                                                   const int* __restrict__ prev,
+                                                   const int2* __restrict__ matches, int depth,
+                                                   int sufficient, OptCell* __restrict__ cells) {
+  __shared__ int lane_pos[32];
+  __shared__ int first;
+  const int row = blockIdx.x;
+  const int g0 = p.segoff[row], K = p.segoff[row + 1] - g0;
+  const int lane = lane_id();
+  OptCell* table = cells + (static_cast<long long>(p.nseg) + row) * kSegCells;
+  if (p.walked[g0] < 0) {
+    opt_seg_walk(p, g0, seg_start(p, g0, seg_bounds(p, g0), true), p.rounds, toff, prev, matches,
+                 depth, sufficient, table, lane_pos);
+    if (lane == 0) atomicAdd(p.stats + p.rounds + kStatTail, 1);
+  }
+  for (;;) {
+    __syncwarp();  // the walk's records before lane 0 reads them
+    if (lane == 0) first = seg_settle(p, row);
+    __syncwarp();
+    const int f = first;
+    if (f >= K) break;
+    const int g = g0 + f;
+    opt_seg_walk(p, g, p.next[g], p.rounds, toff, prev, matches, depth, sufficient, table,
+                 lane_pos);
+    __syncwarp();
+    if (lane == 0) {
+      atomicAdd(p.stats + p.rounds + kStatTail, 1);
+      p.links[g] = seg_link(p, g);
+      if (f + 1 < K) p.links[g + 1] = seg_link(p, g + 1);
+    }
+  }
+}
+
+// The records a walk keeps at levels 10-11 (encode_opt.opt_segment_caps):
+// its states lie where sequences end, 4 positions apart at least; its
+// sequences start before its stop or in the window that crosses it.
+__host__ __device__ constexpr int opt_head_cap(int overlap) { return overlap / 4 + 2; }
+__host__ __device__ constexpr int opt_seq_cap(int segment, int overlap) {
+  return (segment + overlap + kOptNum) / 4 + 2;
+}
+
+SegPlan opt_plan(const void* base, const void* starts, const void* src_offs, const void* lens,
+                 const void* segoff, const void* seg_row, int nrows, int nseg, int segment,
+                 int overlap, int rounds, void* scratch, void* stats) {
+  SegPlan p{};
+  p.base = static_cast<const uint8_t*>(base);
+  p.starts = static_cast<const long long*>(starts);
+  p.src_offs = static_cast<const int*>(src_offs);
+  p.lens = static_cast<const int*>(lens);
+  p.segoff = static_cast<const int*>(segoff);
+  p.seg_row = static_cast<const int*>(seg_row);
+  p.nrows = nrows;
+  p.nseg = nseg;
+  p.rounds = rounds;
+  p.segment = segment;
+  p.overlap = overlap;
+  p.head_cap = p.tail_cap = opt_head_cap(overlap);
+  p.seq_cap = opt_seq_cap(segment, overlap);
+  p.keyed = false;
+  p.stats = static_cast<int*>(stats);
+  seg_scratch(p, scratch, nseg, nrows);
+  return p;
 }
 
 }  // namespace
@@ -482,7 +576,7 @@ extern "C" int lz4t_opt_matches_shared_bytes() { return kSliceDeltaBytes; }
 
 extern "C" int lz4t_opt_slice() { return kSlice; }
 
-// The price table and the lanes' positions (32 ints), at every level.
+// The price table and the lanes' positions (32 ints) of level 12's parse.
 extern "C" int lz4t_opt_parse_shared_bytes() { return kOptCellsBytes + 32 * 4; }
 
 // `segoff[r]` is the first of row r's segment tables in `last` and
@@ -551,21 +645,61 @@ extern "C" int lz4t_opt_parse(const void* base, const void* starts, const void* 
 }
 
 
-// One warp per row (levels 10-11): `depth` and `sufficient` are the level's.
+// The level 10-11 parse by segments: rows cut into `segment` positions a
+// segment (segoff [nrows + 1], seg_row [nseg]), each walked on past its
+// end by `overlap`, `rounds` rounds of walks and checks, the serial tail,
+// the emit.  `scratch` holds the bytes lz4t_opt_seg_scratch gives;
+// `stats` int [rounds + 4]: each round's walks, the tail's, a record
+// overflow flag, the links behind a frontier (0 here) and the links kept.
+// The records' bytes, then the price tables' (one a segment and one a
+// row, for the tail).
+static size_t opt_seg_bytes(SegPlan& p, void* scratch, long long nseg, int nrows) {
+  const size_t records = seg_align(seg_scratch(p, scratch, nseg, nrows));
+  return records + (nseg + nrows) * static_cast<size_t>(kOptCellsBytes);
+}
+
+extern "C" int lz4t_opt_seg_scratch(long long nseg, int nrows, int segment, int overlap,
+                                    void* bytes) {
+  SegPlan p{};
+  p.head_cap = p.tail_cap = opt_head_cap(overlap);
+  p.seq_cap = opt_seq_cap(segment, overlap);
+  *static_cast<long long*>(bytes) = static_cast<long long>(opt_seg_bytes(p, nullptr, nseg, nrows));
+  return 0;
+}
+
+extern "C" int lz4t_opt_segment() { return kOptSegment; }
+extern "C" int lz4t_opt_overlap() { return kOptOverlap; }
+
 extern "C" int lz4t_opt_parse_spec(const void* base, const void* starts, const void* src_offs,
                                    const void* lens, const void* toff, const void* prev,
                                    const void* matches, void* out, long long out_stride,
                                    int ocap, int depth, int sufficient, void* clens, void* errs,
-                                   int nrows, void* stream) {
-  const int smem = lz4t_opt_parse_shared_bytes();
-  cudaError_t e = cudaFuncSetAttribute(
-      opt_parse_spec_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                   int nrows, const void* segoff, const void* seg_row, int nseg,
+                                   int segment, int overlap, int rounds, void* scratch,
+                                   void* stats, void* stream) {
+  for (const void* k : {reinterpret_cast<const void*>(opt_seg_walks),
+                        reinterpret_cast<const void*>(opt_seg_tail)}) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxL1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  SegPlan p = opt_plan(base, starts, src_offs, lens, segoff, seg_row, nrows, nseg, segment,
+                       overlap, rounds, scratch, stats);
+  // the price tables after the records (opt_seg_bytes)
+  auto* cells = reinterpret_cast<OptCell*>(static_cast<char*>(scratch) +
+                                           seg_align(seg_scratch(p, scratch, nseg, nrows)));
+  const auto* tf = static_cast<const long long*>(toff);
+  const auto* pv = static_cast<const int*>(prev);
+  const auto* mt = static_cast<const int2*>(matches);
+  cudaError_t e = seg_reset(p, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  opt_parse_spec_rows<<<nrows, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(base), static_cast<const long long*>(starts),
-      static_cast<const int*>(src_offs), static_cast<const int*>(lens),
-      static_cast<const long long*>(toff), static_cast<const int*>(prev),
-      static_cast<const int2*>(matches), static_cast<uint8_t*>(out), out_stride, ocap, depth,
-      sufficient, static_cast<int*>(clens), static_cast<int*>(errs));
-  return static_cast<int>(cudaGetLastError());
+  for (int r = 0; r < rounds; ++r) {
+    opt_seg_walks<<<nseg, 32, 0, st>>>(p, tf, pv, mt, depth, sufficient, cells, r);
+    seg_check<<<nrows, 128, 0, st>>>(p, r);
+  }
+  opt_seg_tail<<<nrows, 32, 0, st>>>(p, tf, pv, mt, depth, sufficient, cells);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(seg_emit(p, out, out_stride, ocap, clens, errs, st));
 }

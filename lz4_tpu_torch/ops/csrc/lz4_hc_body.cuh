@@ -795,133 +795,152 @@ __device__ void opt_parse(const uint8_t* s, int src_off, int n, int sufficient, 
 // phase's writes before the next phase's reads and its reads before the
 // next writes.  `lane_pos` (32 ints of shared memory) hands each lane its
 // position.
+//
+// opt_walk_rounds is the loop from the state (ip, anchor) up to mflimit,
+// its sequences given to emit(o, ...); at_state(o, ip, anchor), asked at
+// the top of every turn of the loop (a window's start, or the next 32
+// positions read where none had a match), ends the walk where it returns
+// true (the segment walks, parse_segments.cuh; never for a WarpSink);
+// at_window(o) is told where a window opens (its seed reads the anchor).
+__device__ __forceinline__ bool at_state(WarpSink&, int, int) { return false; }
+__device__ __forceinline__ void at_window(WarpSink&) {}
+
+template <bool full, class C, class Out>
+__device__ void opt_walk_rounds(const uint8_t* s, int& ip_, int& anchor_, int mflimit,
+                                int sufficient, const int2* t, C& c, Out& o, OptCell* cells,
+                                int* lane_pos) {
+  const int lane = lane_id();
+  int ip = ip_, anchor = anchor_;
+  while (ip <= mflimit) {
+    if (at_state(o, ip, anchor)) break;
+    int first_len, first_off;
+    {  // the first of the next 32 table entries that is not (0, 0)
+      const int2 e = ip + lane <= mflimit ? t[ip + lane] : make_int2(0, 0);
+      const unsigned hit = __ballot_sync(kFull, e.x != 0);
+      if (hit == 0) {
+        ip += 32;
+        continue;
+      }
+      const int k = __ffs(static_cast<int>(hit)) - 1;
+      ip += k;
+      first_len = __shfl_sync(kFull, e.x, k);
+      first_off = __shfl_sync(kFull, e.y, k);
+    }
+    if (first_len < 0) first_len = opt_find(c, ip, kMinMatch - 1, first_off);  // gave up
+    if (first_len == 0) {
+      ++ip;
+      continue;
+    }
+    at_window(o);
+    const int llen = ip - anchor;
+    if (first_len > sufficient) {  // long enough: take it outright
+      emit(o, s, anchor, llen, first_off, first_len);
+      ip += first_len;
+      anchor = ip;
+      continue;
+    }
+    opt_seed_warp(cells, llen, first_len, first_off);
+    int last = first_len, cur = 1, best_mlen = 0, best_off = 0;
+    bool early = false;
+    // the serial loop's skip test at window position q
+    auto open_at = [cells](int q) {
+      return cells[q + 1].price > cells[q].price ||
+             (full && cells[q + kMinMatch].price >= cells[q].price + 3);
+    };
+    for (;;) {  // one round
+      int end = min(last, mflimit - ip + 1);
+      if (cur >= end) break;
+      __syncwarp();  // the cells before the reads
+      int mine, next;  // this lane's position; where the round's positions end
+      int2 e = make_int2(0, 0);
+      if (full) {  // the next 32 positions, each lane's table entry read once
+        mine = cur + lane;
+        next = cur + 32;
+        if (ip + mine <= mflimit) e = t[ip + mine];
+      } else {
+        int got = 0;  // positions not skipped, the first 32 in lane_pos
+        for (int c0 = cur; c0 < end && got < 32; c0 += 32) {
+          const int q = c0 + lane;
+          const bool open = q < end && open_at(q);
+          const unsigned ball = __ballot_sync(kFull, open);
+          const int rank = got + __popc(ball & ((1u << lane) - 1u));
+          if (open && rank < 32) lane_pos[rank] = q;
+          got += __popc(ball);
+        }
+        __syncwarp();  // lane_pos before the reads; the cells' reads before the writes
+        mine = lane < got ? lane_pos[lane] : -1;
+        next = got >= 32 ? lane_pos[31] + 1 : end;
+      }
+      for (;;) {  // the round's commits, in position order
+        int len = 0, off = 0;
+        if (full) {
+          // an entry does not depend on the state: after a commit the
+          // lanes past it test their positions again against the new cells
+          if (mine >= cur && mine < end && open_at(mine)) {
+            if (e.x < 0) e.x = opt_find(c, ip + mine, kMinMatch - 1, e.y);  // gave up
+            len = e.x;
+            off = e.y;
+          }
+        } else if (mine >= 0) {
+          const int m = last - mine;
+          const int2 te = m < kMinMatch ? t[ip + mine] : make_int2(-1, 0);
+          if (te.x >= 0) {
+            len = te.x;
+            off = te.y;
+          } else {
+            len = opt_find(c, ip + mine, m, off);
+          }
+        }
+        const unsigned found = __ballot_sync(kFull, len != 0);
+        if (found == 0) {
+          cur = next;
+          break;
+        }
+        const int k = __ffs(static_cast<int>(found)) - 1;
+        cur = __shfl_sync(kFull, mine, k);
+        const int new_len = __shfl_sync(kFull, len, k);
+        const int new_off = __shfl_sync(kFull, off, k);
+        if (new_len > sufficient || new_len + cur >= kOptNum) {
+          best_mlen = new_len;
+          best_off = new_off;
+          last = cur + 1;
+          early = true;
+          break;
+        }
+        last = opt_add_warp(cells, cur, new_len, new_off, last);
+        ++cur;
+        end = min(last, mflimit - ip + 1);
+        // levels 10-11: the new state changed the minimum lengths of the
+        // lanes past the commit, so their searches are made again
+        if (!full || cur >= end) break;
+        __syncwarp();  // the cells before the reads
+      }
+      if (early) break;
+    }
+    __syncwarp();  // every lane's cells before lane 0 walks the path
+    if (lane == 0) {
+      if (!early) {
+        best_mlen = cells[last].mlen;
+        best_off = cells[last].off;
+        cur = last - best_mlen;
+      }
+      opt_reverse(cells, cur, best_mlen, best_off);
+    }
+    __syncwarp();
+    opt_emit(s, cells, last, ip, anchor, o);  // every lane alike
+    __syncwarp();  // the cells' reads before the next window's seed
+  }
+  ip_ = ip;
+  anchor_ = anchor;
+}
+
 template <bool full, class C>
 __device__ void opt_parse_rounds(const uint8_t* s, int src_off, int n, int sufficient,
                                  const int2* t, C& c, WarpSink& o, OptCell* cells,
                                  int* lane_pos) {
-  const int lane = lane_id();
-  int anchor = src_off;
-  if (n - src_off >= kMfLimit + 1) {
-    const int mflimit = n - kMfLimit;
-    int ip = src_off;
-    while (ip <= mflimit) {
-      int first_len, first_off;
-      {  // the first of the next 32 table entries that is not (0, 0)
-        const int2 e = ip + lane <= mflimit ? t[ip + lane] : make_int2(0, 0);
-        const unsigned hit = __ballot_sync(kFull, e.x != 0);
-        if (hit == 0) {
-          ip += 32;
-          continue;
-        }
-        const int k = __ffs(static_cast<int>(hit)) - 1;
-        ip += k;
-        first_len = __shfl_sync(kFull, e.x, k);
-        first_off = __shfl_sync(kFull, e.y, k);
-      }
-      if (first_len < 0) first_len = opt_find(c, ip, kMinMatch - 1, first_off);  // gave up
-      if (first_len == 0) {
-        ++ip;
-        continue;
-      }
-      const int llen = ip - anchor;
-      if (first_len > sufficient) {  // long enough: take it outright
-        warp_emit(o, s, anchor, llen, first_off, first_len);
-        ip += first_len;
-        anchor = ip;
-        continue;
-      }
-      opt_seed_warp(cells, llen, first_len, first_off);
-      int last = first_len, cur = 1, best_mlen = 0, best_off = 0;
-      bool early = false;
-      // the serial loop's skip test at window position q
-      auto open_at = [cells](int q) {
-        return cells[q + 1].price > cells[q].price ||
-               (full && cells[q + kMinMatch].price >= cells[q].price + 3);
-      };
-      for (;;) {  // one round
-        int end = min(last, mflimit - ip + 1);
-        if (cur >= end) break;
-        __syncwarp();  // the cells before the reads
-        int mine, next;  // this lane's position; where the round's positions end
-        int2 e = make_int2(0, 0);
-        if (full) {  // the next 32 positions, each lane's table entry read once
-          mine = cur + lane;
-          next = cur + 32;
-          if (ip + mine <= mflimit) e = t[ip + mine];
-        } else {
-          int got = 0;  // positions not skipped, the first 32 in lane_pos
-          for (int c0 = cur; c0 < end && got < 32; c0 += 32) {
-            const int q = c0 + lane;
-            const bool open = q < end && open_at(q);
-            const unsigned ball = __ballot_sync(kFull, open);
-            const int rank = got + __popc(ball & ((1u << lane) - 1u));
-            if (open && rank < 32) lane_pos[rank] = q;
-            got += __popc(ball);
-          }
-          __syncwarp();  // lane_pos before the reads; the cells' reads before the writes
-          mine = lane < got ? lane_pos[lane] : -1;
-          next = got >= 32 ? lane_pos[31] + 1 : end;
-        }
-        for (;;) {  // the round's commits, in position order
-          int len = 0, off = 0;
-          if (full) {
-            // an entry does not depend on the state: after a commit the
-            // lanes past it test their positions again against the new cells
-            if (mine >= cur && mine < end && open_at(mine)) {
-              if (e.x < 0) e.x = opt_find(c, ip + mine, kMinMatch - 1, e.y);  // gave up
-              len = e.x;
-              off = e.y;
-            }
-          } else if (mine >= 0) {
-            const int m = last - mine;
-            const int2 te = m < kMinMatch ? t[ip + mine] : make_int2(-1, 0);
-            if (te.x >= 0) {
-              len = te.x;
-              off = te.y;
-            } else {
-              len = opt_find(c, ip + mine, m, off);
-            }
-          }
-          const unsigned found = __ballot_sync(kFull, len != 0);
-          if (found == 0) {
-            cur = next;
-            break;
-          }
-          const int k = __ffs(static_cast<int>(found)) - 1;
-          cur = __shfl_sync(kFull, mine, k);
-          const int new_len = __shfl_sync(kFull, len, k);
-          const int new_off = __shfl_sync(kFull, off, k);
-          if (new_len > sufficient || new_len + cur >= kOptNum) {
-            best_mlen = new_len;
-            best_off = new_off;
-            last = cur + 1;
-            early = true;
-            break;
-          }
-          last = opt_add_warp(cells, cur, new_len, new_off, last);
-          ++cur;
-          end = min(last, mflimit - ip + 1);
-          // levels 10-11: the new state changed the minimum lengths of the
-          // lanes past the commit, so their searches are made again
-          if (!full || cur >= end) break;
-          __syncwarp();  // the cells before the reads
-        }
-        if (early) break;
-      }
-      __syncwarp();  // every lane's cells before lane 0 walks the path
-      if (lane == 0) {
-        if (!early) {
-          best_mlen = cells[last].mlen;
-          best_off = cells[last].off;
-          cur = last - best_mlen;
-        }
-        opt_reverse(cells, cur, best_mlen, best_off);
-      }
-      __syncwarp();
-      opt_emit(s, cells, last, ip, anchor, o);  // every lane alike
-      __syncwarp();  // the cells' reads before the next window's seed
-    }
-  }
+  int ip = src_off, anchor = src_off;
+  if (n - src_off >= kMfLimit + 1)
+    opt_walk_rounds<full>(s, ip, anchor, n - kMfLimit, sufficient, t, c, o, cells, lane_pos);
   warp_emit(o, s, anchor, n - anchor, 0, 0);
 }
 

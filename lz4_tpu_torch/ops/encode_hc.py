@@ -278,19 +278,20 @@ def _no_emit(out, s, anchor, ll, off, ml):
     pass
 
 
-def hc_episode(s, ip: int, anchor: int, mf_limit: int, search, out):
+def hc_episode(s, ip: int, anchor: int, mf_limit: int, search, out, put=None):
     """One episode of the HC arm (`csrc/lz4_hc_body.cuh` hc_episode): the
     3-candidate (ML1/ML2/ML3) lookahead parse from ``ip``.  A first search
     at ip; on a match ML1, probe for a strictly longer ML2 overlapping it,
     then an ML3 beyond ML2, resolving the overlaps with the OPTIMAL_ML trim
-    rules, until the sequences are emitted to ``out`` (None: nowhere).
+    rules, until the sequences are emitted to ``out`` (None: nowhere) by
+    ``put`` (`common.emit` by default).
 
     ``search(ip, ilow, longest)`` is the widest-match search, (length,
     m_start, m_pos) with m_start = ip and m_pos = -1 when nothing beat
     ``longest``, or None, which ends the episode where it stands.  What an
     episode searches depends only on the window, ip and those answers.
     Returns (ip, anchor) where the parse goes on, or None."""
-    put = emit if out is not None else _no_emit
+    put = put or (emit if out is not None else _no_emit)
     got = search(ip, ip, MIN_MATCH - 1)
     if got is None:
         return None
@@ -482,10 +483,10 @@ def opt_add(o: list, cur: int, new_len: int, new_off: int, last: int) -> int:
 
 
 def opt_encode(out: bytearray, s, o: list, cur: int, sel_len: int, sel_off: int,
-               last: int, ip: int, anchor: int) -> tuple[int, int]:
+               last: int, ip: int, anchor: int, put=emit) -> tuple[int, int]:
     """Reverse the chosen path in place (its last step (sel_len, sel_off)
-    ends at cur + sel_len), then emit it forward from ip; returns ip and
-    anchor past it."""
+    ends at cur + sel_len), then emit it forward from ip by ``put``
+    (`common.emit` by default); returns ip and anchor past it."""
     pos = cur
     while True:
         nl, no = o[pos][2], o[pos][1]
@@ -502,7 +503,7 @@ def opt_encode(out: bytearray, s, o: list, cur: int, sel_len: int, sel_off: int,
             r += 1
             continue
         r += m
-        emit(out, s, anchor, ip - anchor, off, m)
+        put(out, s, anchor, ip - anchor, off, m)
         ip += m
         anchor = ip
     return ip, anchor

@@ -13,9 +13,11 @@ every search is made with the positions below it inserted in the chain and
 none at or above it (the frontier property, below).  So the passes build
 the chain of every position of a row (`opt_chain`), run the episode that
 starts at every block position at once and keep the first `SLOTS`
-searches of each (`hc_episodes`), then run the parse, one row at a time,
-with each search read from that table where its key matches
-(`hc_parse`), or made on the spot.
+searches of each (`hc_episodes`), then run the parse, with each search
+read from that table where its key matches, or made on the spot
+(`hc_parse`: each row cut into segments of `HC_SEGMENT` positions walked
+at once and joined where their states meet, `parse_segments`;
+`hc_parse_segments_plain` is its model).
 
 Table layout: `opt_chain`'s prev holds every window position back to back
 (`encode_opt.table_offsets`); the episode tables hold the block positions
@@ -63,9 +65,11 @@ from .common import align1024, read32
 from .encode import _outputs, pack_rows
 from .encode_hc import _hash, hc_episode, hc_parse_row, level_arm
 from .encode_opt import (
-    FIRST_BUDGET, MATCH_BUDGET, MAX_GROUP_ROWS, RETRY_LONGEST, TableFinder, _rows, _stream,
-    _table, chain_scratch_bytes, opt_chain,
+    FIRST_BUDGET, MATCH_BUDGET, MAX_GROUP_ROWS, RETRY_LONGEST, SEGMENT_ROUNDS, TableFinder,
+    _check_segments, _rows, _stream, _table, chain_scratch_bytes, opt_chain, segment_rows,
+    table_offsets,
 )
+from .parse_segments import Walk, encode_seqs, parse_limit, schedule
 
 # Searches kept per episode.  Text rows run episodes of up to ~17 searches
 # (`hc9bench.py --host`: the first 8 hold 98.3% of the plain parse's search
@@ -81,6 +85,12 @@ HEAD_INTS = 4  # the first two searches: (length, m_pos, length, back << 16 | of
 # card a group also takes at most half the memory free for it
 # (`group_budget`).
 GROUP_TABLE_BYTES = 16 << 30
+# The parse's segments (`csrc/parse_segments.cuh` kHcSegment,
+# kHcOverlap): a thread walks the parse positions [s_k, s_k + HC_SEGMENT)
+# of a row from a guessed state and goes on HC_OVERLAP positions past them,
+# where the walk before links to it (`parse_segments`).
+HC_SEGMENT = 16384
+HC_OVERLAP = 1024
 
 _lib = None
 
@@ -91,8 +101,11 @@ def _kernel():
         lib = load("encode_hc_passes")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.lz4t_hc_episodes.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-        lib.lz4t_hc_parse.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p, ll, i, i, p, p, i, p]
-        for fn in (lib.lz4t_hc_episodes, lib.lz4t_hc_parse):
+        lib.lz4t_hc_parse.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p, ll, i, i, p, p, i, p,
+                                       p, i, i, i, i, p, p, p]
+        lib.lz4t_hc_seg_scratch.argtypes = [ll, i, i, i, p]
+        for fn in (lib.lz4t_hc_episodes, lib.lz4t_hc_parse, lib.lz4t_hc_segment,
+                   lib.lz4t_hc_overlap, lib.lz4t_hc_seg_scratch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -330,22 +343,20 @@ def hc_episodes(base_u8, starts, src_offs, lens, prev, depth: int = 256,
 
 # ---- pass 3: the parse ----------------------------------------------------
 
-def hc_parse_plain(base_u8, starts, src_offs, lens, prev, tables, bcap: int,
-                   depth: int = 256, counts: list | None = None):
-    """The plain PyTorch version of `hc_parse`: `encode_hc.hc_parse_row`
-    with each search read from the episode tables where they answer it,
-    else made by a `FrontierFinder` at the row's frontier.  ``counts``, if
-    given, gets one dict per row: its episodes, the searches read from the
-    tables and made on the spot, and the chain steps of the latter."""
-    base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
-    prev = _table(prev, total, 1, "prev", base.device).cpu()
+def _replay_rows(base, st, so, ln, prev, tables, total, depth: int):
+    """Each row's window, block start, length and `encode_hc.hc_parse_row`
+    search factory for `hc_parse_plain`: the j-th search of the episode at
+    ip read from the episode tables where they answer it, else made by the
+    row's `FrontierFinder` at the row's frontier; with the finder and a
+    tally (episodes, searches read and made on the spot, the chain steps of
+    the latter)."""
     soff, stotal = slot_offsets(so, ln)
     first, more, deltas, _ = _episode_tables(tables, stotal, total, base.device)
     first, more = first.cpu().numpy(), more.cpu().numpy()
     deltas = (deltas.cpu().to(torch.int32) & 0xFFFF).tolist()
     raw = base.cpu().numpy()
     pa = depth > 128
-    comps = []
+    toff, _ = table_offsets(ln)
     for a, off, n, at, sat in zip(st.tolist(), so.tolist(), ln.tolist(), toff.tolist(),
                                   soff.tolist()):
         s = raw[a:a + n].tobytes()
@@ -373,13 +384,94 @@ def hc_parse_plain(base_u8, starts, src_offs, lens, prev, tables, bcap: int,
 
             return search
 
+        yield s, off, n, episode_search, finder, tally
+
+
+def hc_parse_plain(base_u8, starts, src_offs, lens, prev, tables, bcap: int,
+                   depth: int = 256, counts: list | None = None):
+    """The plain PyTorch version of `hc_parse`: `encode_hc.hc_parse_row`
+    with each search read from the episode tables where they answer it,
+    else made by a `FrontierFinder` at the row's frontier.  ``counts``, if
+    given, gets one dict per row: its episodes, the searches read from the
+    tables and made on the spot, and the chain steps of the latter."""
+    base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
+    prev = _table(prev, total, 1, "prev", base.device).cpu()
+    comps = []
+    for s, off, _, episode_search, _, tally in _replay_rows(base, st, so, ln, prev, tables,
+                                                             total, depth):
         comps.append(hc_parse_row(s, off, episode_search))
         if counts is not None:
             counts.append(tally)
     return pack_rows(comps, align1024(compress_bound(bcap)), base.device)
 
 
-def hc_parse(base_u8, starts, src_offs, lens, prev, tables, bcap: int, depth: int = 256):
+def hc_segment_caps(segment: int, overlap: int) -> tuple[int, int, int]:
+    """A walk's capacities at levels 3-9 (`csrc/parse_segments.cuh`): the
+    states kept from its start (head) and past its segment's end (tail),
+    and its sequences.  Every episode's start is a state, one a position at
+    most; its sequences, 4 positions each at least, start from its
+    segment's start to its stop, and up to 1,024 more in the episode that
+    crosses the stop."""
+    return overlap + 2, overlap + 2, (segment + overlap) // 4 + 1026
+
+
+def hc_parse_segments_plain(base_u8, starts, src_offs, lens, prev, tables, bcap: int,
+                            depth: int = 256, segment: int = HC_SEGMENT,
+                            overlap: int = HC_OVERLAP, max_rounds: int = SEGMENT_ROUNDS,
+                            counts: list | None = None):
+    """`hc_parse` by the kernels' schedule (`parse_segments.schedule`), a
+    model for the tests and the step count (no path runs it): each row's
+    parse cut into segments of ``segment`` positions, each walked by the
+    episodes of `hc_parse_plain` from a guessed state (ip = anchor = the
+    frontier = the segment's start) until ``overlap`` positions past its
+    end, the walks linked where their states (ip and the frontier raised
+    to it, at every episode's start) meet, the others walked again from
+    their predecessors' end states for up to ``max_rounds`` rounds, then
+    one after another.  Asserts at every link that the frontier there is
+    at ip.  Returns the bytes of `hc_parse_plain`; ``counts``, if given,
+    gets one tally per row (`parse_segments.schedule`'s, each walk's
+    dependent steps its searches read from the tables plus the chain steps
+    of those made on the spot)."""
+    base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
+    prev = _table(prev, total, 1, "prev", base.device).cpu()
+    head, tail_cap, seq_cap = hc_segment_caps(segment, overlap)
+    comps = []
+    for s, off, n, episode_search, finder, steps in _replay_rows(base, st, so, ln, prev,
+                                                                 tables, total, depth):
+        def walk(start, stop, s=s, episode_search=episode_search, finder=finder,
+                 steps=steps, mf_limit=parse_limit(off, n), episode_limit=n - MF_LIMIT):
+            w = Walk(start, keyed=True)
+            ip, anchor, finder.frontier = start
+            before = steps["read"] + steps["spot_steps"]
+
+            def put(_, __, anchor, ll, off, ml):
+                w.seqs.append((anchor + ll, off, ml))
+
+            while ip <= mf_limit:
+                state = (ip, anchor, max(finder.frontier, ip))
+                w.states.append((ip, state[2], len(w.seqs), anchor))
+                if stop is not None and ip >= stop:
+                    w.end = state
+                    break
+                ip, anchor = hc_episode(s, ip, anchor, episode_limit, episode_search(ip), None,
+                                        put)
+            w.steps = steps["read"] + steps["spot_steps"] - before
+            return w
+
+        tally = {}
+        seqs, anchor = schedule(off, n, segment, overlap, head, tail_cap, seq_cap, max_rounds,
+                                walk, tally)
+        for ip, key, _, _ in tally["linked_states"]:
+            assert key == ip, f"a link at {ip} with the frontier at {key}, past it"
+        comps.append(encode_seqs(s, off, seqs, anchor))
+        if counts is not None:
+            counts.append(tally)
+    return pack_rows(comps, align1024(compress_bound(bcap)), base.device)
+
+
+def hc_parse(base_u8, starts, src_offs, lens, prev, tables, bcap: int, depth: int = 256,
+             segment: int = HC_SEGMENT, overlap: int = HC_OVERLAP,
+             max_rounds: int = SEGMENT_ROUNDS):
     """The HC parse of each row's block (`encode_hc.hc_parse_row`), the
     j-th search of the episode at ip read from ``tables`` (`hc_episodes`'
     (first, more, deltas) of the same rows) where the table holds the
@@ -391,14 +483,20 @@ def hc_parse(base_u8, starts, src_offs, lens, prev, tables, bcap: int, depth: in
 
     Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) as
     `encode_stream.encode_windows` does, OCAP = align1024(compress_bound(
-    bcap)).  A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel once (counted here)."""
+    bcap)).  A CPU tensor runs the plain version (`hc_parse_plain`, the
+    same bytes); a CUDA tensor launches the kernels of the parse by
+    segments (counted once here; `hc_parse_segments_plain` is their
+    model): ``max_rounds`` rounds of threads walking every row's segments
+    of ``segment`` positions on by ``overlap``, their links checked after
+    each, the serial tail and the emit.  ``hc_parse.stats`` then holds the
+    launch's counts (`encode_opt.segment_stats`)."""
     base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
     prev = _table(prev, total, 1, "prev", base.device)
     soff, stotal = slot_offsets(so, ln)
     first, more, deltas, slots = _episode_tables(tables, stotal, total, base.device)
     if st.numel() and int((ln - so).max()) > bcap:
         raise ValueError(f"block lengths must lie in [0, bcap={bcap}]")
+    _check_segments(segment, overlap, max_rounds)
     if base.device.type != "cuda":
         return hc_parse_plain(base, st, so, ln, prev, (first, more, deltas), bcap, depth)
     dev = base.device
@@ -407,16 +505,34 @@ def hc_parse(base_u8, starts, src_offs, lens, prev, tables, bcap: int, depth: in
     if nb == 0:
         return out, clens, errs
     base = base.contiguous()
-    st_d, so_d, ln_d, toff_d, soff_d = (t.to(dev) for t in (st, so, ln, toff, soff))
+    segoff, seg_row = segment_rows(so, ln, segment)
+    nseg = seg_row.numel()
+    lib = _kernel()
+    size = ctypes.c_longlong()
+    lib.lz4t_hc_seg_scratch(nseg, nb, segment, overlap, ctypes.addressof(size))
+    scratch = torch.empty(size.value, dtype=torch.uint8, device=dev)
+    stats = torch.empty(max_rounds + 4, dtype=torch.int32, device=dev)
+    st_d, so_d, ln_d, toff_d, soff_d, segoff_d, seg_row_d = (
+        t.to(dev) for t in (st, so, ln, toff, soff, segoff, seg_row))
     with torch.cuda.device(dev):
-        rc = _kernel().lz4t_hc_parse(
+        rc = lib.lz4t_hc_parse(
             base.data_ptr(), st_d.data_ptr(), so_d.data_ptr(), ln_d.data_ptr(),
             toff_d.data_ptr(), soff_d.data_ptr(), prev.data_ptr(), first.data_ptr(),
             more.data_ptr(), deltas.data_ptr(), slots, out.data_ptr(), out.shape[1],
-            out.shape[1], depth, clens.data_ptr(), errs.data_ptr(), nb, _stream(dev))
+            out.shape[1], depth, clens.data_ptr(), errs.data_ptr(), nb, segoff_d.data_ptr(),
+            seg_row_d.data_ptr(), nseg, segment, overlap, max_rounds, scratch.data_ptr(),
+            stats.data_ptr(), _stream(dev))
     check(rc, "hc_parse")
     hc_parse.launches += 1
+    hc_parse.stats = stats
     return out, clens, errs
+
+
+def parse_segment() -> tuple[int, int]:
+    """The built kernel's kHcSegment and kHcOverlap, which `HC_SEGMENT` and
+    `HC_OVERLAP` restate."""
+    lib = _kernel()
+    return lib.lz4t_hc_segment(), lib.lz4t_hc_overlap()
 
 
 # ---- the three passes over a batch ---------------------------------------
@@ -486,3 +602,4 @@ def encode_windows_hc_passes(base_u8, starts, src_offs, lens, bcap: int, level: 
 
 hc_episodes.launches = 0
 hc_parse.launches = 0
+hc_parse.stats = None

@@ -13,14 +13,17 @@ positions walked at once, then joined; `opt_chain_segments_plain` is its
 model) and make every position's
 min-length-3 search at once with the level's depth (`opt_matches`, one CTA
 per slice of `SLICE` positions, the chain deltas its searches read staged
-in shared memory).  Both parses run one warp per row, up to 32 searches a
-round (`opt_parse_rounds_row` says why that is exact), their price-table
-steps spread over the lanes (`opt_add_warp`, `opt_seed_warp`).  At level
-12 every search of the parse is the min-length-3 search, and `opt_parse`
-reads each from the table.  At levels 10-11 the parse asks for a match
-longer than a length its price table sets: `opt_parse_spec` reads the
-searches whose minimum length is 3 or less from the table (they give what
-the min-length-3 search gives) and makes the others on the spot.
+in shared memory).  Both parses run on a warp, up to 32 searches a round
+(`opt_parse_rounds_row` says why that is exact), their price-table steps
+spread over the lanes (`opt_add_warp`, `opt_seed_warp`).  At level 12
+every search of the parse is the min-length-3 search, and `opt_parse`
+reads each from the table, one warp per row.  At levels 10-11 the parse
+asks for a match longer than a length its price table sets:
+`opt_parse_spec` reads the searches whose minimum length is 3 or less from
+the table (they give what the min-length-3 search gives) and makes the
+others on the spot, each row cut into segments of `OPT_SEGMENT` positions
+walked at once and joined where their states meet (`parse_segments`;
+`opt_parse_segments_plain` is its model).
 
 Rows are kernel D's windows (`encode_stream.encode_windows`): row r is
 base_u8[starts[r] : starts[r] + lens[r]], its first src_offs[r] bytes a
@@ -47,6 +50,7 @@ from .encode_hc import (
     OPT_NUM, TRAILING, ChainFinder, _hash, _lit_price, _seq_price, _trailing, level_arm,
     opt_encode, opt_parse_row,
 )
+from .parse_segments import Walk, encode_seqs, parse_limit, schedule, segment_count
 
 HC_EMPTY = -65536  # prev of a position with no earlier one of its hash
 TABLE_BYTES = 12  # prev (int32) and the match (int32 length and offset)
@@ -74,6 +78,16 @@ SLICE = 16384
 # join.
 CHAIN_SEGMENT = 16384
 CHAIN_HASHES = 1 << 15
+# The level 10-11 parse's segments (`csrc/parse_segments.cuh`
+# kOptSegment, kOptOverlap): a warp walks the parse positions [s_k, s_k +
+# OPT_SEGMENT) of a row from a guessed state and goes on OPT_OVERLAP
+# positions past them, where the walk before links to it
+# (`parse_segments`).  The rounds of walks before the serial tail:
+# SEGMENT_ROUNDS (`csrc/parse_segments.cuh` kMaxRounds), for the HC parse
+# too.
+OPT_SEGMENT = 16384
+OPT_OVERLAP = 2048
+SEGMENT_ROUNDS = 8
 
 _lib = None
 
@@ -86,20 +100,24 @@ def _kernel():
         lib.lz4t_opt_chain.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
         lib.lz4t_opt_matches.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.lz4t_opt_parse.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, p, p, i, p]
-        lib.lz4t_opt_parse_spec.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, p, p, i, p]
+        lib.lz4t_opt_parse_spec.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, p, p, i, p, p,
+                                             i, i, i, i, p, p, p]
+        lib.lz4t_opt_seg_scratch.argtypes = [ll, i, i, i, p]
         for fn in (lib.lz4t_opt_chain, lib.lz4t_opt_matches, lib.lz4t_opt_parse,
                    lib.lz4t_opt_parse_spec, lib.lz4t_opt_chain_shared_bytes,
                    lib.lz4t_opt_matches_shared_bytes, lib.lz4t_opt_parse_shared_bytes,
                    lib.lz4t_opt_slice, lib.lz4t_opt_chain_segment,
-                   lib.lz4t_opt_chain_ctas_per_sm):
+                   lib.lz4t_opt_chain_ctas_per_sm, lib.lz4t_opt_segment,
+                   lib.lz4t_opt_overlap, lib.lz4t_opt_seg_scratch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def shared_bytes() -> dict:
-    """Dynamic shared memory of one CTA of each pass (both parses take
-    the same: "opt_parse")."""
+    """Dynamic shared memory of one CTA of each pass ("opt_parse": level
+    12's; the level 10-11 parse keeps its price tables in device
+    memory)."""
     lib = _kernel()
     return {"opt_chain": lib.lz4t_opt_chain_shared_bytes(),
             "opt_matches": lib.lz4t_opt_matches_shared_bytes(),
@@ -114,6 +132,13 @@ def slice_positions() -> int:
 def chain_segment() -> int:
     """The built kernel's kChainSegment, which `CHAIN_SEGMENT` restates."""
     return _kernel().lz4t_opt_chain_segment()
+
+
+def parse_segment() -> tuple[int, int]:
+    """The built kernel's kOptSegment and kOptOverlap, which `OPT_SEGMENT`
+    and `OPT_OVERLAP` restate."""
+    lib = _kernel()
+    return lib.lz4t_opt_segment(), lib.lz4t_opt_overlap()
 
 
 def chain_ctas_per_sm() -> int:
@@ -594,10 +619,34 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
     n = len(s)
     out = bytearray()
     anchor = ip = src_off
-    tl = dict.fromkeys(("windows", "rounds", "search_rounds", "table_reads", "searches",
-                        "search_steps", "table_steps", "steps", "speculative_steps",
-                        "visited", "priced", "serial_steps"), 0)
+    tl = _rounds_tally()
+    if n - src_off >= MF_LIMIT + 1:
+        ip, anchor, _ = opt_rounds_walk(s, t, search, sufficient, lanes, tl, full, ip, anchor,
+                                        n - MF_LIMIT, out)
+    tl["serial_steps"] += tl["visited"]
+    emit(out, s, anchor, n - anchor, 0, 0)
+    if tally is not None:
+        for key, v in tl.items():
+            tally[key] = tally.get(key, 0) + v
+    return out
 
+
+def _rounds_tally() -> dict:
+    return dict.fromkeys(("windows", "rounds", "search_rounds", "table_reads", "searches",
+                          "search_steps", "table_steps", "steps", "speculative_steps",
+                          "visited", "priced", "serial_steps"), 0)
+
+
+def opt_rounds_walk(s: bytes, t: list, search, sufficient: int, lanes: int, tl: dict,
+                    full: bool, ip: int, anchor: int, mf_limit: int, out, put=emit,
+                    stop=None) -> tuple[int, int, bool]:
+    """The loop of `opt_parse_rounds_row` from the state (``ip``,
+    ``anchor``) up to ``mf_limit``, its sequences given to ``put(out, s,
+    anchor, ll, off, ml)`` and its counts added to ``tl``; ``stop(ip,
+    anchor)``, if given, is asked at the top of every turn of the loop (a
+    window's start, or the next ``lanes`` positions read where none had a
+    match), and True ends the walk there.  Returns (ip, anchor, whether
+    ``stop`` ended it)."""
     def is_open(q):
         return o[q + 1][0] > o[q][0] or (full and o[q + MIN_MATCH][0] >= o[q][0] + 3)
 
@@ -611,166 +660,163 @@ def opt_parse_rounds_row(s: bytes, src_off: int, t: list, search, sufficient: in
         tl["steps"] += steps
         tl["speculative_steps"] += steps
 
-    if n - src_off >= MF_LIMIT + 1:
-        mf_limit = n - MF_LIMIT
-        o = [[0, 0, 0, 0] for _ in range(OPT_NUM + TRAILING)]
+    o = [[0, 0, 0, 0] for _ in range(OPT_NUM + TRAILING)]
+    last = 0
 
-        def on_the_spot(p, m):
-            ln, off, steps = search(p, m)
-            tl["searches"] += 1
-            tl["search_steps"] += steps
-            return ln, off, steps
+    def on_the_spot(p, m):
+        ln, off, steps = search(p, m)
+        tl["searches"] += 1
+        tl["search_steps"] += steps
+        return ln, off, steps
 
-        while ip <= mf_limit:
-            seen = [t[q] for q in range(ip, min(ip + lanes, mf_limit + 1))]
-            tl["table_reads"] += len(seen)
-            tl["steps"] += 1
-            tl["speculative_steps"] += 1
-            k = next((j for j, e in enumerate(seen) if e[0] != 0), None)
-            tl["visited"] += len(seen) if k is None else k + 1
-            if k is None:
-                ip += lanes
-                continue
-            ip += k
-            first_len, first_off = seen[k]
-            if first_len < 0:  # gave up in the match pass
-                first_len, first_off, steps = on_the_spot(ip, MIN_MATCH - 1)
-                tl["steps"] += steps
-                tl["speculative_steps"] += steps
-                tl["serial_steps"] += steps
-            if first_len == 0:
-                ip += 1
-                continue
-            tl["windows"] += 1
-            llen = ip - anchor
-            if first_len > sufficient:
-                emit(out, s, anchor, llen, first_off, first_len)
-                ip += first_len
-                anchor = ip
-                continue
-            priced(first_len - MIN_MATCH + 1,
-                   opt_seed_warp(o, llen, first_len, first_off, lanes))
-            last = first_len
-            early = False
-            cur = 1
-            while True:  # one round
-                end = min(last, mf_limit - ip + 1)
-                if cur >= end:
-                    break
-                if full:  # the next `lanes` positions' entries, their matches in order
-                    base = cur
-                    ents = [list(t[ip + q]) if ip + q <= mf_limit else [0, 0]
-                            for q in range(base, base + lanes)]
-                    tl["rounds"] += 1
-                    tl["table_reads"] += lanes
-                    tl["steps"] += 1
-                    tl["speculative_steps"] += 1
-                    while True:  # one commit: the live state's first open lane with a match
-                        live = [cur <= base + j < end and is_open(base + j) for j in range(lanes)]
-                        walks, searched = {}, tl["searches"]
-                        for j in range(lanes):
-                            if live[j] and ents[j][0] < 0:  # gave up in the match pass
-                                ln, off, steps = on_the_spot(ip + base + j, MIN_MATCH - 1)
-                                ents[j] = [ln, off]
-                                walks[j] = steps
-                        tl["search_rounds"] += tl["searches"] > searched
-                        k = next((j for j in range(lanes) if live[j] and ents[j][0] != 0), None)
-                        q = cur  # the serial loop over the live cells, up to the commit
-                        while q < (base + k if k is not None else min(end, base + lanes)):
-                            assert ((o[q + 1][0] <= o[q][0] and o[q + MIN_MATCH][0] < o[q][0] + 3)
-                                    or ents[q - base][0] == 0), (
-                                f"commit at {ip + cur}: the serial loop takes {ip + q}, "
-                                "which the round passed over")
-                            q += 1
-                        assert k is None or (q == base + k < end and not (
-                            o[q + 1][0] <= o[q][0] and o[q + MIN_MATCH][0] < o[q][0] + 3)), (
-                            f"commit at {ip + cur}: the round takes {ip + q}, which the serial "
-                            "loop skips")
-                        committed = [w for j, w in walks.items() if k is None or j <= k]
-                        tl["steps"] += max([1, *committed])
-                        tl["speculative_steps"] += max([1, *walks.values()])
-                        tl["serial_steps"] += sum(committed)
-                        tl["visited"] += (base + k + 1 if k is not None
-                                          else max(cur, min(end, base + lanes))) - cur
-                        if k is None:
-                            cur = base + lanes
-                            break
-                        cur = base + k
-                        new_len, new_off = ents[k]
-                        if new_len > sufficient or new_len + cur >= OPT_NUM:
-                            best_mlen, best_off = new_len, new_off
-                            last = cur + 1
-                            early = True
-                            break
-                        last, steps = opt_add_warp(o, cur, new_len, new_off, last, lanes)
-                        priced(new_len - MIN_MATCH + 1, steps)
-                        cur += 1
-                        end = min(last, mf_limit - ip + 1)
-                        if cur >= end:
-                            break
-                    if early:
-                        break
-                    continue
-                picked, q = [], cur  # (position, minimum length) of each lane
-                while q < end and len(picked) < lanes:
-                    if is_open(q):
-                        picked.append((q, min_len(q)))
-                    q += 1
-                nxt = picked[-1][0] + 1 if len(picked) == lanes else end
-                found, walks, searched = [], [], tl["searches"]
-                for c, m in picked:
-                    e = t[ip + c]
-                    if m <= MIN_MATCH - 1 and e[0] >= 0:
-                        tl["table_reads"] += 1
-                        found.append(tuple(e))
-                        walks.append(0)
-                        continue
-                    ln, off, steps = on_the_spot(ip + c, m)
-                    found.append((ln, off))
-                    walks.append(steps)
+    while ip <= mf_limit:
+        if stop is not None and stop(ip, anchor):
+            return ip, anchor, True
+        seen = [t[q] for q in range(ip, min(ip + lanes, mf_limit + 1))]
+        tl["table_reads"] += len(seen)
+        tl["steps"] += 1
+        tl["speculative_steps"] += 1
+        k = next((j for j, e in enumerate(seen) if e[0] != 0), None)
+        tl["visited"] += len(seen) if k is None else k + 1
+        if k is None:
+            ip += lanes
+            continue
+        ip += k
+        first_len, first_off = seen[k]
+        if first_len < 0:  # gave up in the match pass
+            first_len, first_off, steps = on_the_spot(ip, MIN_MATCH - 1)
+            tl["steps"] += steps
+            tl["speculative_steps"] += steps
+            tl["serial_steps"] += steps
+        if first_len == 0:
+            ip += 1
+            continue
+        tl["windows"] += 1
+        llen = ip - anchor
+        if first_len > sufficient:
+            put(out, s, anchor, llen, first_off, first_len)
+            ip += first_len
+            anchor = ip
+            continue
+        priced(first_len - MIN_MATCH + 1,
+               opt_seed_warp(o, llen, first_len, first_off, lanes))
+        last = first_len
+        early = False
+        cur = 1
+        while True:  # one round
+            end = min(last, mf_limit - ip + 1)
+            if cur >= end:
+                break
+            if full:  # the next `lanes` positions' entries, their matches in order
+                base = cur
+                ents = [list(t[ip + q]) if ip + q <= mf_limit else [0, 0]
+                        for q in range(base, base + lanes)]
                 tl["rounds"] += 1
-                tl["search_rounds"] += tl["searches"] > searched
-                k = next((j for j, f in enumerate(found) if f[0] != 0), None)
-                committed = walks[:len(walks) if k is None else k + 1]
-                tl["steps"] += max([1, *committed])
-                tl["speculative_steps"] += max([1, *walks])
-                tl["serial_steps"] += sum(committed)
-                tl["visited"] += (picked[k][0] + 1 if k is not None else nxt) - cur
-                q = cur  # the serial loop over the live state, up to the commit
-                for c, m in picked[:len(committed)]:
-                    while q < c:
-                        assert q < last and ip + q <= mf_limit and not is_open(q), (
-                            f"round at {ip + cur}: the serial loop searches {ip + q}, "
-                            "which no lane took")
+                tl["table_reads"] += lanes
+                tl["steps"] += 1
+                tl["speculative_steps"] += 1
+                while True:  # one commit: the live state's first open lane with a match
+                    live = [cur <= base + j < end and is_open(base + j) for j in range(lanes)]
+                    walks, searched = {}, tl["searches"]
+                    for j in range(lanes):
+                        if live[j] and ents[j][0] < 0:  # gave up in the match pass
+                            ln, off, steps = on_the_spot(ip + base + j, MIN_MATCH - 1)
+                            ents[j] = [ln, off]
+                            walks[j] = steps
+                    tl["search_rounds"] += tl["searches"] > searched
+                    k = next((j for j in range(lanes) if live[j] and ents[j][0] != 0), None)
+                    q = cur  # the serial loop over the live cells, up to the commit
+                    while q < (base + k if k is not None else min(end, base + lanes)):
+                        assert ((o[q + 1][0] <= o[q][0] and o[q + MIN_MATCH][0] < o[q][0] + 3)
+                                or ents[q - base][0] == 0), (
+                            f"commit at {ip + cur}: the serial loop takes {ip + q}, "
+                            "which the round passed over")
                         q += 1
-                    assert is_open(q) and min_len(q) == m, (
-                        f"round at {ip + cur}: the lane at {ip + c} searched with minimum "
-                        f"length {m}, the serial loop would not search there or with "
-                        f"{min_len(q)}")
-                    q += 1
-                if k is None:
-                    cur = nxt
-                    continue
-                cur = picked[k][0]
-                new_len, new_off = found[k]
-                if new_len > sufficient or new_len + cur >= OPT_NUM:
-                    best_mlen, best_off = new_len, new_off
-                    last = cur + 1
-                    early = True
+                    assert k is None or (q == base + k < end and not (
+                        o[q + 1][0] <= o[q][0] and o[q + MIN_MATCH][0] < o[q][0] + 3)), (
+                        f"commit at {ip + cur}: the round takes {ip + q}, which the serial "
+                        "loop skips")
+                    committed = [w for j, w in walks.items() if k is None or j <= k]
+                    tl["steps"] += max([1, *committed])
+                    tl["speculative_steps"] += max([1, *walks.values()])
+                    tl["serial_steps"] += sum(committed)
+                    tl["visited"] += (base + k + 1 if k is not None
+                                      else max(cur, min(end, base + lanes))) - cur
+                    if k is None:
+                        cur = base + lanes
+                        break
+                    cur = base + k
+                    new_len, new_off = ents[k]
+                    if new_len > sufficient or new_len + cur >= OPT_NUM:
+                        best_mlen, best_off = new_len, new_off
+                        last = cur + 1
+                        early = True
+                        break
+                    last, steps = opt_add_warp(o, cur, new_len, new_off, last, lanes)
+                    priced(new_len - MIN_MATCH + 1, steps)
+                    cur += 1
+                    end = min(last, mf_limit - ip + 1)
+                    if cur >= end:
+                        break
+                if early:
                     break
-                last, steps = opt_add_warp(o, cur, new_len, new_off, last, lanes)
-                priced(new_len - MIN_MATCH + 1, steps)
-                cur += 1
-            if not early:
-                best_mlen, best_off = o[last][2], o[last][1]
-                cur = last - best_mlen
-            ip, anchor = opt_encode(out, s, o, cur, best_mlen, best_off, last, ip, anchor)
-    tl["serial_steps"] += tl["visited"]
-    emit(out, s, anchor, n - anchor, 0, 0)
-    if tally is not None:
-        for key, v in tl.items():
-            tally[key] = tally.get(key, 0) + v
-    return out
+                continue
+            picked, q = [], cur  # (position, minimum length) of each lane
+            while q < end and len(picked) < lanes:
+                if is_open(q):
+                    picked.append((q, min_len(q)))
+                q += 1
+            nxt = picked[-1][0] + 1 if len(picked) == lanes else end
+            found, walks, searched = [], [], tl["searches"]
+            for c, m in picked:
+                e = t[ip + c]
+                if m <= MIN_MATCH - 1 and e[0] >= 0:
+                    tl["table_reads"] += 1
+                    found.append(tuple(e))
+                    walks.append(0)
+                    continue
+                ln, off, steps = on_the_spot(ip + c, m)
+                found.append((ln, off))
+                walks.append(steps)
+            tl["rounds"] += 1
+            tl["search_rounds"] += tl["searches"] > searched
+            k = next((j for j, f in enumerate(found) if f[0] != 0), None)
+            committed = walks[:len(walks) if k is None else k + 1]
+            tl["steps"] += max([1, *committed])
+            tl["speculative_steps"] += max([1, *walks])
+            tl["serial_steps"] += sum(committed)
+            tl["visited"] += (picked[k][0] + 1 if k is not None else nxt) - cur
+            q = cur  # the serial loop over the live state, up to the commit
+            for c, m in picked[:len(committed)]:
+                while q < c:
+                    assert q < last and ip + q <= mf_limit and not is_open(q), (
+                        f"round at {ip + cur}: the serial loop searches {ip + q}, "
+                        "which no lane took")
+                    q += 1
+                assert is_open(q) and min_len(q) == m, (
+                    f"round at {ip + cur}: the lane at {ip + c} searched with minimum "
+                    f"length {m}, the serial loop would not search there or with "
+                    f"{min_len(q)}")
+                q += 1
+            if k is None:
+                cur = nxt
+                continue
+            cur = picked[k][0]
+            new_len, new_off = found[k]
+            if new_len > sufficient or new_len + cur >= OPT_NUM:
+                best_mlen, best_off = new_len, new_off
+                last = cur + 1
+                early = True
+                break
+            last, steps = opt_add_warp(o, cur, new_len, new_off, last, lanes)
+            priced(new_len - MIN_MATCH + 1, steps)
+            cur += 1
+        if not early:
+            best_mlen, best_off = o[last][2], o[last][1]
+            cur = last - best_mlen
+        ip, anchor = opt_encode(out, s, o, cur, best_mlen, best_off, last, ip, anchor,
+                                put)
+    return ip, anchor, False
 
 
 def opt_parse_rounds_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
@@ -815,24 +861,116 @@ def opt_parse_spec_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: i
                                   sufficient, False, lanes, counts)
 
 
+def opt_segment_caps(segment: int, overlap: int) -> tuple[int, int, int]:
+    """A walk's capacities at levels 10-11 (`csrc/parse_segments.cuh`):
+    the states kept from its start (head) and past its segment's end
+    (tail), and its sequences.  Its states lie where a sequence ends, so
+    two are at least 4 positions apart; its sequences start from its
+    segment's start to its stop, or in the window (up to `OPT_NUM`
+    positions) that crosses it."""
+    return overlap // 4 + 2, overlap // 4 + 2, (segment + overlap + OPT_NUM) // 4 + 2
+
+
+def opt_parse_segments_plain(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
+                             depth: int = 96, sufficient: int = 64,
+                             segment: int = OPT_SEGMENT, overlap: int = OPT_OVERLAP,
+                             max_rounds: int = SEGMENT_ROUNDS, counts: list | None = None):
+    """`opt_parse_spec` by the kernels' schedule (`parse_segments.schedule`),
+    a model for the tests and the step count (no path runs it): each row's
+    parse cut into segments of ``segment`` positions, each walked by the
+    parse by rounds (`opt_rounds_walk`, 32 lanes) from a guessed state
+    until ``overlap`` positions past its end, the walks linked where their
+    states (ip, anchor; recorded where ip == anchor) meet, the others
+    walked again from their predecessors' end states for up to
+    ``max_rounds`` rounds, then one after another.  Returns the bytes of
+    `opt_parse_spec_plain`; ``counts``, if given, gets one tally per row
+    (`parse_segments.schedule`'s, each walk's dependent steps the rounds
+    model's `steps`)."""
+    base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
+    prev = _table(prev, total, 1, "prev", base.device).cpu()
+    table = _table(matches, total, 2, "matches", base.device).cpu()
+    raw = base.cpu().numpy()
+    head, tail_cap, seq_cap = opt_segment_caps(segment, overlap)
+    comps = []
+    for a, off, n, at in zip(st.tolist(), so.tolist(), ln.tolist(), toff.tolist()):
+        s = raw[a:a + n].tobytes()
+        t = table[at:at + n].tolist()
+        finder = TableFinder(s, n - LAST_LITERALS, depth, prev[at:at + n].tolist())
+
+        def search(p, min_len, finder=finder):
+            steps = finder.steps
+            ml, _, mp = finder.wider_match(p, p, min_len, True, True)
+            got = (ml, p - mp) if ml > min_len and mp >= 0 else (0, 0)
+            return (*got, finder.steps - steps)
+
+        def walk(start, stop, s=s, t=t, search=search, mf_limit=parse_limit(off, n)):
+            w = Walk(start)
+            tl = _rounds_tally()
+
+            def put(_, __, anchor, ll, off, ml):
+                w.seqs.append((anchor + ll, off, ml))
+
+            def top(ip, anchor):
+                if ip == anchor:
+                    w.states.append((ip, 0, len(w.seqs), anchor))
+                return stop is not None and ip >= stop
+
+            ip, anchor, stopped = opt_rounds_walk(s, t, search, sufficient, 32, tl, False,
+                                                  start[0], start[1], mf_limit, None,
+                                                  put, top)
+            w.end = (ip, anchor, 0) if stopped else None
+            w.steps = tl["steps"]
+            w.free = tl["windows"] == 0
+            return w
+
+        tally = {}
+        seqs, anchor = schedule(off, n, segment, overlap, head, tail_cap, seq_cap, max_rounds,
+                                walk, tally)
+        comps.append(encode_seqs(s, off, seqs, anchor))
+        if counts is not None:
+            counts.append(tally)
+    return pack_rows(comps, align1024(compress_bound(bcap)), base.device)
+
+
+def segment_rows(src_offs, lens, segment: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The segments of a launch of the parses by segments: (segoff int32
+    [B + 1], row r's segments [segoff[r], segoff[r + 1]), at least one a
+    row; seg_row int32 [the segments], each one's row)."""
+    k = torch.tensor([max(1, segment_count(o, n, segment))
+                      for o, n in zip(torch.as_tensor(src_offs).tolist(),
+                                      torch.as_tensor(lens).tolist())], dtype=torch.int64)
+    segoff = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(k, 0)])
+    return segoff.to(torch.int32), torch.repeat_interleave(
+        torch.arange(k.numel(), dtype=torch.int32), k)
+
+
 def opt_parse_spec(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
-                   depth: int = 96, sufficient: int = 64):
-    """The level 10-11 price parse of each row's block by one warp, its
-    searches made 32 at a time (`opt_parse_rounds_row`): a search whose
-    minimum length is 3 or less read from ``matches`` (`opt_matches`' table
-    of the same rows, made with ``depth``), any other, or one that gave up
-    there, made on the spot (``depth`` steps) over ``prev`` (`opt_chain`'s
-    table).
+                   depth: int = 96, sufficient: int = 64, segment: int = OPT_SEGMENT,
+                   overlap: int = OPT_OVERLAP, max_rounds: int = SEGMENT_ROUNDS):
+    """The level 10-11 price parse of each row's block, its searches a
+    search whose minimum length is 3 or less read from ``matches``
+    (`opt_matches`' table of the same rows, made with ``depth``), any
+    other, or one that gave up there, made on the spot (``depth`` steps)
+    over ``prev`` (`opt_chain`'s table).
 
     Returns (out uint8 [B, OCAP], clens int32 [B], errs int32 [B]) as
     `encode_stream.encode_windows` does, OCAP = align1024(compress_bound(
-    bcap)).  A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel once (counted here)."""
+    bcap)).  A CPU tensor runs the plain version (`opt_parse_spec_plain`,
+    the same bytes); a CUDA tensor launches the kernels of the parse by
+    segments (counted once here; `opt_parse_segments_plain` is their
+    model): ``max_rounds`` rounds of warps walking every row's segments of
+    ``segment`` positions on by ``overlap`` (the parse by rounds of
+    `opt_parse_rounds_row` from each segment's state), their links checked
+    after each, the serial tail and the emit.  ``opt_parse_spec.stats``
+    then holds the launch's counts (int32 [max_rounds + 4], on the card:
+    each round's walks, the tail's, a record overflow flag (never set),
+    links behind a frontier (0 here), the links kept)."""
     base, st, so, ln, toff, total = _rows(base_u8, starts, src_offs, lens)
     prev = _table(prev, total, 1, "prev", base.device)
     matches = _table(matches, total, 2, "matches", base.device)
     if st.numel() and int((ln - so).max()) > bcap:
         raise ValueError(f"block lengths must lie in [0, bcap={bcap}]")
+    _check_segments(segment, overlap, max_rounds)
     if base.device.type != "cuda":
         return opt_parse_spec_plain(base, st, so, ln, prev, matches, bcap, depth, sufficient)
     dev = base.device
@@ -841,16 +979,42 @@ def opt_parse_spec(base_u8, starts, src_offs, lens, prev, matches, bcap: int,
     if nb == 0:
         return out, clens, errs
     base = base.contiguous()
-    st_d, so_d, ln_d, toff_d = st.to(dev), so.to(dev), ln.to(dev), toff.to(dev)
+    segoff, seg_row = segment_rows(so, ln, segment)
+    nseg = seg_row.numel()
+    lib = _kernel()
+    size = ctypes.c_longlong()
+    lib.lz4t_opt_seg_scratch(nseg, nb, segment, overlap, ctypes.addressof(size))
+    scratch = torch.empty(size.value, dtype=torch.uint8, device=dev)
+    stats = torch.empty(max_rounds + 4, dtype=torch.int32, device=dev)
+    st_d, so_d, ln_d, toff_d, segoff_d, seg_row_d = (
+        t.to(dev) for t in (st, so, ln, toff, segoff, seg_row))
     with torch.cuda.device(dev):
-        rc = _kernel().lz4t_opt_parse_spec(
+        rc = lib.lz4t_opt_parse_spec(
             base.data_ptr(), st_d.data_ptr(), so_d.data_ptr(), ln_d.data_ptr(),
             toff_d.data_ptr(), prev.data_ptr(), matches.data_ptr(), out.data_ptr(),
             out.shape[1], out.shape[1], depth, sufficient, clens.data_ptr(),
-            errs.data_ptr(), nb, _stream(dev))
+            errs.data_ptr(), nb, segoff_d.data_ptr(), seg_row_d.data_ptr(), nseg, segment,
+            overlap, max_rounds, scratch.data_ptr(), stats.data_ptr(), _stream(dev))
     check(rc, "opt_parse_spec")
     opt_parse_spec.launches += 1
+    opt_parse_spec.stats = stats
     return out, clens, errs
+
+
+def _check_segments(segment: int, overlap: int, max_rounds: int):
+    if segment < 16 or overlap < 0 or max_rounds < 0:
+        raise ValueError("segment must be at least 16 positions, overlap and max_rounds "
+                         "at least 0")
+
+
+def segment_stats(stats, max_rounds: int) -> dict:
+    """A parse by segments' counts (`opt_parse_spec.stats`,
+    `encode_hc_passes.hc_parse.stats`) by name."""
+    v = torch.as_tensor(stats).cpu().tolist()
+    walks = v[:max_rounds]
+    return {"walks_per_round": walks, "rounds": sum(1 for w in walks if w),
+            "tail_walks": v[max_rounds], "overflow": v[max_rounds + 1],
+            "links_behind_frontier": v[max_rounds + 2], "links": v[max_rounds + 3]}
 
 
 # ---- the three passes over a batch ---------------------------------------
@@ -904,3 +1068,4 @@ opt_chain.launches = 0
 opt_matches.launches = 0
 opt_parse.launches = 0
 opt_parse_spec.launches = 0
+opt_parse_spec.stats = None

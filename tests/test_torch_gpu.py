@@ -645,6 +645,93 @@ def test_hc_passes_match_plain(cuda):
     assert int((tables_h[0][:, 0] < -1).sum()) > 0  # the repeats gave up
 
 
+def _segment_parse(model: str, cuda, rows, **kw):
+    """The parse by segments (`hc_parse` at level 9, `opt_parse_spec` at
+    level 10) on the card with ``kw``, the plain parse's bytes, the model's
+    (`hc_parse_segments_plain`, `opt_parse_segments_plain`) and its
+    tallies, and the launch's counts (`encode_opt.segment_stats`)."""
+    base, st, so, ln = rows
+    base_d = base.to(cuda)
+    bcap = max(int(n) - int(o) for o, n in zip(so, ln))
+    prev = encode_opt.opt_chain(base_d, st, ln)
+    rounds = kw.get("max_rounds", encode_opt.SEGMENT_ROUNDS)
+    counts = []
+    if model == "hc":
+        sizes = (kw.get("segment", encode_hc_passes.HC_SEGMENT),
+                 kw.get("overlap", encode_hc_passes.HC_OVERLAP), rounds)
+        tables = encode_hc_passes.hc_episodes(base_d, st, so, ln, prev)
+        got = encode_hc_passes.hc_parse(base_d, st, so, ln, prev, tables, bcap, 256, **kw)
+        stats = encode_opt.segment_stats(encode_hc_passes.hc_parse.stats, rounds)
+        args = base, st, so, ln, prev.cpu(), tuple(t.cpu() for t in tables), bcap, 256
+        want = encode_hc_passes.hc_parse_plain(*args)
+        mine = encode_hc_passes.hc_parse_segments_plain(*args, *sizes, counts)
+    else:
+        sizes = (kw.get("segment", encode_opt.OPT_SEGMENT),
+                 kw.get("overlap", encode_opt.OPT_OVERLAP), rounds)
+        matches = encode_opt.opt_matches(base_d, st, so, ln, prev, 96)
+        got = encode_opt.opt_parse_spec(base_d, st, so, ln, prev, matches, bcap, 96, 64, **kw)
+        stats = encode_opt.segment_stats(encode_opt.opt_parse_spec.stats, rounds)
+        args = base, st, so, ln, prev.cpu(), matches.cpu(), bcap, 96, 64
+        want = encode_opt.opt_parse_spec_plain(*args)
+        mine = encode_opt.opt_parse_segments_plain(*args, *sizes, counts=counts)
+    torch.cuda.synchronize()
+    return got, want, mine, counts, stats
+
+
+def _mix_rows(n: int, rows: int = 4):
+    """``rows`` rows of ``n`` bytes, one from each quarter of the mix, one
+    of random bytes (no match: its walks after the first emit nothing) and
+    one of random bytes with a 24-byte repeat every ~2,300 positions (walks
+    that open a window among walks that do not)."""
+    data = chip_smoke.make_corpus(1 << 20, 21)
+    q = len(data) // 4
+    picked = [data[k * q + 777:k * q + 777 + n] for k in range(rows)]
+    picked.append(np.random.default_rng(22).integers(0, 256, n, dtype=np.uint8).tobytes())
+    planted = bytearray(np.random.default_rng(23).integers(0, 256, n, dtype=np.uint8))
+    for at in range(2500, n - 24, 2300):
+        planted[at:at + 24] = planted[at - 1900:at - 1876]
+    picked.append(bytes(planted))
+    rows += 2
+    return (torch.frombuffer(bytearray(b"".join(picked)), dtype=torch.uint8),
+            [k * n for k in range(rows)], [0] * rows, [n] * rows)
+
+
+@pytest.mark.parametrize("model", ["hc", "opt"])
+@pytest.mark.parametrize("rounds", [0, 1, 2, encode_opt.SEGMENT_ROUNDS])
+def test_segment_parse_walks_again_as_its_model(model, rounds, cuda):
+    """An overlap too short to meet (4 positions past segments of 2,048):
+    segments are walked again, in the rounds and the serial tail (no
+    round: the tail walks every segment); the bytes are the plain parse's
+    and the model's, and each round's walks and the tail's the model's."""
+    kw = dict(segment=2048, overlap=4, max_rounds=rounds)
+    got, want, mine, counts, stats = _segment_parse(model, cuda, _mix_rows(32768), **kw)
+    _equal(got, want)
+    _equal(got, mine)
+    assert stats["walks_per_round"] == [
+        sum(c["walks_per_round"][r] for c in counts if r < c["rounds"]) for r in range(rounds)]
+    assert stats["tail_walks"] == sum(c["tail_walks"] for c in counts)
+    assert sum(c["rewalks"] for c in counts) > 0 or rounds == 0
+    assert stats["overflow"] == stats["links_behind_frontier"] == 0
+
+
+@pytest.mark.parametrize("model", ["hc", "opt"])
+def test_segment_parse_spans_segments_at_its_sizes(model, cuda):
+    """The kernels' own segment and overlap on rows of 4 and a half
+    segments and on the level 12 passes' rows: the plain parse's bytes and
+    the model's, in one round on the mix."""
+    size = encode_hc_passes.HC_SEGMENT if model == "hc" else encode_opt.OPT_SEGMENT
+    assert (encode_hc_passes.parse_segment() if model == "hc" else encode_opt.parse_segment()) \
+        == ((encode_hc_passes.HC_SEGMENT, encode_hc_passes.HC_OVERLAP) if model == "hc"
+            else (encode_opt.OPT_SEGMENT, encode_opt.OPT_OVERLAP))
+    got, want, mine, counts, stats = _segment_parse(model, cuda, _mix_rows(4 * size + size // 2))
+    _equal(got, want)
+    _equal(got, mine)
+    assert [c["segments"] for c in counts] == [5] * 6
+    assert stats["walks_per_round"][0] == 30 and stats["links"] == 24
+    got, want, _, _, _ = _segment_parse(model, cuda, _opt_rows())
+    _equal(got, want)
+
+
 @pytest.mark.parametrize("level", [3, 9])
 @pytest.mark.parametrize("slots,budget", [(1, 0), (encode_hc_passes.SLOTS, 1 << 16)])
 def test_hc_passes_equal_the_serial_arm(level, slots, budget, cuda):

@@ -229,9 +229,10 @@ def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_CSRC", tmp_path)
     assert sorted(p.name for p in tmp_path.glob("*.cuh")) == [
         "lz4_decode_body.cuh", "lz4_encode_body.cuh", "lz4_hc_body.cuh",
+        "parse_segments.cuh",
     ]
     before = {n: build._library(n) for n in build.KERNEL_SOURCES}
-    for header in ("lz4_encode_body.cuh", "lz4_hc_body.cuh"):
+    for header in ("lz4_encode_body.cuh", "lz4_hc_body.cuh", "parse_segments.cuh"):
         with open(tmp_path / header, "a") as f:
             f.write("// edited\n")
         after = {n: build._library(n) for n in build.KERNEL_SOURCES}
