@@ -88,7 +88,7 @@ Phases, each fatal on failure:
    levels 3, 6, 9, 10, 11 and 12, and the serial HC or OPT arm too: four
    sampled 64 KB rows, the 26,200-byte wordy regression row, rows of 0, 12,
    13 and 4,096 bytes and a 64 KB row of random bytes: equal bytes, lengths
-   and flags; and each level 9 pass (`opt_chain`, `hc_episodes`,
+   and flags; and each level 9 pass (`opt_chain`, `hc_deltas`,
    `hc_parse`), level 10 pass (`opt_chain`, `opt_matches`,
    `opt_parse_spec`) and level 12 pass (`opt_chain`, `opt_matches`,
    `opt_parse`) against its own plain version on every row, fed the
@@ -131,7 +131,9 @@ Phases, each fatal on failure:
    blocks, a content checksum, level 9) over --mb MiB, counts set to 0
    just before and read just after, exact and deterministic over three
    runs after a warm-up, every block of its frame equal to the serial HC
-   arm's output on the same rows (timed once beside the passes); and one
+   arm's output on the same rows (timed once beside the passes), the HC
+   passes timed on 4 MiB of zeros and of a 3-byte pattern, each equal to
+   the serial HC arm's (`hc_repeat_rows`); and one
    profiled level 9 chained, `lz4 -9`, level 10 independent, and level 12
    independent and chained compress and decompress;
 15. kernel E (xxHash32) against its plain version: rows of 0-65,536 bytes
@@ -1784,7 +1786,7 @@ def _finish_holds(jobs, names, picks):
     return errs, seconds, counts
 
 
-HC_PASSES = ("opt_chain", "hc_episodes", "hc_parse")
+HC_PASSES = ("opt_chain", "hc_deltas", "hc_parse")
 
 
 def hold_hc_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
@@ -1792,12 +1794,11 @@ def hold_hc_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
     """The HC passes on the card over a batch of windows at ``level``, each
     held to its plain version on the batch's rows ``picks`` (the parse also
     on ``parse_picks``) with the same inputs (the kernel's own output of the
-    pass before), the plain versions on ``pool`` (the episode and parse
-    passes with their counts).  Returns a function that waits for them and
-    returns each pass's max_abs_err, the plain versions' seconds for the
-    picked rows, the searches given up by the episode pass and the plain
-    passes' per-row counts; the parse's rows (or ``model_picks`` of them)
-    also through the kernel's schedule, `encode_hc_passes.
+    pass before), the plain versions on ``pool`` (the parse with its
+    counts).  Returns a function that waits for them and returns each
+    pass's max_abs_err, the plain versions' seconds for the picked rows and
+    the plain parse's per-row counts; the parse's rows (or ``model_picks``
+    of them) also through the kernel's schedule, `encode_hc_passes.
     hc_parse_segments_plain` ("hc_parse:segments", its bytes held to the
     kernel's as well)."""
     import torch
@@ -1811,40 +1812,31 @@ def hold_hc_passes(base, starts, src_offs, lens, bcap: int, picks, dev, pool,
     ln = torch.as_tensor(lens, dtype=torch.int32).cpu()
     base_d = base.to(dev)
     prev = encode_opt.opt_chain(base_d, st, ln)
-    first, more, deltas = hp.hc_episodes(base_d, st, so, ln, prev, depth)
-    got = hp.hc_parse(base_d, st, so, ln, prev, (first, more, deltas), bcap, depth)
+    deltas = hp.hc_deltas(prev, ln)
+    got = hp.hc_parse(base_d, st, so, ln, prev, deltas, bcap, depth)
     torch.cuda.synchronize()
-    # a search given up holds -1 - L, L >= 3 (first) or >= 4; -1 is no search
-    given_up = sum(int((t < -1).sum()) for t in (first[:, 0], first[:, 2], more[:, :, 3]))
     toff, _ = encode_opt.table_offsets(ln)
-    soff, _ = hp.slot_offsets(so, ln)
     base_h = base.cpu()
     outs = [t.cpu() for t in got]
     jobs = []
     for r in list(picks) + [r for r in parse_picks if r not in picks]:
-        a, t, q, n, off = int(st[r]), int(toff[r]), int(soff[r]), int(ln[r]), int(so[r])
+        a, t, n = int(st[r]), int(toff[r]), int(ln[r])
         row = (base_h[a:a + n].numpy(), [0], so[r:r + 1].numpy(), ln[r:r + 1].numpy())
         pv, dl = prev[t:t + n].cpu(), deltas[t:t + n].cpu()
-        f, m = first[q:q + n - off].cpu(), more[q:q + n - off].cpu()
         if r in picks:
             jobs += [
                 ("opt_chain", [pv], _submit_timed(
                     pool, encode_opt.opt_chain_plain, row[0], [0], ln[r:r + 1])),
-                ("hc_episodes", [f, m, dl], pool.submit(
-                    _timed_counted_call, f"{hp.__name__}.hc_episodes_plain",
-                    (*row, pv.numpy(), depth), {}))]
-        tables = (f.numpy(), m.numpy(), dl.numpy())
+                ("hc_deltas", [dl], _submit_timed(pool, hp.deltas_plain, pv, ln[r:r + 1]))]
+        args = (*row, pv.numpy(), dl.numpy(), bcap, depth)
         jobs.append(("hc_parse", [o[r:r + 1] for o in outs], pool.submit(
-            _timed_counted_call, f"{hp.__name__}.hc_parse_plain",
-            (*row, pv.numpy(), tables, bcap, depth), {})))
+            _timed_counted_call, f"{hp.__name__}.hc_parse_plain", args, {})))
         if model_picks is None or r in model_picks:
             jobs.append(("hc_parse:segments", [o[r:r + 1] for o in outs], pool.submit(
-                _timed_counted_call, f"{hp.__name__}.hc_parse_segments_plain",
-                (*row, pv.numpy(), tables, bcap, depth), {})))
+                _timed_counted_call, f"{hp.__name__}.hc_parse_segments_plain", args, {})))
 
     def finish():
-        errs, seconds, counts = _finish_holds(jobs, HC_PASSES, picks)
-        return errs, seconds, given_up, counts
+        return _finish_holds(jobs, HC_PASSES, picks)
 
     return finish
 
@@ -1873,14 +1865,14 @@ def hold_rewalks(base, starts, src_offs, lens, bcap: int, dev, pool):
     rounds = REWALK["max_rounds"]
     args = (base.cpu().numpy(), st.numpy(), so.numpy(), ln.numpy())
     prev = encode_opt.opt_chain(base_d, st, ln)
-    tables = hp.hc_episodes(base_d, st, so, ln, prev, 256)
-    hc = hp.hc_parse(base_d, st, so, ln, prev, tables, bcap, 256, **REWALK)
+    deltas = hp.hc_deltas(prev, ln)
+    hc = hp.hc_parse(base_d, st, so, ln, prev, deltas, bcap, 256, **REWALK)
     hc_stats = encode_opt.segment_stats(hp.hc_parse.stats, rounds)
     matches = encode_opt.opt_matches(base_d, st, so, ln, prev, 96)
     opt = encode_opt.opt_parse_spec(base_d, st, so, ln, prev, matches, bcap, 96, 64, **REWALK)
     opt_stats = encode_opt.segment_stats(encode_opt.opt_parse_spec.stats, rounds)
     torch.cuda.synchronize()
-    pv, tb, mt = prev.cpu().numpy(), tuple(t.cpu().numpy() for t in tables), matches.cpu().numpy()
+    pv, tb, mt = prev.cpu().numpy(), deltas.cpu().numpy(), matches.cpu().numpy()
     sizes = tuple(REWALK.values())
     jobs = {
         "hc_parse": (hc, hc_stats, submit_plain(pool, hp.hc_parse_plain, *args, pv, tb, bcap),
@@ -1956,7 +1948,7 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
         print(f"[hc encode] level {level} passes {', '.join(_opt_passes(level))}: each "
               f"equal to its plain version on all {len(rows)} rows ({given_up} searches "
               f"given up by the match pass)")
-    errs, _, given_up, _ = hc_passes()
+    errs, _, _ = hc_passes()
     for name, err in errs.items():
         worst[name] = max(worst.get(name, 0), err)
     for name, got in rewalks().items():
@@ -1966,8 +1958,7 @@ def phase_hc_encode(data: bytes, rng, dev, pool):
               f"{got['tail_walks']} in the serial tail, each as its model's, the bytes "
               f"equal to the plain version's on all {len(rows)} rows")
     print(f"[hc encode] level 9 passes {', '.join(HC_PASSES)}: each equal to "
-          f"its plain version on all {len(rows)} rows ({given_up} searches "
-          f"given up by the episode pass)")
+          f"its plain version on all {len(rows)} rows")
     return worst
 
 
@@ -2028,7 +2019,7 @@ def phase_hc_stream(data: bytes, rng, dev, pool):
                      big_lens, 1 << 20, level),
     ) for level in levels}
     # each level 9, 10 and 12 pass on the chained windows and the dictionary rows
-    # (the 1 MiB row's plain match and episode passes would take minutes:
+    # (the 1 MiB row's plain match pass would take minutes:
     # its whole output is held below)
     flat, d_st, d_so, d_ln, _ = encode_stream._stage(bufs, lens, BLOCK, dicts, dls, "dense")
     sets = ((window, st[chained] - lo, offs[chained], wl[chained], BLOCK,
@@ -2053,11 +2044,11 @@ def phase_hc_stream(data: bytes, rng, dev, pool):
     for finish, (level, what) in zip(passes, ((12, "chained windows"), (12, "dictionary rows"),
                                              (9, "chained windows"), (9, "dictionary rows"),
                                              (10, "chained windows"), (10, "dictionary rows"))):
-        errs, _, given_up, *_ = finish()
+        errs, _, *rest = finish()
         for name, err in errs.items():
             worst[name] = max(worst.get(name, 0), err)
         print(f"[hc encode_stream] level {level} passes on the {what}: each equal to "
-              f"its plain version ({given_up} searches given up)")
+              f"its plain version" + ("" if level == 9 else f" ({rest[0]} searches given up)"))
     return worst
 
 
@@ -2085,7 +2076,7 @@ def _hc_counts(level: int):
 
     if level >= 10:
         return [getattr(encode_opt, name) for name in _opt_passes(level)]
-    return [encode_opt.opt_chain, encode_hc_passes.hc_episodes, encode_hc_passes.hc_parse]
+    return [encode_opt.opt_chain, encode_hc_passes.hc_deltas, encode_hc_passes.hc_parse]
 
 
 def _hc_idle(level: int):
@@ -2270,14 +2261,14 @@ def hc_pass_ms(base_d, starts, src_offs, lens, bcap: int, level: int = 9,
         ev[0].record()
         prev = encode_opt.opt_chain(base_d, starts, lens)
         ev[1].record()
-        tables = hp.hc_episodes(base_d, starts, src_offs, lens, prev, depth)
+        deltas = hp.hc_deltas(prev, lens)
         ev[2].record()
-        got = hp.hc_parse(base_d, starts, src_offs, lens, prev, tables, bcap, depth)
+        got = hp.hc_parse(base_d, starts, src_offs, lens, prev, deltas, bcap, depth)
         ev[3].record()
         torch.cuda.synchronize()
         for i, name in enumerate(HC_PASSES):
             total[name] += ev[i].elapsed_time(ev[i + 1])
-        del prev, tables
+        del prev, deltas
     return {k: v / iters for k, v in total.items()}, got
 
 
@@ -2286,20 +2277,16 @@ def hc_pass_entries(label: str, held: str, replaces: str, windows, got, pass_ms,
     """The `kernels` entries of the HC passes on a batch of windows (``got``
     their output), bounds from the bytes each pass must move (the step
     bounds and plain times are filled in when the plain versions end)."""
-    from lz4_tpu_torch.ops import encode_hc_passes as hp
-
-    _, _, wso, wln = windows
+    _, _, _, wln = windows
     nb = len(wln)
     total = int(wln.sum())
-    block = int((wln - wso).sum())
     clen = int(got[1].sum())
-    tables = block * 4 * (hp.HEAD_INTS + hp.SLOT_INTS * max(hp.SLOTS - 2, 0)) + 2 * total
     # each pass's inputs read once and outputs written once: the windows,
-    # prev, the episode tables (the parse: the first searches' table), the
-    # compressed bytes and the per-row values
+    # prev (4 bytes a window position), the deltas (2), the compressed
+    # bytes and the per-row values
     moved = {"opt_chain": total + 4 * total + 20 * nb,
-             "hc_episodes": total + 4 * total + tables + 32 * nb,
-             "hc_parse": block + 8 * block + clen + 40 * nb}
+             "hc_deltas": 4 * total + 2 * total + 12 * nb,
+             "hc_parse": total + 4 * total + 2 * total + clen + 40 * nb}
     return [{
         "name": f"{name}:{label}", "route": "cuda",
         "source": ("lz4_tpu_torch/ops/csrc/encode_opt.cu" if name == "opt_chain"
@@ -2337,16 +2324,16 @@ def segment_step_bound(entry: dict, model: list, row_counts: list, clock: float)
 def settle_hc_entries(entries, finish, scale: dict, clock: float, longest: int) -> dict:
     """Fill the HC passes' entries from their plain versions on the picked
     rows: max_abs_err, the plain time scaled to the batch (times
-    ``scale[pass]``), and the dependent-step bound, one L1 round trip
+    ``scale[pass]``), and the dependent-step bounds, one L1 round trip
     (L1_CYCLES at the card's top clock) a step: the chain pass's segment
     model over the longest row (``longest`` positions,
-    `settle_chain_entry`), the episode pass's slowest position (its chain
-    steps), the parse's schedule by segments on its held rows
-    (`segment_step_bound`: `hc_parse_segments_plain`'s tallies; a step
-    of a walk is a table read or a chain step of a search made on the
-    spot).  Returns the plain passes' counts."""
-    errs, seconds, given_up, counts = finish()
-    walk = [dict(c, steps=c["read"] + c["spot_steps"]) for c in counts["hc_parse"]]
+    `settle_chain_entry`) and the parse's schedule by segments on its held
+    rows (`segment_step_bound`: `hc_parse_segments_plain`'s tallies; a
+    step of a walk is an episode or a chain step of one of its searches);
+    the deltas are bound by their bytes.  Returns the plain parse's and
+    the model's counts."""
+    errs, seconds, counts = finish()
+    walk = [dict(c, steps=c["episodes"] + c["steps"]) for c in counts["hc_parse"]]
     for e, name in zip(entries, HC_PASSES):
         e["max_abs_err"] = max(errs[name], errs.get(f"{name}:segments", 0))
         e["plain_ms"] = seconds[name] * 1e3 * scale[name]
@@ -2354,13 +2341,7 @@ def settle_hc_entries(entries, finish, scale: dict, clock: float, longest: int) 
             settle_chain_entry(e, longest, clock)
         elif name == "hc_parse":
             segment_step_bound(e, counts["hc_parse:segments"], walk, clock)
-        else:
-            e["steps"] = max(c["most_steps"] for c in counts[name])
-            e["step_bound_ms"] = e["steps"] * L1_CYCLES / clock * 1e3
-            if e["step_bound_ms"] > e["bound_ms"]:
-                e["bound_ms"], e["bound_by"] = e["step_bound_ms"], "operations"
-    return {"given_up": given_up, "episodes_of_picked_rows": counts["hc_episodes"],
-            "parse_of_picked_rows": counts["hc_parse"],
+    return {"parse_of_picked_rows": counts["hc_parse"],
             "segments_of_picked_rows": _schedule_summary(counts["hc_parse:segments"])}
 
 
@@ -2548,7 +2529,7 @@ def phase_hc_times(data: bytes, dev, seed: int = 0):
             "serial_ms": next(e["ms"] for e in entries
                               if e["name"] == f"encode_windows_hc:{path}"),
             "rows_equal_to_serial": nb, "max_abs_err": err,
-            "slots": encode_hc_passes.SLOTS}
+            "segment": encode_hc_passes.HC_SEGMENT, "overlap": encode_hc_passes.HC_OVERLAP}
         held.append(("L9", path, rows, hc, hold_hc_passes))
         print(f"[hc times] level 9 {path}: passes {whole_ms:.3f} ms per call ("
               + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
@@ -2639,8 +2620,9 @@ def phase_hc_times(data: bytes, dev, seed: int = 0):
                     ents, finish, dict.fromkeys(HC_PASSES, nb / len(picks)), clock,
                     int(windows[path][3].max())))
                 print(f"[hc times] level 9 {path}: each pass equal to its plain "
-                      f"version on rows {picks}; step bounds " + ", ".join(
-                          f"{e['name']} {e['step_bound_ms']:.3f} ms" for e in ents))
+                      f"version on rows {picks}; bounds " + ", ".join(
+                          f"{e['name']} {e['bound_ms']:.4f} ms ({e['bound_by']})"
+                          for e in ents))
                 continue
             summary[lv][path].update(settle_opt_entries(
                 ents, finish, nb / len(picks), clock, int(windows[path][3].max())))
@@ -2761,15 +2743,14 @@ def phase_cli_hc(data: bytes, dev, pool):
     blocks held byte for byte to the serial HC arm's output on the same
     rows (timed once); the passes timed on those rows (CUDA events between
     them), the parse's rounds and walks (`_path_stats`), the parse held to
-    its plain version on the first row (text, the most searches made on
-    the spot) and the last (noise, the most episodes); each pass on 256 KB
-    of a row of runs and of noise, as rows of their own (the plain episode
-    pass over a 4 MiB row would take an hour); the parse's step bound its
-    schedule's on those cuts (16 segments each) and the text row
-    (`encode_hc_passes.hc_parse_segments_plain`, its bytes held too).  The device memory one
-    compress allocates at its peak, beside the HC passes' tables
-    (`encode_hc_passes.table_bytes`).  Returns the launches, the rates,
-    the `kernels` entries and a summary."""
+    its plain version on the last row (noise, the most episodes); each pass
+    on 256 KB of the first row (text, the most chain steps) and of the last,
+    as rows of their own (the plain parse of the 4 MiB text row would take
+    ~90 s); the parse's step bound its schedule's on those cuts
+    (`encode_hc_passes.hc_parse_segments_plain`, its bytes held too).  The
+    device memory one compress allocates at its peak, beside the HC passes'
+    tables (prev, the deltas and the parse's records).  Returns the
+    launches, the rates, the `kernels` entries and a summary."""
     import torch
     from lz4_tpu_torch.ops import decode, encode_hc_passes, encode_opt, encode_stream, xxh32
     from lz4_tpu_torch.parallel.blocks import split_blocks
@@ -2783,8 +2764,8 @@ def phase_cli_hc(data: bytes, dev, pool):
     path_stats = _path_stats(encode_hc_passes.hc_parse, encode_opt.SEGMENT_ROUNDS)
     size = CLI_BLOCK
     bufs, lens = split_blocks(data, size)
-    tables = sum(encode_hc_passes.table_bytes(int(n), int(n)) for n in lens)
     nb = bufs.shape[0]
+    tables = 6 * int(lens.sum()) + encode_hc_passes.parse_scratch_bytes([0] * nb, lens)
     rows = (bufs.reshape(-1), torch.arange(nb, dtype=torch.int64) * bufs.shape[1],
             torch.zeros(nb, dtype=torch.int32), lens)
     base_d = rows[0].to(dev)
@@ -2800,26 +2781,26 @@ def phase_cli_hc(data: bytes, dev, pool):
     entries = hc_pass_entries("lz4_9", "independent", "lz4_tpu/ops/encode_pallas_stream.py:266",
                               rows, got, pass_ms, clock)
     entries[0]["library_ms"] = chain_library_ms(base_d, rows[1], rows[3])
-    # 256 KB of a row of runs and of noise as rows of their own, after the 16
+    # 256 KB of the text row and of the noise row as rows of their own, after the 16
     cut = size // 16
-    held = (rows[0], torch.cat([rows[1], rows[1][[nb * 3 // 4 - 1, nb - 1]]]),
+    held = (rows[0], torch.cat([rows[1], rows[1][[0, nb - 1]]]),
             torch.cat([rows[2], rows[2][:2]]), torch.cat([lens, torch.tensor([cut, cut])]))
-    finish = hold_hc_passes(*held, size, [nb, nb + 1], dev, pool, parse_picks=[0, nb - 1],
-                            model_picks=[nb, nb + 1, 0])
+    finish = hold_hc_passes(*held, size, [nb, nb + 1], dev, pool, parse_picks=[nb - 1],
+                            model_picks=[nb, nb + 1])
     summary = {"pass_ms": pass_ms, "passes_ms": sum(pass_ms.values()),
                "serial_ms": serial_ms, "rows_equal_to_serial": nb,
                "frame_equal_to_serial": True, "hc_table_bytes": tables,
                "hc_table_bytes_per_payload_byte": tables / len(data),
                "compress_peak_allocated_bytes": peak,
-               "compress_peak_per_payload_byte": peak / len(data),
-               "group_budget_bytes": encode_hc_passes.group_budget(dev)}
+               "compress_peak_per_payload_byte": peak / len(data)}
     held_bytes = 2 * cut
     summary.update(settle_hc_entries(entries, finish, {
-        "opt_chain": len(data) / held_bytes, "hc_episodes": len(data) / held_bytes,
-        "hc_parse": len(data) / (held_bytes + int(lens[0]) + int(lens[nb - 1]))}, clock,
+        "opt_chain": len(data) / held_bytes, "hc_deltas": len(data) / held_bytes,
+        "hc_parse": len(data) / (held_bytes + int(lens[nb - 1]))}, clock,
         int(lens.max())))
     entries[2].update(path_stats)
     summary["parse_schedule"] = path_stats
+    summary["long_repeats"] = hc_repeat_rows(size, dev)
     print(f"[lz4 -9] {len(data)} bytes -> {e2e['frame_bytes']} bytes (ratio "
           f"{len(data) / e2e['frame_bytes']:.4f}), round trip exact, deterministic, "
           f"launches {launches}; median {e2e['compress_GBps_median']:.4f} GB/s "
@@ -2827,9 +2808,31 @@ def phase_cli_hc(data: bytes, dev, pool):
           + ", ".join(f"{k} {v:.3f}" for k, v in pass_ms.items())
           + f" ms, the serial HC arm {serial_ms:.1f} ms on the same {nb} rows, "
           f"every block of the frame equal to its output; each pass equal to its "
-          f"plain version (the parse on the first and last rows); a compress "
+          f"plain version (the parse on the last row and the cuts); a compress "
           f"allocates {peak} bytes at its peak, the HC tables {tables}")
     return launches, e2e, entries, summary
+
+
+def hc_repeat_rows(size: int, dev) -> dict:
+    """The HC passes at level 9 on two rows of ``size`` bytes of long
+    repeats, zeros and a 3-byte pattern, where every walk's first search
+    measures the repeat to the row's end on one thread: each pass's time
+    (`hc_pass_ms`), the parse's schedule, the output equal to the serial
+    HC arm's."""
+    import torch
+    from lz4_tpu_torch.ops import encode_hc_passes, encode_opt, encode_stream
+
+    pattern = torch.tensor(list(b"abc"), dtype=torch.uint8).repeat(size // 3 + 1)[:size]
+    base = torch.cat([torch.zeros(size, dtype=torch.uint8), pattern]).to(dev)
+    rows = (torch.tensor([0, size]), torch.zeros(2, dtype=torch.int32),
+            torch.tensor([size, size], dtype=torch.int32))
+    pass_ms, got = hc_pass_ms(base, *rows, size)
+    stats = _path_stats(encode_hc_passes.hc_parse, encode_opt.SEGMENT_ROUNDS)
+    serial = encode_stream.encode_windows_hc_serial(base, *rows, size, 9)
+    _require(_max_abs_err(got, serial) == 0,
+             "long repeats: the HC passes' output != the serial HC arm's")
+    return {"row_bytes": size, "rows": ["zeros", "abc"], "pass_ms": pass_ms,
+            "parse_schedule": stats, "equal_to_serial": True}
 
 
 def phase_cli_opt(data: bytes, dev, pool, level: int):

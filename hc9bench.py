@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
 """The measurements behind the HC passes (levels 3-9): on one card at
-level 9, searches kept per episode, the parse by kind of data, and the
-parse with every search made on the spot against the serial HC arm; with
-``--host``, where the plain parses spend their search time.
+level 9, the passes and the parse by segments at several segment lengths,
+by kind of data, against the serial HC arm; with ``--parent``,
+against the parent tree's passes; with ``--host``, where the plain parses
+spend their search time and what the parse searches against a pass that
+searched every position.
 
     python3 hc9bench.py [--seed 1] [--opt]
     python3 hc9bench.py --host [--seed 0] [--rows 4] [--opt]
-    python3 hc9bench.py --parent DIR [--iters 2] [--memory FULL]
+    python3 hc9bench.py --parent DIR [--iters 2] [--levels 9,10,11] [--memory FULL]
 
 Payloads as kernel D's windows: 16 MiB of the bench mix
 (`chip_smoke.make_corpus`, the seed chip_smoke.py's level 9 paths use) as
-256 independent 64 KB rows and as 256 chained windows, and 64 MiB (seed 0,
-chip_smoke.py's `lz4 -9` payload) as 16 independent rows of 4 MiB.  For
-each number of slots (`encode_hc_passes.hc_episodes`; 8, 10 and 12 on the 4
-MiB rows) each pass's time (CUDA events between the passes, after a warm-up
-call on the 64 KB rows) and the output, equal to the serial HC arm's
-(timed too); the parse pass's time on each quarter of the rows (the mix's
-four kinds of data); and the parse with one slot and a budget of 0 (every
-search given up to the parse, which makes it on the spot over the tables)
-beside the serial arm on the same rows, which makes the same searches over
-its ring (on the 4 MiB rows: their first MiB each, as rows of their
-own).  Prints one JSON line per payload, then the card's name and power
+256 independent 64 KB rows and as 256 chained windows, 64 MiB (seed 0,
+chip_smoke.py's `lz4 -9` payload) as 16 independent rows of 4 MiB, and 64
+MiB of random bytes as 16 rows of 4 MiB.  For each: the serial HC arm's
+time and output; each pass's time (`chip_smoke.hc_pass_ms`: CUDA events
+between the chain pass, `hc_deltas` and `hc_parse`, after a warm-up call)
+and output, equal to the serial arm's; the parse alone (CUDA events over
+`--iters` calls) at each (segment, overlap) of `SEGMENTS`, its output equal
+to the serial arm's and its schedule (`encode_opt.segment_stats`: rounds,
+walks a round, serial tail walks) beside; the device time of each of the
+parse's kernels at the built segment (torch.profiler); the parse of the
+rows in groups of 1, 4, 16 and 64 rows, a launch a group one after
+another (whether a group whose tables fit the L2 cache walks faster);
+and the parse's time on each quarter of the rows (the mix's four kinds of
+data).  Prints one JSON line per payload, then the card's name and power
 limit.  Needs a CUDA card.
 
 ``--opt`` on the card: the level 10 and 11 passes (`encode_opt`: chain,
@@ -31,43 +36,50 @@ after a warm-up call), the output equal to the serial OPT arm's (timed
 too), and the parse pass's time on each quarter of the rows.  One JSON
 line per level and payload, then the card's name and power limit.
 
-``--parent DIR`` on the card: the parses of this tree (the parse by
-segments, `encode_hc_passes.hc_parse` and `encode_opt.opt_parse_spec`)
-against those of the tree DIR (an unpacked commit whose parses are the
-one-thread and one-warp row kernels, e.g. `git archive HEAD~1 | tar -x -C
-build/parent`), built from its `csrc` with the port's flags, in turns
-(parent, this tree, this tree, parent), each a launch of its C entry point
-on the same tables already on the card (this tree's chain, episode and
-match passes, which the two trees share) timed with CUDA events
-(`--iters` launches a turn; one at level 11 on the 4 MiB rows, where the
-parent's parse takes ~35 s): levels 9, 10 and 11 on the 64 MiB of 16
-rows of 4 MiB (`lz4 -9`/`-10`/`-11`, seed 0), on the 16 MiB of 256
-rows of 64 KB (seed 1) and on 64 MiB of random bytes as 16 rows of 4 MiB
-(incompressible input: no match, every OPT walk free of its anchor).  Each output equal to the serial arm's
+``--parent DIR`` on the card: this tree's passes after the chain pass
+against those of the tree DIR (an unpacked commit, e.g. `git archive
+HEAD~1 lz4_tpu_torch/ops/csrc | tar -x -C build/parent`), built from its
+`csrc` with the port's flags, in turns (parent, this tree, this tree,
+parent), each a launch of the trees' C entry points on the same chain
+pass output already on the card, timed with CUDA events (`--iters`
+launches a turn; one at level 11 on the 4 MiB rows).  Level 9: the
+parent's episode pass and parse (`lz4t_hc_episodes`, `lz4t_hc_parse` over
+its episode tables, its own segment and overlap), or this tree's deltas
+and parse (`lz4t_hc_deltas`, `lz4t_hc_parse`).  Levels 10 and 11: each
+tree's parse by segments (`lz4t_opt_parse_spec`) on this tree's match
+pass output.  On the 64 MiB of 16 rows of 4 MiB (`lz4 -9`/`-10`/`-11`,
+seed 0), the 16 MiB of 256 rows of 64 KB (seed 1) and 64 MiB of random
+bytes as 16 rows of 4 MiB (incompressible input: no match, every walk free
+of its anchor).  Each output equal to the serial arm's
 (`encode_stream.encode_windows_hc_serial`, `encode_windows_opt_serial`,
-timed once).  This tree's launch counts (`encode_opt.segment_stats`: its
-rounds, walks a round, serial tail walks) beside.  One JSON line per
-payload and level, then the card's name and power limit.
+timed once).  This tree's launch counts (`encode_opt.segment_stats`)
+beside.  One JSON line per payload and level, then the card's name and
+power limit.
 
 ``--parent DIR --memory FULL`` also reads, for the whole tree FULL (an
 unpacked commit, e.g. the parent) and this one, each in a process of its
 own with that tree's `chip_smoke.py`, the device memory one compress of
 the 64 MiB payload allocates at its peak at `lz4 -9`, `-10` and `-11`
-(`chip_smoke._compress_peak`; the parent's `lz4 -11` compress takes ~40
-s).  One JSON line per tree.
+(`chip_smoke._compress_peak`).  One JSON line per tree.
 
 ``--host`` needs no card: one 64 KB row from each quarter of
 `chip_smoke.make_corpus(4 MiB, seed)` (text, records, runs, noise), parsed
 by the plain versions (`lz4_tpu_torch.ops.encode_hc`), each search timed on
 the host clock.  Level 9 (`encode_hc.hc_parse_row`): the share of the
 search time and the count of searches by the search's index in its
-episode (0 the first search, 1 the one after it, ...), which sets how many
-searches an episode table keeps (`encode_hc_passes.SLOTS`).  Levels 10 and
-11 (`encode_hc.opt_parse_row`): the share of the search time in searches
+episode (0 the first search, 1 the one after it, ...).  Then, on the first
+16 KB of each row, the searches and chain steps the level 9 parse makes
+(`encode_hc_passes.hc_parse_plain`, every search on the spot, as the walks
+make them) against those of a pass that runs the episode at every block
+position (the design the parse by segments replaced: the first `SLOTS`
+searches of each episode over the chain table, each under level 12's work
+budgets, `encode_opt.FIRST_BUDGET`, `MATCH_BUDGET`, `RETRY_LONGEST`, the
+episode stopped at a search given up).  Levels 10 and 11
+(`encode_hc.opt_parse_row`): the share of the search time in searches
 whose minimum length is above 3, which a table of every position's
 min-length-3 search (level 12's `encode_opt`) cannot answer.  One JSON line
-per level; the shares are of the plain parse's time on the host, not of
-any device time.
+per level (level 9: two); the shares are of the plain parse's time on the
+host, not of any device time.
 
 ``--host --opt`` counts, on the same rows at levels 10 and 11, what the
 level 10-11 passes do: from the serial plain parse, its searches, those
@@ -97,8 +109,9 @@ import sys
 import time
 from pathlib import Path
 
-SLOTS = (1, 2, 4, 8, 10, 12)
-BIG_SLOTS = (8, 10, 12)
+# the parse's (segment, overlap) pairs timed on each payload
+SEGMENTS = ((256, 64), (256, 128), (512, 128), (512, 256), (1024, 256), (4096, 256))
+SLOTS = 10  # --host: the searches a position's episode kept in the pass the parse replaced
 
 
 def _windows(cs, data: bytes, block: int, chained: bool):
@@ -112,65 +125,86 @@ def _windows(cs, data: bytes, block: int, chained: bool):
             torch.zeros(nb, dtype=torch.int32), torch.full((nb,), block, dtype=torch.int32))
 
 
-def _passes_ms(base, st, so, ln, block, **kw):
-    """Each pass's time (CUDA events between them) and the output."""
+PARSE_KERNELS = ("hc_seg_walks", "seg_links", "seg_check", "hc_seg_tail", "seg_sizes",
+                 "seg_offsets", "seg_write")
+
+
+def _kernel_ms(fn) -> dict:
+    """The device time of one call of ``fn`` by kernel of the parse
+    (torch.profiler, after a warm-up call), ms; {} where it recorded no
+    device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        for k in PARSE_KERNELS:
+            if k in e.key:
+                out[k] = out.get(k, 0.0) + us / 1e3
+    return out
+
+
+def _report(cs, base, st, so, ln, block: int, dev, iters: int) -> dict:
     import torch
     from lz4_tpu_torch.ops import encode_hc_passes as hp
-    from lz4_tpu_torch.ops import encode_opt
+    from lz4_tpu_torch.ops import encode_opt, encode_stream
 
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    ev[0].record()
-    prev = encode_opt.opt_chain(base, st, ln)
-    ev[1].record()
-    tables = hp.hc_episodes(base, st, so, ln, prev, 256, **kw)
-    ev[2].record()
-    got = hp.hc_parse(base, st, so, ln, prev, tables, block, 256)
-    ev[3].record()
-    torch.cuda.synchronize()
-    names = ("opt_chain", "hc_episodes", "hc_parse")
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}, got
-
-
-def _on_the_spot(cs, base, st, so, ln, block: int) -> dict:
-    """The passes with every search made on the spot by the parse, and the
-    serial arm, on the same rows."""
-    from lz4_tpu_torch.ops import encode_stream
+    base = base.to(dev)
 
     def serial():
         return encode_stream.encode_windows_hc_serial(base, st, so, ln, block, 9)
 
-    ms, got = _passes_ms(base, st, so, ln, block, slots=1, budget=0, first_budget=0)
-    cs._require(cs._max_abs_err(got, serial()) == 0,
-                "every search on the spot: the passes' output != the serial arm's")
-    return {"passes_ms": ms, "serial_ms": cs._cuda_ms(serial, 1)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = serial()
+    torch.cuda.synchronize()
+    out = {"serial_ms": (time.perf_counter() - t0) * 1e3}
+    cs.hc_pass_ms(base, st, so, ln, block, iters=1)  # warm
+    ms, got = cs.hc_pass_ms(base, st, so, ln, block, iters=1)
+    cs._require(cs._max_abs_err(got, want) == 0, "the passes' output != the serial arm's")
+    out["pass_ms"] = ms
+    prev = encode_opt.opt_chain(base, st, ln)
+    deltas = hp.hc_deltas(prev, ln)
+    toff, _ = encode_opt.table_offsets(ln)
+    out["segments"] = []
+    for segment, overlap in SEGMENTS:
+        def parse(segment=segment, overlap=overlap):
+            return hp.hc_parse(base, st, so, ln, prev, deltas, block, 256, segment=segment,
+                               overlap=overlap)
 
-
-def _report(cs, base, st, so, ln, block: int, dev) -> dict:
-    import torch
-    from lz4_tpu_torch.ops import encode_stream
-
-    base = base.to(dev)
-    big = block > 1 << 16
-    serial = encode_stream.encode_windows_hc_serial(base, st, so, ln, block, 9)
-    out = {"serial_ms": cs._cuda_ms(lambda: encode_stream.encode_windows_hc_serial(
-        base, st, so, ln, block, 9), 1), "slots": {}}
-    for k in BIG_SLOTS if big else SLOTS:
-        if not big:
-            _passes_ms(base, st, so, ln, block, slots=k)  # warm
-        ms, got = _passes_ms(base, st, so, ln, block, slots=k)
-        cs._require(cs._max_abs_err(got, serial) == 0,
-                    f"{k} slots: the passes' output != the serial arm's")
-        out["slots"][k] = ms
-    cut = min(block, 1 << 20)
-    out["every_search_on_the_spot"] = {"row_bytes": cut, **_on_the_spot(
-        cs, base, st, so, torch.minimum(ln, so + cut), cut)}
+        cs._require(cs._max_abs_err(parse(), want) == 0,
+                    f"segment {segment}: the parse's output != the serial arm's")
+        stats = encode_opt.segment_stats(hp.hc_parse.stats, encode_opt.SEGMENT_ROUNDS)
+        ms = cs._cuda_ms(parse, iters)
+        cs._require(cs._max_abs_err(parse(), want) == 0,
+                    f"segment {segment}, timed: the parse's output != the serial arm's")
+        out["segments"].append({"segment": segment, "overlap": overlap, "ms": ms,
+                                "schedule": {k: stats[k] for k in (
+                                    "walks_per_round", "rounds", "tail_walks", "overflow")}})
+    out["parse_kernel_device_ms"] = _kernel_ms(
+        lambda: hp.hc_parse(base, st, so, ln, prev, deltas, block, 256))
     nb = st.numel()
+    out["parse_ms_in_row_groups"] = {}  # the rows parsed a group at a time, one launch after another
+    for rows in sorted({1, 4, 16, 64, nb} & set(range(1, nb + 1))):
+        def groups(rows=rows):
+            for g in range(0, nb, rows):
+                sl = slice(g, g + rows)
+                at = slice(int(toff[g]), int(toff[g] + ln[sl].sum()))
+                hp.hc_parse(base, st[sl], so[sl], ln[sl], prev[at], deltas[at], block, 256)
+
+        out["parse_ms_in_row_groups"][rows] = cs._cuda_ms(groups, 1)
     out["parse_ms_by_quarter"] = []
     for q in range(4):
         rows = slice(q * nb // 4, (q + 1) * nb // 4)
-        ms, _ = _passes_ms(base, st[rows], so[rows], ln[rows], block)
+        ms, _ = cs.hc_pass_ms(base, st[rows], so[rows], ln[rows], block, iters=1)
         out["parse_ms_by_quarter"].append(ms["hc_parse"])
-    out["compressed_bytes"] = int(serial[1].sum())
+    out["compressed_bytes"] = int(want[1].sum())
     torch.cuda.synchronize()
     return out
 
@@ -202,78 +236,151 @@ def _opt_report(cs, base, st, so, ln, block: int, level: int, dev) -> dict:
             "compressed_bytes": int(want[1].sum())}
 
 
-def _parse_launcher(lib_path, level: int, rows, tables, bcap: int, dev, parent: bool):
-    """A function that enqueues one level 3-11 parse of a built library on
-    the rows (their tables already on the card: prev and `hc_episodes`' or
-    `opt_matches`' output), and the (out, clens, errs) it fills: the
-    parent's row kernel, or this tree's parse by segments."""
+def _c(lib_path):
+    import ctypes
+
+    return ctypes.CDLL(str(lib_path))
+
+
+def _segment_plan(lib, arm: str, so, ln, segment: int, overlap: int, dev):
+    """A parse by segments' segments, scratch and stats on the card, and
+    their C arguments (segoff, seg_row, nseg, segment, overlap, rounds,
+    scratch, stats)."""
     import ctypes
 
     import torch
-    from lz4_tpu_torch.ops import encode_hc_passes as hp
+    from lz4_tpu_torch.ops import encode_opt
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    segoff, seg_row = encode_opt.segment_rows(so, ln, segment)
+    size = ctypes.c_longlong()
+    scratch_of = getattr(lib, f"lz4t_{arm}_seg_scratch")
+    scratch_of.argtypes = [ll, i, i, i, p]
+    scratch_of(seg_row.numel(), len(ln), segment, overlap, ctypes.addressof(size))
+    stats = torch.empty(encode_opt.SEGMENT_ROUNDS + 4, dtype=torch.int32, device=dev)
+    held = [segoff.to(dev), seg_row.to(dev), torch.empty(size.value, dtype=torch.uint8,
+                                                         device=dev), stats]
+    args = [held[0].data_ptr(), held[1].data_ptr(), seg_row.numel(), segment, overlap,
+            encode_opt.SEGMENT_ROUNDS, held[2].data_ptr(), stats.data_ptr()]
+    return held, args, [p, p, i, i, i, i, p, p]
+
+
+def _hc_launcher(lib_path, rows, prev, bcap: int, dev, parent: bool = False):
+    """A function that enqueues one level 9 HC run of a built library after
+    the chain pass (``prev`` already on the card), the (out, clens, errs)
+    it fills and its stats: this tree's `lz4t_hc_deltas` and parse over
+    them, or (``parent``) the parent's episode pass into its tables
+    (`lz4t_hc_episodes`, `SLOTS` searches a position under level 12's
+    budgets) and its parse over them; each at its own built segment."""
+    import ctypes
+
+    import torch
+    from lz4_tpu_torch.ops import encode_opt
+    from lz4_tpu_torch.ops.encode import _outputs
+
+    base_d, st, so, ln = rows
+    lib = _c(lib_path)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    toff, total = encode_opt.table_offsets(ln)
+    nb = len(ln)
+    out, clens, errs = _outputs(nb, bcap, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    st = torch.as_tensor(st, dtype=torch.int64)
+    so, ln = (torch.as_tensor(t, dtype=torch.int32) for t in (so, ln))
+    st_d, so_d, ln_d, toff_d = (t.to(dev) for t in (st, so, ln, toff))
+    head = [base_d.data_ptr(), st_d.data_ptr(), so_d.data_ptr(), ln_d.data_ptr(),
+            toff_d.data_ptr()]
+    outs = [out.data_ptr(), out.shape[1], out.shape[1], 256, clens.data_ptr(), errs.data_ptr(),
+            nb]
+    out_kinds = [p, ll, i, i, p, p, i]
+    for fn in (lib.lz4t_hc_segment, lib.lz4t_hc_overlap):
+        fn.restype = ctypes.c_int
+    plan, plan_args, plan_kinds = _segment_plan(lib, "hc", so, ln, lib.lz4t_hc_segment(),
+                                                lib.lz4t_hc_overlap(), dev)
+    deltas = torch.empty(total, dtype=torch.int16, device=dev)
+    held = [st_d, so_d, ln_d, toff_d, deltas, *plan]
+    max_len = int(torch.as_tensor(ln).max())
+    if parent:
+        blk = torch.as_tensor(ln, dtype=torch.int64) - torch.as_tensor(so, dtype=torch.int64)
+        soff = (torch.cumsum(blk, 0) - blk).to(dev)
+        first = torch.empty((int(blk.sum()), 4), dtype=torch.int32, device=dev)
+        more = torch.empty((int(blk.sum()), SLOTS - 2, 6), dtype=torch.int32, device=dev)
+        held += [soff, first, more]
+        tables = [soff.data_ptr(), prev.data_ptr(), first.data_ptr(), more.data_ptr(),
+                  deltas.data_ptr()]
+        lib.lz4t_hc_episodes.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.lz4t_hc_parse.argtypes = [p] * 10 + [i] + out_kinds[:3] + [i, p, p, i] \
+            + plan_kinds + [p]
+        episodes = [*head, *tables, SLOTS, 256, encode_opt.FIRST_BUDGET, encode_opt.MATCH_BUDGET,
+                    encode_opt.RETRY_LONGEST, nb, max_len, stream]
+        parse = [*head, *tables, SLOTS, *outs[:3], *outs[3:], *plan_args, stream]
+        calls = ((lib.lz4t_hc_episodes, episodes), (lib.lz4t_hc_parse, parse))
+    else:
+        lib.lz4t_hc_deltas.argtypes = [p, p, p, p, i, i, p]
+        lib.lz4t_hc_parse.argtypes = [p] * 7 + out_kinds + plan_kinds + [p]
+        calls = ((lib.lz4t_hc_deltas, [ln_d.data_ptr(), toff_d.data_ptr(), prev.data_ptr(),
+                                       deltas.data_ptr(), nb, max_len, stream]),
+                 (lib.lz4t_hc_parse, [*head, prev.data_ptr(), deltas.data_ptr(), *outs,
+                                      *plan_args, stream]))
+    for fn, _ in calls:
+        fn.restype = ctypes.c_int
+
+    def run(held=held):  # the arguments' tensors live as long as the launcher
+        for fn, args in calls:
+            rc = fn(*args)
+            if rc:
+                raise RuntimeError(f"{lib_path.name}: CUDA error {rc}")
+
+    return run, (out, clens, errs), plan[-1]
+
+
+def _opt_launcher(lib_path, level: int, rows, prev, matches, bcap: int, dev):
+    """A function that enqueues one level 10-11 parse by segments
+    (`lz4t_opt_parse_spec`) of a built library on the rows (prev and the
+    match table already on the card), the (out, clens, errs) it fills and
+    its stats."""
+    import ctypes
+
+    import torch
     from lz4_tpu_torch.ops import encode_opt
     from lz4_tpu_torch.ops.encode import _outputs
     from lz4_tpu_torch.ops.encode_hc import level_arm
 
-    arm, depth, sufficient, _ = level_arm(level)
+    _, depth, sufficient, _ = level_arm(level)
     base_d, st, so, ln = rows
-    prev, table = tables
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _c(lib_path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     toff, _ = encode_opt.table_offsets(ln)
-    soff, _ = hp.slot_offsets(so, ln)
     nb = len(ln)
     out, clens, errs = _outputs(nb, bcap, dev)
-    held = [t.to(dev) for t in (st, so, ln, toff, soff)]
-    head = [base_d.data_ptr(), *(t.data_ptr() for t in held[:4])]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    outs = (out.data_ptr(), out.shape[1], out.shape[1], depth)
-    if arm == "hc":
-        first, more, deltas = table
-        fn = lib.lz4t_hc_parse
-        args = [*head, held[4].data_ptr(), prev.data_ptr(), first.data_ptr(), more.data_ptr(),
-                deltas.data_ptr(), 2 + more.shape[1], *outs, clens.data_ptr(),
-                errs.data_ptr(), nb]
-        kinds = [p] * 10 + [i, p, ll, i, i, p, p, i]
-    else:
-        fn = lib.lz4t_opt_parse_spec
-        args = [*head, prev.data_ptr(), table.data_ptr(), *outs, sufficient, clens.data_ptr(),
-                errs.data_ptr(), nb]
-        kinds = [p] * 8 + [ll, i, i, i, p, p, i]
-    if not parent:
-        segment, overlap = (hp.HC_SEGMENT, hp.HC_OVERLAP) if arm == "hc" else (
-            encode_opt.OPT_SEGMENT, encode_opt.OPT_OVERLAP)
-        segoff, seg_row = encode_opt.segment_rows(so, ln, segment)
-        size = ctypes.c_longlong()
-        scratch_of = getattr(lib, f"lz4t_{arm}_seg_scratch")
-        scratch_of.argtypes = [ll, i, i, i, p]
-        scratch_of(seg_row.numel(), nb, segment, overlap, ctypes.addressof(size))
-        stats = torch.empty(encode_opt.SEGMENT_ROUNDS + 4, dtype=torch.int32, device=dev)
-        held += [segoff.to(dev), seg_row.to(dev),
-                 torch.empty(size.value, dtype=torch.uint8, device=dev), stats]
-        args += [held[5].data_ptr(), held[6].data_ptr(), seg_row.numel(), segment, overlap,
-                 encode_opt.SEGMENT_ROUNDS, held[7].data_ptr(), stats.data_ptr()]
-        kinds += [p, p, i, i, i, i, p, p]
-    fn.argtypes = kinds + [p]
+    held = [torch.as_tensor(t, dtype=d).to(dev) for t, d in (
+        (st, torch.int64), (so, torch.int32), (ln, torch.int32), (toff, torch.int64))]
+    plan, plan_args, plan_kinds = _segment_plan(lib, "opt", so, ln, encode_opt.OPT_SEGMENT,
+                                                encode_opt.OPT_OVERLAP, dev)
+    held += plan
+    fn = lib.lz4t_opt_parse_spec
+    fn.argtypes = [p] * 8 + [ll, i, i, i, p, p, i] + plan_kinds + [p]
     fn.restype = ctypes.c_int
+    args = [base_d.data_ptr(), *(t.data_ptr() for t in held[:4]), prev.data_ptr(),
+            matches.data_ptr(), out.data_ptr(), out.shape[1], out.shape[1], depth, sufficient,
+            clens.data_ptr(), errs.data_ptr(), nb, *plan_args,
+            torch.cuda.current_stream(dev).cuda_stream]
 
-    def run(held=held):  # the arguments' tensors live as long as the launcher
-        rc = fn(*args, stream)
+    def run(held=held):
+        rc = fn(*args)
         if rc:
             raise RuntimeError(f"{lib_path.name}: CUDA error {rc}")
 
-    return run, (out, clens, errs), (held[-1] if not parent else None)
+    return run, (out, clens, errs), plan[-1]
 
 
-def parent_turns(cs, parent, iters: int, dev) -> None:
+def parent_turns(cs, parent, iters: int, levels, dev) -> None:
     """``--parent``: one JSON line per payload and level."""
     import numpy as np
     import torch
     from chainbench import _build
-    from lz4_tpu_torch.ops import encode_hc_passes as hp
     from lz4_tpu_torch.ops import encode_opt, encode_stream
     from lz4_tpu_torch.ops.build import _library, build
-    from lz4_tpu_torch.ops.encode_hc import level_arm
 
     build("encode_hc_passes", "encode_opt")
     libs = {("new", m): _library(m) for m in ("encode_hc_passes", "encode_opt")}
@@ -289,27 +396,31 @@ def parent_turns(cs, parent, iters: int, dev) -> None:
         rows = _windows(cs, data, block, False)
         base_d = rows[0].to(dev)
         rows = (base_d, *rows[1:])
-        for level in (9, 10, 11):
-            arm, depth, _, _ = level_arm(level)
-            prev = encode_opt.opt_chain(rows[0], rows[1], rows[3])
-            table = (hp.hc_episodes(*rows, prev, depth) if arm == "hc"
-                     else encode_opt.opt_matches(*rows, prev, depth))
-            module = "encode_hc_passes" if arm == "hc" else "encode_opt"
-            runs = {tree: _parse_launcher(libs[(tree, module)], level, rows, (prev, table),
-                                          block, dev, tree == "parent")
-                    for tree in ("parent", "new")}
+        prev = encode_opt.opt_chain(rows[0], rows[1], rows[3])
+        for level in levels:
+            if level == 9:
+                runs = {tree: _hc_launcher(libs[(tree, "encode_hc_passes")], rows, prev, block,
+                                           dev, tree == "parent")
+                        for tree in ("parent", "new")}
+                serial_of = encode_stream.encode_windows_hc_serial
+            else:
+                depth = 96 if level == 10 else 512
+                matches = encode_opt.opt_matches(*rows, prev, depth)
+                runs = {tree: _opt_launcher(libs[(tree, "encode_opt")], level, rows, prev,
+                                            matches, block, dev)
+                        for tree in ("parent", "new")}
+                serial_of = encode_stream.encode_windows_opt_serial
             n = 1 if level == 11 and block > 1 << 16 else iters
             times = {"parent": [], "new": []}
             for tree in ("parent", "new", "new", "parent"):
                 times[tree].append(cs._cuda_ms(runs[tree][0], n))
             t0 = time.perf_counter()
-            serial = (encode_stream.encode_windows_hc_serial if arm == "hc"
-                      else encode_stream.encode_windows_opt_serial)(*rows, block, level)
+            serial = serial_of(*rows, block, level)
             torch.cuda.synchronize()
             serial_s = time.perf_counter() - t0
             for tree, (_, got, _) in runs.items():
                 cs._require(cs._max_abs_err(got, serial) == 0,
-                            f"{name} level {level}: the {tree} parse != the serial arm")
+                            f"{name} level {level}: the {tree} passes != the serial arm")
             stats = encode_opt.segment_stats(runs["new"][2], encode_opt.SEGMENT_ROUNDS)
             print(json.dumps({
                 "payload": name, "rows": len(rows[3]), "level": level, "iters": n,
@@ -317,7 +428,8 @@ def parent_turns(cs, parent, iters: int, dev) -> None:
                 "equal_to_serial": True, "serial_s": serial_s,
                 "schedule": {k: stats[k] for k in ("walks_per_round", "rounds", "tail_walks",
                                                    "links", "overflow")}}), flush=True)
-            del prev, table, runs
+            del runs
+        del prev
 
 
 def memory_of(tree: Path) -> dict:
@@ -369,6 +481,73 @@ def _hc_by_index(s: bytes) -> dict:
     total = sum(seconds.values())
     return {str(j): {"searches": counts[j], "seconds": seconds[j],
                      "time_share": seconds[j] / total} for j in sorted(seconds)}
+
+
+class _GaveUp(Exception):
+    """A search of the per-position pass gave up, or passed its slots: its
+    episode stops there."""
+
+
+def _pass_counts(s: bytes) -> dict:
+    """The searches and chain steps of a pass that runs the episode at
+    every block position of ``s`` at level 9 over the chain table, its
+    first `SLOTS` searches each under level 12's work budgets (a search
+    with no match longer than `RETRY_LONGEST` made again with the large
+    budget), the episode stopped at a search given up."""
+    import torch
+    from lz4_tpu_torch.constants import LAST_LITERALS, MF_LIMIT
+    from lz4_tpu_torch.ops import encode_hc, encode_opt
+
+    base = torch.frombuffer(bytearray(s), dtype=torch.uint8)
+    prev = encode_opt.opt_chain_plain(base, [0], [len(s)]).tolist()
+    finder = encode_opt.TableFinder(s, len(s) - LAST_LITERALS, 256, prev)
+    searches = made = 0
+
+    def search(ip, ilow, longest):
+        nonlocal made
+        if made == SLOTS:
+            raise _GaveUp
+        made += 1
+        finder.budget = encode_opt.FIRST_BUDGET
+        got = finder.wider_match(ip, ilow, longest, True)
+        if got[0] < 0 and -1 - got[0] <= encode_opt.RETRY_LONGEST:
+            finder.budget = encode_opt.MATCH_BUDGET
+            got = finder.wider_match(ip, ilow, longest, True)
+        if got[0] < 0:
+            raise _GaveUp
+        return got
+
+    for p in range(len(s) - MF_LIMIT + 1):
+        made = 0
+        try:
+            encode_hc.hc_episode(s, p, p, len(s) - MF_LIMIT, search, None)
+        except _GaveUp:
+            pass
+        searches += made
+    return {"searches": searches, "steps": finder.steps}
+
+
+def parse_against_pass(rows, kinds, cut: int = 16384) -> dict:
+    """The level 9 parse's episodes, searches and chain steps on the first
+    ``cut`` bytes of each row (`encode_hc_passes.hc_parse_plain`, every
+    search on the spot) against `_pass_counts`' on the same bytes."""
+    import torch
+    from lz4_tpu_torch.ops import encode_hc_passes, encode_opt
+
+    by_row = {}
+    for kind, row in zip(kinds, rows):
+        s = row[:cut]
+        base = torch.frombuffer(bytearray(s), dtype=torch.uint8)
+        prev = encode_opt.opt_chain_plain(base, [0], [len(s)])
+        counts = []
+        encode_hc_passes.hc_parse_plain(base, [0], [0], [len(s)], prev,
+                                        encode_hc_passes.deltas_plain(prev, [len(s)]), len(s),
+                                        256, counts)
+        by_row[kind] = {"parse": counts[0], "pass": _pass_counts(s)}
+    total = {side: {k: sum(r[side][k] for r in by_row.values()) for k in ("searches", "steps")}
+             for side in ("parse", "pass")}
+    return {"level": 9, "row_bytes": cut, "by_row": by_row, "all": total,
+            "pass_over_parse_steps": total["pass"]["steps"] / total["parse"]["steps"]}
 
 
 def _opt_by_min_length(s: bytes, level: int) -> dict:
@@ -469,6 +648,7 @@ def search_split(seed: int, nrows: int, opt: bool = False) -> None:
                       if int(j) < k) / total
     print(json.dumps({"level": 9, "share_in_first_k_searches": kept,
                       "by_search_index": by_row}), flush=True)
+    print(json.dumps(parse_against_pass(rows, kinds)), flush=True)
     for level in (10, 11):
         by_row = {kinds[q]: _opt_by_min_length(s, level) for q, s in enumerate(rows)}
         above = sum(r["seconds"]["above_3"] for r in by_row.values())
@@ -489,7 +669,8 @@ def main(argv=None) -> int:
                     help="the level 10-11 passes (--host: their rounds and searches)")
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked tree whose parses to time against this tree's")
-    ap.add_argument("--iters", type=int, default=2, help="--parent: launches a turn")
+    ap.add_argument("--iters", type=int, default=2, help="launches a timing")
+    ap.add_argument("--levels", default="9,10,11", help="--parent: the levels to time")
     ap.add_argument("--memory", type=Path, default=None,
                     help="--parent: a whole tree whose compress peaks to read beside this one's")
     ap.add_argument("--memory-of", type=Path, default=None, help=argparse.SUPPRESS)
@@ -510,7 +691,8 @@ def main(argv=None) -> int:
         return 0
     dev = torch.device("cuda", 0)
     if args.parent is not None:
-        parent_turns(cs, args.parent.resolve(), args.iters, dev)
+        parent_turns(cs, args.parent.resolve(), args.iters,
+                     [int(x) for x in args.levels.split(",")], dev)
         here = Path(__file__).resolve().parent
         for tree in ([args.memory.resolve(), here] if args.memory is not None else []):
             out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--memory-of",
@@ -528,12 +710,16 @@ def main(argv=None) -> int:
                 cs, *_windows(cs, mix, 1 << 16, chained), 1 << 16, level, dev)}), flush=True)
         print(cs.card_line())
         return 0
+    import numpy as np
+
+    noise = np.random.default_rng(2).integers(0, 256, 64 << 20, dtype=np.uint8).tobytes()
     for name, data, block, chained in (
         ("mix_independent", mix, 1 << 16, False), ("mix_chained", mix, 1 << 16, True),
         ("lz4_9_rows", cs.make_corpus(64 << 20, 0), 4 << 20, False),
+        ("random_4MiB", noise, 4 << 20, False),
     ):
-        report = {"payload": name,
-                  **_report(cs, *_windows(cs, data, block, chained), block, dev)}
+        report = {"payload": name, **_report(cs, *_windows(cs, data, block, chained), block,
+                                             dev, args.iters)}
         print(json.dumps(report), flush=True)
     print(cs.card_line())
     return 0

@@ -69,7 +69,7 @@
 //    pattern analysis, chain swap) over the tables with the level's depth.
 //    Writes (length, offset), or (0, 0) when nothing is longer than 3
 //    bytes, for every position of the row (zeros outside the searched
-//    span).  A search whose work passes its budget (BudgetChain: chain
+//    span).  A search whose work passes its budget (SliceChain: chain
 //    steps plus bytes measured) gives up and writes (-1 - the longest match
 //    it had found, 0): in a long repeat every position would measure the
 //    whole repeat at every step, work that the serial parse, which jumps
@@ -483,6 +483,7 @@ __global__ void __launch_bounds__(32) opt_seg_tail(SegPlan p, const long long* _
   __shared__ int lane_pos[32];
   __shared__ int first;
   const int row = blockIdx.x;
+  if (p.row_last[row] >= 0) return;  // settled in a round
   const int g0 = p.segoff[row], K = p.segoff[row + 1] - g0;
   const int lane = lane_id();
   OptCell* table = cells + (static_cast<long long>(p.nseg) + row) * kSegCells;
@@ -696,7 +697,7 @@ extern "C" int lz4t_opt_parse_spec(const void* base, const void* starts, const v
   if (e != cudaSuccess) return static_cast<int>(e);
   for (int r = 0; r < rounds; ++r) {
     opt_seg_walks<<<nseg, 32, 0, st>>>(p, tf, pv, mt, depth, sufficient, cells, r);
-    seg_check<<<nrows, 128, 0, st>>>(p, r);
+    seg_round_check(p, r, st);
   }
   opt_seg_tail<<<nrows, 32, 0, st>>>(p, tf, pv, mt, depth, sufficient, cells);
   e = cudaGetLastError();

@@ -24,12 +24,14 @@
 // (encode_opt.cu, encode_hc_passes.cu; FrontierChain reads the ring's
 // answers from those tables when positions past the search are inserted).
 // The OPT parse (opt_parse) and one HC episode (hc_episode) take their
-// search as a callable: opt_scan and hc_scan hand them the ring's, the
-// passes a read of a table of searches made ahead.  opt_parse_rounds is
-// the OPT parse at levels 10-12 by one warp, its searches made up to 32 at
-// a time over TableChain and its price-table steps spread over the lanes
-// (opt_seed_warp, opt_add_warp).  SliceChain is BudgetChain over a slice of
-// a row whose chain deltas are staged in shared memory (the match pass).
+// search as a callable: opt_scan and hc_scan hand them the ring's, the HC
+// parse by segments FrontierChain's, the level 10-12 passes a read of a
+// table of searches made ahead.  opt_parse_rounds is the OPT parse at
+// levels 10-12 by one warp, its searches made up to 32 at a time over
+// TableChain and its price-table steps spread over the lanes
+// (opt_seed_warp, opt_add_warp).  SliceChain is a budgeted TableChain over
+// a slice of a row whose chain deltas are staged in shared memory (the
+// match pass).
 
 #pragma once
 
@@ -78,6 +80,7 @@ struct Chain {
   int ihigh;       // match limit: n - LAST_LITERALS
   int attempts;    // chain steps per search
   static constexpr bool kBudgeted = false;
+  static constexpr bool kCapped = false;
 
   __device__ inline void insert(int upto);
   // the most recent inserted position of hash h (the search is at pos)
@@ -117,6 +120,7 @@ struct TableChainT {
   int attempts;
   int budget;  // read with kBudget only
   static constexpr bool kBudgeted = kBudget;
+  static constexpr bool kCapped = false;
 
   __device__ __forceinline__ void insert(int) {}
   __device__ __forceinline__ int first(int, int pos) const { return prev[pos]; }
@@ -126,9 +130,8 @@ struct TableChainT {
   }
 };
 using TableChain = TableChainT<false>;
-using BudgetChain = TableChainT<true>;
 
-// BudgetChain over one slice of a row's positions, its chain deltas staged
+// TableChainT<true> over one slice of a row's positions, its chain deltas staged
 // in shared memory (encode_opt.cu opt_matches_rows): min(q - prev[q],
 // 0xFFFF) for q in [lo, the slice's end) at delta[q - lo].  A search at pos
 // in the slice reads its head prev[pos] from device memory and its chain
@@ -136,7 +139,7 @@ using BudgetChain = TableChainT<true>;
 // lowest: wider_match steps from a candidate it has checked against
 // `lowest`, or from one inside the current best, which ends at or before
 // pos.  So every step reads a staged delta.  The bytes are read from the
-// row in device memory (through L1).  The answers are BudgetChain's.
+// row in device memory (through L1).  The answers are TableChainT<true>'s.
 struct SliceChain {
   const uint8_t* s;
   const int* prev;
@@ -146,6 +149,7 @@ struct SliceChain {
   int attempts;
   int budget;
   static constexpr bool kBudgeted = true;
+  static constexpr bool kCapped = false;
 
   __device__ __forceinline__ void insert(int) {}
   __device__ __forceinline__ int first(int, int pos) const { return __ldg(prev + pos); }
@@ -161,7 +165,9 @@ struct SliceChain {
 // (q & 0xFFFF), as the ring overwrites it.  With frontier == pos it reads
 // what TableChain reads.  Each step reads `delta`, min(q - prev[q],
 // 0xFFFF) as a u16 per position: half prev's bytes, so that a row's last
-// 64 K steps and bytes fit one SM's L1.
+// 64 K steps and bytes fit one SM's L1.  `cap` (below ihigh) is a position
+// no forward measure passes: a search whose measure reaches it returns -1
+// (the match may run past it; encode_hc_passes.cu's walks end there).
 struct FrontierChain {
   const uint8_t* s;
   const int* prev;
@@ -169,7 +175,9 @@ struct FrontierChain {
   int ihigh;
   int attempts;
   int frontier;
+  int cap;
   static constexpr bool kBudgeted = false;
+  static constexpr bool kCapped = true;
 
   __device__ __forceinline__ void insert(int pos) {
     if (pos > frontier) frontier = pos;
@@ -264,7 +272,11 @@ __device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
       }
       int limit = c.ihigh;
       if constexpr (C::kBudgeted) limit = min(limit, ip + kMinMatch + c.budget - work + 1);
+      if constexpr (C::kCapped) limit = min(limit, c.cap);
       const int run = run_length(s, cand + kMinMatch, ip + kMinMatch, limit);
+      if constexpr (C::kCapped) {
+        if (c.cap < c.ihigh && ip + kMinMatch + run >= c.cap) return -1;
+      }
       if constexpr (C::kBudgeted) {
         if (run > c.budget - work) return -1 - max(longest, run + 4);
         work += run;
@@ -310,7 +322,11 @@ __device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
         if (repeat_confirmed) {
           int end = c.ihigh;
           if constexpr (C::kBudgeted) end = min(end, ip + 5 + c.budget - work);
+          if constexpr (C::kCapped) end = min(end, c.cap);
           const int run = count_pattern(s, ip + 4, end, pattern);
+          if constexpr (C::kCapped) {
+            if (c.cap < c.ihigh && ip + 4 + run >= c.cap) return -1;
+          }
           if constexpr (C::kBudgeted) {
             if (run > c.budget - work) return -1 - max(longest, run + 4);
             work += run;
@@ -319,9 +335,15 @@ __device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
         }
       }
       if (repeat_confirmed && cand2 >= lowest && read32(s, cand2) == pattern) {
-        int end = c.ihigh, floor = 0;
+        // the backward run is cut at lowest below (a budgeted search: where
+        // its work runs out), so it is measured no further
+        int end = c.ihigh, floor = lowest;
         if constexpr (C::kBudgeted) end = min(end, cand2 + 5 + c.budget - work);
+        if constexpr (C::kCapped) end = min(end, c.cap);
         const int run = count_pattern(s, cand2 + 4, end, pattern);
+        if constexpr (C::kCapped) {
+          if (c.cap < c.ihigh && cand2 + 4 + run >= c.cap) return -1;
+        }
         if constexpr (C::kBudgeted) {
           if (run > c.budget - work) return -1 - max(longest, run + 4);
           work += run;
@@ -366,23 +388,17 @@ __device__ int wider_match(C& c, int ip, int ilow, int longest, int& m_start,
   return longest;
 }
 
-// A sink that writes nothing: the episode pass runs episodes for their
-// searches alone.
-struct NullSink {};
-
-__device__ __forceinline__ void emit(NullSink&, const uint8_t*, int, int, int, int) {}
-
 // The HC arm's search over a chain source: wider_match without the chain
 // swap, pattern analysis from 256 attempts (level 9) up.  A search callable
 // of hc_episode is search(ip, ilow, longest, m_start, m_pos) -> length, the
 // caller presetting m_start = ip and m_pos = -1; one whose kCanStop is set
-// may return a negative length, which ends the episode where it stands.
+// may return a negative length (a capped chain's measure reached its cap),
+// which ends the episode where it stands.
 template <class C>
 struct ChainSearch {
   C& c;
   bool pa;
-  static constexpr bool kCanStop = false;
-  __device__ __forceinline__ void begin(int) {}
+  static constexpr bool kCanStop = C::kCapped;
   __device__ __forceinline__ int operator()(int ip, int ilow, int longest, int& m_start,
                                             int& m_pos) {
     return wider_match(c, ip, ilow, longest, m_start, m_pos, pa, false);
@@ -526,18 +542,14 @@ search3:
 }
 
 // The HC arm's parse of a row: episodes from src_off until the last match
-// position, then the final literals.  search.begin(ip) is called where each
-// episode starts.
+// position, then the final literals.
 template <class Search>
 __device__ void hc_parse(const uint8_t* s, int src_off, int n, Sink& o, Search& search) {
   int anchor = src_off;
   if (n - src_off >= kMfLimit + 1) {
     const int mflimit = n - kMfLimit;
     int ip = src_off;
-    while (ip <= mflimit) {
-      search.begin(ip);
-      hc_episode(s, mflimit, ip, anchor, o, search);
-    }
+    while (ip <= mflimit) hc_episode(s, mflimit, ip, anchor, o, search);
   }
   emit(o, s, anchor, n - anchor, 0, 0);
 }

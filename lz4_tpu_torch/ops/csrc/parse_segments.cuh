@@ -18,18 +18,20 @@
 // row's last segment at the row's end).
 //
 // Each round: the walk kernel walks every segment to walk (round 0: all,
-// each from its guessed state, ip = anchor = key = lo); then seg_check,
-// one CTA per row: its threads compute the links of the segments next to
-// a walk of the round (seg_link, a merge of two state lists), then one
-// thread settles the row (seg_settle): the first segment without a valid
+// each from its guessed state, ip = anchor = key = lo); then seg_links
+// computes the links of the segments next to a walk of the round
+// (seg_link, a merge of two state lists, a thread a segment), and
+// seg_check, one CTA per row, settles the row (seg_settle, one thread
+// scanning records its CTA stages): the first segment without a valid
 // link, and for every such segment a walk in the next round from its
-// predecessor's end state.  After the rounds, the tail kernel (one CTA a
-// row) walks the row's first segment not exact from its predecessor's end
-// and links it, until every segment is.  Then seg_sizes (a warp a
-// segment) counts the bytes of each segment's kept sequences (the last
-// kept segment of a row with the row's last literals) and seg_write (a
-// warp a segment) writes them at their row's offsets: the sum of the
-// sizes of the segments before.
+// predecessor's end state (a row settled in an earlier round is left
+// alone).  After the rounds, the tail kernel (one CTA a row) walks the
+// row's first segment not exact from its predecessor's end and links it,
+// until every segment is.  Then seg_sizes (a warp a segment) counts the
+// bytes of each segment's kept sequences (the last kept segment of a row
+// with the row's last literals), seg_offsets (a CTA a row) scans them into
+// each segment's offset in its row, and seg_write (a warp a segment)
+// writes them there.
 //
 // What bounds the schedule: the walks, each a dependent walk of its
 // segment and overlap; a round is as slow as its slowest walk.  The checks
@@ -47,12 +49,16 @@
 
 namespace lz4t {
 
-// The HC parse's segments: its walks are one thread each, every resident
-// at once on the card for 64 MiB of 4 MiB rows (4,096 walks, 32 CTAs an
-// SM); the overlap covers every link seen on the bench mix (within 150
-// positions of a segment's start at level 9, ops/parse_segments.py).
-constexpr int kHcSegment = 16384;
-constexpr int kHcOverlap = 1024;
+// The HC parse's segments: its walks are one thread each, 128 to a CTA; a
+// walk's time grows with its length, so short segments, many walks at
+// once, are fastest until the schedule's rounds and links take over.
+// Parse ms (hc9bench.py; NVIDIA H100 80GB HBM3, 700 W), 256 x 64 KB / 16
+// x 4 MiB of the mix / 16 x 4 MiB of random bytes, by (segment, overlap):
+// (256, 64) 19.6 / 82.3 / 28.5; (512, 128) 26.1 / 65.3 / 25.4; (1024,
+// 256) 44.6 / 82.4 / 19.3; (4096, 256) 132.4 / 229.9 / 19.6.  At 512 +
+// 128, 0.4-0.9% of the mix's segments are walked again in a second round.
+constexpr int kHcSegment = 512;
+constexpr int kHcOverlap = 128;
 // The OPT parse's segments: a warp each (its price table in device
 // memory, 32 an SM); the links seen at level 11 lie within ~510
 // positions of a segment's start (ops/parse_segments.py).
@@ -104,10 +110,11 @@ struct SegPlan {
   SegLink* links;
   int* todo;
   int* walked;  // the round of each segment's last walk (-1: none)
-  int4* next;   // the state each segment is walked from next
-  int* row_last;  // each row's last kept segment once every one is exact
+  int4* next;   // the state each segment is walked from next (w 1: an exact one)
+  int* row_last;  // each row's last kept segment once every one is exact (-1 before)
+  int* row_bad;   // a kept segment's walk held more sequences than its records (seg_settle)
   int* lits;      // where the literals before each segment's first kept sequence start
-  int* seg_bytes;
+  int* seg_bytes;  // each segment's bytes (seg_sizes), then their offsets in the row
   int* stats;  // [rounds + kStatInts]
 };
 
@@ -131,6 +138,7 @@ inline size_t seg_scratch(SegPlan& p, void* scratch, long long nseg, int nrows) 
   p.walked = static_cast<int*>(take(nseg * sizeof(int)));
   p.next = static_cast<int4*>(take(nseg * sizeof(int4)));
   p.row_last = static_cast<int*>(take(nrows * sizeof(int)));
+  p.row_bad = static_cast<int*>(take(nrows * sizeof(int)));
   p.lits = static_cast<int*>(take(nseg * sizeof(int)));
   p.seg_bytes = static_cast<int*>(take(nseg * sizeof(int)));
   return at;
@@ -276,6 +284,17 @@ __device__ __forceinline__ int seg_kept_to(const SegPlan& p, int k, int last, in
   return k == last ? p.walks[g].nseq : p.links[g + 1].keep_to;
 }
 
+__device__ __forceinline__ void prefetch_l1(const void* q) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(q));
+#endif
+}
+
+// How far ahead of its scan seg_settle prefetches a segment's records: one
+// thread reads them one segment after another (~3 dependent L2 reads a
+// segment without it).
+constexpr int kSettleAhead = 16;
+
 // The row's first segment not exact (K where every one is; then its last
 // kept segment to row_last, and each kept segment's literal start to
 // lits: the end of the row's kept sequence before its first, which may
@@ -287,51 +306,91 @@ __device__ __forceinline__ int seg_kept_to(const SegPlan& p, int k, int last, in
 // effective end, and a free walk (SegWalk::free: its states read no
 // anchor) where its ip and key are: its own end's effective anchor is
 // then that end's (it read none).
-__device__ inline int seg_settle(const SegPlan& p, int row) {
+// The scan's state from one segment to the next (seg_settle_step).
+struct SegSettle {
+  int K, f, last, prev_kind, prev_ip;
+  int4 eff;  // the effective end of the walk before
+};
+
+__device__ inline SegSettle seg_settle_begin(const SegPlan& p, int row) {
   const int g0 = p.segoff[row], K = p.segoff[row + 1] - g0;
-  int f = K, last = K - 1;
-  int prev_kind = kLinkMade, prev_ip = p.src_offs[row];
   const SegWalk w0 = p.walks[g0];
-  int4 eff = make_int4(w0.end_ip, w0.end_anchor, w0.end_key, 0);  // the effective end
-  for (int k = 1; k < K; ++k) {
-    const int g = g0 + k;
-    SegLink l = p.links[g];
-    if (l.kind == kLinkCovered) {
-      last = k - 1;
-      break;
-    }
-    bool ok = l.kind == kLinkMade && (prev_kind != kLinkMade || l.ip >= prev_ip);
-    const SegWalk b = p.walks[g];
-    const bool walked = p.walked[g] >= 0;
-    if (!ok && walked && eff.x >= 0 && b.start_ip == eff.x && b.start_key == eff.z &&
-        (b.start_anchor == eff.y || b.free)) {
-      l = SegLink{kLinkMade, p.walks[g - 1].nseq, 0, b.start_ip, b.start_key,
-                  b.start_anchor != eff.y};
-      p.links[g] = l;
-      ok = true;
-    }
-    if (!ok) {
-      if (f == K) f = k;
-      p.next[g] = eff;
-      p.todo[g] = 1;
-    }
-    prev_kind = l.kind;
-    prev_ip = l.ip;
-    eff = walked ? make_int4(b.end_ip, l.free ? eff.y : b.end_anchor, b.end_key, 0)
-                 : make_int4(-1, 0, 0, 0);
+  return SegSettle{K, K, K - 1, kLinkMade, p.src_offs[row],
+                   make_int4(w0.end_ip, w0.end_anchor, w0.end_key, 0)};
+}
+
+// Segment k (g, k >= 1) of the scan, given its link l, walk b and whether
+// it was walked; false where the scan ends (a covered link).
+__device__ inline bool seg_settle_step(const SegPlan& p, SegSettle& c, int k, int g, SegLink l,
+                                       const SegWalk& b, bool walked) {
+  if (l.kind == kLinkCovered) {
+    c.last = k - 1;
+    return false;
   }
-  if (f < K) return f;
+  bool ok = l.kind == kLinkMade && (c.prev_kind != kLinkMade || l.ip >= c.prev_ip);
+  const int4 eff = c.eff;
+  if (!ok && walked && eff.x >= 0 && b.start_ip == eff.x && b.start_key == eff.z &&
+      (b.start_anchor == eff.y || b.free)) {
+    l = SegLink{kLinkMade, p.walks[g - 1].nseq, 0, b.start_ip, b.start_key,
+                b.start_anchor != eff.y};
+    p.links[g] = l;
+    ok = true;
+  }
+  if (!ok) {
+    if (c.f == c.K) c.f = k;
+    p.next[g] = make_int4(eff.x, eff.y, eff.z, c.f == k);  // w: the first, whose start is exact
+    p.todo[g] = 1;
+  }
+  c.prev_kind = l.kind;
+  c.prev_ip = l.ip;
+  c.eff = walked ? make_int4(b.end_ip, l.free ? eff.y : b.end_anchor, b.end_key, 0)
+                 : make_int4(-1, 0, 0, 0);
+  return true;
+}
+
+// After the scan: the first segment not exact, or K where every one is,
+// and then the row's last kept segment and each kept one's literal start.
+__device__ inline int seg_settle_end(const SegPlan& p, int row, const SegSettle& c) {
+  if (c.f < c.K) return c.f;
+  const int g0 = p.segoff[row], last = c.last;
   p.row_last[row] = last;
-  int end = p.src_offs[row];
+  int end = p.src_offs[row], bad = 0;
   for (int k = 0; k <= last; ++k) {
-    const int g = g0 + k, a = seg_kept_from(p, k, g), b = seg_kept_to(p, k, last, g);
+    const int g = g0 + k, a = seg_kept_from(p, k, g);
+    int b = seg_kept_to(p, k, last, g);
+    if (b > p.seq_cap) {  // sequences past the walk's records: the row's output is flagged
+      bad = 1;
+      b = p.seq_cap;
+    }
+    if (k + kSettleAhead <= last) {
+      prefetch_l1(p.links + g + kSettleAhead);
+      prefetch_l1(p.walks + g + kSettleAhead);
+    }
     p.lits[g] = end;
     if (b > a) {
       const SegSeq q = p.seqs[static_cast<long long>(g) * p.seq_cap + b - 1];
       end = q.start + q.len;
     }
   }
-  return K;
+  p.row_bad[row] = bad;
+  return c.K;
+}
+
+// The scan by one thread, its records read from device memory (the serial
+// tails).
+__device__ inline int seg_settle(const SegPlan& p, int row) {
+  const int g0 = p.segoff[row];
+  SegSettle c = seg_settle_begin(p, row);
+  for (int k = 1; k < c.K; ++k) {
+    const int g = g0 + k;
+    if (k + kSettleAhead < c.K) {  // the records a few segments on into L1
+      prefetch_l1(p.links + g + kSettleAhead);
+      prefetch_l1(p.walks + g + kSettleAhead);
+      prefetch_l1(p.walked + g + kSettleAhead);
+    }
+    if (!seg_settle_step(p, c, k, g, p.links[g], p.walks[g], p.walked[g] >= 0)) break;
+  }
+  return seg_settle_end(p, row, c);
 }
 
 }  // namespace lz4t
@@ -340,16 +399,107 @@ namespace {
 
 using namespace lz4t;
 
-// After a round's walks: one CTA per row.
-__global__ void __launch_bounds__(128) seg_check(SegPlan p, int round) {
+constexpr int kCheckThreads = 128;
+constexpr int kCheckChunk = 256;  // segments staged at a time for the scan
+
+// A settled row's literal starts and record flag, by the CTA (what
+// seg_settle_end's loop does one segment after another, ~1 us each): each
+// kept segment's last kept sequence's end, then a scan that carries the
+// last such end before each segment (src_off before the first).
+__device__ inline void seg_lits(const SegPlan& p, int row, int last) {
+  __shared__ int warp_end[kCheckThreads / 32];
+  const int g0 = p.segoff[row];
+  const int lane = lane_id(), warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  int carry = p.src_offs[row], bad = 0;
+  for (int base = 0; base <= last; base += blockDim.x) {
+    const int k = base + static_cast<int>(threadIdx.x), g = g0 + k;
+    int end = -1;  // no kept sequence
+    if (k <= last) {
+      const int a = seg_kept_from(p, k, g);
+      int b = seg_kept_to(p, k, last, g);
+      if (b > p.seq_cap) {  // sequences past the walk's records: the row's output is flagged
+        bad = 1;
+        b = p.seq_cap;
+      }
+      if (b > a) {
+        const SegSeq q = p.seqs[static_cast<long long>(g) * p.seq_cap + b - 1];
+        end = q.start + q.len;
+      }
+    }
+    int x = end;  // the warp's scan: the last end at or before each lane
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, d);
+      if (lane >= d && x < 0) x = y;
+    }
+    if (lane == 31) warp_end[warp] = x;
+    __syncthreads();
+    int before = carry, after = carry;  // the last end before this warp, and before the next step
+    for (int w = 0; w < warps; ++w) {
+      if (warp_end[w] >= 0) {
+        if (w < warp) before = warp_end[w];
+        after = warp_end[w];
+      }
+    }
+    const int left = __shfl_up_sync(kFull, x, 1);
+    if (k <= last) p.lits[g] = lane > 0 && left >= 0 ? left : before;
+    carry = after;
+    __syncthreads();  // the ends read before the next step writes them
+  }
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) p.row_bad[row] = bad;
+}
+
+// After a round's walks, first: the link of every segment next to a walk
+// of the round (not a row's first), a thread a segment.
+__global__ void __launch_bounds__(kCheckThreads) seg_links(SegPlan p, int round) {
+  const int g = blockIdx.x * kCheckThreads + threadIdx.x;
+  if (g >= p.nseg) return;
+  const int row = p.seg_row[g];
+  if (g == p.segoff[row] || p.row_last[row] >= 0) return;
+  if (p.walked[g] == round || p.walked[g - 1] == round) p.links[g] = seg_link(p, g);
+}
+
+// Then one CTA per row (a row settled in an earlier round has nothing left
+// to walk or link: row_last is set): its threads stage the row's records
+// kCheckChunk segments at a time in shared memory, where one thread scans
+// them (seg_settle, whose reads one after another from device memory took
+// ~1 us a segment); a row that settles gets its literal starts from the
+// whole CTA (seg_lits).
+__global__ void __launch_bounds__(kCheckThreads) seg_check(SegPlan p) {
+  __shared__ SegLink links[kCheckChunk];
+  __shared__ SegWalk walks[kCheckChunk];
+  __shared__ int walked[kCheckChunk];
+  __shared__ int more;
   const int row = blockIdx.x;
+  if (p.row_last[row] >= 0) return;
   const int g0 = p.segoff[row], K = p.segoff[row + 1] - g0;
-  for (int k = 1 + threadIdx.x; k < K; k += blockDim.x) {
-    const int g = g0 + k;
-    if (p.walked[g] == round || p.walked[g - 1] == round) p.links[g] = seg_link(p, g);
+  SegSettle c{};
+  if (threadIdx.x == 0) {
+    c = seg_settle_begin(p, row);
+    more = 1;
+  }
+  for (int k0 = 1; k0 < K; k0 += kCheckChunk) {
+    const int n = min(kCheckChunk, K - k0);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      links[i] = p.links[g0 + k0 + i];
+      walks[i] = p.walks[g0 + k0 + i];
+      walked[i] = p.walked[g0 + k0 + i];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < n && more; ++i)
+        more = seg_settle_step(p, c, k0 + i, g0 + k0 + i, links[i], walks[i], walked[i] >= 0);
+    }
+    __syncthreads();
+    if (!more) break;
+  }
+  __shared__ int settled;  // the row's last kept segment once it settles, else -1
+  if (threadIdx.x == 0) {
+    settled = c.f == c.K ? c.last : -1;
+    if (settled >= 0) p.row_last[row] = settled;
   }
   __syncthreads();
-  if (threadIdx.x == 0) seg_settle(p, row);
+  if (settled >= 0) seg_lits(p, row, settled);
 }
 
 __device__ __forceinline__ int vle_bytes(int v) { return v >= 15 ? 1 + (v - 15) / 255 : 0; }
@@ -371,7 +521,8 @@ struct SegKeep {
 __device__ inline SegKeep seg_keep(const SegPlan& p, int g, const SegBounds& bd) {
   const int last = p.row_last[bd.row];
   if (bd.k > last) return SegKeep{-1, -1, 0, false};
-  return SegKeep{seg_kept_from(p, bd.k, g), seg_kept_to(p, bd.k, last, g), p.lits[g],
+  return SegKeep{seg_kept_from(p, bd.k, g), min(seg_kept_to(p, bd.k, last, g), p.seq_cap),
+                 p.lits[g],
                  bd.k == last};
 }
 
@@ -434,15 +585,55 @@ struct ByteOut {
   }
 };
 
-// `count` bytes of s from `from` to out[at..], by the warp.
+// `count` bytes of s from `from` to out[at..], by the warp: 16 bytes a lane
+// a step (a row of incompressible bytes is one run of literals).
 __device__ __forceinline__ void warp_copy(uint8_t* out, int cap, int at, const uint8_t* s,
                                           int from, int count) {
-  for (int i = lane_id(); i < count; i += 32)
+  int i = lane_id() * 16;
+  for (; i + 16 <= count; i += 512) {
+    uint8_t b[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) b[j] = s[from + i + j];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (at + i + j < cap) out[at + i + j] = b[j];
+  }
+  for (const int stop = min(i + 16, count); i < stop; ++i)  // the lane's last, partial 16
     if (at + i < cap) out[at + i] = s[from + i];
 }
 
 // Literal runs a lane copies itself; longer ones the warp copies.
 constexpr int kLaneLiterals = 16;
+
+// Each row's segment sizes to their exclusive prefix sums, in place: a CTA
+// a row, 256 segments a step.
+__global__ void __launch_bounds__(256) seg_offsets(SegPlan p) {
+  __shared__ int warp_sums[8];
+  const int row = blockIdx.x;
+  const int g0 = p.segoff[row], K = p.segoff[row + 1] - g0;
+  const int lane = lane_id(), warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < K; base += 256) {
+    const int k = base + static_cast<int>(threadIdx.x);
+    const int v = k < K ? p.seg_bytes[g0 + k] : 0;
+    int x = v;  // the warp's inclusive scan
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < 8; ++w) {
+      const int t = warp_sums[w];
+      if (w < warp) before += t;
+      total += t;
+    }
+    if (k < K) p.seg_bytes[g0 + k] = carry + before + x - v;
+    carry += total;
+    __syncthreads();  // the sums read before the next step writes them
+  }
+}
 
 // Each segment's kept sequences at its row's offset, a warp a segment: 32
 // sequences a step, their offsets a scan of their sizes; the last kept
@@ -456,10 +647,7 @@ __global__ void __launch_bounds__(32) seg_write(SegPlan p, uint8_t* __restrict__
   const SegKeep keep = seg_keep(p, g, bd);
   if (keep.a < 0) return;
   const int lane = lane_id();
-  const int g0 = p.segoff[bd.row];
-  int op = 0;  // the bytes of the row's segments before g
-  for (int j = g0 + lane; j < g; j += 32) op += p.seg_bytes[j];
-  for (int d = 16; d; d >>= 1) op += __shfl_xor_sync(kFull, op, d);
+  int op = p.seg_bytes[g];  // the bytes of the row's segments before g (seg_offsets)
   uint8_t* row = out + bd.row * out_stride;
   const int cap = static_cast<int>(out_stride);
   const SegSeq* seqs = p.seqs + static_cast<long long>(g) * p.seq_cap;
@@ -518,10 +706,16 @@ __global__ void __launch_bounds__(32) seg_write(SegPlan p, uint8_t* __restrict__
   }
   warp_copy(row, cap, op, bd.s, end, ll);
   op += ll;
-  if (lane == 0) {
+  if (lane == 0) {  // a row whose records fell short is flagged as an output that overflowed
     clens[bd.row] = op;
-    errs[bd.row] = op > ocap ? 1 : 0;
+    errs[bd.row] = op > ocap || p.row_bad[bd.row] ? 1 : 0;
   }
+}
+
+// After round r's walks: the links, then each row settled.
+inline void seg_round_check(const SegPlan& p, int r, cudaStream_t st) {
+  seg_links<<<(p.nseg + kCheckThreads - 1) / kCheckThreads, kCheckThreads, 0, st>>>(p, r);
+  seg_check<<<p.nrows, kCheckThreads, 0, st>>>(p);
 }
 
 // The rounds' start: no segment walked or linked, no row settled.
@@ -530,15 +724,17 @@ inline cudaError_t seg_reset(const SegPlan& p, cudaStream_t st) {
   if (e == cudaSuccess) e = cudaMemsetAsync(p.links, 0, sizeof(SegLink) * p.nseg, st);
   if (e == cudaSuccess) e = cudaMemsetAsync(p.todo, 0, sizeof(int) * p.nseg, st);
   if (e == cudaSuccess) e = cudaMemsetAsync(p.walks, 0, sizeof(SegWalk) * p.nseg, st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(p.row_last, 0xFF, sizeof(int) * p.nrows, st);
   if (e == cudaSuccess)
     e = cudaMemsetAsync(p.stats, 0, sizeof(int) * (p.rounds + kStatInts), st);
   return e;
 }
 
-// After the rounds and the tail: the sizes, then the bytes.
+// After the rounds and the tail: the sizes, their offsets, then the bytes.
 inline cudaError_t seg_emit(const SegPlan& p, void* out, long long out_stride, int ocap,
                             void* clens, void* errs, cudaStream_t st) {
   seg_sizes<<<p.nseg, 32, 0, st>>>(p);
+  seg_offsets<<<p.nrows, 256, 0, st>>>(p);
   seg_write<<<p.nseg, 32, 0, st>>>(p, static_cast<uint8_t*>(out), out_stride, ocap,
                                   static_cast<int*>(clens), static_cast<int*>(errs));
   return cudaGetLastError();

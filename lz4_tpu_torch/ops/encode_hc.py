@@ -7,7 +7,7 @@ which the TPU kernel `pallas_encode5` reproduces byte for byte: a hash-chain
 finder over a u16 delta ring (wider match with backward extension,
 repeated-pattern acceleration, chain swap), the ML1/ML2/ML3 lookahead parse
 in episodes (`hc_episode`, each over a search it is handed, as the HC
-passes of `encode_hc_passes` replay it) and the price-model optimal parse
+parse by segments of `encode_hc_passes` walks it) and the price-model optimal parse
 over 4,096-position windows.  Every
 function works over a flat window s = [prefix | block]: the prefix
 s[:src_off] (a dictionary, or the 64 KB of a chained frame before the block)
@@ -76,6 +76,11 @@ def measure_steps(run: int, room: int, word_ends: bool = False) -> int:
     return k + (k < words) + run - 4 * k + (run < room)
 
 
+class Capped(Exception):
+    """A search's measure reached `ChainFinder.cap`: the match it measures
+    may run past it."""
+
+
 class ChainFinder:
     """Hash-chain match finder: the head table (2^15 most recent positions)
     and the u16 delta ring indexed pos & 0xFFFF at every window size."""
@@ -88,6 +93,9 @@ class ChainFinder:
     work = 0  # the last search's work: chain steps plus bytes measured
     dependent = 0  # the last search's dependent steps, if count_dependent
     count_dependent = False  # count them (`measure_steps`, a call a measure)
+    # a position no forward measure passes (the HC parse's segment walks,
+    # csrc FrontierChain::cap): one that reaches it raises Capped
+    cap = None
 
     def __init__(self, s, match_limit: int, max_attempts: int):
         self.s = s
@@ -122,9 +130,12 @@ class ChainFinder:
         unbounded one does.  ``self.work`` is set to the search's work and,
         with ``self.count_dependent``, ``self.dependent`` to its dependent
         steps: one per chain step plus each measure's `measure_steps` (the
-        chain swap's scans left out)."""
+        chain swap's scans left out).  With ``self.cap`` below the match
+        limit, a forward measure (a match's length, a pattern run) cut
+        there raises `Capped`."""
         s, delta, mask, budget = self.s, self.delta, self.mask, self.budget
         ihigh = self.match_limit
+        cap = self.cap if self.cap is not None and self.cap < ihigh else None
         pos = ip
         lowest = max(0, pos - DISTANCE_MAX)
         lookback = ip - ilow
@@ -166,7 +177,11 @@ class ChainFinder:
                         back -= 1
                 room = budget - work
                 limit = min(ihigh, ip + MIN_MATCH + room + 1)
+                if cap is not None:
+                    limit = min(limit, cap)
                 run = run_length(s, cand + MIN_MATCH, ip + MIN_MATCH, limit)
+                if cap is not None and ip + MIN_MATCH + run >= cap:
+                    raise Capped
                 if tally:
                     dep += measure_steps(run, limit - ip - MIN_MATCH, True)
                 if run > room:
@@ -215,7 +230,11 @@ class ChainFinder:
                     if repeat_confirmed:
                         room = budget - work
                         end = min(ihigh, ip + 5 + room)
+                        if cap is not None:
+                            end = min(end, cap)
                         run = _count_pattern(s, ip + 4, end, pattern)
+                        if cap is not None and ip + 4 + run >= cap:
+                            raise Capped
                         self.pattern_bytes += run
                         if tally:
                             dep += measure_steps(run, end - ip - 4)
@@ -227,7 +246,11 @@ class ChainFinder:
                 if repeat_confirmed and cand2 >= lowest and read32(s, cand2) == pattern:
                     room = budget - work
                     end = min(ihigh, cand2 + 5 + room)
+                    if cap is not None:
+                        end = min(end, cap)
                     run = _count_pattern(s, cand2 + 4, end, pattern)
+                    if cap is not None and cand2 + 4 + run >= cap:
+                        raise Capped
                     self.pattern_bytes += run
                     if tally:
                         dep += measure_steps(run, end - cand2 - 4)
@@ -288,14 +311,10 @@ def hc_episode(s, ip: int, anchor: int, mf_limit: int, search, out, put=None):
 
     ``search(ip, ilow, longest)`` is the widest-match search, (length,
     m_start, m_pos) with m_start = ip and m_pos = -1 when nothing beat
-    ``longest``, or None, which ends the episode where it stands.  What an
-    episode searches depends only on the window, ip and those answers.
-    Returns (ip, anchor) where the parse goes on, or None."""
+    ``longest``.  What an episode searches depends only on the window, ip
+    and those answers.  Returns (ip, anchor) where the parse goes on."""
     put = put or (emit if out is not None else _no_emit)
-    got = search(ip, ip, MIN_MATCH - 1)
-    if got is None:
-        return None
-    ml, _, ref = got
+    ml, _, ref = search(ip, ip, MIN_MATCH - 1)
     if ml < MIN_MATCH:
         return ip + 1, anchor
     start0, ref0, ml0 = ip, ref, ml
@@ -304,10 +323,7 @@ def hc_episode(s, ip: int, anchor: int, mf_limit: int, search, out, put=None):
     while True:
         if state == 2:
             if ip + ml <= mf_limit:
-                got = search(ip + ml - 2, ip, ml)
-                if got is None:
-                    return None
-                ml2, start2, ref2 = got
+                ml2, start2, ref2 = search(ip + ml - 2, ip, ml)
             else:
                 ml2 = ml
             if ml2 == ml:  # no better overlap: emit ML1
@@ -332,10 +348,7 @@ def hc_episode(s, ip: int, anchor: int, mf_limit: int, search, out, put=None):
                 ref2 += corr
                 ml2 -= corr
         if start2 + ml2 <= mf_limit:
-            got = search(start2 + ml2 - 3, start2, ml2)
-            if got is None:
-                return None
-            ml3, start3, ref3 = got
+            ml3, start3, ref3 = search(start2 + ml2 - 3, start2, ml2)
         else:
             ml3 = ml2
         if ml3 == ml2:  # stable pair: emit ML1 then ML2

@@ -903,7 +903,7 @@ def opt_parse_segments_plain(base_u8, starts, src_offs, lens, prev, matches, bca
             got = (ml, p - mp) if ml > min_len and mp >= 0 else (0, 0)
             return (*got, finder.steps - steps)
 
-        def walk(start, stop, s=s, t=t, search=search, mf_limit=parse_limit(off, n)):
+        def walk(start, stop, _exact, s=s, t=t, search=search, mf_limit=parse_limit(off, n)):
             w = Walk(start)
             tl = _rounds_tally()
 

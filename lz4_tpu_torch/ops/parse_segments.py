@@ -7,10 +7,10 @@ A row's parse is a walk from state to state: the HC parse's top of loop is
 an episode's start, the OPT parse's a window's start (or the next 32
 positions read where none had a match).  The parse from a state is a
 function of that state once its searches come from tables of positions
-(`encode_opt.opt_chain`, `opt_matches`, `encode_hc_passes.hc_episodes`):
+(`encode_opt.opt_chain`, `opt_matches`, `encode_hc_passes.hc_deltas`):
 - HC: (ip, F), F the row's frontier raised to ip (the highest search
-  position so far): a search at or past F reads the tables, one behind it
-  takes the ring's answers at F; the anchor only enters the bytes written;
+  position so far): every search takes the ring's answers at F from the
+  chain tables; the anchor only enters the bytes written;
 - OPT (levels 10-11): (ip, anchor): a window's seed prices read the
   literal run ip - anchor.
 So the schedule cuts the parse positions [src_off, n - 12] of a row into
@@ -115,11 +115,15 @@ def schedule(src_off: int, n: int, segment: int, overlap: int, head: int,
              tally: dict | None = None):
     """A row's kept sequences and last anchor by the segment schedule.
 
-    ``walk(start, stop)`` walks from the state ``start`` (ip, anchor, key)
-    and returns a `Walk` whose states are the ones to record; ``stop`` is
-    the position at or past which its first state ends it (None: the row's
-    end; a block shorter than 13 bytes has one segment, whose walk takes no
-    step).  ``head`` is the number of states a walk keeps from its start,
+    ``walk(start, stop, exact)`` walks from the state ``start`` (ip,
+    anchor, key) and returns a `Walk` whose states are the ones to record;
+    ``stop`` is the position at or past which its first state ends it
+    (None: the row's end; a block shorter than 13 bytes has one segment,
+    whose walk takes no step); ``exact`` says that ``start`` is the row's
+    own state there: a row's first segment in the first round, the first
+    segment not exact in a later round (its predecessor's effective end),
+    every walk of the tail (the HC walks measure their first episode in
+    full then, `encode_hc_passes.hc_parse_segments_plain`).  ``head`` is the number of states a walk keeps from its start,
     ``tail_cap`` and ``seq_cap`` the most states past s_{k+1} and
     sequences a walk may hold (the kernels' capacities, asserted here).
 
@@ -147,9 +151,9 @@ def schedule(src_off: int, n: int, segment: int, overlap: int, head: int,
     links = [None] * K  # (k-1 keeps up to, k keeps from, ip, state), COVERED or None
     links[0] = (0, 0, src_off, None)
 
-    def do_walk(k, start):
+    def do_walk(k, start, exact):
         stop = s[k + 1] + overlap if k < K - 1 else None
-        w = walk(start, stop)
+        w = walk(start, stop, exact)
         w.head = w.states[:head]
         w.tail = [st for st in w.states if k < K - 1 and st[0] >= s[k + 1]]
         w.free = w.keyed or (w.free and not w.tail)
@@ -185,7 +189,8 @@ def schedule(src_off: int, n: int, segment: int, overlap: int, head: int,
         tail state), where its ip and key are, its own end's anchor then
         that end's; every segment without a valid link set to be walked
         from that effective end.  Returns (the first
-        segment not exact, K where every one is; [(segment, start)])."""
+        segment not exact, K where every one is; [(segment, start, whether
+        that start is exact: the first segment's)])."""
         f, todo, eff = K, [], walks[0].end
         for k in range(1, K):
             lk, b = links[k], walks[k]
@@ -200,19 +205,19 @@ def schedule(src_off: int, n: int, segment: int, overlap: int, head: int,
                 ok = True
             if not ok:
                 f = min(f, k)
-                todo.append((k, eff))
+                todo.append((k, eff, f == k))
             if b is None or b.end is None:
                 eff = None
             else:
                 eff = (b.end[0], eff[1] if lk and len(lk) > 4 and lk[4] else b.end[1], b.end[2])
         return f, todo
 
-    todo = [(k, (s[k], s[k], s[k])) for k in range(K)]
+    todo = [(k, (s[k], s[k], s[k]), k == 0) for k in range(K)]
     for _ in range(max_rounds):
         if not todo:
             break
-        most = max(do_walk(k, start) for k, start in todo)
-        todo = [k for k, _ in todo]
+        most = max(do_walk(*job) for job in todo)
+        todo = [k for k, _, _ in todo]
         tl["rounds"] += 1
         tl["walks_per_round"].append(len(todo))
         changed = sorted({k for k in todo if k} | {k + 1 for k in todo if k + 1 < K})
@@ -220,11 +225,11 @@ def schedule(src_off: int, n: int, segment: int, overlap: int, head: int,
         todo = check()[1]
     if walks[0] is None:  # no round: the tail starts at segment 0
         tl["tail_walks"] += 1
-        tl["steps"] += do_walk(0, (src_off, src_off, src_off))
+        tl["steps"] += do_walk(0, (src_off, src_off, src_off), True)
     while (got := check())[0] < K:  # the serial tail
         f = got[0]
         tl["tail_walks"] += 1
-        tl["steps"] += do_walk(f, dict(got[1])[f]) + compute(f) + K
+        tl["steps"] += do_walk(f, {k: st for k, st, _ in got[1]}[f], True) + compute(f) + K
         if f + 1 < K:
             tl["steps"] += compute(f + 1)
     seqs = []

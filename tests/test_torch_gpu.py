@@ -635,14 +635,13 @@ def test_hc_passes_match_plain(cuda):
     base, st, so, ln = _opt_rows()
     before = _launches(9)
     prev = encode_opt.opt_chain(base.to(cuda), st, ln)
-    tables = encode_hc_passes.hc_episodes(base.to(cuda), st, so, ln, prev)
-    got = encode_hc_passes.hc_parse(base.to(cuda), st, so, ln, prev, tables, BLOCK)
+    deltas = encode_hc_passes.hc_deltas(prev, ln)
+    got = encode_hc_passes.hc_parse(base.to(cuda), st, so, ln, prev, deltas, BLOCK)
     torch.cuda.synchronize()
     assert _launches(9) == [n + 1 for n in before]
-    prev_h, tables_h = prev.cpu(), tuple(t.cpu() for t in tables)
-    _equal(tables_h, encode_hc_passes.hc_episodes_plain(base, st, so, ln, prev_h))
-    _equal(got, encode_hc_passes.hc_parse_plain(base, st, so, ln, prev_h, tables_h, BLOCK))
-    assert int((tables_h[0][:, 0] < -1).sum()) > 0  # the repeats gave up
+    prev_h, deltas_h = prev.cpu(), deltas.cpu()
+    _equal([deltas_h], [encode_hc_passes.deltas_plain(prev_h, ln)])
+    _equal(got, encode_hc_passes.hc_parse_plain(base, st, so, ln, prev_h, deltas_h, BLOCK))
 
 
 def _segment_parse(model: str, cuda, rows, **kw):
@@ -659,10 +658,10 @@ def _segment_parse(model: str, cuda, rows, **kw):
     if model == "hc":
         sizes = (kw.get("segment", encode_hc_passes.HC_SEGMENT),
                  kw.get("overlap", encode_hc_passes.HC_OVERLAP), rounds)
-        tables = encode_hc_passes.hc_episodes(base_d, st, so, ln, prev)
-        got = encode_hc_passes.hc_parse(base_d, st, so, ln, prev, tables, bcap, 256, **kw)
+        deltas = encode_hc_passes.hc_deltas(prev, ln)
+        got = encode_hc_passes.hc_parse(base_d, st, so, ln, prev, deltas, bcap, 256, **kw)
         stats = encode_opt.segment_stats(encode_hc_passes.hc_parse.stats, rounds)
-        args = base, st, so, ln, prev.cpu(), tuple(t.cpu() for t in tables), bcap, 256
+        args = base, st, so, ln, prev.cpu(), deltas.cpu(), bcap, 256
         want = encode_hc_passes.hc_parse_plain(*args)
         mine = encode_hc_passes.hc_parse_segments_plain(*args, *sizes, counts)
     else:
@@ -733,18 +732,19 @@ def test_segment_parse_spans_segments_at_its_sizes(model, cuda):
 
 
 @pytest.mark.parametrize("level", [3, 9])
-@pytest.mark.parametrize("slots,budget", [(1, 0), (encode_hc_passes.SLOTS, 1 << 16)])
-def test_hc_passes_equal_the_serial_arm(level, slots, budget, cuda):
-    """The passes' output equals kernel D's serial HC arm, with every
-    search made on the spot by the parse (one slot, budget 0) or read from
-    the tables, and `encode_windows` runs the passes."""
+@pytest.mark.parametrize("segment", [encode_hc_passes.HC_SEGMENT, 64])
+def test_hc_passes_equal_the_serial_arm(level, segment, cuda):
+    """The passes' output equals kernel D's serial HC arm, at the kernel's
+    segments and at segments of 64 positions (many walks a row, each
+    searching on the spot from its guessed start), and `encode_windows`
+    runs the passes."""
     base, st, so, ln = _opt_rows()
     base_d = base.to(cuda)
     depth = 4 if level == 3 else 256
     prev = encode_opt.opt_chain(base_d, st, ln)
-    tables = encode_hc_passes.hc_episodes(base_d, st, so, ln, prev, depth, slots,
-                                          budget=budget, first_budget=budget)
-    got = encode_hc_passes.hc_parse(base_d, st, so, ln, prev, tables, BLOCK, depth)
+    deltas = encode_hc_passes.hc_deltas(prev, ln)
+    got = encode_hc_passes.hc_parse(base_d, st, so, ln, prev, deltas, BLOCK, depth,
+                                    segment=segment, overlap=segment // 4)
     serial0 = encode_stream.encode_windows_hc.launches
     want = encode_stream.encode_windows_hc_serial(base_d, st, so, ln, BLOCK, level)
     assert encode_stream.encode_windows_hc.launches == serial0 + 1
@@ -755,9 +755,8 @@ def test_hc_passes_equal_the_serial_arm(level, slots, budget, cuda):
 
 def test_hc_passes_in_groups_match_one_group(cuda, monkeypatch):
     """The HC passes over a batch cut into several groups of rows
-    (`encode_hc_passes.row_groups` under a small table budget, one launch
-    of each pass per group) give what one group and the serial arm give;
-    on the card the budget is also held under half the free memory."""
+    (`encode_opt.row_groups` under a small table budget, one launch of each
+    pass per group) give what one group and the serial arm give."""
     data = chip_smoke.make_corpus(1 << 20, 15)
     base = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
     nb = len(data) // BLOCK
@@ -765,13 +764,8 @@ def test_hc_passes_in_groups_match_one_group(cuda, monkeypatch):
     so = torch.zeros(nb, dtype=torch.int32)
     ln = torch.full((nb,), BLOCK, dtype=torch.int32)
     whole = encode_hc_passes.encode_windows_hc_passes(base, st, so, ln, BLOCK, 9)
-    free, _ = torch.cuda.mem_get_info(cuda)
-    budget = encode_hc_passes.group_budget(cuda)
-    assert 0 < budget <= encode_hc_passes.GROUP_TABLE_BYTES
-    assert budget <= (free + torch.cuda.memory_reserved(cuda)) // 2
-    monkeypatch.setattr(encode_hc_passes, "GROUP_TABLE_BYTES",
-                        3 * encode_hc_passes.table_bytes(BLOCK, BLOCK))
-    groups = encode_hc_passes.row_groups(so, ln, encode_hc_passes.group_budget(cuda))
+    monkeypatch.setattr(encode_opt, "GROUP_TABLE_BYTES", 3 * BLOCK * encode_opt.TABLE_BYTES)
+    groups = encode_opt.row_groups(ln)
     assert len(groups) == -(-nb // 3)
     before, idle = _launches(9), _idle(9)
     parts = encode_hc_passes.encode_windows_hc_passes(base, st, so, ln, BLOCK, 9)
@@ -780,6 +774,25 @@ def test_hc_passes_in_groups_match_one_group(cuda, monkeypatch):
     assert _idle(9) == idle
     _equal(parts, whole)
     _equal(parts, encode_stream.encode_windows_hc_serial(base, st, so, ln, BLOCK, 9))
+
+
+def test_hc_parse_of_long_repeats_on_the_card(cuda):
+    """4 MiB of zeros and 4 MiB of a 3-byte pattern at level 9: every
+    walk's measures stop a segment past its stop, so the repeat is
+    measured in full once, in the second round, by the walk from the first
+    one's end, which covers the row (and by the row's last walks, whose
+    caps lie past its end); the serial arm's bytes."""
+    n = 4 << 20
+    base = torch.cat([torch.zeros(n, dtype=torch.uint8),
+                      torch.tensor(list(b"abc") * (n // 3 + 1), dtype=torch.uint8)[:n]]).to(cuda)
+    st, so, ln = [0, n], [0, 0], [n, n]
+    prev = encode_opt.opt_chain(base, st, ln)
+    got = encode_hc_passes.hc_parse(base, st, so, ln, prev, encode_hc_passes.hc_deltas(prev, ln),
+                                    n)
+    stats = encode_opt.segment_stats(encode_hc_passes.hc_parse.stats, encode_opt.SEGMENT_ROUNDS)
+    _equal(got, encode_stream.encode_windows_hc_serial(base, st, so, ln, n, 9))
+    assert stats["rounds"] == 2 and stats["tail_walks"] == 0 and stats["overflow"] == 0
+    assert 0 < stats["walks_per_round"][1] < 2 * (n // encode_hc_passes.HC_SEGMENT)
 
 
 @pytest.mark.parametrize("level", [9, 12])

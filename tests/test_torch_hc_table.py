@@ -1,13 +1,12 @@
-"""The HC arm (levels 3-9) as three passes
+"""The HC arm (levels 3-9) as passes
 (`lz4_tpu_torch/ops/encode_hc_passes.py`): the plain versions of the chain,
-episode and parse passes composed give exactly the bytes of the serial
-plain parse (`encode_hc.encode_hc`), of the JAX package's `pallas_encode5`
-and `pallas_encode_stream` in interpret mode and of its host route; every
-recorded search equals a `ChainFinder` search with the same key; long
-repeats give up under the budget with the same bytes; and the frontier
-property the passes rest on holds on every case (the plain episode pass
-asserts it in every episode).  Rows are kept small: the plain episode pass
-is a Python episode at every position."""
+deltas and parse passes composed, and the parse by segments' model
+(`hc_parse_segments_plain`), give exactly the bytes of the serial plain
+parse (`encode_hc.encode_hc`), of the JAX package's `pallas_encode5` and
+`pallas_encode_stream` in interpret mode and of its host route; every
+search the parse makes on the spot equals a `ChainFinder` search with the
+same key over the ring; long repeats give the serial bytes with no budget;
+and the frontier property the parse rests on holds on every case."""
 
 import functools
 import random
@@ -51,22 +50,34 @@ def _bytes(res):
     return [out[i, :int(clens[i])].numpy().tobytes() for i in range(clens.numel())]
 
 
-def _passes(base, st, so, ln, bcap, level, slots=HP.SLOTS, counts=None, **budgets):
-    """The three plain passes one by one: (out, clens, errs) and the
-    episode tables."""
+# the model's segments on the CPU tests' small rows: many segments a row
+SEGMENT, OVERLAP = 1024, 256
+
+
+def _passes(base, st, so, ln, bcap, level, counts=None):
+    """The plain passes one by one: the chain, the deltas, then the parse
+    (`hc_parse_plain`'s (out, clens, errs), its per-row counts into
+    ``counts``) and its model by segments (`hc_parse_segments_plain` at
+    `SEGMENT`, `OVERLAP`); returns both outputs and (prev, deltas)."""
     depth = EH.level_arm(level)[1]
     prev = EO.opt_chain(base, st, ln)
-    tables = HP.hc_episodes(base, st, so, ln, prev, depth, slots, **budgets)
-    got = HP.hc_parse_plain(base, st, so, ln, prev, tables, bcap, depth, counts)
-    return got, tables, prev
+    deltas = HP.hc_deltas(prev, ln)
+    got = HP.hc_parse_plain(base, st, so, ln, prev, deltas, bcap, depth, counts)
+    model = HP.hc_parse_segments_plain(base, st, so, ln, prev, deltas, bcap, depth, SEGMENT,
+                                       OVERLAP)
+    return got, model, (prev, deltas)
 
 
 def _hold(base, st, so, ln, bcap, level):
-    """The plain passes composed against the serial plain parse."""
+    """The plain passes composed, and the parse by segments' model, against
+    the serial plain parse."""
     ours = HP.encode_windows_hc_passes(base, st, so, ln, bcap, level)
     theirs = ES.encode_windows_plain(base, st, so, ln, bcap, level)
     assert _bytes(ours) == _bytes(theirs)
     for a, b in zip(ours, theirs):
+        assert torch.equal(a, b)
+    _, model, _ = _passes(base, st, so, ln, bcap, level)
+    for a, b in zip(model, theirs):
         assert torch.equal(a, b)
 
 
@@ -110,6 +121,8 @@ def test_passes_match_pallas(level, interpret):
         assert np.array_equal(out[i, :clens[i]].numpy(), jout[i, :jclens[i]]), i
     theirs = ES.encode_windows_plain(flat, starts, [0] * len(rows), lens.tolist(), N, level)
     assert _bytes((out, clens, errs)) == _bytes(theirs)
+    _, model, _ = _passes(flat, starts, [0] * len(rows), lens.tolist(), N, level)
+    assert _bytes(model) == _bytes(theirs)
 
 
 def test_chained_windows_match_pallas_stream(interpret):
@@ -131,7 +144,10 @@ def test_chained_windows_match_pallas_stream(interpret):
     jout, jclens, _ = (np.asarray(t) for t in JES.encode_blocks_pallas_stream(
         bufs, lens, cap, level, dicts=dicts, dict_lens=np.asarray(dls, np.int32)))
     got = HP.encode_windows_hc_passes(*_flat(blocks, prefixes), cap, level)
-    assert _bytes(got) == [jout[k, :jclens[k]].tobytes() for k in range(len(ats))]
+    want = [jout[k, :jclens[k]].tobytes() for k in range(len(ats))]
+    assert _bytes(got) == want
+    _, model, _ = _passes(*_flat(blocks, prefixes), cap, level)
+    assert _bytes(model) == want
 
 
 def _case(name):
@@ -162,84 +178,84 @@ def test_passes_equal_the_serial_parse(name, level):
     _hold(*_case(name), level)
 
 
-def test_every_record_equals_a_chain_finder_search():
-    """Each answered search of the episode tables is what a `ChainFinder`
+class _LoggedFinder(HP.FrontierFinder):
+    """`FrontierFinder` that logs each search: its key, the frontier it was
+    made at and its answer."""
+
+    log = []
+
+    def wider_match(self, ip, ilow, longest, pattern_analysis, chain_swap=False):
+        got = super().wider_match(ip, ilow, longest, pattern_analysis, chain_swap)
+        self.log.append((ip, ilow, longest, self.frontier, got))
+        return got
+
+
+def test_every_search_equals_a_chain_finder_search(monkeypatch):
+    """Each search the parse makes on the spot is what a `ChainFinder`
     over the ring answers with the same key and exactly the positions
-    below the search inserted (the keys walked in position order)."""
+    below the search inserted (the searches in the parse's order)."""
+    monkeypatch.setattr(HP, "FrontierFinder", _LoggedFinder)
+    checked = 0
     for name in ("bench_mix", "chained_window"):
-        base, st, so, ln, _ = _case(name)
+        base, st, so, ln, bcap = _case(name)
         st, so, ln = st[:1], so[:1], ln[:1]
         prev = EO.opt_chain(base, st, ln)
-        first, more, _ = HP.hc_episodes(base, st, so, ln, prev, 256)
-        soff, _ = HP.slot_offsets(so, ln)
-        checked = 0
-        for a, off, n, q in zip(st, so, ln, soff.tolist()):
-            s = base[a:a + n].numpy().tobytes()
-            keys = []
-            for p in range(off, min(n, off + 2048)):
-                recs = HP._unpack_head(p, first[q + p - off].tolist())
-                recs += more[q + p - off].tolist()
-                keys += [tuple(r) for r in recs if r and r[0] >= 0]
-            finder = EH.ChainFinder(s, n - 5, 256)
-            finder.insert_upto(off)
-            for key in sorted(k for k in keys if k[3] >= 0):
-                finder.insert_upto(key[0])
-                assert finder.next_to_insert == key[0]
-                assert finder.wider_match(*key[:3], True) == key[3:], key
-                checked += 1
-        assert checked > 500
+        _LoggedFinder.log = []
+        HP.hc_parse_plain(base, st, so, ln, prev, HP.hc_deltas(prev, ln), bcap, 256)
+        s = base[st[0]:st[0] + ln[0]].numpy().tobytes()
+        finder = EH.ChainFinder(s, ln[0] - 5, 256)
+        finder.insert_upto(so[0])
+        for ip, ilow, longest, frontier, got in _LoggedFinder.log:
+            assert frontier == ip  # the frontier property: no search behind another
+            finder.insert_upto(ip)
+            assert finder.next_to_insert == ip
+            assert finder.wider_match(ip, ilow, longest, True) == got, (ip, ilow, longest)
+            checked += 1
+    assert checked > 500
 
 
 @pytest.mark.parametrize("level", [4, 9])
 @pytest.mark.parametrize("name", ["one_byte", "three_byte_pattern"])
-def test_long_repeats_give_up_under_the_budget(name, level):
-    """In a long repeat every position's first search measures the repeat
-    past the budget and gives up; the parse makes the few it reaches on
-    the spot, with the serial parse's bytes."""
+def test_long_repeats_give_the_serial_bytes_with_no_budget(name, level):
+    """In a long repeat the parse measures the repeat once, at the first
+    search that reaches it, and never searches inside the match it takes:
+    no budget, few searches, the serial parse's bytes, also by segments
+    that start inside the repeat."""
     base, st, so, ln, bcap = _case(name)
     counts = []
-    got, (first, _, _), _ = _passes(base, st, so, ln, bcap, level, counts=counts)
-    assert bool((first[10:1000, 0] < -1).all())
-    assert counts[0]["on_the_spot"] > 0
-    assert _bytes(got) == _bytes(ES.encode_windows_plain(base, st, so, ln, bcap, level))
+    got, model, _ = _passes(base, st, so, ln, bcap, level, counts=counts)
+    want = _bytes(ES.encode_windows_plain(base, st, so, ln, bcap, level))
+    assert _bytes(got) == _bytes(model) == want
+    assert 0 < counts[0]["searches"] * 10 < int(ln[0]) - int(so[0])
 
 
-@pytest.mark.parametrize("slots", [1, 2, 8])
-def test_any_number_of_slots_gives_the_same_bytes(slots):
-    """Fewer slots leave more searches to the parse, with the same bytes;
-    with 8 the parse of the mix reads most of its searches."""
+@pytest.mark.parametrize("segment", [16, 100, 4096])
+def test_any_segment_length_gives_the_same_bytes(segment):
+    """The model by segments at any segment length (overlaps of a quarter
+    of it) gives the serial parse's bytes on the mix; the shortest
+    segments walk again where their overlap is too short to meet."""
     base, st, so, ln, bcap = _case("bench_mix")
     counts = []
-    got, _, _ = _passes(base, st, so, ln, bcap, 9, slots, counts)
+    got = HP.hc_parse_segments_plain(base, st, so, ln, EO.opt_chain(base, st, ln),
+                                     HP.hc_deltas(EO.opt_chain(base, st, ln), ln), bcap, 256,
+                                     segment, segment // 4, counts=counts)
     assert _bytes(got) == _bytes(ES.encode_windows_plain(base, st, so, ln, bcap, 9))
-    read = sum(c["read"] for c in counts)
-    spot = sum(c["on_the_spot"] for c in counts)
-    assert read > 0 and (slots < 8 or spot * 20 < read)
+    assert all(c["segments"] == -(-(4096 - 11) // segment) for c in counts)
 
 
-def test_the_key_check_guards_every_record():
-    """A record answers only the search whose key it holds: with every
-    third search's key on moved and no second search kept, the parse makes
-    them on the spot and gives the same bytes; with the answers changed
-    and the keys kept, it reads them and gives other bytes."""
+def test_the_parse_reads_its_steps_from_the_deltas():
+    """The parse's chain steps are the deltas it is given: with
+    `hc_deltas`' it gives the serial bytes, plain and by segments; with
+    each step one longer (a step past a match candidate) other bytes."""
     base, st, so, ln, bcap = _case("bench_mix")
     prev = EO.opt_chain(base, st, ln)
-    first, more, deltas = HP.hc_episodes(base, st, so, ln, prev, 256)
-    want = _bytes(HP.hc_parse(base, st, so, ln, prev, (first, more, deltas), bcap))
-    moved, head = more.clone(), first.clone()
-    moved[:, :, 1] += 1  # ilow
-    moved[:, :, 3] += 1  # the length
-    head[:, 2] = -1  # the second search: not kept
-    counts = []
-    got = HP.hc_parse_plain(base, st, so, ln, prev, (head, moved, deltas), bcap,
-                            counts=counts)
-    assert _bytes(got) == want
-    assert sum(c["read"] for c in counts) == sum(c["episodes"] for c in counts)
-    changed, head = more.clone(), first.clone()
-    changed[:, :, 3] += (changed[:, :, 3] >= 0).to(torch.int32)
-    head[:, 2] += (head[:, 2] >= 0).to(torch.int32)
-    for tables in ((first, changed, deltas), (head, more, deltas)):
-        assert _bytes(HP.hc_parse(base, st, so, ln, prev, tables, bcap)) != want
+    deltas = HP.hc_deltas(prev, ln)
+    want = _bytes(ES.encode_windows_plain(base, st, so, ln, bcap, 9))
+    assert _bytes(HP.hc_parse(base, st, so, ln, prev, deltas, bcap)) == want
+    moved = deltas + (deltas > 0).to(torch.int16)
+    assert _bytes(HP.hc_parse(base, st, so, ln, prev, moved, bcap)) != want
+    assert _bytes(HP.hc_parse_segments_plain(base, st, so, ln, prev, moved, bcap, 256, SEGMENT,
+                                             OVERLAP)) != want
 
 
 def test_frontier_finder_answers_as_the_ring():
@@ -282,8 +298,8 @@ class _FrontierRing(EH.ChainFinder):
 def test_the_serial_parse_never_searches_behind_its_frontier(level, monkeypatch):
     """The frontier property on every case of this file: the serial parse
     makes each search with exactly the positions below it inserted, so the
-    ring never aliases at search time (the plain episode pass asserts the
-    same inside each episode)."""
+    ring never aliases at search time (`test_every_search_equals_a_chain_
+    finder_search` asserts the same of the passes' parse)."""
     monkeypatch.setattr(EH, "ChainFinder", _FrontierRing)
     rows = [(r, 0) for r in _pallas_rows()] + [(CORPUS[84000:104096], 16000)]
     for name in CASES:
@@ -294,45 +310,48 @@ def test_the_serial_parse_never_searches_behind_its_frontier(level, monkeypatch)
 
 
 def test_rows_in_groups_give_the_same_bytes(monkeypatch):
-    """Rows over `GROUP_TABLE_BYTES` run as several groups, one launch of
-    each pass per group, with the bytes of one group."""
+    """Rows over `encode_opt.GROUP_TABLE_BYTES` run as several groups of
+    the OPT passes' rule (`encode_opt.row_groups`), one launch of each pass
+    per group, with the bytes of one group."""
     base, st, so, ln, bcap = _case("bench_mix")
     whole = HP.encode_windows_hc_passes(base, st, so, ln, bcap, 6)
-    monkeypatch.setattr(HP, "GROUP_TABLE_BYTES", 2 * HP.table_bytes(4096, 4096))
-    assert HP.row_groups(so, ln) == [(0, 2), (2, 4)]
+    monkeypatch.setattr(EO, "GROUP_TABLE_BYTES", 2 * 4096 * EO.TABLE_BYTES)
+    assert EO.row_groups(ln) == [(0, 2), (2, 4)]
     for a, b in zip(HP.encode_windows_hc_passes(base, st, so, ln, bcap, 6), whole):
         assert torch.equal(a, b)
-    assert HP.row_groups([0, 0, 0], [10 ** 8, 5, 5]) == [(0, 1), (1, 3)]
 
 
-def test_group_budget_is_explicit_and_the_constant_on_the_cpu():
-    """`row_groups` cuts under the budget it is given (the constant when
-    None), and off the card `group_budget` is `GROUP_TABLE_BYTES`."""
-    _, _, so, ln, _ = _case("bench_mix")
-    assert HP.group_budget("cpu") == HP.GROUP_TABLE_BYTES
-    assert HP.row_groups(so, ln, HP.group_budget("cpu")) == HP.row_groups(so, ln) == [(0, 4)]
-    need = [HP.table_bytes(int(n), int(n) - int(o)) for n, o in zip(ln, so)]
-    assert HP.row_groups(so, ln, need[0] + need[1]) == [(0, 2), (2, 4)]
-    assert HP.row_groups(so, ln, 1) == [(0, 1), (1, 2), (2, 3), (3, 4)]
+@pytest.mark.parametrize("name", ["bench_mix", "chained_window", "past_the_ring"])
+def test_deltas_are_the_chain_steps(name):
+    """`hc_deltas` holds each window position's chain step min(p - prev[p],
+    0xFFFF) as the bits of a u16, laid out as prev: 0xFFFF where a chain
+    ends (no earlier position of its hash) or steps 64 K or more back."""
+    base, st, _, ln, _ = _case(name)
+    prev = EO.opt_chain(base, st, ln)
+    got = (HP.hc_deltas(prev, ln).to(torch.int64) & 0xFFFF).tolist()
+    at = 0
+    for n in ln:
+        for p in range(n):
+            assert got[at + p] == min(p - int(prev[at + p]), 0xFFFF)
+        at += n
+    assert 0xFFFF in got
 
 
 def test_cpu_tensors_count_no_launch_and_tables_are_checked():
     base, st, so, ln, bcap = _case("12_and_13_bytes")
-    passes = (EO.opt_chain, HP.hc_episodes, HP.hc_parse)
+    passes = (EO.opt_chain, HP.hc_deltas, HP.hc_parse)
     counts = [f.launches for f in passes]
     prev = EO.opt_chain(base, st, ln)
-    first, more, deltas = HP.hc_episodes(base, st, so, ln, prev)
-    assert first.shape[1] == HP.HEAD_INTS
-    assert more.shape == (first.shape[0], HP.SLOTS - 2, HP.SLOT_INTS)
-    assert deltas.shape == prev.shape
-    HP.hc_parse(base, st, so, ln, prev, (first, more, deltas), bcap)
+    deltas = HP.hc_deltas(prev, ln)
+    assert deltas.shape == prev.shape and deltas.dtype == torch.int16
+    HP.hc_parse(base, st, so, ln, prev, deltas, bcap)
     assert [f.launches for f in passes] == counts
     with pytest.raises(ValueError, match="prev must be int32"):
-        HP.hc_episodes(base, st, so, ln, prev[1:])
-    with pytest.raises(ValueError, match="episode tables must be int32"):
-        HP.hc_parse(base, st, so, ln, prev, (first[1:], more, deltas), bcap)
-    with pytest.raises(ValueError, match="slots must lie"):
-        HP.hc_episodes(base, st, so, ln, prev, slots=0)
+        HP.hc_deltas(prev[1:], ln)
+    with pytest.raises(ValueError, match="deltas must be int16"):
+        HP.hc_parse(base, st, so, ln, prev, deltas[1:], bcap)
+    with pytest.raises(ValueError, match="deltas must be int16"):
+        HP.hc_parse(base, st, so, ln, prev, prev, bcap)
     with pytest.raises(ValueError, match="not an HC level"):
         HP.encode_windows_hc_passes(base, st, so, ln, bcap, 10)
 
@@ -340,7 +359,7 @@ def test_cpu_tensors_count_no_launch_and_tables_are_checked():
 @pytest.fixture
 def passes_on_the_cpu_route(monkeypatch):
     """The CPU route of `encode_stream.encode_windows` at levels 3-9 through
-    the three plain passes instead of the serial plain parse; yields the
+    the plain passes instead of the serial plain parse; yields the
     number of batches it took."""
     serial = ES.encode_windows_plain
     taken = []

@@ -156,7 +156,7 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     lens = torch.tensor([data.size], dtype=torch.int32)
     e0, d0 = encode.encode_blocks.launches, decode.decode_blocks.launches
     h0, o0 = encode_stream.encode_windows_hc.launches, encode_stream.encode_windows_opt.launches
-    passes = [encode_hc_passes.hc_episodes, encode_hc_passes.hc_parse]
+    passes = [encode_hc_passes.hc_deltas, encode_hc_passes.hc_parse]
     p0 = [f.launches for f in passes]
     for level in (3, 9, 12):
         hc = encode.encode_blocks(bufs, lens, 64, level)

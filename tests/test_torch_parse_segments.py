@@ -14,8 +14,10 @@ rows shorter than one segment, segment boundaries inside a long repeat
 and inside a match longer than `sufficient`, and overlaps too short to
 meet (walked again, in rounds and in the serial tail).  Every link is made
 where the join rule holds: an OPT state where ip == anchor, an HC state
-whose frontier is at its ip.  The plain episode pass is a Python episode
-at every position, so the HC rows' tables are made once and kept."""
+whose frontier is at its ip.  The HC walks make every search on the
+spot over prev and the deltas, none measuring past its stop but from an
+exact start; both models' tables are made once a row and kept.  Four MiB
+of zeros are parsed by segments of 1 and 2 MiB."""
 
 import functools
 import re
@@ -100,7 +102,7 @@ def _bytes(res) -> bytes:
 def _hc_tables(name: str, level: int):
     base, st, so, ln = _window(name)
     prev = EO.opt_chain(base, st, ln)
-    return prev, HP.hc_episodes(base, st, so, ln, prev, EH.level_arm(level)[1])
+    return prev, HP.hc_deltas(prev, ln)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,9 +114,9 @@ def _opt_tables(name: str, level: int):
 
 def _hc_model(name, level, segment, overlap, max_rounds=EO.SEGMENT_ROUNDS):
     base, st, so, ln = _window(name)
-    prev, tables = _hc_tables(name, level)
+    prev, deltas = _hc_tables(name, level)
     counts = []
-    got = HP.hc_parse_segments_plain(base, st, so, ln, prev, tables, max(ln[0] - so[0], 1),
+    got = HP.hc_parse_segments_plain(base, st, so, ln, prev, deltas, max(ln[0] - so[0], 1),
                                      EH.level_arm(level)[1], segment, overlap, max_rounds,
                                      counts)
     return _bytes(got), counts[0]
@@ -250,9 +252,8 @@ def test_frames_of_the_models_equal_the_jax_host_route(level, monkeypatch):
         arm, depth, sufficient, _ = EH.level_arm(lv)
         prev = EO.opt_chain(base, st, ln)
         if arm == "hc":
-            tables = HP.hc_episodes(base, st, so, ln, prev, depth)
-            return HP.hc_parse_segments_plain(base, st, so, ln, prev, tables, bcap, depth,
-                                              1024, 256)
+            return HP.hc_parse_segments_plain(base, st, so, ln, prev, HP.hc_deltas(prev, ln),
+                                              bcap, depth, 1024, 256)
         matches = EO.opt_matches(base, st, so, ln, prev, depth)
         return EO.opt_parse_segments_plain(base, st, so, ln, prev, matches, bcap, depth,
                                            sufficient, 1024, 256)
@@ -263,6 +264,30 @@ def test_frames_of_the_models_equal_the_jax_host_route(level, monkeypatch):
     monkeypatch.setattr(ES, "encode_windows_plain", serial)
     assert ours == jframe.compress(data, jframe.EncoderSettings(**kw), backend="host")
     assert tframe.decompress(ours, device="cpu") == data
+
+
+@pytest.mark.parametrize("segment", [1 << 20, 1 << 21])
+def test_hc_segments_over_4_mib_of_zeros(segment):
+    """Four MiB of zeros at level 9 by segments of ``segment``: every
+    walk's measures stop a segment past its stop, so where that cap lies
+    inside the row, the first walk ends in the first round where the
+    repeat's match begins, and in the second the second segment's walk,
+    from the first's end (an exact start), measures the match in full and
+    covers the row; else the first walk covers it in the first round.  The
+    serial parse's bytes."""
+    n = 4 << 20
+    base = torch.zeros(n, dtype=torch.uint8)
+    prev = EO.opt_chain(base, [0], [n])
+    counts = []
+    got = HP.hc_parse_segments_plain(base, [0], [0], [n], prev, HP.hc_deltas(prev, [n]), n,
+                                     256, segment, 256, counts=counts)
+    assert _bytes(got) == bytes(EH.encode_row(bytes(n), 0, 9))
+    c = counts[0]
+    capped = 2 * segment + 256 < n - 5  # the first walk's cap inside the row
+    assert c["rounds"] == 1 + capped and c["start_links"] == capped
+    assert c["covered"] == c["segments"] - 1 - capped == n // segment - 1 - capped
+    assert c["tail_walks"] == 0
+    _tally_holds(c, EO.SEGMENT_ROUNDS)
 
 
 def test_segments_and_capacities_are_the_sources():
@@ -280,9 +305,9 @@ def test_segments_and_capacities_are_the_sources():
     hc = (csrc / "encode_hc_passes.cu").read_text()
     assert "return overlap / 4 + 2;" in opt and "return overlap + 2;" in hc
     assert "return (segment + overlap + kOptNum) / 4 + 2;" in opt
-    assert "return (segment + overlap) / 4 + 1026;" in hc
+    assert "return (segment + overlap) / 4 + 258;" in hc
     assert EO.opt_segment_caps(16384, 2048) == (514, 514, (16384 + 2048 + 4096) // 4 + 2)
-    assert HP.hc_segment_caps(16384, 1024) == (1026, 1026, (16384 + 1024) // 4 + 1026)
+    assert HP.hc_segment_caps(512, 128) == (130, 130, (512 + 128) // 4 + 258)
 
 
 @pytest.mark.parametrize("segment", [1024, 16384])
@@ -304,11 +329,11 @@ def test_the_cpu_route_is_the_plain_parse_and_launches_nothing():
     arguments, and count no launch; they refuse sizes the kernels cannot
     take."""
     base, st, so, ln = _window("text")
-    prev, tables = _hc_tables("text", 9)
+    prev, deltas = _hc_tables("text", 9)
     _, matches = _opt_tables("text", 10)
     launches = HP.hc_parse.launches, EO.opt_parse_spec.launches
     n = ln[0]
-    assert _bytes(HP.hc_parse(base, st, so, ln, prev, tables, n, 256, 1024, 8, 2)) == \
+    assert _bytes(HP.hc_parse(base, st, so, ln, prev, deltas, n, 256, 1024, 8, 2)) == \
         _serial("text", 9)
     assert _bytes(EO.opt_parse_spec(base, st, so, ln, prev, matches, n, 96, 64, 1024, 8, 2)) == \
         _serial("text", 10)
@@ -316,4 +341,4 @@ def test_the_cpu_route_is_the_plain_parse_and_launches_nothing():
     with pytest.raises(ValueError):
         EO.opt_parse_spec(base, st, so, ln, prev, matches, n, 96, 64, 8)
     with pytest.raises(ValueError):
-        HP.hc_parse(base, st, so, ln, prev, tables, n, 256, 1024, -1)
+        HP.hc_parse(base, st, so, ln, prev, deltas, n, 256, 1024, -1)
