@@ -143,18 +143,24 @@ Phases, each fatal on failure:
    windows in the worker pool); its times at both shapes (the rows' from
    the profiler's device time, with CUDA events per wrapper call beside
    it; the window's from CUDA events) beside the byte bound and the chain
-   bound; the host hash's time on 4 MiB
+   bound, each with its cycles a stripe and its time before its redesign
+   in brackets; the host hash's time on 4 MiB
    (the route it replaces); then the checksummed paths, counts set to 0
    just before and read just after each, each launching kernel E, exact
    and deterministic over three runs after a warm-up: the `lz4` command
    line's default frames (4 MiB independent blocks, content checksum) over
    --mb MiB, 64 KB independent blocks with block and content checksums over
-   --mb MiB, and chained 64 KB blocks with both checksums over --mb MiB; and
-   one profiled compress and decompress of the first.
+   --mb MiB, and chained 64 KB blocks with both checksums over --mb MiB;
+   and one profiled compress and decompress of each, and the ms of kernel
+   E's device time (its content hashes on its side stream) that overlap
+   kernel D and the copies between host and card (CUDA events around the
+   launches and copies of one more compress and decompress).
 
 16. the host surface (`phase_streaming`): kernel E's streaming form
-   (`xxh32_stripes`) against its plain version on windows at starts and
-   lengths 1/15/16/17, a 4 MiB window and the timed 1 MiB update, and
+   (its wrapper `stripes_update`, entry `xxh32_stripes`) against its CPU
+   route on windows at starts and lengths 1/15/16/17 with and without a
+   carried tail, a 4 MiB window, the timed 1 MiB update and 1 MiB updates
+   at odd starts, and
    `XXH32.update` over device updates of 1, 15, 16 and 17 bytes and of
    4 MiB after a carried tail; kernel A's one-warp route with output limits against its
    plain version (limits inside literal runs and overlapping matches,
@@ -507,6 +513,21 @@ def phase_decode(streams, rng, dev):
     print(f"[decode] {len(synth)} sequence-writer rows with dictionaries equal "
           f"and exact (the route rule's route and the one-warp route)")
     return worst
+
+
+def with_content_length(blob: bytes, n: int) -> bytes:
+    """``blob``, a frame whose header carries a content length, with that
+    length set to ``n`` and the header's checksum byte made anew: the
+    header is valid, the length false."""
+    from lz4_tpu_torch.xxh32 import xxh32
+
+    flg = blob[4]
+    _require(flg & 0x08, "the frame's header carries no content length")
+    end = 14 + (4 if flg & 0x01 else 0)  # FLG, BD, the length, a dictionary ID
+    head = bytearray(blob[:end + 1])
+    struct.pack_into("<Q", head, 6, n)
+    head[end] = (xxh32(bytes(head[4:end])) >> 8) & 0xFF
+    return bytes(head) + blob[end + 1:]
 
 
 def _round_trips(data: bytes, settings, dev, counts, kernels=(), idle=(), frames=None):
@@ -1573,38 +1594,154 @@ def phase_fast_rows(data: bytes, dev, pool):
     return entries, summary
 
 
-def profile_path(data: bytes, dev, settings, attempts: int = 3) -> dict:
-    """Device time by name over one compress + decompress of a path
-    (torch.profiler), and the device's busy share of the host's wall time.
-    A report, not a check: a profiler that cannot trace the card yields
-    "not measured".  A trace with no device events (the profiler drops
-    them now and then) is taken again, up to ``attempts`` traces."""
+def _union_ms(spans) -> float:
+    """The time covered by the union of (start, end) spans in us, in ms."""
+    total, lo, hi = 0.0, None, None
+    for a, b in sorted(spans):
+        if hi is None or a > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (total + (0.0 if hi is None else hi - lo)) / 1e3
+
+
+def _overlap_ms(xs, ys) -> float:
+    """The time in ms that the unions of two lists of spans share."""
+    return _union_ms(xs) + _union_ms(ys) - _union_ms(list(xs) + list(ys))
+
+
+def _xxh32_overlaps(spans) -> dict:
+    """Kernel E's device time and how much of it ran while kernel D
+    (`encode_windows`) or a copy between host and card ran, in ms: the
+    content hash on E's side stream beside them."""
+    e = [(a, b) for n, a, b in spans if "xxh32_windows" in n]
+    d = [(a, b) for n, a, b in spans if "encode_windows" in n]
+    copies = [(a, b) for n, a, b in spans if "Memcpy" in n]
+    return {"xxh32_ms": _union_ms(e), "with_encode_ms": _overlap_ms(e, d),
+            "with_copies_ms": _overlap_ms(e, copies)}
+
+
+def stream_overlaps(data: bytes, dev, settings) -> dict:
+    """Kernel E's device time over one compress and one decompress of a
+    path, and the part of it that overlaps kernel D and the copies between
+    host and card, from CUDA events (the profiler drops events): events
+    recorded on its launch's stream around each launch of E
+    (`ops.xxh32._launch`: its content hashes on the side stream, block
+    checksums on the caller's), around each launch of D's FAST scan
+    (`encode_stream._launch_fast`, B's rows too), of the frame's upload and of each
+    copy of a CUDA tensor to the host (`Tensor.cpu`), on the current
+    stream; each span between its two events, all timed from one event
+    recorded first.  The wrappers are in place only for the two calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from lz4_tpu_torch import frame
+    from lz4_tpu_torch.frame import api
+    from lz4_tpu_torch.ops import encode_stream, xxh32
+
+    spans = []
+
+    def timed(name, fn, stream_of):
+        def run(*a, **k):
+            stream = stream_of(*a)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record(stream)
+            out = fn(*a, **k)
+            e1.record(stream)
+            spans.append((name, e0, e1))
+            return out
+        return run
+
+    def current(*_):
+        return torch.cuda.current_stream(dev)
+
+    cpu = torch.Tensor.cpu
+    patches = [(xxh32, "_launch", timed("xxh32_windows", xxh32._launch, lambda *a: a[6])),
+               (encode_stream, "_launch_fast",
+                timed("encode_windows", encode_stream._launch_fast, current)),
+               (api, "upload", timed("Memcpy HtoD", api.upload, current)),
+               (torch.Tensor, "cpu", timed("Memcpy DtoH", cpu, current))]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    torch.cuda.synchronize()
+    base = torch.cuda.Event(enable_timing=True)
+    try:
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        base.record(torch.cuda.current_stream(dev))
+        blob = frame.compress(data, settings, device=dev)
+        cut = len(spans)
+        back = frame.decompress(blob, device=dev)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    torch.cuda.synchronize()
+    _require(back == data, "round trip with events is not exact")
+    us = [(n, base.elapsed_time(a) * 1e3, base.elapsed_time(b) * 1e3) for n, a, b in spans]
+    return {"compress": _xxh32_overlaps(us[:cut]), "decompress": _xxh32_overlaps(us[cut:])}
+
+
+def profile_path(data: bytes, dev, settings, kernels=(), attempts: int = 3) -> dict:
+    """Device time by name over one compress + decompress of a path
+    (torch.profiler), and the device's busy share of the host's wall time:
+    the union of the device's intervals (kernels and copies), which overlap
+    where kernel E's side stream runs beside the other work.  Where E ran,
+    its device time on each side and the part of it that overlaps kernel D
+    and the copies.  A report, not a check: a profiler that cannot trace
+    the card yields "not measured".  The profiler drops events now and
+    then, so a trace that records fewer launches of a kernel than
+    ``kernels`` requires (names, each launched at least once, or {name:
+    the launches the path's counts give}), or has no device events, is
+    taken again, up to ``attempts`` traces; the last one is reported, with
+    the kernels it lacks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
     from lz4_tpu_torch import frame
 
     for attempt in range(1, attempts + 1):
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                frame.decompress(frame.compress(data, settings, device=dev), device=dev)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            device_us = {}
-            for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    device_us[e.key] = device_us.get(e.key, 0.0) + e.self_device_time_total
+                with record_function("chip_smoke.compress"):
+                    blob = frame.compress(data, settings, device=dev)
+                    torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with record_function("chip_smoke.decompress"):
+                    frame.decompress(blob, device=dev)
+                    torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            spans, cut = [], None
+            for e in prof.events():
+                if e.name == "chip_smoke.decompress" and \
+                        e.device_type == torch.autograd.DeviceType.CPU:
+                    cut = e.time_range.start
+                elif e.device_type == torch.autograd.DeviceType.CUDA and \
+                        not getattr(e, "is_user_annotation", False) and \
+                        not e.name.startswith("chip_smoke."):
+                    spans.append((e.name, e.time_range.start, e.time_range.end))
         except Exception as e:  # the report must not end the run
             return {"profile": f"not measured ({e!r})"}
-        busy = sum(device_us.values())
-        if busy:
+        need = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
+        missing = [k for k, n in need.items() if sum(k in m for m, _, _ in spans) < n]
+        if spans and not missing:
             break
-    else:
+    if not spans:
         return {"profile": f"not measured (no device events in {attempts} traces)"}
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
-    return {"profile": {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-                        "device_busy_share": busy / wall_us, "traces": attempt,
-                        "device_ms_by_name": {k[:60]: v / 1e3 for k, v in top}}}
+    by_name = {}
+    for n, a, b in spans:
+        by_name[n] = by_name.get(n, 0.0) + (b - a) / 1e3
+    wall_ms = (t2 - t0) * 1e3
+    busy = _union_ms([(a, b) for _, a, b in spans])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = {"wall_ms": wall_ms, "compress_wall_ms": (t1 - t0) * 1e3,
+           "decompress_wall_ms": (t2 - t1) * 1e3, "device_busy_ms": busy,
+           "device_busy_share": busy / wall_ms, "device_sum_ms": sum(by_name.values()),
+           "traces": attempt, "device_ms_by_name": {k[:60]: v for k, v in top}}
+    if missing:
+        out["missing_kernels"] = missing
+    if any("xxh32_windows" in n for n, _, _ in spans) and cut is not None:
+        out["xxh32_overlap"] = {
+            "compress": _xxh32_overlaps([t for t in spans if t[1] < cut]),
+            "decompress": _xxh32_overlaps([t for t in spans if t[1] >= cut])}
+    return {"profile": out}
 
 
 def _hc_rows(data: bytes, rng):
@@ -3006,6 +3143,20 @@ XXH_LENGTHS = [0, 1, 3, 4, 15, 16, 17, 31, 32, 100, 1024, 4097, 65536]
 # kernel E's dependent chain: a multiply-add, a rotate and a multiply per
 # 16-byte stripe, each waiting for the one before (an estimate, in cycles)
 CHAIN_CYCLES_PER_STRIPE = 10
+# kernel E's times before its redesign (PERF.md §6, H100 80GB HBM3, 700 W:
+# the profiler's device time for rows and the streaming form, CUDA events
+# for the window), printed beside this run's in brackets and not in the
+# `kernels` line: this run does not measure them (`xxhbench.py --parent`
+# times both kernels in turns)
+XXH32_BEFORE_MS = {"xxh32_windows:rows": 0.0463, "xxh32_windows:stream": 41.782,
+                   "xxh32_stripes": 0.6519}
+
+
+def _stripe_cycles(entry: dict, stripes: int, clock: float) -> dict:
+    """Kernel E's `kernels` entry with its measured cycles a stripe (its
+    time at the card's top SM clock over the longest window's stripes)."""
+    entry["cycles_per_stripe"] = entry["ms"] * 1e-3 * clock / stripes
+    return entry
 
 
 def _device_ms(fn, kernel: str, count, iters: int):
@@ -3159,7 +3310,7 @@ def phase_xxh32(data: bytes, rng, dev, windows, futures):
         # stripes one after another at the card's top clock
         byte_ms = moved / HBM_BYTES_PER_S * 1e3
         chain_ms = stripes * CHAIN_CYCLES_PER_STRIPE / clock * 1e3
-        entries.append({
+        entries.append(_stripe_cycles({
             "name": name, "route": "cuda",
             "source": "lz4_tpu_torch/ops/csrc/xxh32.cu",
             "replaces": "lz4_tpu/ops/xxh32_pallas.py:121", "path": path,
@@ -3167,13 +3318,17 @@ def phase_xxh32(data: bytes, rng, dev, windows, futures):
             "bound_ms": max(byte_ms, chain_ms),
             "bound_by": "bytes" if byte_ms >= chain_ms else "operations",
             "byte_bound_ms": byte_ms, "chain_bound_ms": chain_ms,
-            "library_ms": None})
+            "library_ms": None}, stripes, clock))
     for e in entries:
         e["max_abs_err"] = worst
     entries[0]["call_ms"] = rows_call_ms
-    print(f"[xxh32] {rows_ms:.4f} ms per {nb} rows of 64 KB on the device "
-          f"({rows_call_ms:.4f} ms per wrapper call), {stream_ms:.3f} ms "
-          f"per {len(data)}-byte window (max SM clock {clock / 1e6:.0f} MHz); "
+    rows_e, stream_e = entries
+    print(f"[xxh32] {rows_ms:.4f} ms [{XXH32_BEFORE_MS[rows_e['name']]}] per {nb} rows "
+          f"of 64 KB on the device ({rows_call_ms:.4f} ms per wrapper call), "
+          f"{stream_ms:.3f} ms [{XXH32_BEFORE_MS[stream_e['name']]}] per {len(data)}-byte "
+          f"window; "
+          f"{rows_e['cycles_per_stripe']:.2f} / {stream_e['cycles_per_stripe']:.2f} cycles "
+          f"a stripe (bound {CHAIN_CYCLES_PER_STRIPE}; max SM clock {clock / 1e6:.0f} MHz); "
           f"plain {rows_plain_ms:.1f} ms and {plain_s[-1] * 1e3:.1f} ms; the "
           f"host hash it replaces: {host_s:.3f} s per 4 MiB")
     return entries, host_s
@@ -3181,21 +3336,27 @@ def phase_xxh32(data: bytes, rng, dev, windows, futures):
 
 def phase_checksum_paths(data: bytes, dev):
     """The three checksummed round trips; `_round_trips` fails a path that
-    never launches kernel E, as for every kernel it counts."""
+    never launches kernel E, as for every kernel it counts.  Each path is
+    then profiled once (`profile_path`): how many ms of E's device time
+    overlap kernel D and the copies, on compress and on decompress (its
+    content hashes run on E's side stream)."""
     from lz4_tpu_torch import frame
     from lz4_tpu_torch.ops import decode, decode_stream, encode, encode_stream, xxh32
 
-    launches, e2e = {}, {}
-    for name, payload, settings, counts, kernels in (
+    launches, e2e, profiles = {}, {}, {}
+    for name, payload, settings, counts, kernels, traced in (
         ("cli_default", data, _cli_default(),
-         [encode_stream.encode_blocks_stream, decode.decode_blocks], ROW_PASSES),
+         [encode_stream.encode_blocks_stream, decode.decode_blocks], ROW_PASSES,
+         ("encode_windows", "rows_gather")),
         ("independent_both", data,
          frame.EncoderSettings(chain_blocks=False, block_checksum=True,
                                content_checksum=True),
-         [encode.encode_blocks, decode.decode_blocks], ("decode_rows",)),
+         [encode.encode_blocks, decode.decode_blocks], ("decode_rows",),
+         ("encode_windows", "decode_rows")),
         ("chained_both", data,
          frame.EncoderSettings(block_checksum=True, content_checksum=True),
-         [encode_stream.encode_blocks_stream, decode_stream.decode_chain], ()),
+         [encode_stream.encode_blocks_stream, decode_stream.decode_chain], (),
+         ("encode_windows", "chain_parse")),
     ):
         got, rates = _round_trips(payload, settings, dev,
                                   counts + [xxh32.xxh32_windows], kernels)
@@ -3204,7 +3365,19 @@ def phase_checksum_paths(data: bytes, dev):
               f"{rates['frame_bytes']} bytes, round trip exact, deterministic, "
               f"launches {got}; median {rates['compress_GBps_median']:.4f} GB/s "
               f"compress, {rates['decompress_GBps_median']:.4f} GB/s decompress")
-    return launches, e2e
+        need = {k: 1 for k in traced}
+        need["xxh32_windows"] = got["xxh32_windows"]
+        profiles[name] = profile_path(payload, dev, settings, need, attempts=5)
+        over = profiles[name]["overlap_by_events"] = stream_overlaps(payload, dev, settings)
+        print(f"[checksums] {name}: kernel E on its side stream, ms of its device "
+              f"time overlapping D / the copies (CUDA events): compress "
+              f"{over['compress']['with_encode_ms']:.3f} / "
+              f"{over['compress']['with_copies_ms']:.3f} of "
+              f"{over['compress']['xxh32_ms']:.3f}; decompress "
+              f"{over['decompress']['with_encode_ms']:.3f} / "
+              f"{over['decompress']['with_copies_ms']:.3f} of "
+              f"{over['decompress']['xxh32_ms']:.3f}")
+    return launches, e2e, profiles
 
 
 STREAM_WRITE = 1 << 20  # the streaming path's write and read size
@@ -3246,11 +3419,35 @@ def _limited_bytes(comp: bytes, limit: int) -> int:
     return min(ip, n)
 
 
+def stripes_update_both(flat, flat_d, a: int, n: int, tail: bytes, accs):
+    """`stripes_update` (kernel E's streaming form, the wrapper a stream's
+    content hash calls) over flat[a : a + n] after the carried bytes
+    ``tail``, from the accumulators ``accs`` (uint32 values), on the card
+    (``flat_d``, flat's copy there) and on its CPU route: each state read
+    back as (accumulators, tail bytes), (card, cpu)."""
+    from lz4_tpu_torch.ops import xxh32
+
+    out = []
+    for f in (flat_d, flat):
+        state, carried = xxh32.stripes_state(accs, tail, f.device)
+        state, carried = xxh32.stripes_update(state, carried, f[a:a + n])
+        out.append(xxh32.stripes_read(state, carried))
+    return out
+
+
+def _stripes_err(card, cpu) -> int:
+    """The largest difference of two `stripes_update_both` states'
+    accumulators; their tails must be equal."""
+    _require(card[1] == cpu[1], "stripes_update: the carried tails differ")
+    return max(abs(g - w) for g, w in zip(card[0], cpu[0]))
+
+
 def hold_stripes(rng, dev) -> int:
-    """Kernel E's streaming form against its plain version on windows at
-    starts and lengths 1, 15, 16 and 17 and on a 4 MiB window (a CLI-default
-    pull's update) from random accumulators, and `XXH32.update` on CUDA
-    tensors of 1, 15, 16, 17 and longer splits (a tail carried across
+    """Kernel E's streaming form (`stripes_update`) against its CPU route
+    on windows at starts and lengths 1, 15, 16 and 17, with and without a
+    carried tail, and on a 4 MiB window (a CLI-default pull's update) after
+    a carried 9-byte tail, from random accumulators; and `XXH32.update` on
+    CUDA tensors of 1, 15, 16, 17 and longer splits (a tail carried across
     device updates and from a host update) against the one-shot host hash,
     and of 4 MiB after a carried tail against the plain hash."""
     import torch
@@ -3261,25 +3458,20 @@ def hold_stripes(rng, dev) -> int:
     flat = torch.from_numpy(raw)
     flat_d = flat.to(dev)
     worst = 0
-    cases = [(a, n) for a in (0, 1, 15, 16, 17) for n in (0, 1, 15, 16, 17, 33, 65537, 250001)]
-    for a, n in cases:
+    cases = [(a, n, t) for a in (0, 1, 15, 16, 17)
+             for n in (0, 1, 15, 16, 17, 33, 65537, 250001) for t in (0, 9)]
+    for a, n, t in cases:
         accs = [int(x) for x in rng.integers(0, 1 << 32, 4, dtype=np.uint64)]
-        got = xxh32.xxh32_stripes(flat_d, a, n, accs)
-        torch.cuda.synchronize()
-        want = xxh32.xxh32_stripes_plain(flat, a, n, accs)
-        worst = max(worst, _max_abs_err([got.to(torch.int64) & 0xFFFFFFFF],
-                                        [want.to(torch.int64) & 0xFFFFFFFF]))
+        tail = rng.integers(0, 256, t, dtype=np.uint8).tobytes()
+        worst = max(worst, _stripes_err(*stripes_update_both(flat, flat_d, a, n, tail, accs)))
     # a CLI-default pull's update: 4 MiB after a carried 9-byte tail
     big = rng.integers(0, 256, (4 << 20) + 9, dtype=np.uint8)
     big_h = torch.from_numpy(big)
     big_d = big_h.to(dev)
     accs = [int(x) for x in rng.integers(0, 1 << 32, 4, dtype=np.uint64)]
-    got = xxh32.xxh32_stripes(big_d, 9, 4 << 20, accs)
-    torch.cuda.synchronize()
-    want = xxh32.xxh32_stripes_plain(big_h, 9, 4 << 20, accs)
-    worst = max(worst, _max_abs_err([got.to(torch.int64) & 0xFFFFFFFF],
-                                    [want.to(torch.int64) & 0xFFFFFFFF]))
-    _require(worst == 0, "xxh32_stripes: kernel != plain")
+    worst = max(worst, _stripes_err(*stripes_update_both(
+        big_h, big_d, 9, 4 << 20, big[:9].tobytes(), accs)))
+    _require(worst == 0, "stripes_update: kernel != its CPU route")
     h = host.XXH32()
     h.update(big[:9].tobytes())
     h.update(big_d[9:])
@@ -3297,8 +3489,8 @@ def hold_stripes(rng, dev) -> int:
             pos, k = pos + n, k + 1
         _require(h.digest() == host.xxh32(raw[:total].tobytes()),
                  f"XXH32 over device updates of {splits} != the one-shot hash")
-    print(f"[stream] xxh32_stripes: {len(cases)} windows at starts and lengths "
-          f"1/15/16/17 and a 4 MiB window at 9 equal to the plain version; XXH32 "
+    print(f"[stream] stripes_update: {len(cases)} windows at starts and lengths "
+          f"1/15/16/17 and a 4 MiB window after a 9-byte tail equal to its CPU route; XXH32 "
           f"over device updates of 1, 15, 16 and 17 bytes equal to the host hash, "
           f"over 4 MiB after a 9-byte tail to the plain hash")
     return worst
@@ -3629,7 +3821,7 @@ def phase_streaming(data: bytes, rng, dev):
     idle = (host.host_stripes,)
     launches, rates = {}, {}
     cli_counts = [encode_stream.encode_blocks_stream, decode.decode_blocks,
-                  xxh32.xxh32_stripes]
+                  xxh32.stripes_update]
     for name, settings, counts, kernels, size in (
         ("stream_cli_default", _cli_default(), cli_counts, ROW_PASSES, STREAM_WRITE),
         # 64 KiB calls: a Linux pipe's buffer and shutil.copyfileobj's chunk
@@ -3643,7 +3835,7 @@ def phase_streaming(data: bytes, rng, dev):
         ("stream_chained_both",
          frame.EncoderSettings(block_checksum=True, content_checksum=True),
          [encode_stream.encode_blocks_stream, decode_stream.decode_chain,
-          xxh32.xxh32_windows, xxh32.xxh32_stripes], (), STREAM_WRITE),
+          xxh32.xxh32_windows, xxh32.stripes_update], (), STREAM_WRITE),
     ):
         t0 = time.perf_counter()
         one_shot = frame.compress(data, settings, device=dev)
@@ -3677,7 +3869,7 @@ def phase_streaming(data: bytes, rng, dev):
     stream = b"".join(parts)
     t0 = time.perf_counter()
     got, launches["multi_frame"] = _counted(
-        [decode.decode_blocks, decode_stream.decode_chain, xxh32.xxh32_stripes],
+        [decode.decode_blocks, decode_stream.decode_chain, xxh32.stripes_update],
         (), idle, lambda: frame.decompress(stream, device=dev))
     rates["multi_frame"] = {"bytes": 3 * q,
                             "decompress_GBps": 3 * q / (time.perf_counter() - t0) / 1e9}
@@ -3755,20 +3947,29 @@ def phase_streaming(data: bytes, rng, dev):
     # 64 KB block's partial decode to half its length, one 64 KB block with
     # a 64 KB dictionary (a ChainDecoder's)
     clock = float(_nvidia_smi("clocks.max.sm", "nounits")) * 1e6
-    win = torch.frombuffer(bytearray(data[:STREAM_WRITE]), dtype=torch.uint8)
+    win = torch.frombuffer(bytearray(data[:STREAM_WRITE + 16]), dtype=torch.uint8)
     win_d = win.to(dev)
-    accs = list(xxh32._SEEDED)
-    stripes_fn = lambda: xxh32.xxh32_stripes(win_d, 0, STREAM_WRITE, accs)  # noqa: E731
+    seeded = list(xxh32._SEEDED)
+    accs_d, tail_d = xxh32.stripes_state(seeded, b"", dev)
+    side = xxh32.side_stream(dev)
+
+    def stripes_fn():  # one update, the caller's stream made to wait for it
+        xxh32.stripes_update(accs_d, tail_d, win_d[:STREAM_WRITE])
+        torch.cuda.current_stream(dev).wait_stream(side)
+
     stripes_ms, stripes_seen = _device_ms(
-        stripes_fn, "xxh32_windows", lambda: xxh32.xxh32_stripes.launches, 20)
+        stripes_fn, "xxh32_windows", lambda: xxh32.stripes_update.launches, 20)
     stripes_call_ms = _cuda_ms(stripes_fn, 20)
+    accs_c, tail_c = xxh32.stripes_state(seeded, b"", "cpu")
     t0 = time.perf_counter()
-    want = xxh32.xxh32_stripes_plain(win, 0, STREAM_WRITE, accs)
+    xxh32.stripes_update(accs_c, tail_c, win[:STREAM_WRITE])
     stripes_plain_ms = (time.perf_counter() - t0) * 1e3
-    got = stripes_fn()
-    stripes_err = max(stripes_err, _max_abs_err([got.to(torch.int64) & 0xFFFFFFFF],
-                                                [want.to(torch.int64) & 0xFFFFFFFF]))
-    _require(stripes_err == 0, "xxh32_stripes on a 1 MiB update: kernel != plain")
+    # the timed update from the seed, and 1 MiB updates at odd starts, with
+    # and without a carried tail, against the CPU route
+    for a, tail in ((0, b""), (1, b""), (15, b""), (9, data[:7]), (3, data[:15])):
+        stripes_err = max(stripes_err, _stripes_err(*stripes_update_both(
+            win, win_d, a, STREAM_WRITE, tail, seeded)))
+    _require(stripes_err == 0, "stripes_update on a 1 MiB update: kernel != its CPU route")
     byte_ms = (STREAM_WRITE + 32) / HBM_BYTES_PER_S * 1e3
     chain_ms = STREAM_WRITE // 16 * CHAIN_CYCLES_PER_STRIPE / clock * 1e3
     limit = BLOCK // 2
@@ -3812,16 +4013,18 @@ def phase_streaming(data: bytes, rng, dev):
         _require(dict_routes[name]["max_abs_err"] == 0,
                  f"decode_blocks_stream with a dictionary on the {name} route: kernel != plain")
     entries = [
-        {"name": "xxh32_stripes", "route": "cuda",
-         "source": "lz4_tpu_torch/ops/csrc/xxh32.cu",
-         "replaces": "lz4_tpu/ops/xxh32_pallas.py:121",
-         "launches": launches["stream_cli_default"]["xxh32_stripes"],
-         "max_abs_err": stripes_err, "ms": stripes_ms, "plain_ms": stripes_plain_ms,
-         "bound_ms": max(byte_ms, chain_ms),
-         "bound_by": "bytes" if byte_ms >= chain_ms else "operations",
-         "byte_bound_ms": byte_ms, "chain_bound_ms": chain_ms, "library_ms": None,
-         "launches_chained_both": launches["stream_chained_both"]["xxh32_stripes"],
-         "call_ms": stripes_call_ms, "profiled_launches": stripes_seen},
+        _stripe_cycles(
+            {"name": "xxh32_stripes", "route": "cuda", "wrapper": "stripes_update",
+             "source": "lz4_tpu_torch/ops/csrc/xxh32.cu",
+             "replaces": "lz4_tpu/ops/xxh32_pallas.py:121",
+             "launches": launches["stream_cli_default"]["stripes_update"],
+             "max_abs_err": stripes_err, "ms": stripes_ms, "plain_ms": stripes_plain_ms,
+             "bound_ms": max(byte_ms, chain_ms),
+             "bound_by": "bytes" if byte_ms >= chain_ms else "operations",
+             "byte_bound_ms": byte_ms, "chain_bound_ms": chain_ms, "library_ms": None,
+             "launches_chained_both": launches["stream_chained_both"]["stripes_update"],
+             "call_ms": stripes_call_ms, "profiled_launches": stripes_seen},
+            STREAM_WRITE // 16, clock),
         _step_bound(
             {"name": "decode_blocks:limit", "route": "cuda",
              "source": "lz4_tpu_torch/ops/csrc/decode.cu",
@@ -3850,7 +4053,8 @@ def phase_streaming(data: bytes, rng, dev):
         for name, r in dict_routes.items()
     ]
     print(f"[stream] device time per launch (profiled launches of 20; CUDA events "
-          f"per wrapper call): xxh32_stripes {stripes_ms:.4f} ms per 1 MiB update "
+          f"per wrapper call): stripes_update {stripes_ms:.4f} ms "
+          f"[{XXH32_BEFORE_MS['xxh32_stripes']}] per 1 MiB update "
           f"({stripes_seen}; {stripes_call_ms:.4f}; plain {stripes_plain_ms:.1f} ms, "
           f"chain bound {chain_ms:.4f}); decode_rows with a limit {limit_ms:.4f} ms "
           f"per 64 KB row to {limit} bytes ({limit_seen}; {limit_call_ms:.4f}; plain "
@@ -4690,11 +4894,13 @@ def main(argv=None) -> int:
     kernels = phase_times_stream(data16, blob16, chain_plain_ms, dev, data)
     kernels[-1]["pass_max_abs_err"] = chain_pass_err
     print(json.dumps(profile_path(
-        data, dev, frame.EncoderSettings(chain_blocks=False))))
+        data, dev, frame.EncoderSettings(chain_blocks=False),
+        ("encode_windows", "decode_rows"))))
     print(json.dumps({"chained": profile_path(
-        data, dev, frame.EncoderSettings())}))
+        data, dev, frame.EncoderSettings(), ("encode_windows", "chain_parse", "chain_gather"))}))
     print(json.dumps({"big_blocks": profile_path(
-        data, dev, frame.EncoderSettings(chain_blocks=False, block_size=1 << 20))}))
+        data, dev, frame.EncoderSettings(chain_blocks=False, block_size=1 << 20),
+        ("encode_windows", "rows_gather"))}))
     launches.update(chained_launches)
     for k, err in zip(kernels, (stream_err, chain_err)):
         k["launches"] = launches[k["name"]]
@@ -4735,19 +4941,25 @@ def main(argv=None) -> int:
                       "opt11": hc_times["L11"], "opt12": hc_times["L12"]}))
     print(json.dumps({"opt10_memory": opt_memory(data16, dev)}))
     print(json.dumps({"e2e_hc_cli": cli_hc_e2e, "lz4_9": cli_hc, **cli_opt}))
-    print(json.dumps({"cli_hc": profile_path(data, dev, _cli_hc())}))
+    hc = ("opt_chain_walk", "hc_deltas_rows", "hc_seg_walks")
+    opt = ("opt_chain_walk", "opt_matches_rows")
+    print(json.dumps({"cli_hc": profile_path(
+        data, dev, _cli_hc(), hc + ("rows_gather", "xxh32_windows"))}))
     print(json.dumps({"hc_L9_chained": profile_path(
-        data16, dev, frame.EncoderSettings(compression_level=9))}))
+        data16, dev, frame.EncoderSettings(compression_level=9), hc + ("chain_parse",))}))
     print(json.dumps({"hc_L10_independent": profile_path(
-        data16, dev, frame.EncoderSettings(compression_level=10, chain_blocks=False))}))
+        data16, dev, frame.EncoderSettings(compression_level=10, chain_blocks=False),
+        opt + ("opt_seg_walks", "decode_rows"))}))
     print(json.dumps({"hc_L12_independent": profile_path(
-        data16, dev, frame.EncoderSettings(compression_level=12, chain_blocks=False))}))
+        data16, dev, frame.EncoderSettings(compression_level=12, chain_blocks=False),
+        opt + ("opt_parse_rows", "decode_rows"))}))
     print(json.dumps({"hc_L12_chained": profile_path(
-        data16, dev, frame.EncoderSettings(compression_level=12))}))
+        data16, dev, frame.EncoderSettings(compression_level=12),
+        opt + ("opt_parse_rows", "chain_parse"))}))
     print(json.dumps({"e2e": e2e, "e2e_chained": chained_e2e,
                       "e2e_big_blocks": big_e2e,
                       "big_blocks_launches": big_launches}))
-    cs_launches, cs_e2e = phase_checksum_paths(data, dev)
+    cs_launches, cs_e2e, cs_profiles = phase_checksum_paths(data, dev)
     st_launches, st_rates, st_kernels = phase_streaming(data, rng, dev)
     dense = phase_dense(data16, rng, dev)
     with plain_pool() as pool:
@@ -4774,7 +4986,9 @@ def main(argv=None) -> int:
         else:
             k["max_abs_err"] = max(k["max_abs_err"], fast_err_d, stream_err)
     kernels = fast_kernels + kernels + st_kernels + [continue_entry, hash5_entry]
-    print(json.dumps({"cli_default": profile_path(data, dev, _cli_default())}))
+    print(json.dumps({"cli_default": cs_profiles["cli_default"],
+                      "independent_both": cs_profiles["independent_both"],
+                      "chained_both": cs_profiles["chained_both"]}))
     print(json.dumps({"e2e_hc": hc_e2e, "hc_launches": hc_launches}))
     print(json.dumps({"e2e_checksums": cs_e2e, "checksum_launches": cs_launches,
                       "host_xxh32_4MiB_s": host_xxh32_s}))

@@ -10,7 +10,9 @@ in one batch on kernel A, a chained frame in one call of the chained
 decoder (every block at once).  Every block and content checksum is
 computed on the device by kernel E, over bytes that are already there: the
 payload and the compressed rows on compress, the frame and the decoded
-content on decompress.  An independent frame decodes as if a preset
+content on decompress; the content checksum on E's side stream, beside the
+encode on compress and beside the content's copy to the host on
+decompress.  An independent frame decodes as if a preset
 dictionary were absent: its blocks reach none.  A stream that is not one
 whole frame (concatenated frames, skippable and legacy frames, a frame
 with a dictionary ID or a preset dictionary, a frame cut short) takes the
@@ -40,7 +42,7 @@ from ..block import LZ4Error
 from ..constants import SKIPPABLE_MAGIC_MIN, _as_bytes
 from ..ops.common import resolve_device
 from ..ops.decode_stream import decode_chain
-from ..ops.xxh32 import as_uint32, xxh32_windows
+from ..ops.xxh32 import as_uint32, xxh32_content, xxh32_windows
 from ..parallel.blocks import (
     decode_frame_blocks, encode_blocks, encode_blocks_chained_device,
     encode_blocks_continue_device, upload,
@@ -188,6 +190,8 @@ def compress(
         )
     d = settings.to_descriptor()
     payload = upload(data, dev)
+    # the content hash runs on kernel E's side stream beside the encode
+    content = xxh32_content(payload) if d.content_checksum else None
     if continued:
         blocks = encode_blocks_continue_device(
             payload, settings.block_size, device=dev, checksums=d.block_checksum)
@@ -209,9 +213,7 @@ def compress(
     sums = None
     if d.block_checksum:
         blocks, sums = blocks
-    csum = None
-    if d.content_checksum:
-        (csum,) = as_uint32(xxh32_windows(payload, [0], [len(data)]))
+    csum = content.value() if content is not None else None
     return _assemble_frame(d, data, settings.block_size, blocks, csum, sums)
 
 
@@ -300,13 +302,15 @@ def _verify_blocks(frame, data: bytes, blocks) -> None:
             raise LZ4FormatError("block checksum mismatch")
 
 
-def _decode_frame(frame, data: bytes, scan: _Scan, chained_error, mesh=None):
+def _decode_frame(frame, data: bytes, scan: _Scan, chained_error, mesh=None) -> bytes:
     """One whole frame, uploaded as ``frame`` and its block checksums
     verified, on the one-shot route: an independent frame's compressed
     blocks decoded in one batch on kernel A (or split over ``mesh`` by X2)
     and its stored ones copied, a chained frame in one call of the chained
-    decoder (raising ``chained_error`` on a malformed block), the content
-    checksum verified on the device.  Returns the content on the device."""
+    decoder (raising ``chained_error`` on a malformed block).  The content
+    checksum runs on the device beside the content's copy to the host and
+    is verified after both, before the content length.  Returns the
+    content."""
     d, blocks = scan.descriptor, scan.blocks
     if d.block_chaining:
         table = torch.tensor(blocks, dtype=torch.int64).reshape(-1, 3)
@@ -317,15 +321,17 @@ def _decode_frame(frame, data: bytes, scan: _Scan, chained_error, mesh=None):
         content = stream[:written]
     else:
         content = decode_frame_blocks(frame, blocks, d.block_size, mesh=mesh)
-    if d.content_checksum:
+    pending = xxh32_content(content) if d.content_checksum else None
+    out = content.cpu().numpy().tobytes()
+    if pending is not None:
         (expected,) = struct.unpack_from("<I", data, scan.tail)
-        if as_uint32(xxh32_windows(content, [0], [content.numel()]))[0] != expected:
+        if pending.value() != expected:
             raise LZ4FormatError("content checksum mismatch")
-    if d.content_length is not None and content.numel() != d.content_length:
+    if d.content_length is not None and len(out) != d.content_length:
         raise LZ4FormatError(
-            f"content length mismatch: {content.numel()} != {d.content_length}"
+            f"content length mismatch: {len(out)} != {d.content_length}"
         )
-    return content
+    return out
 
 
 def _decompress(data: bytes, settings, dev, min_independent: int,
@@ -362,8 +368,7 @@ def _decompress(data: bytes, settings, dev, min_independent: int,
         if scan.fault is not None and scan.fault.over_limit:
             raise scan.fault
         if whole:
-            content = _decode_frame(frame, data, scan, chained_error, mesh)
-            return content.cpu().numpy().tobytes()
+            return _decode_frame(frame, data, scan, chained_error, mesh)
     reader = FrameReader(io.BytesIO(data), dictionary=settings.dictionary,
                          device=dev, extra_memory=settings.extra_memory)
     return reader.read_all()
@@ -381,9 +386,9 @@ def decompress(
     One whole frame goes to the device once and its block checksums are
     verified there before any block decodes.  An independent frame's
     compressed blocks decode in one batch and its stored ones are copied,
-    in frame order; a chained frame decodes in one call.  The content
-    checksum is verified on the decoded content on the device, which then
-    comes back in one copy.  Any other stream (concatenated, skippable and
+    in frame order; a chained frame decodes in one call.  The decoded
+    content comes back in one copy while its checksum runs on the device
+    beside it; a mismatch raises before any byte is returned.  Any other stream (concatenated, skippable and
     legacy frames, dictionary IDs, ``settings.dictionary`` as the preset
     dictionary of chained frames, a frame cut short or followed by other
     bytes) is decoded frame by frame by `FrameReader`, each frame's blocks

@@ -5,14 +5,21 @@ The port of `lz4_tpu/ops/xxh32_pallas.py` (`pallas_xxh32`, wrapper
 `xxh32_blocks`), with the same hashes.  The frame layer takes every block
 and content checksum from here, over bytes that already lie on the device:
 `xxh32_windows` hashes windows of one flat tensor (a batch's rows at
-b * stride, a frame's blocks in place, the content as one window);
+b * stride, a frame's blocks in place), on the caller's stream;
 `xxh32_blocks` is the counterpart of the TPU wrapper, its rows as windows.
 Both return the uint32 bits of each hash in an int32 tensor (`as_uint32`
-reads them back as Python ints).  `xxh32_stripes` is the streaming form,
-one window's whole stripes from four given accumulators: the content hash
-of a stream (`lz4_tpu_torch.xxh32.XXH32.update` on a CUDA tensor).  The
-kernel's source says what bounds it on the card and what its design does
-about that.
+reads them back as Python ints).
+
+Content hashes run beside the caller's work: `xxh32_content` (a frame's
+content as one window) and `stripes_update` (the content hash of a stream,
+`lz4_tpu_torch.xxh32.XXH32.update` on a CUDA tensor, its accumulators and
+carried tail kept on the device: kernel E's streaming form, a window's whole
+stripes from four given accumulators) launch kernel E on the device's side
+stream (`side_stream`, created on first use), after the work enqueued so
+far on the caller's stream, and read nothing back; `ContentHash.value` and
+`stripes_read` make the caller's stream wait for them.  On the CPU they run
+the plain versions in the same order.  The kernel's source says what bounds
+it on the card and what its design does about that.
 """
 
 from __future__ import annotations
@@ -33,9 +40,10 @@ _M32 = 0xFFFFFFFF
 # stripes per Python-int pass over the last window standing
 _ONE_CHUNK = 1 << 16
 # the accumulators before the first stripe, seed 0
-_SEEDED =((PRIME1 + PRIME2) & _M32, PRIME2, 0, -PRIME1 & _M32)
+_SEEDED = ((PRIME1 + PRIME2) & _M32, PRIME2, 0, -PRIME1 & _M32)
 
 _lib = None
+_side: dict[int, "torch.cuda.Stream"] = {}
 
 
 def _kernel():
@@ -51,6 +59,28 @@ def _kernel():
         lib.lz4t_xxh32_stripes.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The stream kernel E's content hashes run on, one per device, created
+    on first use."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    stream = _side.get(index)
+    if stream is None:
+        stream = _side[index] = torch.cuda.Stream(index)
+    return stream
+
+
+def _launch(entry: str, flat, starts, lens, out, nwin: int, stream) -> None:
+    """One launch of a C entry point of `csrc/xxh32.cu` on ``stream``;
+    raises if it was refused."""
+    with torch.cuda.device(flat.device):
+        rc = getattr(_kernel(), entry)(
+            flat.data_ptr(), starts.data_ptr(), lens.data_ptr(), out.data_ptr(), nwin,
+            stream.cuda_stream)
+    check(rc, entry)
 
 
 def as_uint32(hashes) -> list[int]:
@@ -168,16 +198,55 @@ def xxh32_windows(flat_u8, starts, lens):
     out = torch.empty((nw,), dtype=torch.int32, device=dev)
     if nw == 0:
         return out
-    st, ln = st.to(dev), ln.to(dev)
-    lib = _kernel()
-    with torch.cuda.device(dev):
-        rc = lib.lz4t_xxh32(
-            flat.data_ptr(), st.data_ptr(), ln.data_ptr(), out.data_ptr(), nw,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(rc, "xxh32")
+    _launch("lz4t_xxh32", flat, st.to(dev), ln.to(dev), out, nw,
+            torch.cuda.current_stream(dev))
     xxh32_windows.launches += 1
     return out
+
+
+class ContentHash:
+    """A content hash launched by `xxh32_content`: `value()` gives it."""
+
+    __slots__ = ("_out", "_done")
+
+    def __init__(self, out, done=None):
+        self._out = out
+        self._done = done  # the side stream's event after the launch
+
+    def value(self) -> int:
+        """The hash as a uint32: on the card the caller's stream waits for
+        the launch, then reads its result."""
+        if self._done is not None:
+            torch.cuda.current_stream(self._out.device).wait_event(self._done)
+        return as_uint32(self._out)[0]
+
+
+def xxh32_content(flat_u8) -> ContentHash:
+    """xxHash32 (seed 0) of the whole of flat_u8 (a 1-D uint8 tensor).  A
+    CUDA tensor launches kernel E once on its device's side stream, after
+    the work enqueued so far on the caller's stream, and returns at once
+    (counted in `xxh32_windows.launches`; the tensor recorded on the side
+    stream); a CPU tensor runs the plain version."""
+    flat = torch.as_tensor(flat_u8)
+    if flat.dtype != torch.uint8 or flat.dim() != 1:
+        raise ValueError("flat_u8 must be a 1-D uint8 tensor")
+    n = flat.numel()
+    if n >= 1 << 31:  # the kernel's lengths are int32
+        raise ValueError("a content hash takes fewer than 2^31 bytes")
+    if flat.device.type != "cuda":
+        return ContentHash(xxh32_windows_plain(flat, [0], [n]))
+    flat = flat.contiguous()
+    dev = flat.device
+    side = side_stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        flat.record_stream(side)
+        out = torch.empty((1,), dtype=torch.int32, device=dev)
+        _launch("lz4t_xxh32", flat, torch.zeros((1,), dtype=torch.int64, device=dev),
+                torch.full((1,), n, dtype=torch.int32, device=dev), out, 1, side)
+        xxh32_windows.launches += 1
+        done = side.record_event()
+    return ContentHash(out, done)
 
 
 def _rows(bufs_u8, lens):
@@ -228,8 +297,11 @@ def _as_int32(values) -> list[int]:
 
 
 def xxh32_stripes_plain(flat_u8, start, nbytes, accs):
-    """The plain PyTorch version of `xxh32_stripes`: the same checks, the
-    stripes in Python ints (`_stripes_one`)."""
+    """The plain PyTorch version of kernel E's streaming form: the four
+    xxHash32 accumulators ``accs`` (uint32 values) after the whole 16-byte
+    stripes of flat_u8[start : start + nbytes], the stripes in Python ints
+    (`_stripes_one`); the bytes after the last whole stripe are left to the
+    caller.  Returns int32 [4] of uint32 bits on the input's device."""
     flat, a, n, acc = _validate_stripes(flat_u8, start, nbytes, accs)
     raw = flat[a:a + n // 16 * 16].cpu().numpy()
     for c in range(0, raw.size // 16, _ONE_CHUNK):
@@ -238,33 +310,71 @@ def xxh32_stripes_plain(flat_u8, start, nbytes, accs):
     return torch.tensor(_as_int32(acc), dtype=torch.int32).to(flat.device)
 
 
-def xxh32_stripes(flat_u8, start, nbytes, accs):
-    """The four xxHash32 accumulators ``accs`` (uint32 values) after the
-    whole 16-byte stripes of flat_u8[start : start + nbytes]: the bytes
-    after the last whole stripe are left to the caller, which finishes the
-    hash (`lz4_tpu_torch.xxh32.XXH32`).  Returns int32 [4] of uint32 bits
-    on the input's device.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the streaming form of kernel E once, one warp on the
-    window (counted in `xxh32_stripes.launches`)."""
-    flat, a, n, acc = _validate_stripes(flat_u8, start, nbytes, accs)
-    if flat.device.type != "cuda":
-        return xxh32_stripes_plain(flat, a, n, acc)
+def stripes_state(accs, tail: bytes, device):
+    """A stream's content-hash state on ``device``: the four accumulators
+    (uint32 values) as an int32 tensor of their bits, and the bytes after
+    the last whole stripe (fewer than 16) as a uint8 tensor; on the card
+    made on the side stream, which `stripes_update` runs on."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return (torch.tensor(_as_int32(accs), dtype=torch.int32),
+                torch.tensor(list(tail), dtype=torch.uint8))
+    with torch.cuda.stream(side_stream(dev)):
+        return (torch.tensor(_as_int32(accs), dtype=torch.int32, device=dev),
+                torch.tensor(list(tail), dtype=torch.uint8, device=dev))
+
+
+def _validate_update(accs, tail, flat):
+    if flat.dtype != torch.uint8 or flat.dim() != 1:
+        raise ValueError("flat must be a 1-D uint8 tensor")
+    if accs.dtype != torch.int32 or accs.shape != (4,):
+        raise ValueError("accs must hold four accumulators in an int32 tensor")
+    if tail.dtype != torch.uint8 or tail.dim() != 1 or tail.numel() >= 16:
+        raise ValueError("tail must be a 1-D uint8 tensor of fewer than 16 bytes")
+    if accs.device != flat.device or tail.device != flat.device:
+        raise ValueError("accs, tail and flat must lie on one device")
+
+
+def stripes_update(accs, tail, flat):
+    """A stream's content hash after the 1-D uint8 tensor ``flat``: the
+    accumulators ``accs`` (int32 [4], updated in place) and ``tail`` (the
+    bytes after the last whole stripe), both on flat's device, become those
+    after the bytes tail | flat.  Returns (accs, the new tail).  A CUDA
+    tensor: every step on the side stream after the work enqueued so far
+    on the caller's stream, the streaming form of kernel E once per
+    `STRIPES_MAX` bytes (counted in `stripes_update.launches`), nothing read
+    back; a CPU tensor: the plain version, in the same order."""
+    _validate_update(accs, tail, flat)
     dev = flat.device
-    flat = flat.contiguous()
-    # one int64 upload: the window's start, its length and the four
-    # accumulators (as int32 bits) side by side
-    meta = torch.tensor([a, n // 16 * 16, *_as_int32(acc)], dtype=torch.int64).to(dev)
-    lens = meta[1:2].to(torch.int32)
-    out = meta[2:].to(torch.int32)
-    with torch.cuda.device(dev):
-        rc = _kernel().lz4t_xxh32_stripes(
-            flat.data_ptr(), meta.data_ptr(), lens.data_ptr(), out.data_ptr(), 1,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(rc, "xxh32 stripes")
-    xxh32_stripes.launches += 1
-    return out
+    if dev.type != "cuda":
+        data = torch.cat([tail, flat]) if tail.numel() else flat
+        whole = data.numel() // 16 * 16
+        for a in range(0, whole, STRIPES_MAX):
+            accs.copy_(xxh32_stripes_plain(data, a, min(STRIPES_MAX, whole - a), accs))
+        return accs, data[whole:].clone()
+    side = side_stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        flat.record_stream(side)
+        data = torch.cat([tail, flat]) if tail.numel() else flat.contiguous()
+        whole = data.numel() // 16 * 16
+        for a in range(0, whole, STRIPES_MAX):
+            n = min(STRIPES_MAX, whole - a)
+            _launch("lz4t_xxh32_stripes", data,
+                    torch.full((1,), a, dtype=torch.int64, device=dev),
+                    torch.full((1,), n, dtype=torch.int32, device=dev), accs, 1, side)
+            stripes_update.launches += 1
+        return accs, data[whole:].clone()
+
+
+def stripes_read(accs, tail):
+    """A stream's content-hash state read back once: (the four
+    accumulators as uint32 values, the tail's bytes); on the card after the
+    side stream's updates."""
+    if accs.device.type == "cuda":
+        torch.cuda.current_stream(accs.device).wait_stream(side_stream(accs.device))
+    return as_uint32(accs), tail.cpu().numpy().tobytes()
 
 
 xxh32_windows.launches = 0
-xxh32_stripes.launches = 0
+stripes_update.launches = 0

@@ -5,8 +5,9 @@ optional per-block checksums and the optional content checksum.  A
 clean-room implementation of the public xxHash32 specification; the port's
 own copy of `lz4_tpu/xxh32.py` without the native hot path.  `XXH32.update`
 on a tensor runs the stripes through kernel E's streaming form
-(`ops.xxh32.xxh32_stripes`: on the card for a CUDA tensor, its plain
-version for a CPU one); on bytes it runs them here, in `host_stripes`
+(`ops.xxh32.stripes_update`: on the card's side stream for a CUDA tensor,
+the state kept there, its plain version for a CPU one); on bytes it runs
+them here, in `host_stripes`
 (counted in `host_stripes.launches`, so that a run can show that a card
 path never took it).
 """
@@ -68,12 +69,14 @@ class XXH32:
 
     def update(self, data) -> "XXH32":
         """Add ``data``: bytes-like, or a 1-D uint8 tensor.  A tensor goes
-        through `ops.xxh32.xxh32_stripes`, once per call: a CUDA tensor
-        launches kernel E's streaming form (the bytes left over from the
-        last update go to the card first; the accumulators and the bytes
-        after the last whole stripe come back)."""
+        through `ops.xxh32.stripes_update`, the accumulators and the bytes
+        after the last whole stripe kept as tensors on its device: a CUDA
+        tensor launches kernel E's streaming form on the device's side
+        stream and reads nothing back (the state is read once, by
+        `digest` or by a bytes update that follows)."""
         if hasattr(data, "data_ptr"):  # a tensor
             return self._update_tensor(data)
+        self._on_host()
         if type(data) is not bytes:
             data = bytes(memoryview(data).cast("B"))
         self._total += len(data)
@@ -88,22 +91,28 @@ class XXH32:
     def _update_tensor(self, flat) -> "XXH32":
         import torch
 
-        from .ops.xxh32 import STRIPES_MAX, as_uint32, xxh32_stripes
+        from .ops.xxh32 import stripes_state, stripes_update
 
         if flat.dtype != torch.uint8 or flat.dim() != 1:
             raise ValueError("a tensor must be 1-D uint8")
+        if not isinstance(self._acc, list) and self._acc.device != flat.device:
+            self._on_host()
+        if isinstance(self._acc, list):
+            self._acc, self._buf = stripes_state(self._acc, self._buf, flat.device)
         self._total += flat.numel()
-        if self._buf:
-            head = torch.frombuffer(bytearray(self._buf), dtype=torch.uint8)
-            flat = torch.cat([head.to(flat.device), flat])
-        whole = flat.numel() // 16 * 16
-        for a in range(0, whole, STRIPES_MAX):
-            self._acc = as_uint32(xxh32_stripes(
-                flat, a, min(STRIPES_MAX, whole - a), self._acc))
-        self._buf = flat[whole:].cpu().numpy().tobytes()
+        self._acc, self._buf = stripes_update(self._acc, self._buf, flat)
         return self
 
+    def _on_host(self) -> None:
+        """The state as Python ints and bytes, read back from its device if
+        a tensor update left it there."""
+        if not isinstance(self._acc, list):
+            from .ops.xxh32 import stripes_read
+
+            self._acc, self._buf = stripes_read(self._acc, self._buf)
+
     def digest(self) -> int:
+        self._on_host()
         if self._total >= 16:
             a0, a1, a2, a3 = self._acc
             acc = (_rotl(a0, 1) + _rotl(a1, 7) + _rotl(a2, 12) + _rotl(a3, 18)) & _M32

@@ -215,9 +215,9 @@ def test_stripes_plain_continues_the_jax_hash(start, nbytes):
 def test_stripes_plain_checks_its_arguments():
     flat = torch.zeros(100, dtype=torch.uint8)
     with pytest.raises(ValueError, match="four"):
-        kxxh32.xxh32_stripes(flat, 0, 16, [1, 2, 3])
+        kxxh32.xxh32_stripes_plain(flat, 0, 16, [1, 2, 3])
     with pytest.raises(ValueError, match="outside"):
-        kxxh32.xxh32_stripes(flat, 90, 16, [0, 0, 0, 0])
+        kxxh32.xxh32_stripes_plain(flat, 90, 16, [0, 0, 0, 0])
 
 
 @pytest.mark.parametrize("splits", [[1], [15], [16], [17], [1, 15, 16, 17], [4096, 3]])

@@ -143,3 +143,51 @@ def test_corrupt_checksummed_frames_raise_the_same_message(case):
     # content checksum message names the two hashes
     assert str(ours.value) == str(theirs.value)
     assert str(ours.value).startswith(message)
+
+
+@pytest.fixture
+def device_route(monkeypatch):
+    """The JAX package's device route as it runs on a TPU (its Pallas
+    stream decoder in interpret mode, `_on_tpu` true): the route a chained
+    frame's one-shot decode ports (`lz4_tpu/frame/api.py:690-745`)."""
+    import functools
+
+    from jax.experimental import pallas as pl
+    from lz4_tpu.ops import decode_pallas_stream as DS
+    from lz4_tpu.parallel import blocks as PB
+
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setattr(PB, "_on_tpu", lambda: True)
+    DS.pallas_decode_stream.clear_cache()
+    yield
+    DS.pallas_decode_stream.clear_cache()
+
+
+@pytest.mark.parametrize("chain", [False, True], ids=["independent", "chained"])
+@pytest.mark.parametrize("length", ["true", "false"])
+def test_a_corrupt_content_checksum_raises_before_a_false_content_length(
+        chain, length, device_route):
+    """The content checksum is verified before the content length, one-shot
+    and through the reader, as the JAX package's device route does: a
+    flipped checksum raises the checksum fault whether the header's length
+    is true or not.  (The JAX host route checks a chained frame's length
+    first.)"""
+    import io
+
+    import chip_smoke
+
+    data = CORPUS[:150000]
+    kw = dict(chain_blocks=chain, content_checksum=True, content_length=len(data))
+    blob = bytearray(_jax(data, **kw))
+    assert bytes(blob) == _ours(data, **kw)
+    blob[-1] ^= 0x10
+    bad = bytes(blob) if length == "true" else \
+        chip_smoke.with_content_length(bytes(blob), len(data) + 3)
+    with pytest.raises(ValueError) as theirs:
+        jframe.decompress(bad, backend="tpu")
+    with pytest.raises(ValueError) as ours:
+        tframe.decompress(bad, device="cpu")
+    assert type(ours.value).__name__ == type(theirs.value).__name__ == "LZ4FormatError"
+    assert str(ours.value) == str(theirs.value) == "content checksum mismatch"
+    with pytest.raises(ValueError, match="^content checksum mismatch 0x"):
+        tframe.LZ4FrameFile(io.BytesIO(bad), "rb", device="cpu").read()

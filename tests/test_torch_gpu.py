@@ -837,6 +837,140 @@ def test_xxh32_kernel_on_one_4mib_window(cuda):
         _equal([got], [xxh32.xxh32_windows_plain(flat, [start], [n])])
 
 
+# window lengths across the ring's stage (256 bytes) and ring (8 KB) edges
+XXH_EDGE_LENGTHS = sorted(set(range(4098)) | {
+    m * 2048 + d for m in range(1, 33) for d in (-1, 0, 1)} | {
+    m * 8192 + d for m in range(1, 9) for d in (-1, 0, 1)})
+
+
+def test_xxh32_kernel_at_every_start_and_stage_edge(cuda):
+    """Kernel E against its plain version, and its streaming form
+    (`stripes_update`) against its CPU route, on windows at every start
+    mod 16 (eight windows a warp: neighbours of other alignments share it)
+    and lengths 0-4,097 and 2 KB and 8 KB multiples +-1."""
+    rng = np.random.default_rng(31)
+    flat = torch.from_numpy(rng.integers(0, 256, 400000, dtype=np.uint8))
+    lens = [n for n in XXH_EDGE_LENGTHS for _ in range(16)]
+    starts = [int(rng.integers(0, 4000)) * 16 + k % 16 for k in range(len(lens))]
+    before = xxh32.xxh32_windows.launches
+    got = xxh32.xxh32_windows(flat.to(cuda), starts, lens)
+    torch.cuda.synchronize()
+    assert xxh32.xxh32_windows.launches == before + 1
+    _equal([got], [xxh32.xxh32_windows_plain(flat, starts, lens)])
+    flat_d = flat.to(cuda)
+    for a in range(16):
+        for n in (0, 15, 16, 255, 256, 257, 4097, 8191, 8193, 65537):
+            accs = [int(x) for x in rng.integers(0, 1 << 32, 4, dtype=np.uint64)]
+            card, cpu = chip_smoke.stripes_update_both(flat, flat_d, 1000 + a, n, b"", accs)
+            assert card == cpu
+
+
+def test_xxh32_kernel_on_one_64mib_window(cuda):
+    data = chip_smoke.make_corpus(64 << 20, 32)
+    flat = torch.frombuffer(bytearray(data + bytes(16)), dtype=torch.uint8)
+    flat_d = flat.to(cuda)
+    for start, n in ((0, 64 << 20), (3, (64 << 20) - 7)):
+        got = xxh32.xxh32_windows(flat_d, [start], [n])
+        _equal([got], [xxh32.xxh32_windows_plain(flat, [start], [n])])
+
+
+def test_xxh32_stream_of_1000_odd_updates_stays_on_the_card(cuda):
+    """XXH32 over 1,000 tensor updates of odd sizes, seeded, after a bytes
+    update: its digest equal to the plain stripes' over the same pieces on
+    the CPU route and to the one-shot hash; every update one launch of the
+    streaming form on the side stream, the host's stripe loop never run
+    until a bytes update follows."""
+    import importlib
+
+    host = importlib.import_module("lz4_tpu_torch.xxh32")
+    rng = np.random.default_rng(33)
+    sizes = [int(n) | 1 for n in rng.integers(1, 9000, 1000)]
+    raw = rng.integers(0, 256, sum(sizes) + 7, dtype=np.uint8)
+    flat = torch.from_numpy(raw)
+    flat_d = flat.to(cuda)
+    ours, plain = host.XXH32(seed=12345), host.XXH32(seed=12345)
+    for h in (ours, plain):
+        h.update(raw[:7].tobytes())
+    s0, h0 = xxh32.stripes_update.launches, host.host_stripes.launches
+    pos = 7
+    for n in sizes:
+        ours.update(flat_d[pos:pos + n])
+        plain.update(flat[pos:pos + n])
+        pos += n
+    assert xxh32.stripes_update.launches == s0 + len(sizes)
+    assert host.host_stripes.launches == h0
+    assert ours.digest() == plain.digest() == host.xxh32(raw.tobytes(), seed=12345)
+    ours.update(raw[:33].tobytes())  # a bytes update reads the state back
+    plain.update(raw[:33].tobytes())
+    assert ours.digest() == plain.digest()
+
+
+CHECKSUMMED = {
+    "cli_default": dict(chain_blocks=False, block_size=4 << 20, content_checksum=True),
+    "independent_both": dict(chain_blocks=False, block_checksum=True, content_checksum=True),
+    "chained_both": dict(block_checksum=True, content_checksum=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHECKSUMMED))
+def test_checksummed_frames_with_work_queued_on_the_current_stream(name, cuda):
+    """Checksummed frames made and read while the current stream is kept
+    busy before and after each call (a sleep, and the freed payload's
+    memory overwritten): every content hash runs on the side stream, so the
+    frames equal the CPU route's and the round trips are exact; the same
+    through `LZ4FrameFile` in 1 MiB writes and reads."""
+    import io
+
+    data = chip_smoke.make_corpus(8 << 20, 34)
+    settings = frame.EncoderSettings(**CHECKSUMMED[name])
+    want = frame.compress(data, settings, device="cpu")
+    for _ in range(3):
+        torch.cuda._sleep(50_000_000)
+        blob = frame.compress(data, settings)
+        torch.full((len(data),), 0xFF, dtype=torch.uint8, device=cuda)
+        assert blob == want
+        torch.cuda._sleep(50_000_000)
+        assert frame.decompress(blob) == data
+        torch.full((len(data),), 0xFF, dtype=torch.uint8, device=cuda)
+    sink = io.BytesIO()
+    with frame.LZ4FrameFile(sink, "wb", settings=settings, close_inner=False) as f:
+        for a in range(0, len(data), 1 << 20):
+            torch.cuda._sleep(5_000_000)
+            f.write(data[a:a + (1 << 20)])
+    assert sink.getvalue() == want
+    back = bytearray()
+    with frame.LZ4FrameFile(io.BytesIO(sink.getvalue()), "rb") as f:
+        while chunk := f.read(1 << 20):
+            torch.cuda._sleep(5_000_000)
+            back += chunk
+    assert bytes(back) == data
+
+
+@pytest.mark.parametrize("chain", [False, True], ids=["independent", "chained"])
+def test_corrupt_content_checksum_raises_on_the_card(chain, cuda):
+    """A flipped content checksum raises the content checksum fault before
+    any byte comes back, also when the header's content length is false
+    too, one-shot and through the reader; the same as the CPU route."""
+    import io
+    import struct
+
+    from lz4_tpu_torch.frame.header import LZ4FormatError
+
+    data = chip_smoke.make_corpus(1 << 20, 35)
+    settings = frame.EncoderSettings(chain_blocks=chain, content_checksum=True,
+                                     content_length=len(data))
+    blob = bytearray(frame.compress(data, settings))
+    blob[-1] ^= 0x10
+    lying = chip_smoke.with_content_length(bytes(blob), len(data) - 1)
+    for bad in (bytes(blob), lying):
+        for device in ("cuda", "cpu"):
+            with pytest.raises(LZ4FormatError, match="^content checksum mismatch$"):
+                frame.decompress(bad, device=device)
+        with pytest.raises(LZ4FormatError, match="content checksum mismatch"):
+            frame.LZ4FrameFile(io.BytesIO(bad), "rb").read()
+    assert struct.unpack_from("<Q", lying, 6)[0] == len(data) - 1
+
+
 def test_cli_default_round_trip_on_the_card(cuda):
     """`lz4`'s command-line defaults (independent 4 MB blocks, a content
     checksum) over 16 MiB: kernel E once each way; the frame of the first
@@ -1025,10 +1159,10 @@ def test_streaming_round_trip_on_the_card(chain, cuda):
     data = chip_smoke.make_corpus(8 << 20, 14)
     settings = frame.EncoderSettings(chain_blocks=chain, block_checksum=True,
                                      content_checksum=True)
-    before = xxh32.xxh32_stripes.launches
+    before = xxh32.stripes_update.launches
     blob, _, _ = chip_smoke._stream_file(data, settings, cuda)
     assert blob == frame.compress(data, settings, device=cuda)
-    assert xxh32.xxh32_stripes.launches > before
+    assert xxh32.stripes_update.launches > before
     two = blob + frame.skippable_frame(b"x") + blob
     assert frame.decompress(two, device=cuda) == data + data
     r = frame.FrameReader(io.BytesIO(two), device=cuda)

@@ -4,6 +4,8 @@ same hashes, bit for bit, on rows, on windows at every alignment of one
 flat tensor and on batches of random lengths; and the wrappers' checks."""
 
 import functools
+import importlib
+import zlib
 
 import numpy as np
 import pytest
@@ -116,3 +118,110 @@ def test_row_validation_raises(case, plain):
     call, match = BAD_ROWS[case]
     with pytest.raises(ValueError, match=match):
         call(X.xxh32_blocks_plain if plain else X.xxh32_blocks)
+
+
+# XXH32 with its state in tensors: a tensor update keeps the accumulators
+# and the bytes after the last whole stripe as tensors on the tensor's
+# device (`ops.xxh32.stripes_update`; here its plain version); a bytes
+# update or the digest reads them back.
+SPLITS = [0, 1, 15, 16, 17, 4097, "random1", "random2", "random3"]
+MIXES = ["tensors", "bytes_first", "alternating"]
+
+
+def _pieces(split, total: int) -> list[int]:
+    """Update sizes adding up to ``total``: ``split`` and 13 in turn (0:
+    empty updates between 13-byte ones), or random sizes from a seed."""
+    if isinstance(split, str):
+        rng = np.random.default_rng(int(split[-1]))
+        sizes = [int(n) for n in rng.integers(0, 5000, 64)]
+    else:
+        sizes = [split, 13]
+    out, k = [], 0
+    while sum(out) < total:
+        out.append(min(sizes[k % len(sizes)], total - sum(out)))
+        k += 1
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 0x9E3779B1], ids=["seed0", "seed_p1"])
+@pytest.mark.parametrize("mix", MIXES)
+@pytest.mark.parametrize("split", SPLITS)
+def test_xxh32_stream_with_its_state_in_tensors_matches_the_jax_package(split, mix, seed):
+    from lz4_tpu.xxh32 import XXH32 as JaxXXH32
+    H = importlib.import_module("lz4_tpu_torch.xxh32")
+
+    rng = np.random.default_rng(zlib.crc32(f"{split} {mix}".encode()))
+    total = 20000 if isinstance(split, str) or split > 1 else 3000
+    raw = rng.integers(0, 256, total, dtype=np.uint8)
+    ours, theirs = H.XXH32(seed), JaxXXH32(seed)
+    pos = 0
+    host_before = H.host_stripes.launches
+    for k, n in enumerate(_pieces(split, total)):
+        piece = raw[pos:pos + n]
+        as_bytes = (mix == "bytes_first" and k == 0) or (mix == "alternating" and k % 3 == 2)
+        ours.update(piece.tobytes() if as_bytes else torch.from_numpy(piece.copy()))
+        theirs.update(piece.tobytes())
+        if not as_bytes:
+            assert not isinstance(ours._acc, list) and ours._buf.numel() < 16
+        pos += n
+    assert ours.digest() == theirs.digest() == native(raw.tobytes(), seed)
+    if mix == "tensors":
+        assert H.host_stripes.launches == host_before  # no stripe ran on the host
+    ours.update(raw[:21].tobytes())  # a bytes update after the digest's read
+    theirs.update(raw[:21].tobytes())
+    assert ours.digest() == theirs.digest()
+
+
+def test_xxh32_tensor_state_follows_reset():
+    from lz4_tpu.xxh32 import XXH32 as JaxXXH32
+    H = importlib.import_module("lz4_tpu_torch.xxh32")
+
+    raw = np.random.default_rng(5).integers(0, 256, 1000, dtype=np.uint8)
+    h = H.XXH32(7)
+    h.update(torch.from_numpy(raw))
+    h.reset(11)
+    assert isinstance(h._acc, list)
+    h.update(torch.from_numpy(raw[:99]))
+    want = JaxXXH32(11)
+    want.update(raw[:99].tobytes())
+    assert h.digest() == want.digest()
+
+
+@pytest.mark.parametrize("tail_len", [0, 1, 9, 15])
+@pytest.mark.parametrize("start", [0, 1, 7, 15])
+def test_stripes_update_matches_the_plain_stripes(start, tail_len):
+    """`stripes_update` on CPU tensors (its plain route) from random
+    accumulators, after a carried tail, over a window at an odd start: the
+    accumulators of the plain stripes over tail | window, and the bytes
+    after its last whole stripe as the new tail."""
+    rng = np.random.default_rng(start * 16 + tail_len)
+    raw = rng.integers(0, 256, 5000, dtype=np.uint8)
+    tail = rng.integers(0, 256, tail_len, dtype=np.uint8)
+    accs = [int(x) for x in rng.integers(0, 1 << 32, 4, dtype=np.uint64)]
+    n = 4097 - start
+    state, carried = X.stripes_state(accs, tail.tobytes(), "cpu")
+    state, carried = X.stripes_update(state, carried, torch.from_numpy(raw)[start:start + n])
+    data = torch.from_numpy(np.concatenate([tail, raw[start:start + n]]))
+    want = X.xxh32_stripes_plain(data, 0, data.numel(), accs)
+    assert X.stripes_read(state, carried) == (
+        X.as_uint32(want), data[data.numel() // 16 * 16:].numpy().tobytes())
+    assert X.stripes_update.launches == 0
+
+
+BAD_UPDATES = {
+    "flat_2d": (lambda a, t, f: (a, t, f.reshape(2, -1)), "flat"),
+    "flat_int32": (lambda a, t, f: (a, t, f.to(torch.int32)), "flat"),
+    "three_accs": (lambda a, t, f: (a[:3], t, f), "four"),
+    "accs_int64": (lambda a, t, f: (a.to(torch.int64), t, f), "four"),
+    "tail_of_16": (lambda a, t, f: (a, f[:16], f), "fewer than 16"),
+    "tail_int32": (lambda a, t, f: (a, t.to(torch.int32), f), "tail"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_UPDATES))
+def test_stripes_update_checks_its_arguments(case):
+    bend, match = BAD_UPDATES[case]
+    accs, tail = X.stripes_state(list(X._SEEDED), b"abc", "cpu")
+    flat = torch.zeros(64, dtype=torch.uint8)
+    with pytest.raises(ValueError, match=match):
+        X.stripes_update(*bend(accs, tail, flat))
